@@ -5,43 +5,70 @@
 
 Phases, each printing JSON lines; any failure is an uncaught exception and
 a non-zero exit:
-  1. card     the GPU's name and power limit (nvidia-smi);
-  2. build    nvcc builds gabby_tpu_torch/csrc/*.cu (one process per source);
-  3. kernels  each kernel (K1-K4) at the serving path's shapes for
-              Llama-3.2-1B (8 slots, context 1024; K4 at T=512, offset
-              512) against its plain PyTorch version on the same inputs,
-              timed with CUDA events beside the plain version, one PyTorch
-              library call computing the same function (yardstick only),
-              and the least time the card could take (bytes at 3.35 TB/s or
-              operations at 989 TFLOP/s bf16, whichever is larger);
-  4. model    the 1B model's prefill + decode on the card (kernels) against
-              the same functions on the CPU (plain versions), same weights;
-  5. engine   Engine(batch_slots=8, max_seq=2048, int8 KV) serving 10
-              concurrent chat requests whose prompts hit every prefill
-              bucket and three multi-chunk ones, 32 new tokens each; every
-              kernel's launch counter must grow during this phase;
-  6. http     `python -m gabby_tpu_torch.server` in its own process, one
-              chat completion through the C++ front-end, then SIGTERM,
-              where cmake exists to build it (else a skip line saying why);
-  7. summary  the kernels line, then {"ok": true, "device": {...}} last.
+  1. card        the GPU's name and power limit (nvidia-smi);
+  2. build       nvcc builds gabby_tpu_torch/csrc/*.cu (one process per
+                 source, all started together);
+  3. kernels     each kernel (K1-K8) at the serving path's shapes for
+                 Llama-3.2-1B (8 slots, context 1024; K4 at T=512, offset
+                 512; K7 at one 512-token chunk) against its plain PyTorch
+                 version on the same inputs (K8 also on its int32
+                 accumulator, by equality), timed with CUDA events beside
+                 the plain version, one PyTorch library call computing the
+                 same function (yardstick only), and the least time the
+                 card could take (bytes at 3.35 TB/s or operations at the
+                 tensor-core peak of the operand type, whichever is
+                 larger);
+  4. model       the 1B model's prefill + decode on the card (kernels)
+                 against the same functions on the CPU (plain versions),
+                 same weights: for the int4 tree, the loaded int8 tree, and
+                 the loaded int4 tree with both int4 switches on;
+  5. engine      Engine(batch_slots=8, max_seq=2048, int8 KV) serving 10
+                 concurrent chat requests whose prompts hit every prefill
+                 bucket and three multi-chunk ones, 32 new tokens each;
+                 K1-K4 must all launch during this run;
+  6. checkpoint  the same seed-0 weights written as an HF-layout directory
+                 (bf16 safetensors, config.json, generation_config.json,
+                 the BPE tokenizer of tests/fixtures) into a temporary
+                 directory; `python -m gabby_tpu_torch.tools.quantize`
+                 turns it into an int8 and an int4 `gabby-quant` directory;
+                 the HF directory is deleted;
+  7. engine      the int8 directory through load_model_dir ->
+                 fuse_projections -> the same engine and the same ten
+                 prompt lengths: K5, K6, K3, K4 must launch; then three
+                 requests (one with a 512-token chunk) from the int4
+                 directory with `w4a8` and `int4_prefill_kernel` on: K7, K8
+                 and K6 must launch;
+  8. http        `python -m gabby_tpu_torch.server` in its own process,
+                 once with random weights and once with `--model-dir <int8
+                 directory> --kv-quant`, one chat completion each through
+                 the C++ front-end, then SIGTERM, where cmake exists to
+                 build it (else a skip line saying why);
+  9. summary     the kernels line (eight kernels), then
+                 {"ok": true, "device": {...}} last.
 
-Weights are random (Llama-3.2-1B at full width and depth, seed 0), with
-int4 weights fused into wqkv/w_gup and the int4 group-256 unembed.
+Weights are random (Llama-3.2-1B at full width and depth, seed 0). The
+first engine run serves them as int4 weights fused into wqkv/w_gup with
+the int4 group-256 unembed and keeps its ten requests; the second and
+third serve them from the checkpoints, whose unembed is int8 per channel.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
 import torch
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12    # dense bf16 tensor-core peak, same source
+INT8_OP_PER_S = 1979e12     # dense int8 tensor-core peak, same source
 TOL = dict(rtol=2e-2, atol=2e-2)  # bf16 outputs of O(1) values
 
 
@@ -75,14 +102,16 @@ def check(name: str, outs, refs) -> float:
     return err
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float,
+          peak: float = BF16_FLOP_PER_S) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    t_ops = ops / peak * 1e3
+    return (dict(bound_ms=t_bytes, bound_by="bytes") if t_bytes >= t_ops
+            else dict(bound_ms=t_ops, bound_by="operations"))
 
 
 def kernel_phase(cfg, dev):
-    """K1-K4 at the 1B serving shapes against their plain versions."""
+    """K1-K8 at the 1B serving shapes against their plain versions."""
     from gabby_tpu_torch.ops.cuda import attention as cattn
     from gabby_tpu_torch.ops.cuda import prefill_attention as cpfa
     from gabby_tpu_torch.ops.cuda import quant_matmul as cqm
@@ -98,38 +127,84 @@ def kernel_phase(cfg, dev):
         return torch.randint(-128, 128, shape, generator=g, device=dev,
                              dtype=torch.int32).to(torch.int8)
 
-    # K1: one decode step's 64 launches (4 projections x 16 layers), M = 8
+    # the four projections of a layer: wqkv, wo, w_gup, w_down
     projs = [(d, cfg.q_dim + 2 * cfg.kv_dim), (cfg.q_dim, d),
              (d, 2 * cfg.intermediate_size), (cfg.intermediate_size, d)]
-    mats = []
-    for k, n in projs:
-        mats.append((rand_bytes(nl, k // 2, n),
-                     torch.rand((nl, n), generator=g, device=dev) * 0.02,
-                     torch.randn((b, k), generator=g, device=dev).bfloat16()))
-    calls = [(x, p, s, layer) for layer in range(nl) for p, s, x in mats]
-    err = check("int4_matmul_stacked",
-                [cqm.qmatmul_int4_stacked(*c) for c in calls],
-                [cqm.int4_stacked_plain(*c) for c in calls])
-    dense = [torch.cat([unpack_int4(p[i]) for i in range(nl)]).reshape(
-        nl, -1, p.shape[2]).bfloat16() * s[:, None, :].bfloat16()
-        for p, s, _ in mats]
-    nbytes = sum(nl * (p[0].numel() + s[0].numel() * 4 + x.numel() * 2
-                       + b * p.shape[2] * 2) for p, s, x in mats)
-    flops = sum(nl * 2 * b * x.shape[1] * p.shape[2] for p, s, x in mats)
-    results.append(dict(
-        name="int4_matmul_stacked", shapes="one decode step: wqkv, wo, "
-        "w_gup, w_down x 16 layers, M=8",
-        route="cuda", source="gabby_tpu_torch/csrc/quant_matmul.cu",
-        replaces="gabby_tpu/ops/pallas/quant_matmul.py:424",
-        max_abs_err=err,
-        ms=time_ms(lambda: [cqm.qmatmul_int4_stacked(*c) for c in calls]),
-        plain_ms=time_ms(lambda: [cqm.int4_stacked_plain(*c)
-                                  for c in calls], 3),
-        library_ms=time_ms(lambda: [torch.matmul(x, w[layer])
-                                    for layer in range(nl)
-                                    for w, (_, _, x) in zip(dense, mats)]),
-        **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops)))))
-    del dense, mats, calls
+
+    def stacked_case(name, source, replaces, kernel, plain, *, bits, m,
+                     what, iters=10, exact=None, peak=BF16_FLOP_PER_S):
+        """One call set of a stacked-weight kernel: 4 projections x 16
+        layers at M = m, against its plain version, timed, with the
+        dequantized bf16 `torch.matmul` as the library yardstick. `exact`
+        names a keyword that makes kernel and plain version also return an
+        integer tensor that must be equal."""
+        rows = 2 if bits == 4 else 1  # weight rows per packed byte row
+        mats = []
+        for k, n in projs:
+            mats.append((rand_bytes(nl, k // rows, n),
+                         torch.rand((nl, n), generator=g, device=dev)
+                         * (0.02 if bits == 4 else 0.002),
+                         torch.randn((m, k), generator=g,
+                                     device=dev).bfloat16()))
+        calls = [(x, q, sc, layer) for layer in range(nl)
+                 for q, sc, x in mats]
+        if exact:
+            outs, accs = zip(*[kernel(*c, **{exact: True}) for c in calls])
+            refs, ref_accs = zip(*[plain(*c, **{exact: True})
+                                   for c in calls])
+            for acc, ref_acc in zip(accs, ref_accs):
+                if not torch.equal(acc, ref_acc):
+                    raise AssertionError(f"{name}: integer accumulators "
+                                         f"differ")
+            del accs, ref_accs
+        else:
+            outs = [kernel(*c) for c in calls]
+            refs = [plain(*c) for c in calls]
+        err = check(name, outs, refs)
+        del outs, refs
+        dense = [(q if bits == 8 else torch.stack(
+            [unpack_int4(q[i]) for i in range(nl)])).bfloat16()
+            * sc[:, None, :].bfloat16() for q, sc, _ in mats]
+        nbytes = sum(nl * (q[0].numel() + sc[0].numel() * 4 + x.numel() * 2
+                           + m * q.shape[2] * 2) for q, sc, x in mats)
+        ops = sum(nl * 2 * m * x.shape[1] * q.shape[2] for q, sc, x in mats)
+        results.append(dict(
+            name=name, shapes=f"{what}: wqkv, wo, w_gup, w_down x 16 "
+            f"layers, M={m}", route="cuda", source=source,
+            replaces=replaces, max_abs_err=err,
+            ms=time_ms(lambda: [kernel(*c) for c in calls], iters),
+            plain_ms=time_ms(lambda: [plain(*c) for c in calls], 3),
+            library_ms=time_ms(lambda: [torch.matmul(x, w[layer])
+                                        for layer in range(nl)
+                                        for w, (_, _, x) in zip(dense,
+                                                                mats)],
+                               iters),
+            **bound(nbytes, ops, peak)))
+
+    qm = "gabby_tpu/ops/pallas/quant_matmul.py"
+    # K1: one decode step's 64 launches (4 projections x 16 layers), M = 8
+    stacked_case("int4_matmul_stacked",
+                 "gabby_tpu_torch/csrc/quant_matmul.cu", qm + ":424",
+                 cqm.qmatmul_int4_stacked, cqm.int4_stacked_plain, bits=4,
+                 m=b, what="one decode step")
+    # K5: the same call set on int8 stacks
+    stacked_case("int8_matmul_stacked",
+                 "gabby_tpu_torch/csrc/quant_matmul.cu", qm + ":504",
+                 cqm.qmatmul_int8_stacked, cqm.int8_stacked_plain, bits=8,
+                 m=b, what="one decode step")
+    # K7: one 512-token prefill chunk's 64 launches
+    stacked_case("int4_matmul",
+                 "gabby_tpu_torch/csrc/quant_matmul_prefill.cu", qm + ":321",
+                 cqm.qmatmul_int4, cqm.int4_plain, bits=4, m=512,
+                 what="one 512-token prefill chunk", iters=3)
+    # K8: K1's call set with int8 activations and integer dots; the int8
+    # tensor-core rate is the operations peak of its operand type
+    stacked_case("int4_matmul_w4a8_stacked",
+                 "gabby_tpu_torch/csrc/quant_matmul_w4a8.cu", qm + ":766",
+                 cqm.qmatmul_int4_w4a8_stacked,
+                 cqm.int4_w4a8_stacked_plain, bits=4, m=b,
+                 what="one decode step", exact="return_acc",
+                 peak=INT8_OP_PER_S)
 
     # K2: the int4 unembed, one launch per decode step, M = 8
     kp, vpad, group = d // 2, 129024, 256
@@ -152,9 +227,26 @@ def kernel_phase(cfg, dev):
         plain_ms=time_ms(lambda: cqm.int4_grouped_plain(ux, up, us, group),
                          3),
         library_ms=time_ms(lambda: torch.matmul(ux, uw)),
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound(nbytes, 2 * b * d * vpad)))))
+        **bound(nbytes, 2 * b * d * vpad)))
     del up, us, uw
+
+    # K6: the int8 unembed of a loaded checkpoint (vocab not padded), M = 8
+    v = cfg.vocab_size
+    uc = rand_bytes(d, v)
+    us = torch.rand((v,), generator=g, device=dev) * 0.002
+    err = check("int8_matmul", [cqm.qmatmul_int8(ux, uc, us)],
+                [cqm.int8_plain(ux, uc, us)])
+    uw = uc.bfloat16() * us.bfloat16()
+    nbytes = uc.numel() + us.numel() * 4 + ux.numel() * 2 + b * v * 2
+    results.append(dict(
+        name="int8_matmul", shapes="unembed [2048 -> 128256], M=8",
+        route="cuda", source="gabby_tpu_torch/csrc/quant_matmul.cu",
+        replaces=qm + ":287", max_abs_err=err,
+        ms=time_ms(lambda: cqm.qmatmul_int8(ux, uc, us)),
+        plain_ms=time_ms(lambda: cqm.int8_plain(ux, uc, us), 3),
+        library_ms=time_ms(lambda: torch.matmul(ux, uw)),
+        **bound(nbytes, 2 * b * d * v)))
+    del uc, us, uw
 
     # the int8 cache of one 2048-row engine: [16, 8, 8, 2048, 64]
     s = 2048
@@ -199,7 +291,7 @@ def kernel_phase(cfg, dev):
             q, kc, vc, ks, vs, pos, layer=i, **kw) for i in range(nl)], 3),
         library_ms=time_ms(lambda: [sdpa(qt, kd[i], vd[i], enable_gqa=True)
                                     for i in range(nl)]),
-        **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops)))))
+        **bound(nbytes, flops)))
     del kd, vd
 
     # K4: one 512-token prefill chunk at offset 512 (16 launches)
@@ -242,16 +334,17 @@ def kernel_phase(cfg, dev):
         library_ms=time_ms(lambda: [sdpa(qt4, kd[i], vd[i], attn_mask=mask,
                                          enable_gqa=True)
                                     for i in range(nl)], 3),
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound(nbytes, nl * 4 * nq * h * keys)))))
+        **bound(nbytes, nl * 4 * nq * h * keys)))
     for r in results:
         emit({"phase": "kernels", **r, "tol": TOL})
     return results
 
 
-def model_phase(cfg, params, dev):
+def model_phase(cfg, params, dev, label: str, tol: float = 0.05):
     """The card's forward (kernels) against the CPU's (plain versions) on
-    the same weights: a 16-token prefill, then 3 greedy decode steps."""
+    the same weights: a 16-token prefill, then 3 greedy decode steps.
+    `tol` bounds the largest logit difference relative to the largest
+    logit."""
     from gabby_tpu_torch.models import llama
     from gabby_tpu_torch.ops.quant import QTensor
     from gabby_tpu_torch.runtime.kv_cache import create_cache
@@ -287,21 +380,33 @@ def model_phase(cfg, params, dev):
             logits[key], _ = llama.decode_step(
                 ps[key], cfg, tok.to(dv), pos.to(dv), caches[key])
             logits[key] = logits[key][0]
-    emit({"phase": "model", "steps": steps, "argmax_agree": agree,
+    emit({"phase": "model", "weights": label, "steps": steps,
+          "argmax_agree": agree,
           "max_rel_logit_err": worst})
     # bf16 activations through 16 layers on the card vs the CPU's bf16
     # rounding in other places: a few percent of the logit range
-    if worst > 0.05 or agree < steps - 1:
-        raise AssertionError(f"model: card and CPU disagree ({worst}, "
-                             f"{agree}/{steps} argmax)")
+    if worst > tol or agree < steps - 1:
+        raise AssertionError(f"model ({label}): card and CPU disagree "
+                             f"({worst}, {agree}/{steps} argmax)")
 
 
-def engine_phase(cfg, params, dev, gpu_line: str):
+# chat prompts of the first engine run: content lengths in characters. A
+# chat prompt is its content plus 23 template tokens under the byte
+# tokenizer; the chunk schedules cover buckets 64, 256 and 512, multi-chunk
+# prompts (512 + 16, 512 + 256, 512 + 512) and with them bucket 16
+CONTENT_SIZES = [20, 40, 150, 200, 400, 450, 502, 600, 900, 5]
+NEW_TOKENS = 32
+
+
+def engine_phase(cfg, params, tok, dev, gpu_line: str, label: str, *,
+                 prompt_lens=None, must_launch, buckets):
+    """Serves one batch of concurrent requests through the engine with the
+    launch counts set to 0 just before and read just after. The prompts
+    are chat messages (prompt_lens None: CONTENT_SIZES) or token ids of
+    the given lengths. Returns (counts, prompt lengths)."""
     from gabby_tpu_torch.ops import cuda as ck
     from gabby_tpu_torch.runtime.engine import Engine, EngineConfig
-    from gabby_tpu_torch.tokenizer import Tokenizer
 
-    tok = Tokenizer.byte_fallback(cfg.vocab_size)
     eng = Engine(cfg, params, tok, EngineConfig(
         batch_slots=8, max_seq=2048, kv_quantized=True), device=dev)
     try:
@@ -309,19 +414,21 @@ def engine_phase(cfg, params, dev, gpu_line: str):
                           max_tokens=4)
         while warm.out.get()[1] is None:
             pass
-        # a chat prompt is its content plus 23 template tokens here; the
-        # chunk schedules cover buckets 64, 256 and 512, multi-chunk
-        # prompts (512 + 16, 512 + 256, 512 + 512) and with them bucket 16
-        sizes = [20, 40, 150, 200, 400, 450, 502, 600, 900, 5]
-        new_tokens = 32
         ck.reset_launch_counts()
         steps0 = eng.stats_snapshot()["decode_steps"]
         t0 = time.perf_counter()
-        reqs = [eng.submit([{"role": "user",
-                             "content": "".join(chr(97 + (i * 7 + j) % 26)
-                                                for j in range(n))}],
-                           max_tokens=new_tokens)
-                for i, n in enumerate(sizes)]
+        if prompt_lens is None:
+            reqs = [eng.submit(
+                [{"role": "user",
+                  "content": "".join(chr(97 + (i * 7 + j) % 26)
+                                     for j in range(n))}],
+                max_tokens=NEW_TOKENS)
+                for i, n in enumerate(CONTENT_SIZES)]
+        else:
+            span = min(cfg.vocab_size, tok.vocab_size) - 16
+            reqs = [eng.submit_ids(
+                [(i * 7919 + j * 104729) % span + 1 for j in range(n)],
+                max_tokens=NEW_TOKENS) for i, n in enumerate(prompt_lens)]
         fins = []
         for req in reqs:
             while True:
@@ -336,36 +443,157 @@ def engine_phase(cfg, params, dev, gpu_line: str):
     finally:
         eng.shutdown()
     for req, fin in zip(reqs, fins):
-        want = new_tokens if fin == "length" else None
+        want = NEW_TOKENS if fin == "length" else None
         if fin not in ("length", "stop") or (
                 want is not None and req.completion_tokens != want):
-            raise AssertionError(f"engine: request finished {fin} with "
-                                 f"{req.completion_tokens} tokens")
-    missing = [k for k, v in counts.items() if v == 0]
+            raise AssertionError(f"engine ({label}): request finished {fin} "
+                                 f"with {req.completion_tokens} tokens")
+    missing = [k for k in must_launch if counts[k] == 0]
     if missing:
-        raise AssertionError(f"engine: kernels never launched: {missing}")
-    prompt_lens = [len(r.prompt_ids) for r in reqs]
-    schedules = [eng._chunk_schedule(n) for n in prompt_lens]
-    buckets = sorted({bkt for sch in schedules for _, bkt in sch})
-    if buckets != [16, 64, 256, 512] or max(map(len, schedules)) < 2:
-        raise AssertionError(f"engine: prompts {prompt_lens} miss a bucket "
-                             f"or a multi-chunk admission")
+        raise AssertionError(f"engine ({label}): kernels never launched: "
+                             f"{missing}; counts {counts}")
+    lens = [len(r.prompt_ids) for r in reqs]
+    schedules = [eng._chunk_schedule(n) for n in lens]
+    seen = sorted({bkt for sch in schedules for _, bkt in sch})
+    if seen != buckets or max(map(len, schedules)) < 2:
+        raise AssertionError(f"engine ({label}): prompts {lens} give "
+                             f"buckets {seen}, wanted {buckets} and a "
+                             f"multi-chunk admission")
     out_tokens = sum(r.completion_tokens for r in reqs)
-    emit({"phase": "engine", "requests": len(reqs),
-          "prompt_tokens": prompt_lens, "output_tokens": out_tokens,
+    emit({"phase": "engine", "weights": label, "requests": len(reqs),
+          "prompt_tokens": lens, "output_tokens": out_tokens,
           "wall_s": wall, "output_tok_per_s": out_tokens / wall,
           "p50_ttft_ms": stats.get("p50_ttft_ms"),
           "decode_steps": stats["decode_steps"] - steps0,
           "launches": counts, "card": gpu_line})
-    return counts
+    return counts, lens
 
 
-def http_phase():
+HF_NAMES = {"self_attn.q_proj": "wq", "self_attn.k_proj": "wk",
+            "self_attn.v_proj": "wv", "self_attn.o_proj": "wo",
+            "mlp.gate_proj": "w_gate", "mlp.up_proj": "w_up",
+            "mlp.down_proj": "w_down"}
+# ids of the fixture tokenizer's <|begin_of_text|>, <|end_of_text|>, <|eot_id|>
+BOS_ID, EOS_IDS = 853, [854, 857]
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def checkpoint_phase(cfg, params, root: str) -> dict:
+    """Writes `params` (bf16, unfused) as an HF-layout directory under
+    `root`, quantizes it twice with tools.quantize as a user would, and
+    deletes the HF directory. Returns {8: int8 dir, 4: int4 dir}."""
+    from gabby_tpu_torch import loader
+
+    free = shutil.disk_usage(root).free
+    emit({"phase": "checkpoint", "tmp": "free space", "free_gb": free / 1e9})
+    if free < 6e9:
+        raise RuntimeError(f"checkpoint: {free / 1e9:.1f} GB free under "
+                           f"{root}, about 6 GB are needed")
+    hf = os.path.join(root, "llama32-1b-hf")
+    os.makedirs(hf)
+    t0 = time.perf_counter()
+    blk = params["blocks"]
+    t = {"model.embed_tokens.weight": params["embed"]}
+    for layer in range(cfg.num_layers):
+        pre = f"model.layers.{layer}."
+        for name, ours in HF_NAMES.items():
+            t[f"{pre}{name}.weight"] = blk[ours][layer].T  # HF: [out, in]
+        t[pre + "input_layernorm.weight"] = blk["attn_norm"][layer]
+        t[pre + "post_attention_layernorm.weight"] = blk["mlp_norm"][layer]
+    t["model.norm.weight"] = params["final_norm"]
+    loader.write_safetensors(os.path.join(hf, "model.safetensors"), t)
+    del t
+    rs = cfg.rope_scaling
+    with open(os.path.join(hf, "config.json"), "w") as f:
+        json.dump({
+            "architectures": ["LlamaForCausalLM"],
+            "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+            "intermediate_size": cfg.intermediate_size,
+            "num_hidden_layers": cfg.num_layers,
+            "num_attention_heads": cfg.num_heads,
+            "num_key_value_heads": cfg.num_kv_heads,
+            "head_dim": cfg.head_dim, "rms_norm_eps": cfg.rms_norm_eps,
+            "rope_theta": cfg.rope_theta,
+            "rope_scaling": {
+                "rope_type": "llama3", "factor": rs.factor,
+                "low_freq_factor": rs.low_freq_factor,
+                "high_freq_factor": rs.high_freq_factor,
+                "original_max_position_embeddings":
+                    rs.original_max_position_embeddings},
+            "tie_word_embeddings": cfg.tie_word_embeddings,
+            "bos_token_id": 128000, "eos_token_id": 128009,
+            "torch_dtype": "bfloat16"}, f)
+    with open(os.path.join(hf, "generation_config.json"), "w") as f:
+        json.dump({"bos_token_id": BOS_ID, "eos_token_id": EOS_IDS}, f)
+    shutil.copy(os.path.join(ROOT, "tests", "fixtures",
+                             "multilingual_tokenizer.json"),
+                os.path.join(hf, "tokenizer.json"))
+    emit({"phase": "checkpoint", "wrote": "hf", "gb": dir_bytes(hf) / 1e9,
+          "seconds": time.perf_counter() - t0})
+    dirs = {}
+    for bits in (8, 4):
+        dirs[bits] = os.path.join(root, f"llama32-1b-int{bits}")
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "gabby_tpu_torch.tools.quantize",
+             "--model-dir", hf, "--out", dirs[bits], "--bits", str(bits)],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if run.returncode != 0:
+            raise RuntimeError(f"tools.quantize --bits {bits} exited with "
+                               f"{run.returncode}:\n{run.stderr[-4000:]}")
+        emit({"phase": "checkpoint", "wrote": f"int{bits}",
+              "gb": dir_bytes(dirs[bits]) / 1e9,
+              "seconds": time.perf_counter() - t0,
+              "files": sorted(os.listdir(dirs[bits]))})
+    shutil.rmtree(hf)
+    return dirs
+
+
+def load_checkpoint(path: str, bits: int, source, dev):
+    """load_model_dir -> fuse_projections, after holding what was loaded
+    against the weights the directory was made from: one layer's codes
+    must equal a fresh quantization of `source`'s, bit for bit, and the
+    unembed is the 2-D int8 table over the unpadded vocab."""
+    from gabby_tpu_torch import loader
+    from gabby_tpu_torch.models import llama
+    from gabby_tpu_torch.ops import quant
+
+    t0 = time.perf_counter()
+    cfg, params, tok = loader.load_model_dir(path, max_seq_len=2048,
+                                             device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    for name, layer in (("wq", 3), ("w_down", 15)):
+        want = quant.quantize(source["blocks"][name][layer], bits)
+        got = params["blocks"][name]
+        if got.bits != bits or not torch.equal(got.q[layer], want.q) \
+                or not torch.equal(got.scale[layer], want.scale):
+            raise AssertionError(f"checkpoint int{bits}: {name}[{layer}] "
+                                 f"differs from a fresh quantization")
+    head = params["lm_head"]
+    if (head.bits, head.group, tuple(head.q.shape)) != (
+            8, 0, (cfg.hidden_size, cfg.vocab_size)):
+        raise AssertionError(f"checkpoint int{bits}: unembed is "
+                             f"{head.bits}-bit {tuple(head.q.shape)}")
+    if (cfg.bos_token_id, list(cfg.eos_token_ids)) != (BOS_ID, EOS_IDS) \
+            or tok is None or tok.token_id("<|eot_id|>") != EOS_IDS[1]:
+        raise AssertionError(f"checkpoint int{bits}: config or tokenizer "
+                             f"did not come from the directory")
+    emit({"phase": "checkpoint", "loaded": f"int{bits}", "seconds": secs})
+    return cfg, llama.fuse_projections(params), tok
+
+
+def http_phase(label: str, weights_args: list):
     """`python -m gabby_tpu_torch.server` as a user starts it (its own
     process, the server on its main thread), one chat completion through
     the C++ front-end, then SIGTERM."""
     if shutil.which("cmake") is None:
-        emit({"phase": "http", "skipped": "cmake is not installed, so the "
+        emit({"phase": "http", "weights": label,
+              "skipped": "cmake is not installed, so the "
               "C++ front-end (cpp/) cannot be built here"})
         return
     import http.client
@@ -375,11 +603,11 @@ def http_phase():
     build_native()
     proc = subprocess.Popen(
         [sys.executable, "-X", "faulthandler", "-m",
-         "gabby_tpu_torch.server", "--preset",
-         "llama32_1b", "--random-weights", "--quant", "4", "--kv-quant",
+         "gabby_tpu_torch.server", *weights_args, "--kv-quant",
          "--slots", "2", "--max-seq", "512", "--port", "0", "--no-warmup",
          "--log-level", "0"],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
     out: list[str] = []
     ports: "queue.Queue[int]" = queue.Queue()
 
@@ -402,7 +630,7 @@ def http_phase():
         body = json.loads(resp.read())
         conn.close()
         if resp.status != 200 or body["usage"]["completion_tokens"] < 1:
-            raise AssertionError(f"http: {resp.status} {body}")
+            raise AssertionError(f"http ({label}): {resp.status} {body}")
         ok = True
     finally:
         proc.terminate()
@@ -415,8 +643,8 @@ def http_phase():
         if not ok or rc != 0:
             print("".join(out[-60:]), file=sys.stderr, flush=True)
     if rc != 0:
-        raise AssertionError(f"http: the server exited with {rc}")
-    emit({"phase": "http", "status": resp.status,
+        raise AssertionError(f"http ({label}): the server exited with {rc}")
+    emit({"phase": "http", "weights": label, "status": resp.status,
           "completion_tokens": body["usage"]["completion_tokens"]})
 
 
@@ -447,22 +675,80 @@ def main() -> int:
     kernels = kernel_phase(cfg, dev)
     torch.cuda.empty_cache()
 
+    from gabby_tpu_torch.ops import cuda as ck
+    from gabby_tpu_torch.tokenizer import Tokenizer
+
     t0 = time.perf_counter()
-    params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+    source = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                                dtype=torch.bfloat16, device=dev)
     params = llama.fuse_projections(quant.quantize_tree(
-        params, 4, unembed_bits=4, unembed_group=256))
+        source, 4, unembed_bits=4, unembed_group=256))
     torch.cuda.synchronize()
     emit({"phase": "weights", "seconds": time.perf_counter() - t0})
 
-    model_phase(cfg, params, dev)
-    counts = engine_phase(cfg, params, dev, gpu_line)
+    # first path: int4 weights quantized in memory, int4 grouped unembed
+    model_phase(cfg, params, dev, "int4, in memory")
+    counts, lens = engine_phase(
+        cfg, params, Tokenizer.byte_fallback(cfg.vocab_size), dev, gpu_line,
+        "int4, in memory", buckets=[16, 64, 256, 512],
+        must_launch=["int4_matmul_stacked", "int4_matmul_grouped",
+                     "decode_attention", "prefill_attention"])
     del params
     torch.cuda.empty_cache()
-    http_phase()
 
+    with tempfile.TemporaryDirectory(prefix="gabby_smoke_") as root:
+        dirs = checkpoint_phase(cfg, source, root)
+
+        # second path: the int8 checkpoint, the same ten prompt lengths
+        cfg8, params8, tok8 = load_checkpoint(dirs[8], 8, source, dev)
+        model_phase(cfg8, params8, dev, "int8 checkpoint")
+        counts8, _ = engine_phase(
+            cfg8, params8, tok8, dev, gpu_line, "int8 checkpoint",
+            prompt_lens=lens, buckets=[16, 64, 256, 512],
+            must_launch=["int8_matmul_stacked", "int8_matmul",
+                         "decode_attention", "prefill_attention"])
+        del params8
+        torch.cuda.empty_cache()
+
+        # third path: the int4 checkpoint with both int4 switches on; 64
+        # tokens (W4A8 at M = 64), a 256 bucket, and 512 + 256
+        cfg4, params4, tok4 = load_checkpoint(dirs[4], 4, source, dev)
+        del source
+        ck.set_w4a8(True)
+        ck.set_int4_prefill_kernel(True)
+        try:
+            # W4A8 rounds every activation row to int8 codes: where the
+            # card's bf16 activations and the CPU's differ by a code step
+            # (1/127 of the row's range) the two sides' rounding errors no
+            # longer cancel, so the bound is twice the bf16 paths'
+            model_phase(cfg4, params4, dev, "int4 checkpoint, w4a8 + "
+                        "int4 prefill kernel", tol=0.10)
+            counts4, _ = engine_phase(
+                cfg4, params4, tok4, dev, gpu_line, "int4 checkpoint, "
+                "w4a8 + int4 prefill kernel", prompt_lens=[43, 173, 623],
+                buckets=[64, 256, 512],
+                must_launch=["int4_matmul", "int4_matmul_w4a8_stacked",
+                             "int8_matmul", "decode_attention",
+                             "prefill_attention"])
+        finally:
+            ck.set_w4a8(None)
+            ck.set_int4_prefill_kernel(None)
+        if counts4["int4_matmul_stacked"]:
+            raise AssertionError("w4a8 is on but K1 launched")
+        del params4
+        torch.cuda.empty_cache()
+
+        http_phase("random int4", ["--preset", "llama32_1b",
+                                   "--random-weights", "--quant", "4"])
+        http_phase("int8 checkpoint", ["--model-dir", dirs[8]])
+
+    # each kernel's launches come from the run of the path that is its own
+    own = {"int8_matmul_stacked": counts8, "int8_matmul": counts8,
+           "int4_matmul": counts4, "int4_matmul_w4a8_stacked": counts4}
     for k in kernels:
-        k["launches"] = counts[k["name"]]
+        k["launches"] = own.get(k["name"], counts)[k["name"]]
+        if k["launches"] == 0:
+            raise AssertionError(f"{k['name']} never launched on its path")
     print(json.dumps({"kernels": [
         {key: k[key] for key in ("name", "route", "source", "replaces",
                                  "launches", "max_abs_err", "ms",

@@ -1,13 +1,17 @@
 """Model configuration for the Llama-3 family.
 
 A copy of gabby_tpu/config.py for the PyTorch port (which imports nothing
-of the JAX package): a typed, hashable ModelConfig and the presets. The
-HuggingFace `config.json` parser waits for the checkpoint loader.
+of the JAX package): a typed, hashable ModelConfig built from a parsed
+HuggingFace `config.json`, and the presets. The reference's `fused_tp`
+field (the shard-block layout of fused projections under a model-axis
+mesh) is absent until `parallel/` is ported: the checkpoint loader accepts
+and writes the value 1 in its place.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Any, Optional
 
 
@@ -46,6 +50,47 @@ class ModelConfig:
     @property
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
+
+    @staticmethod
+    def from_hf_dict(d: dict[str, Any], **overrides: Any) -> "ModelConfig":
+        """Build from a parsed HuggingFace config.json (llama architecture)."""
+        rs = d.get("rope_scaling")
+        scaling = None
+        if rs and rs.get("rope_type", rs.get("type")) == "llama3":
+            scaling = RopeScaling(
+                factor=float(rs["factor"]),
+                low_freq_factor=float(rs["low_freq_factor"]),
+                high_freq_factor=float(rs["high_freq_factor"]),
+                original_max_position_embeddings=int(
+                    rs["original_max_position_embeddings"]
+                ),
+            )
+        num_heads = int(d["num_attention_heads"])
+        head_dim = int(d.get("head_dim") or d["hidden_size"] // num_heads)
+        eos = d.get("eos_token_id", 128009)
+        eos = tuple(eos) if isinstance(eos, (list, tuple)) else (int(eos),)
+        kw: dict[str, Any] = dict(
+            vocab_size=int(d["vocab_size"]),
+            hidden_size=int(d["hidden_size"]),
+            intermediate_size=int(d["intermediate_size"]),
+            num_layers=int(d["num_hidden_layers"]),
+            num_heads=num_heads,
+            num_kv_heads=int(d.get("num_key_value_heads", num_heads)),
+            head_dim=head_dim,
+            rms_norm_eps=float(d.get("rms_norm_eps", 1e-5)),
+            rope_theta=float(d.get("rope_theta", 500000.0)),
+            rope_scaling=scaling,
+            tie_word_embeddings=bool(d.get("tie_word_embeddings", False)),
+            bos_token_id=int(d.get("bos_token_id", 128000)),
+            eos_token_ids=eos,
+        )
+        kw.update(overrides)
+        return ModelConfig(**kw)
+
+    @staticmethod
+    def from_json_file(path: str, **overrides: Any) -> "ModelConfig":
+        with open(path) as f:
+            return ModelConfig.from_hf_dict(json.load(f), **overrides)
 
 
 # ---- Presets (shapes from the published HF configs of each model) ----

@@ -1,15 +1,25 @@
-// Int4 weight-only matmul for decode-sized M (M <= 64), Hopper (sm_90a).
+// Weight-only quantized matmuls for decode-sized M (M <= 64), Hopper
+// (sm_90a): one kernel, templated over the weight format.
 //
-// Replaces two Pallas TPU kernels of gabby_tpu/ops/pallas/quant_matmul.py:
+// Replaces four Pallas TPU kernels of gabby_tpu/ops/pallas/quant_matmul.py:
 //   K1  _qmatmul_int4_stacked -> _int4_stacked_kernel: x @ int4 W[layer]
 //       with per-output-channel scales, W stacked [L, K/2, N];
 //   K2  _qmatmul_int4_grouped -> _int4_grouped_kernel: the int4 unembed,
-//       x @ int4 W [K/2, N] with group scales [K/group, N] along K.
+//       x @ int4 W [K/2, N] with group scales [K/group, N] along K;
+//   K5  _qmatmul_int8_stacked -> _int8_stacked_kernel: x @ int8 W[layer],
+//       W stacked [L, K, N], per-output-channel scales;
+//   K6  _qmatmul_int8 -> _int8_kernel: the same on a 2-D [K, N] weight
+//       (the int8 unembed). K5 and K6 are one entry point: the layer of a
+//       stack is a pointer offset made by the caller.
 //
-// Layout (gabby_tpu_torch/ops/quant.pack_int4): byte (r, n) of the packed
-// [K/2, N] plane holds W[r, n] + 8 in its low nibble and W[r + K/2, n] in
-// its (signed) high nibble, so row r of the plane pairs with x[:, r] (lo)
-// and x[:, r + K/2] (hi).
+// Int4 layout (gabby_tpu_torch/ops/quant.pack_int4): byte (r, n) of the
+// packed [K/2, N] plane holds W[r, n] + 8 in its low nibble and
+// W[r + K/2, n] in its (signed) high nibble, so row r of the plane pairs
+// with x[:, r] (lo) and x[:, r + K/2] (hi). Int8 is one code per byte:
+// row r of the [K, N] plane pairs with x[:, r] alone, so there is no
+// second x slice and no nibble algebra, at twice the bytes per K row (973
+// MB per Llama-3.2-1B decode step, 263 MB for the [2048, 128256] unembed:
+// ~290 us + ~80 us at 3.35 TB/s).
 //
 // What bounds it on the H100: at M = 8 every weight byte feeds 16 FMAs, so
 // the packed bytes (486 MB per Llama-3.2-1B decode step across wqkv, wo,
@@ -53,16 +63,20 @@ struct Smem {
   float red[kWarps][kMT][kStrip];
 };
 
-template <bool kGrouped>
+enum Fmt { kInt4 = 0, kInt4Grouped = 1, kInt8 = 2 };
+
+template <Fmt kFmt>
 __global__ void __launch_bounds__(kThreads)
-int4_matmul_kernel(const __nv_bfloat16* __restrict__ x,
-                   const int8_t* __restrict__ packed,
-                   const float* __restrict__ scale,
-                   __nv_bfloat16* __restrict__ out,
-                   float* __restrict__ ws, int M, int K, int N, int group,
-                   int rows_per_split) {
+wq_matmul_kernel(const __nv_bfloat16* __restrict__ x,
+                 const int8_t* __restrict__ packed,
+                 const float* __restrict__ scale,
+                 __nv_bfloat16* __restrict__ out,
+                 float* __restrict__ ws, int M, int K, int N, int group,
+                 int rows_per_split) {
+  constexpr bool kGrouped = kFmt == kInt4Grouped;
+  constexpr bool kNibbles = kFmt != kInt8;  // two x slices per weight row
   __shared__ Smem sm;
-  const int kp = K / 2;
+  const int kp = kNibbles ? K / 2 : K;  // rows of the weight plane
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int col_lane = lane % kColLanes;
@@ -90,10 +104,10 @@ int4_matmul_kernel(const __nv_bfloat16* __restrict__ x,
         if (i < mt) {
           const __nv_bfloat16* xr = x + (size_t)(m0 + i) * K;
           lo = __bfloat162float(xr[c0 + r]);
-          hi = __bfloat162float(xr[kp + c0 + r]);
+          if (kNibbles) hi = __bfloat162float(xr[kp + c0 + r]);
         }
         sm.x_lo[r][i] = lo;
-        sm.x_hi[r][i] = hi;
+        if (kNibbles) sm.x_hi[r][i] = hi;
       }
       __syncthreads();
       if (col_ok) {
@@ -121,8 +135,13 @@ int4_matmul_kernel(const __nv_bfloat16* __restrict__ x,
             for (int b = 0; b < 4; ++b) {
               const uint32_t word = words[q];
               const int c = q * 4 + b;
-              wl[c] = (float)((int)((word >> (8 * b)) & 15u) - 8);
-              wh[c] = (float)(((int)(word << (24 - 8 * b))) >> 28);
+              if (kNibbles) {
+                wl[c] = (float)((int)((word >> (8 * b)) & 15u) - 8);
+                wh[c] = (float)(((int)(word << (24 - 8 * b))) >> 28);
+              } else {  // one signed code per byte
+                wl[c] = (float)(((int)(word << (24 - 8 * b))) >> 24);
+                wh[c] = 0.f;
+              }
               if (kGrouped) {
                 wl[c] *= s_lo[c];
                 wh[c] *= s_hi[c];
@@ -131,10 +150,13 @@ int4_matmul_kernel(const __nv_bfloat16* __restrict__ x,
           }
 #pragma unroll
           for (int i = 0; i < kMT; ++i) {
-            const float xl = sm.x_lo[r][i], xh = sm.x_hi[r][i];
+            const float xl = sm.x_lo[r][i];
+            const float xh = kNibbles ? sm.x_hi[r][i] : 0.f;
 #pragma unroll
             for (int c = 0; c < kColsPerLane; ++c)
-              acc[i][c] = fmaf(xl, wl[c], fmaf(xh, wh[c], acc[i][c]));
+              acc[i][c] = kNibbles
+                  ? fmaf(xl, wl[c], fmaf(xh, wh[c], acc[i][c]))
+                  : fmaf(xl, wl[c], acc[i][c]);
           }
         }
       }
@@ -211,11 +233,29 @@ int gabby_int4_matmul(const void* x, const void* packed, const void* scale,
   auto* op = static_cast<__nv_bfloat16*>(out);
   auto* wp = static_cast<float*>(ws);
   if (group > 0)
-    int4_matmul_kernel<true><<<grid, kThreads, 0, s>>>(
+    wq_matmul_kernel<kInt4Grouped><<<grid, kThreads, 0, s>>>(
         xp, pp, sp, op, wp, M, K, N, group, rows_per_split);
   else
-    int4_matmul_kernel<false><<<grid, kThreads, 0, s>>>(
+    wq_matmul_kernel<kInt4><<<grid, kThreads, 0, s>>>(
         xp, pp, sp, op, wp, M, K, N, group, rows_per_split);
+  return (int)cudaGetLastError();
+}
+
+// x [M, K] bf16; codes [K, N] int8 (one layer of a stack by pointer
+// offset, or a 2-D weight); scale [N] f32; out [M, N] bf16; ws [M, N] f32
+// zeroed when n_split > 1, else NULL.
+int gabby_int8_matmul(const void* x, const void* codes, const void* scale,
+                      void* out, void* ws, int M, int K, int N, int n_split,
+                      void* stream) {
+  const int rows_per_split = (K + n_split - 1) / n_split;
+  dim3 grid((N + kStrip - 1) / kStrip, n_split);
+  wq_matmul_kernel<kInt8>
+      <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const __nv_bfloat16*>(x),
+          static_cast<const int8_t*>(codes),
+          static_cast<const float*>(scale),
+          static_cast<__nv_bfloat16*>(out), static_cast<float*>(ws), M, K, N,
+          0, rows_per_split);
   return (int)cudaGetLastError();
 }
 

@@ -117,6 +117,15 @@ _SIGNATURES = {
     "gabby_int4_matmul": [_P] * 5 + [_I] * 5 + [_P],
     # workspace, scale or NULL, out; M, N; stream
     "gabby_matmul_finalize": [_P] * 3 + [_I] * 2 + [_P],
+    # x, codes (layer offset), scale (layer offset), out, workspace;
+    # M, K, N, n_split; stream
+    "gabby_int8_matmul": [_P] * 5 + [_I] * 4 + [_P],
+    # x, packed (layer offset), scale (layer offset), out; M, K, N; stream
+    "gabby_int4_matmul_prefill": [_P] * 4 + [_I] * 3 + [_P],
+    # xq, packed (layer offset), int32 workspace; M, K, N, n_split; stream
+    "gabby_w4a8_matmul": [_P] * 3 + [_I] * 4 + [_P],
+    # int32 workspace, xs, scale (layer offset), out; M, N; stream
+    "gabby_w4a8_finalize": [_P] * 4 + [_I] * 2 + [_P],
     # q, k, v, k_scale, v_scale (layer offset), fresh_k, fresh_v,
     # positions, out; B, Nq, Nk, S, H, limit; sm_scale; stream
     "gabby_decode_attention": [_P] * 9 + [_I] * 6 + [_F, _P],

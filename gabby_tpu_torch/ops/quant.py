@@ -7,21 +7,30 @@ biased by +8, and row i + K/2 in its high nibble. The packed bytes are
 byte-identical to the reference's, so a checkpoint quantized by either
 package serves in the other.
 
-`qlinear` dispatches like the reference (ops/quant.py:170-291 there):
-decode-sized products (M <= 64) of stacked int4 weights go to the stacked
-int4 kernel (K1), of the group-scaled int4 unembed to the grouped kernel
-(K2); prefill-sized products (M > 64) unpack the layer's bytes and run one
-`torch.matmul`, as the reference leaves them to XLA. Activations are cast
-to bf16 before every product, as in the reference.
+`qlinear` dispatches like the reference (ops/quant.py:170-291 there).
+Decode-sized products (M <= 64): stacked int4 weights go to the stacked
+int4 kernel (K1), or to the W4A8 kernel (K8) when `cuda.w4a8()` is on; the
+group-scaled int4 unembed to the grouped kernel (K2); stacked int8 weights
+to K5 and a 2-D int8 weight (the int8 unembed) to K6. The reference leaves
+int8 to XLA's fused dequantizing dot unless GABBY_QMM_INT8 is set; eager
+PyTorch has no such fusion (a cast would write and re-read the whole
+weight as bf16 at every call), so here int8 at decode M always takes its
+kernel. Prefill-sized products (M > 64): per-channel int4 takes the int4
+kernel (K7) when `cuda.int4_prefill_kernel()` is on; everything else
+unpacks the layer's bytes and runs one `torch.matmul`, as the reference
+leaves them to XLA. Activations are cast to bf16 before every product, as
+in the reference.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import torch
 
+from gabby_tpu_torch.ops import cuda as ck
 from gabby_tpu_torch.ops.cuda import quant_matmul as cqm
 
 
@@ -133,24 +142,41 @@ def qlinear(x: torch.Tensor, qt: QTensor,
                    torch.matmul(xb.float(), w.float())).to(x.dtype)
         return out.reshape(*lead, out.shape[-1])
     q, scale = qt.q, qt.scale
-    if layer is not None and q.dim() == 3:
-        if qt.bits == 4 and m <= 64:
-            out = cqm.qmatmul_int4_stacked(x2, q, scale, layer)
-            return out.reshape(*lead, out.shape[-1])
-        # prefill-sized M (or int8): slice this layer's bytes, unpack, one
-        # matmul — the reference leaves this product to XLA as well
-        q, scale = q[layer], scale[layer]
-    codes = unpack_int4(q) if qt.bits == 4 else q
-    out = (_codes_matmul(x2, codes) * scale).to(x.dtype)
-    return out.reshape(*lead, out.shape[-1])
+    stacked = layer is not None and q.dim() == 3
+    if q.dim() == 3 and layer is None:
+        raise ValueError("a stacked QTensor needs a layer")
+    out = None
+    if m <= 64:
+        if qt.bits == 4 and stacked:
+            out = (cqm.qmatmul_int4_w4a8_stacked(x2, q, scale, layer)
+                   if ck.w4a8() else
+                   cqm.qmatmul_int4_stacked(x2, q, scale, layer))
+        elif qt.bits == 8:
+            out = (cqm.qmatmul_int8_stacked(x2, q, scale, layer) if stacked
+                   else cqm.qmatmul_int8(x2, q, scale))
+    elif qt.bits == 4 and ck.int4_prefill_kernel():
+        out = cqm.qmatmul_int4(x2, q, scale, layer if stacked else None)
+    if out is None:
+        # prefill-sized M (or a 2-D int4 weight at decode M): slice this
+        # layer's bytes, unpack, one matmul — the reference leaves this
+        # product to XLA as well
+        if stacked:
+            q, scale = q[layer], scale[layer]
+        codes = unpack_int4(q) if qt.bits == 4 else q
+        out = (_codes_matmul(x2, codes) * scale).to(x.dtype)
+    return out.to(x.dtype).reshape(*lead, out.shape[-1])
 
 
-def quantize_unembed_table(table: torch.Tensor, bits: int = 8,
+def quantize_unembed_table(table: torch.Tensor, bits: Optional[int] = None,
                            group: int = 256,
                            pad_to: int = 2048) -> QTensor:
-    """Quantize the [D, V] unembed table: INT8 per vocab channel, or INT4
-    with group scales along D and the vocab axis zero-padded to a multiple
-    of `pad_to` (consumers slice logits back to the true vocab)."""
+    """Quantize the [D, V] unembed table: INT8 per vocab channel (the
+    default), or INT4 with group scales along D and the vocab axis
+    zero-padded to a multiple of `pad_to` (consumers slice logits back to
+    the true vocab). bits=None reads GABBY_UNEMBED_BITS (default 8), once,
+    here at quantize time, as the reference does."""
+    if bits is None:
+        bits = int(os.environ.get("GABBY_UNEMBED_BITS", "8"))
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
     table = table.float()
@@ -164,7 +190,8 @@ def quantize_unembed_table(table: torch.Tensor, bits: int = 8,
     return quantize(table, 8)
 
 
-def quantize_tree(params, bits: int, *, unembed_bits: int = 8,
+def quantize_tree(params, bits: int, *,
+                  unembed_bits: Optional[int] = None,
                   unembed_group: int = 256):
     """Quantize every 2-D+ matmul weight of a params dict. The embedding
     and the norms stay as they are. Stacked [L, in, out] weights quantize

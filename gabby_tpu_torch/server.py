@@ -8,6 +8,10 @@ speculation, meshes, multi-host, fp8 activations, paired kv heads, ...)
 are accepted by the parser and refused with "not yet ported" when set.
 
 Examples:
+  python -m gabby_tpu_torch.tools.quantize --model-dir ~/hf/Llama-3.2-1B \\
+      --out ~/gabby/llama1b-int8 --bits 8
+  python -m gabby_tpu_torch.server --model-dir ~/gabby/llama1b-int8 --kv-quant
+  python -m gabby_tpu_torch.server --model-dir ~/hf/Llama-3.2-1B --quant 8
   python -m gabby_tpu_torch.server --preset llama32_1b --random-weights \\
       --quant 4 --kv-quant
   python -m gabby_tpu_torch.server --preset tiny --random-weights \\
@@ -17,6 +21,7 @@ Examples:
 from __future__ import annotations
 
 import argparse
+import os
 import signal
 import sys
 import threading
@@ -30,7 +35,7 @@ from gabby_tpu_torch.runtime.engine import RequestError
 _NOT_PORTED = {"act_fp8": False, "tp": 1, "dp": 1, "paged_pages": 0,
                "prefill_int8_shadow": False, "pair_kv": None,
                "sp_ring": False, "pipeline_fetch": False, "speculate": 0,
-               "coordinator": "", "profiler_port": 0, "model_dir": ""}
+               "coordinator": "", "profiler_port": 0}
 
 
 def _build_engine(args):
@@ -45,28 +50,39 @@ def _build_engine(args):
         if getattr(args, name) != off:
             sys.exit(f"--{name.replace('_', '-')}: not yet ported to "
                      f"gabby_tpu_torch")
-    if not args.random_weights:
-        sys.exit("no checkpoint loader yet: pass --random-weights to serve "
-                 "a randomly initialized model")
     device = resolve_device(args.device)
-    cfg = getattr(cfglib, args.preset)(max_seq_len=args.max_seq)
-    tiny = args.preset == "tiny"
-    dtype = torch.float32 if tiny else torch.bfloat16
-    params = llama.init_params(cfg, dtype=dtype, device=device)
-    if args.quant:
-        # the bench headline recipe: int4 weights come with the
-        # group-256 int4 unembed
-        unembed = ({"unembed_bits": 4, "unembed_group": 256}
-                   if args.quant == 4 else {})
-        params = quant.quantize_tree(params, args.quant, **unembed)
+    if args.model_dir:
+        # an HF-layout directory (quantized at load when --quant is given)
+        # or one written by tools.quantize (its own metadata decides)
+        from gabby_tpu_torch.loader import load_model_dir
+        cfg, params, tokenizer = load_model_dir(
+            args.model_dir, dtype=torch.bfloat16,
+            quant_bits=args.quant or None, max_seq_len=args.max_seq,
+            device=device)
+        if tokenizer is None:
+            sys.exit(f"{args.model_dir} has no tokenizer.json")
+        dtype = torch.bfloat16
+    else:
+        if not args.random_weights:
+            sys.exit("no --model-dir given: pass --random-weights to serve "
+                     "a randomly initialized model (smoke tests only)")
+        cfg = getattr(cfglib, args.preset)(max_seq_len=args.max_seq)
+        dtype = torch.float32 if args.preset == "tiny" else torch.bfloat16
+        params = llama.init_params(cfg, dtype=dtype, device=device)
+        if args.quant:
+            # the bench headline recipe: int4 weights come with the
+            # group-256 int4 unembed
+            unembed = ({"unembed_bits": 4, "unembed_group": 256}
+                       if args.quant == 4 else {})
+            params = quant.quantize_tree(params, args.quant, **unembed)
+        tokenizer = Tokenizer.byte_fallback(cfg.vocab_size)
     params = llama.fuse_projections(params)
-    tokenizer = Tokenizer.byte_fallback(cfg.vocab_size)
     econfig = EngineConfig(
         batch_slots=args.slots, max_seq=args.max_seq,
         steps_per_call=args.steps_per_call,
         steps_per_call_busy=args.steps_per_call_busy,
         default_max_tokens=args.max_tokens, kv_quantized=args.kv_quant,
-        cache_dtype="float32" if tiny else "bfloat16")
+        cache_dtype="float32" if dtype == torch.float32 else "bfloat16")
     return Engine(cfg, params, tokenizer, econfig, device=device), cfg
 
 
@@ -156,16 +172,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--read-timeout-millis", type=int, default=60000)
     p.add_argument("--write-timeout-millis", type=int, default=600000)
     p.add_argument("--model-dir", default="",
-                   help="checkpoint directory (not yet ported)")
+                   help="checkpoint directory: HF layout (safetensors + "
+                        "config.json + tokenizer.json), or one written by "
+                        "gabby_tpu_torch.tools.quantize")
     p.add_argument("--preset", default="llama32_1b",
                    choices=["tiny", "llama32_1b", "llama32_3b", "llama3_8b",
                             "llama3_70b"])
     p.add_argument("--random-weights", action="store_true",
                    help="serve random weights made from seed 0")
     p.add_argument("--quant", type=int, default=0, choices=[0, 4, 8],
-                   help="weight-only quantization bits (0 = bf16); 4 also "
-                        "quantizes the unembed to int4 with group-256 "
-                        "scales")
+                   help="weight-only quantization bits (0 = bf16). With "
+                        "--model-dir the unembed becomes int8 per channel; "
+                        "with --random-weights, 4 also quantizes the "
+                        "unembed to int4 with group-256 scales")
     p.add_argument("--kv-quant", action="store_true", help="int8 KV cache")
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (cuda, or cpu for tests)")
@@ -221,7 +240,9 @@ def main(argv: Optional[list[str]] = None,
     engine, _ = _build_engine(args)
     server = NativeServer(
         make_handler(engine), port=args.port, workers=args.workers,
-        model_id=args.model_id or args.preset,
+        model_id=args.model_id or (
+            os.path.basename(os.path.normpath(args.model_dir))
+            if args.model_dir else args.preset),
         read_timeout_millis=args.read_timeout_millis,
         write_timeout_millis=args.write_timeout_millis,
         log_level=args.log_level, stats_fn=engine.stats_snapshot)

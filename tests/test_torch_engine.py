@@ -139,3 +139,43 @@ def test_deferred_fields_are_refused(engine, field, value):
 def test_overlong_prompt_is_refused(engine):
     with pytest.raises(RequestError, match="context window"):
         engine.submit_ids(list(range(2, 2 + MAX_SEQ)))
+
+
+def test_int8_tree_warms_up_and_serves(weights):
+    """The int8 configuration (fused int8 stacks, 2-D int8 unembed, int8
+    KV) through the engine: warm-up covers the bucket ladder, then greedy
+    tokens match gabby_tpu's forward-by-forward decode of the same tree."""
+    import numpy as np
+    import jax
+    import jax.numpy as jnp
+
+    cfg = jcfg.tiny(max_seq_len=MAX_SEQ)
+    params = jllama.init_params(cfg, jax.random.PRNGKey(5),
+                                dtype=jnp.float32)
+    params = jllama.fuse_projections(jquant.quantize_tree(params, 8))
+    tparams = tllama.params_from_numpy(to_numpy_tree(params), device="cpu")
+    assert tparams["lm_head"].bits == 8 and tparams["lm_head"].group == 0
+    jeng = JEngine(cfg, params, JTokenizer.byte_fallback(cfg.vocab_size),
+                   JEngineConfig(batch_slots=2, max_seq=MAX_SEQ,
+                                 kv_quantized=True, cache_dtype="float32"))
+    try:
+        req = jeng.submit(PROMPTS[1], max_tokens=MAX_TOKENS)
+        while req.out.get()[1] is None:
+            pass
+        want = list(req.token_ids)
+    finally:
+        jeng.shutdown()
+    tc = tcfg.tiny(max_seq_len=MAX_SEQ)
+    eng = Engine(tc, tparams, Tokenizer.byte_fallback(tc.vocab_size),
+                 EngineConfig(batch_slots=2, max_seq=MAX_SEQ,
+                              kv_quantized=True, cache_dtype="float32",
+                              steps_per_call=4), device="cpu")
+    try:
+        assert eng.warmup(concurrency=2) > 0
+        assert eng.stats_snapshot()["requests"] == 0  # rehearsals: internal
+        req = eng.submit(PROMPTS[1], max_tokens=MAX_TOKENS)
+        while req.out.get()[1] is None:
+            pass
+        assert list(req.token_ids) == want
+    finally:
+        eng.shutdown()

@@ -1,6 +1,8 @@
 """The port stands alone: every gabby_tpu_torch module and chip_smoke.py
-import with JAX made unimportable, and none of them loads a gabby_tpu
-module. Entry points with no device refuse to run when CUDA is absent."""
+import with JAX, ml_dtypes and safetensors made unimportable (the card's
+machine has none of them: the loader reads bf16 as 16-bit words), and none
+of them loads a gabby_tpu module. Entry points with no device refuse to run
+when CUDA is absent."""
 
 import os
 import subprocess
@@ -13,11 +15,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = r"""
 import importlib, pkgutil, sys
-sys.modules["jax"] = None          # any `import jax` now raises
+for blocked in ("jax", "ml_dtypes", "safetensors"):
+    sys.modules[blocked] = None    # any `import <blocked>` now raises
 sys.path.insert(0, sys.argv[1])
 import gabby_tpu_torch
 names = ["chip_smoke"] + [m.name for m in pkgutil.walk_packages(
     gabby_tpu_torch.__path__, "gabby_tpu_torch.")]
+for name in ("loader", "tools.quantize", "eval.ppl"):
+    assert "gabby_tpu_torch." + name in names, name
 for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules
@@ -31,7 +36,33 @@ def test_port_imports_without_jax_or_gabby_tpu():
     out = subprocess.run([sys.executable, "-c", _PROBE, REPO], check=True,
                          capture_output=True, text=True, timeout=120,
                          cwd=REPO)
-    assert int(out.stdout.strip()) >= 20  # chip_smoke + the package modules
+    assert int(out.stdout.strip()) >= 25  # chip_smoke + the package modules
+
+
+_ROUNDTRIP = r"""
+import sys
+for blocked in ("jax", "ml_dtypes", "safetensors"):
+    sys.modules[blocked] = None
+sys.path.insert(0, sys.argv[1])
+import torch
+from gabby_tpu_torch import loader
+path = sys.argv[2]
+t = {"w": torch.arange(12, dtype=torch.float32).reshape(3, 4).bfloat16(),
+     "q": torch.arange(-6, 6, dtype=torch.int8).reshape(4, 3)}
+loader.write_safetensors(path, t)
+back = loader.read_safetensors(path)
+assert back["w"].dtype == torch.bfloat16 and torch.equal(back["w"], t["w"])
+assert torch.equal(back["q"], t["q"])
+print("ok")
+"""
+
+
+def test_loader_reads_and_writes_bf16_without_ml_dtypes(tmp_path):
+    out = subprocess.run(
+        [sys.executable, "-c", _ROUNDTRIP, REPO,
+         str(tmp_path / "x.safetensors")], check=True, capture_output=True,
+        text=True, timeout=120, cwd=REPO)
+    assert out.stdout.strip() == "ok"
 
 
 def test_entry_points_refuse_to_run_without_cuda():
@@ -50,3 +81,9 @@ def test_entry_points_refuse_to_run_without_cuda():
         create_cache(cfg, 1, 16)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         llama.init_params(cfg)
+    from gabby_tpu_torch import loader
+    from gabby_tpu_torch.tools import quantize
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        loader.load_model_dir("/nonexistent")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        quantize.main(["--model-dir", "/nonexistent", "--out", "/nonexistent"])

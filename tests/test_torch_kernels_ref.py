@@ -1,9 +1,12 @@
-"""The plain PyTorch versions of the port's four kernels (K1-K4) held
-against gabby_tpu's kernel-bearing ops — `qlinear` (stacked and grouped
-int4), `cache_attention_quantized` and `slot_prefill_attention` — each run
+"""The plain PyTorch versions of the port's kernels (K1-K8) held against
+gabby_tpu's kernel-bearing ops — `qlinear` (stacked and grouped int4,
+stacked and 2-D int8, int4 at prefill-sized M, W4A8),
+`cache_attention_quantized` and `slot_prefill_attention` — each run
 twice: with kernels off (the jnp contract) and with kernels on, which on
 the CPU runs the Pallas kernels in interpret mode (as
-tests/test_pallas_kernels.py does). Shapes are ones the Pallas kernels
+tests/test_pallas_kernels.py does). The reference's route switches
+(GABBY_QMM_INT8, GABBY_QMM_PREFILL, GABBY_W4A8) are set so that the
+kernels-on run reaches the Pallas kernel each test is about. Shapes are ones the Pallas kernels
 tile. The CUDA kernels themselves are held against these plain versions on
 the card (tests/test_torch_cuda.py, chip_smoke.py).
 
@@ -19,6 +22,7 @@ import torch
 from gabby_tpu.ops import attention as jattn
 from gabby_tpu.ops import pallas as pk
 from gabby_tpu.ops import quant as jquant
+from gabby_tpu.ops.pallas import quant_matmul as pqm
 from gabby_tpu_torch.ops.cuda import attention as cattn
 from gabby_tpu_torch.ops.cuda import prefill_attention as cpfa
 from gabby_tpu_torch.ops.cuda import quant_matmul as cqm
@@ -71,6 +75,132 @@ def test_int4_grouped(kernels):
     out = cqm.int4_grouped_plain(_t(x).to(torch.bfloat16), _t(qt.q),
                                  _t(qt.scale), group)
     _close(out, ref)
+
+
+def _stack(w, bits):
+    qs = [jquant.quantize(jnp.asarray(w[i]), bits) for i in range(len(w))]
+    return jquant.QTensor(q=jnp.stack([q.q for q in qs]),
+                          scale=jnp.stack([q.scale for q in qs]), bits=bits)
+
+
+def test_int8_stacked(kernels, monkeypatch):
+    monkeypatch.setenv("GABBY_QMM_INT8", "1")  # kernels on -> Pallas int8
+    r = np.random.default_rng(4)
+    nl, k, n, m = 2, 256, 256, 8
+    qt = _stack(r.standard_normal((nl, k, n)).astype(np.float32) * 0.1, 8)
+    x = r.standard_normal((m, k)).astype(np.float32)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    ref = jquant.qlinear(xb, qt, layer=1)
+    if kernels:  # the dispatch above reached exactly this call
+        assert pqm.supported(m, k, n, 8)
+        np.testing.assert_array_equal(
+            np.asarray(ref, np.float32),
+            np.asarray(pqm.qmatmul_stacked(xb, qt.q, qt.scale, 1, 8),
+                       np.float32))
+    out = cqm.int8_stacked_plain(_t(x).to(torch.bfloat16), _t(qt.q),
+                                 _t(qt.scale), 1)
+    _close(out, ref)
+
+
+@pytest.mark.parametrize("m", [8, 320])
+def test_int8_2d(kernels, m):
+    r = np.random.default_rng(5)
+    k, n = 256, 384
+    qt = jquant.quantize(
+        jnp.asarray(r.standard_normal((k, n)).astype(np.float32) * 0.1), 8)
+    x = r.standard_normal((m, k)).astype(np.float32)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    ref = (pqm.qmatmul(xb, qt.q, qt.scale, 8) if kernels
+           else jquant.qlinear(xb, qt))
+    out = cqm.int8_plain(_t(x).to(torch.bfloat16), _t(qt.q), _t(qt.scale))
+    _close(out, ref)
+
+
+@pytest.mark.parametrize("m", [8, 320])
+def test_int4_2d_and_prefill_sized(kernels, m):
+    r = np.random.default_rng(6)
+    nl, k, n = 2, 256, 256
+    qt = _stack(r.standard_normal((nl, k, n)).astype(np.float32) * 0.1, 4)
+    x = r.standard_normal((m, k)).astype(np.float32)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    ref = (pqm.qmatmul(xb, qt.q[1], qt.scale[1], 4) if kernels
+           else jquant.qlinear(xb, qt, layer=1))
+    xt = _t(x).to(torch.bfloat16)
+    out = cqm.int4_plain(xt, _t(qt.q), _t(qt.scale), 1)
+    _close(out, ref)
+    out2d = cqm.int4_plain(xt, _t(qt.q[1]), _t(qt.scale[1]))
+    assert torch.equal(out, out2d)
+
+
+def test_int4_prefill_switch_reaches_the_2d_kernel(kernels, monkeypatch):
+    """With GABBY_QMM_PREFILL=1 the reference's qlinear takes the 2-D int4
+    kernel at M > 64; the port's switch of the same name takes K7 (its
+    plain version here, on the CPU)."""
+    from gabby_tpu_torch.ops import cuda as ck
+    from gabby_tpu_torch.ops import quant as tquant
+    monkeypatch.setenv("GABBY_QMM_PREFILL", "1")
+    assert pk.int4_prefill_kernel() and ck.int4_prefill_kernel()
+    r = np.random.default_rng(7)
+    nl, k, n, m = 2, 256, 256, 96
+    qt = _stack(r.standard_normal((nl, k, n)).astype(np.float32) * 0.1, 4)
+    x = r.standard_normal((m, k)).astype(np.float32)
+    ref = jquant.qlinear(jnp.asarray(x, jnp.bfloat16), qt, layer=0)
+    tq = tquant.QTensor(q=_t(qt.q), scale=_t(qt.scale), bits=4)
+    out = tquant.qlinear(_t(x).to(torch.bfloat16), tq, layer=0)
+    _close(out, ref)
+    ck.set_int4_prefill_kernel(False)
+    try:
+        assert not ck.int4_prefill_kernel()
+        _close(tquant.qlinear(_t(x).to(torch.bfloat16), tq, layer=0), ref)
+    finally:
+        ck.set_int4_prefill_kernel(None)
+
+
+def test_w4a8_stacked():
+    """The Pallas W4A8 kernel in interpret mode (there is no jnp contract
+    for this route), at the reference test's tolerance of 1e-2; the int32
+    accumulator against exact integer arithmetic."""
+    r = np.random.default_rng(8)
+    nl, k, n, m = 3, 128, 256, 8
+    qt = _stack(r.standard_normal((nl, k, n)).astype(np.float32) * 0.3, 4)
+    x = r.standard_normal((m, k)).astype(np.float32) * 2.0
+    ref = pqm.qmatmul_stacked_w4a8(jnp.asarray(x), qt.q, qt.scale,
+                                   jnp.int32(1))
+    out, acc = cqm.int4_w4a8_stacked_plain(_t(x), _t(qt.q), _t(qt.scale), 1,
+                                           return_acc=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref, np.float32),
+                               rtol=1e-2, atol=1e-2)
+    xs = np.maximum(np.abs(x).max(axis=1, keepdims=True) / 127.0, 1e-8)
+    xq = np.clip(np.round(x / xs), -127, 127).astype(np.int64)
+    want = xq @ np.asarray(jquant.unpack_int4(qt.q[1])).astype(np.int64)
+    assert acc.dtype == torch.int32
+    np.testing.assert_array_equal(acc.numpy(), want)
+
+
+def test_w4a8_switch_routes_qlinear(monkeypatch):
+    from gabby_tpu_torch.ops import cuda as ck
+    from gabby_tpu_torch.ops import quant as tquant
+    monkeypatch.setenv("GABBY_W4A8", "1")
+    pk.set_kernels(True)
+    try:
+        assert pk.w4a8() and ck.w4a8()
+        r = np.random.default_rng(9)
+        nl, k, n, m = 2, 256, 256, 8
+        qt = _stack(r.standard_normal((nl, k, n)).astype(np.float32) * 0.1,
+                    4)
+        x = r.standard_normal((m, k)).astype(np.float32)
+        ref = jquant.qlinear(jnp.asarray(x), qt, layer=1)
+        tq = tquant.QTensor(q=_t(qt.q), scale=_t(qt.scale), bits=4)
+        out = tquant.qlinear(_t(x), tq, layer=1)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref, np.float32),
+                                   rtol=1e-2, atol=1e-2)
+        # and it is a different result from the bf16-activation route
+        ck.set_w4a8(False)
+        plain = tquant.qlinear(_t(x), tq, layer=1)
+        assert not torch.equal(out, plain)
+    finally:
+        ck.set_w4a8(None)
+        pk.set_kernels(None)
 
 
 def _int8_cache(r, nl, b, nk, s, h):

@@ -1,21 +1,32 @@
 """HTTP round trips through the unchanged C++ front-end (cpp/) into the
-PyTorch port's server (`gabby_tpu_torch.server.main --device cpu`, tiny
-preset, random weights). Skips where the native front-end cannot be built,
-as tests/test_server.py does."""
+PyTorch port's server (`gabby_tpu_torch.server.main --device cpu`): the
+tiny preset with random weights, and a `gabby-quant` checkpoint directory
+that `python -m gabby_tpu_torch.tools.quantize` wrote from an HF-layout
+directory, served with `--model-dir` and the fixture BPE tokenizer. Skips
+where the native front-end cannot be built, as tests/test_server.py does."""
 
+import contextlib
 import http.client
 import json
+import os
+import shutil
+import subprocess
+import sys
 import threading
 
 import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 CHAT = {"model": "tiny", "max_tokens": 5,
         "messages": [{"role": "system", "content": "s"},
                      {"role": "user", "content": "hello"}]}
 
 
-@pytest.fixture(scope="module")
-def port():
+@contextlib.contextmanager
+def _serving(argv):
+    """The port's server on a thread; yields the bound port."""
     try:
         from gabby_tpu_torch.bridge import build_native
         build_native()
@@ -30,10 +41,9 @@ def port():
         bound.append(p)
         ready.set()
 
-    argv = ["--preset", "tiny", "--random-weights", "--device", "cpu",
-            "--port", "0", "--slots", "2", "--max-seq", "128",
-            "--quant", "4", "--kv-quant", "--no-warmup", "--log-level", "0",
-            "--workers", "2"]
+    argv = argv + ["--device", "cpu", "--port", "0", "--slots", "2",
+                   "--max-seq", "128", "--kv-quant", "--no-warmup",
+                   "--log-level", "0", "--workers", "2"]
     th = threading.Thread(target=server.main, args=(argv,),
                           kwargs=dict(on_ready=on_ready, stop=stop),
                           daemon=True)
@@ -43,6 +53,126 @@ def port():
     stop.set()
     th.join(60)
     assert not th.is_alive()
+
+
+@pytest.fixture(scope="module")
+def port():
+    with _serving(["--preset", "tiny", "--random-weights",
+                   "--quant", "4"]) as p:
+        yield p
+
+
+def write_tiny_hf_dir(path) -> None:
+    """An HF-layout directory of the tiny model (seed-0 random weights,
+    bf16) whose tokenizer.json is the fixture BPE tokenizer: 859 ids with
+    the Llama-3 chat tokens, so vocab_size is 1024 and BOS/EOS are the
+    fixture's ids."""
+    from gabby_tpu_torch import config as cfglib
+    from gabby_tpu_torch import loader
+    from gabby_tpu_torch.models import llama
+
+    cfg = cfglib.tiny(vocab_size=1024, tie_word_embeddings=True,
+                      bos_token_id=853, eos_token_ids=(854, 857))
+    p = llama.init_params(cfg, dtype=torch.bfloat16, device="cpu")
+    os.makedirs(path)
+    names = {"self_attn.q_proj": "wq", "self_attn.k_proj": "wk",
+             "self_attn.v_proj": "wv", "self_attn.o_proj": "wo",
+             "mlp.gate_proj": "w_gate", "mlp.up_proj": "w_up",
+             "mlp.down_proj": "w_down"}
+    t = {"model.embed_tokens.weight": p["embed"],
+         "model.norm.weight": p["final_norm"]}
+    for layer in range(cfg.num_layers):
+        pre = f"model.layers.{layer}."
+        for hf, ours in names.items():
+            t[f"{pre}{hf}.weight"] = p["blocks"][ours][layer].T
+        t[pre + "input_layernorm.weight"] = p["blocks"]["attn_norm"][layer]
+        t[pre + "post_attention_layernorm.weight"] = \
+            p["blocks"]["mlp_norm"][layer]
+    loader.write_safetensors(os.path.join(path, "model.safetensors"), t)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"vocab_size": cfg.vocab_size,
+                   "hidden_size": cfg.hidden_size,
+                   "intermediate_size": cfg.intermediate_size,
+                   "num_hidden_layers": cfg.num_layers,
+                   "num_attention_heads": cfg.num_heads,
+                   "num_key_value_heads": cfg.num_kv_heads,
+                   "head_dim": cfg.head_dim, "rope_theta": cfg.rope_theta,
+                   "tie_word_embeddings": True, "bos_token_id": 0,
+                   "eos_token_id": 1}, f)
+    with open(os.path.join(path, "generation_config.json"), "w") as f:
+        json.dump({"bos_token_id": 853, "eos_token_id": [854, 857]}, f)
+    shutil.copy(os.path.join(REPO, "tests", "fixtures",
+                             "multilingual_tokenizer.json"),
+                os.path.join(path, "tokenizer.json"))
+
+
+@pytest.fixture(scope="module")
+def quantized_dir(tmp_path_factory):
+    """`python -m gabby_tpu_torch.tools.quantize` run as a user runs it."""
+    root = tmp_path_factory.mktemp("ckpt")
+    hf, out = str(root / "tiny-hf"), str(root / "tiny-int8")
+    write_tiny_hf_dir(hf)
+    run = subprocess.run(
+        [sys.executable, "-m", "gabby_tpu_torch.tools.quantize",
+         "--model-dir", hf, "--out", out, "--bits", "8", "--device", "cpu"],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr
+    assert f"wrote {out} (bits=8)" in run.stdout
+    return hf, out
+
+
+def test_tools_quantize_writes_a_standalone_directory(quantized_dir):
+    from gabby_tpu_torch import loader
+    _, out = quantized_dir
+    assert sorted(os.listdir(out)) == [
+        "config.json", "gabby.json", "generation_config.json",
+        "model.safetensors", "tokenizer.json"]
+    cfg, params, tok = loader.load_model_dir(out, device="cpu")
+    assert cfg.vocab_size == 1024 and cfg.eos_token_ids == (854, 857)
+    assert params["blocks"]["wq"].bits == 8
+    assert params["lm_head"].bits == 8 and params["lm_head"].q.dim() == 2
+    assert params["embed"].dtype == torch.bfloat16
+    assert tok.token_id("<|eot_id|>") == 857
+
+
+@pytest.mark.parametrize("kind", ["gabby-quant", "hf-quant-8", "hf-bf16"])
+def test_model_dir_serves_a_chat_completion(quantized_dir, kind):
+    hf, out = quantized_dir
+    argv = {"gabby-quant": ["--model-dir", out],
+            "hf-quant-8": ["--model-dir", hf, "--quant", "8"],
+            "hf-bf16": ["--model-dir", hf + "/"]}[kind]
+    with _serving(argv) as p:
+        status, body = _post(p, {**CHAT, "model": "m"})
+        assert status == 200, body
+        reply = json.loads(body)
+        # the model id is the directory's name
+        conn = http.client.HTTPConnection("127.0.0.1", p, timeout=120)
+        conn.request("GET", "/v1/models")
+        models = conn.getresponse().read().decode()
+        conn.close()
+        assert os.path.basename(argv[1].rstrip("/")) in models
+        choice = reply["choices"][0]
+        assert isinstance(choice["message"]["content"], str)
+        assert choice["finish_reason"] in ("stop", "length")
+        # the directory's BPE tokenizer is on the path
+        from gabby_tpu_torch.tokenizer import ChatFormat, Tokenizer
+        bpe = Tokenizer.from_file(os.path.join(out, "tokenizer.json"))
+        want = len(ChatFormat(bpe).prompt_ids(CHAT["messages"]))
+        assert reply["usage"]["prompt_tokens"] == want
+        assert want < len(ChatFormat(Tokenizer.byte_fallback(1024))
+                          .prompt_ids(CHAT["messages"]))
+        assert 0 < reply["usage"]["completion_tokens"] <= 5
+
+
+def test_model_dir_without_tokenizer_is_refused(quantized_dir, tmp_path):
+    from gabby_tpu_torch import server
+    _, out = quantized_dir
+    bare = tmp_path / "bare"
+    shutil.copytree(out, bare)
+    (bare / "tokenizer.json").unlink()
+    with pytest.raises(SystemExit, match="tokenizer.json"):
+        server._build_engine(server.build_parser().parse_args(
+            ["--model-dir", str(bare), "--device", "cpu"]))
 
 
 def _post(port, payload):
