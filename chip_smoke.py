@@ -8,9 +8,11 @@ a non-zero exit:
   1. card        the GPU's name and power limit (nvidia-smi);
   2. build       nvcc builds gabby_tpu_torch/csrc/*.cu (one process per
                  source, all started together);
-  3. kernels     each kernel (K1-K8) at the serving path's shapes for
+  3. kernels     each kernel (K1-K11) at the serving path's shapes for
                  Llama-3.2-1B (8 slots, context 1024; K4 at T=512, offset
-                 512; K7 at one 512-token chunk) against its plain PyTorch
+                 512; K7 at one 512-token chunk; K9 and K11 at a verify
+                 block of 8; K10 and K11 through a shuffled table of
+                 512-row pages) against its plain PyTorch
                  version on the same inputs (K8 also on its int32
                  accumulator, by equality), timed with CUDA events beside
                  the plain version, one PyTorch library call computing the
@@ -21,11 +23,21 @@ a non-zero exit:
   4. model       the 1B model's prefill + decode on the card (kernels)
                  against the same functions on the CPU (plain versions),
                  same weights: for the int4 tree, the loaded int8 tree, and
-                 the loaded int4 tree with both int4 switches on;
+                 the loaded int4 tree with both int4 switches on; and, on
+                 the card alone, one `verify_step` over [t0, d1 .. d7]
+                 against the eight sequential `decode_step`s the drafts
+                 came from, on the dense and on the paged cache, and the
+                 paged `decode_step` against the dense one;
   5. engine      Engine(batch_slots=8, max_seq=2048, int8 KV) serving 10
                  concurrent chat requests whose prompts hit every prefill
                  bucket and three multi-chunk ones, 32 new tokens each;
-                 K1-K4 must all launch during this run;
+                 K1-K4 must all launch during this run. Then the same ten
+                 requests three more times: with `speculate_tokens=7` on
+                 the dense cache (K9 must launch), with `paged_pages=33,
+                 page_size=512` and `speculate_tokens=7` (K11), and paged
+                 without speculation (K10); speculation is kept on
+                 (`spec_auto_breakeven=False, spec_breakeven=1.0`) and its
+                 tokens per verify step are printed;
   6. checkpoint  the same seed-0 weights written as an HF-layout directory
                  (bf16 safetensors, config.json, generation_config.json,
                  the BPE tokenizer of tests/fixtures) into a temporary
@@ -39,11 +51,13 @@ a non-zero exit:
                  directory with `w4a8` and `int4_prefill_kernel` on: K7, K8
                  and K6 must launch;
   8. http        `python -m gabby_tpu_torch.server` in its own process,
-                 once with random weights and once with `--model-dir <int8
-                 directory> --kv-quant`, one chat completion each through
+                 once with random weights, once with `--model-dir <int8
+                 directory> --kv-quant` and once with random weights and
+                 `--speculate 7 --paged-pages 33`, one chat completion each
+                 through
                  the C++ front-end, then SIGTERM, where cmake exists to
                  build it (else a skip line saying why);
-  9. summary     the kernels line (eight kernels), then
+  9. summary     the kernels line (eleven kernels), then
                  {"ok": true, "device": {...}} last.
 
 Weights are random (Llama-3.2-1B at full width and depth, seed 0). The
@@ -111,8 +125,9 @@ def bound(nbytes: float, ops: float,
 
 
 def kernel_phase(cfg, dev):
-    """K1-K8 at the 1B serving shapes against their plain versions."""
+    """K1-K11 at the 1B serving shapes against their plain versions."""
     from gabby_tpu_torch.ops.cuda import attention as cattn
+    from gabby_tpu_torch.ops.cuda import paged_attention as cpaged
     from gabby_tpu_torch.ops.cuda import prefill_attention as cpfa
     from gabby_tpu_torch.ops.cuda import quant_matmul as cqm
     from gabby_tpu_torch.ops.quant import unpack_int4
@@ -275,8 +290,8 @@ def kernel_phase(cfg, dev):
                      .bfloat16(), fv[:, :, None]], dim=2) for i in range(nl)]
     qt = q.transpose(1, 2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    nbytes = nl * (2 * b * nk * ctx * (h + 4) + 2 * b * nq * h * 2
-                   + 2 * b * nk * h * 2)
+    nbytes_decode = nl * (2 * b * nk * ctx * (h + 4) + 2 * b * nq * h * 2
+                          + 2 * b * nk * h * 2)
     flops = nl * 4 * b * nq * (ctx + 1) * h
     results.append(dict(
         name="decode_attention", shapes="16 layers x [8 slots, 32 q heads, "
@@ -291,7 +306,7 @@ def kernel_phase(cfg, dev):
             q, kc, vc, ks, vs, pos, layer=i, **kw) for i in range(nl)], 3),
         library_ms=time_ms(lambda: [sdpa(qt, kd[i], vd[i], enable_gqa=True)
                                     for i in range(nl)]),
-        **bound(nbytes, flops)))
+        **bound(nbytes_decode, flops)))
     del kd, vd
 
     # K4: one 512-token prefill chunk at offset 512 (16 launches)
@@ -335,6 +350,126 @@ def kernel_phase(cfg, dev):
                                          enable_gqa=True)
                                     for i in range(nl)], 3),
         **bound(nbytes, nl * 4 * nq * h * keys)))
+    del kd, vd
+
+    # K9: one verify step's 16 launches, a block of 8 (speculate 7) on all
+    # 8 slots at context 1024
+    tv = 8
+    qv = torch.randn((b, tv, nq, h), generator=g, device=dev).bfloat16()
+    fkv = torch.randn((b, nk, tv, h), generator=g, device=dev).bfloat16()
+    fvv = torch.randn((b, nk, tv, h), generator=g, device=dev).bfloat16()
+    kwv = dict(fresh_k=fkv, fresh_v=fvv)
+    err = check("verify_attention",
+                [cattn.verify_attention(qv, kc, vc, ks, vs, pos, layer=i,
+                                        window=2048, **kwv)
+                 for i in range(nl)],
+                [cattn.verify_attention_plain(qv, kc, vc, ks, vs, pos,
+                                              layer=i, **kwv)
+                 for i in range(nl)])
+    vmask = torch.cat([torch.ones((tv, ctx), dtype=torch.bool, device=dev),
+                       torch.ones((tv, tv), dtype=torch.bool,
+                                  device=dev).tril()], dim=1)
+
+    def dequantized(codes, scales, fresh):
+        """Rows j < ctx of a [B, Nk, S, H] int8 layer in bf16, then the
+        fresh rows: what the library call is given ready-made."""
+        return torch.cat([(codes[:, :, :ctx].float()
+                           * scales[:, :, :ctx, None]).bfloat16(), fresh],
+                         dim=2)
+
+    kd = [dequantized(kc[i], ks[i], fkv) for i in range(nl)]
+    vd = [dequantized(vc[i], vs[i], fvv) for i in range(nl)]
+    qtv = qv.transpose(1, 2)
+    # cache rows and scales once, q and the output, the fresh block
+    vbytes = nl * (2 * b * nk * ctx * (h + 4) + 2 * b * tv * nq * h * 2
+                   + 2 * b * nk * tv * h * 2)
+    vflops = nl * 4 * b * nq * h * (tv * ctx + tv * (tv + 1) // 2)
+    results.append(dict(
+        name="verify_attention", shapes="16 layers x [8 slots, block of 8, "
+        "32 q heads, 8 kv heads, context 1024, head 64], int8 cache of 2048 "
+        "rows", route="cuda",
+        source="gabby_tpu_torch/csrc/verify_attention.cu",
+        replaces="gabby_tpu/ops/pallas/attention.py:649",
+        max_abs_err=err,
+        ms=time_ms(lambda: [cattn.verify_attention(
+            qv, kc, vc, ks, vs, pos, layer=i, window=2048, **kwv)
+            for i in range(nl)]),
+        plain_ms=time_ms(lambda: [cattn.verify_attention_plain(
+            qv, kc, vc, ks, vs, pos, layer=i, **kwv) for i in range(nl)], 3),
+        library_ms=time_ms(lambda: [sdpa(qtv, kd[i], vd[i], attn_mask=vmask,
+                                         enable_gqa=True)
+                                    for i in range(nl)]),
+        **bound(vbytes, vflops)))
+    del kd, vd, kc, vc, ks, vs
+    torch.cuda.empty_cache()
+
+    # the paged pool of the paged engine runs: 33 pages of 512 rows (the
+    # dense cache's 32 plus the scratch page), each slot's four logical
+    # pages scattered over the pool by a shuffled table
+    page, npages = 512, 33
+    kp, kps = quantize_kv(torch.randn((npages, nl, nk, page, h), generator=g,
+                                      device=dev))
+    vp, vps = quantize_kv(torch.randn((npages, nl, nk, page, h), generator=g,
+                                      device=dev))
+    table = (torch.randperm(npages - 1, generator=g, device=dev) + 1
+             ).reshape(b, s // page).to(torch.int32).contiguous()
+    pool = (kp, vp, table, pos, kps, vps)
+    tbytes = nl * b * (s // page) * 4  # the table, read once a launch
+
+    def gathered(codes, scales, layer, fresh):
+        idx = table[:, :ctx // page].long()
+        rows = codes[:, layer][idx].movedim(1, 2).reshape(b, nk, ctx, h)
+        sc = scales[:, layer][idx].movedim(1, 2).reshape(b, nk, ctx)
+        return torch.cat([(rows.float() * sc[..., None]).bfloat16(), fresh],
+                         dim=2)
+
+    # K10: K3's work read through the table
+    err = check("paged_decode_attention",
+                [cpaged.paged_decode_attention(q, *pool, layer=i, **kw)
+                 for i in range(nl)],
+                [cpaged.paged_decode_attention_plain(q, *pool, layer=i, **kw)
+                 for i in range(nl)])
+    kd = [gathered(kp, kps, i, fk[:, :, None]) for i in range(nl)]
+    vd = [gathered(vp, vps, i, fv[:, :, None]) for i in range(nl)]
+    results.append(dict(
+        name="paged_decode_attention", shapes="16 layers x [8 slots, 32 q "
+        "heads, 8 kv heads, context 1024, head 64], int8 pool of 33 pages "
+        "of 512 rows, shuffled table", route="cuda",
+        source="gabby_tpu_torch/csrc/paged_attention.cu",
+        replaces="gabby_tpu/ops/pallas/attention.py:800",
+        max_abs_err=err,
+        ms=time_ms(lambda: [cpaged.paged_decode_attention(
+            q, *pool, layer=i, **kw) for i in range(nl)]),
+        plain_ms=time_ms(lambda: [cpaged.paged_decode_attention_plain(
+            q, *pool, layer=i, **kw) for i in range(nl)], 3),
+        library_ms=time_ms(lambda: [sdpa(qt, kd[i], vd[i], enable_gqa=True)
+                                    for i in range(nl)]),
+        **bound(nbytes_decode + tbytes, flops)))
+
+    # K11: K9's work read through the table
+    err = check("paged_verify_attention",
+                [cpaged.paged_verify_attention(qv, *pool, layer=i, **kwv)
+                 for i in range(nl)],
+                [cpaged.paged_verify_attention_plain(qv, *pool, layer=i,
+                                                     **kwv)
+                 for i in range(nl)])
+    kd = [gathered(kp, kps, i, fkv) for i in range(nl)]
+    vd = [gathered(vp, vps, i, fvv) for i in range(nl)]
+    results.append(dict(
+        name="paged_verify_attention", shapes="16 layers x [8 slots, block "
+        "of 8, 32 q heads, 8 kv heads, context 1024, head 64], int8 pool of "
+        "33 pages of 512 rows, shuffled table", route="cuda",
+        source="gabby_tpu_torch/csrc/paged_attention.cu",
+        replaces="gabby_tpu/ops/pallas/attention.py:842",
+        max_abs_err=err,
+        ms=time_ms(lambda: [cpaged.paged_verify_attention(
+            qv, *pool, layer=i, **kwv) for i in range(nl)]),
+        plain_ms=time_ms(lambda: [cpaged.paged_verify_attention_plain(
+            qv, *pool, layer=i, **kwv) for i in range(nl)], 3),
+        library_ms=time_ms(lambda: [sdpa(qtv, kd[i], vd[i], attn_mask=vmask,
+                                         enable_gqa=True)
+                                    for i in range(nl)]),
+        **bound(vbytes + tbytes, vflops)))
     for r in results:
         emit({"phase": "kernels", **r, "tol": TOL})
     return results
@@ -390,6 +525,89 @@ def model_phase(cfg, params, dev, label: str, tol: float = 0.05):
                              f"({worst}, {agree}/{steps} argmax)")
 
 
+def spec_paged_model_phase(cfg, params, dev, tol: float = 0.05):
+    """On the card: eight greedy `decode_step`s after a 16-token prefill,
+    on the dense cache (K3) and on the paged one (K10, pages of 512 rows
+    behind a scattered table); the paged logits must agree with the dense
+    ones. Then ONE `verify_step` over [t0, d1 .. d7], the tokens those
+    steps were fed, from the caches as the prefill left them, dense (K9)
+    and paged (K11): its eight logit rows must agree with the eight
+    sequential ones. `tol` bounds the largest logit difference relative to
+    the largest logit. The kernels reassociate sums and the verify matmuls
+    run at M = 16 instead of M = 2, so with random weights a greedy token
+    may differ where the two best logits are a near-tie: a step passes when
+    the argmax agrees or the token chosen is within 2 * tol of the best in
+    the sequential logits (each side may be off by tol)."""
+    import copy
+
+    from gabby_tpu_torch.models import llama
+    from gabby_tpu_torch.runtime.kv_cache import create_cache
+    from gabby_tpu_torch.runtime.paged import create_paged_cache
+
+    n, steps, page = 16, 8, 512
+    caches = {"dense": create_cache(cfg, 2, 2048, quantized=True,
+                                    device=dev),
+              "paged": create_paged_cache(cfg, 2, 2048, 9, quantized=True,
+                                          page_size=page, device=dev)}
+    caches["paged"].page_table.copy_(torch.tensor(
+        [[5, 2, 7, 1], [3, 8, 4, 6]], dtype=torch.int32))
+    ids = (torch.arange(n) * 7919 % 128000 + 100).to(dev)
+    first = {}
+    for kind, bucket in (("dense", n), ("paged", page)):
+        chunk = torch.zeros(bucket, dtype=torch.int64, device=dev)
+        chunk[:n] = ids
+        first[kind], _ = llama.prefill_slot(params, cfg, chunk, n, 0, 0,
+                                            caches[kind])
+    after_prefill = copy.deepcopy(caches)
+    # lane 1 is parked, as the engine parks a free slot
+    park = torch.tensor([0, 2047], dtype=torch.int32, device=dev)
+    read = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+    lane0 = torch.tensor([1, 0], dtype=torch.int32, device=dev)
+    fed = [int(first["dense"].argmax())]
+    seq = {"dense": [], "paged": []}
+    for step in range(steps):
+        tok = torch.tensor([fed[-1], 0], dtype=torch.int32, device=dev)
+        pos = park + lane0 * (n + step)
+        for kind in seq:
+            lg, _ = llama.decode_step(params, cfg, tok, pos, caches[kind],
+                                      attn_positions=read + lane0 * (n + step))
+            seq[kind].append(lg[0].float())
+        fed.append(int(seq["dense"][-1].argmax()))
+    tokens_bt = torch.tensor([fed[:steps], [0] * steps], dtype=torch.int32,
+                             device=dev)
+    pos0 = park + lane0 * n
+    ver = {}
+    for kind in seq:
+        lg, _ = llama.verify_step(params, cfg, tokens_bt, pos0,
+                                  after_prefill[kind],
+                                  attn_positions=read + lane0 * n)
+        ver[kind] = lg[0].float()
+    torch.cuda.synchronize()
+    want = torch.stack(seq["dense"])
+
+    def compare(what, got):
+        if got.shape != (steps, cfg.vocab_size) \
+                or not torch.isfinite(got).all():
+            raise AssertionError(f"model ({what}): bad logits")
+        top = want.abs().max()
+        worst = ((got - want).abs().max() / top).item()
+        chosen = got.argmax(-1, keepdim=True)
+        gap = (want.max(-1).values - want.gather(1, chosen)[:, 0]) / top
+        agree = int((gap == 0).sum())
+        ties = int(((gap > 0) & (gap <= 2 * tol)).sum())
+        emit({"phase": "model", "check": what, "steps": steps,
+              "argmax_agree": agree, "near_ties": ties,
+              "max_rel_logit_err": worst})
+        if worst > tol or agree + ties < steps:
+            raise AssertionError(f"model ({what}): disagrees with the dense "
+                                 f"sequential decode ({worst}, "
+                                 f"{agree}/{steps} argmax, {ties} near-ties)")
+
+    compare("paged decode_step vs dense", torch.stack(seq["paged"]))
+    compare("dense verify_step vs sequential decode", ver["dense"])
+    compare("paged verify_step vs sequential decode", ver["paged"])
+
+
 # chat prompts of the first engine run: content lengths in characters. A
 # chat prompt is its content plus 23 template tokens under the byte
 # tokenizer; the chunk schedules cover buckets 64, 256 and 512, multi-chunk
@@ -399,23 +617,25 @@ NEW_TOKENS = 32
 
 
 def engine_phase(cfg, params, tok, dev, gpu_line: str, label: str, *,
-                 prompt_lens=None, must_launch, buckets):
+                 prompt_lens=None, must_launch, buckets, **engine_kw):
     """Serves one batch of concurrent requests through the engine with the
     launch counts set to 0 just before and read just after. The prompts
     are chat messages (prompt_lens None: CONTENT_SIZES) or token ids of
-    the given lengths. Returns (counts, prompt lengths)."""
+    the given lengths; `engine_kw` are further EngineConfig fields.
+    Returns (counts, prompt lengths)."""
     from gabby_tpu_torch.ops import cuda as ck
     from gabby_tpu_torch.runtime.engine import Engine, EngineConfig
 
     eng = Engine(cfg, params, tok, EngineConfig(
-        batch_slots=8, max_seq=2048, kv_quantized=True), device=dev)
+        batch_slots=8, max_seq=2048, kv_quantized=True, **engine_kw),
+        device=dev)
     try:
         warm = eng.submit([{"role": "user", "content": "warm up"}],
                           max_tokens=4)
         while warm.out.get()[1] is None:
             pass
         ck.reset_launch_counts()
-        steps0 = eng.stats_snapshot()["decode_steps"]
+        stats0 = eng.stats_snapshot()
         t0 = time.perf_counter()
         if prompt_lens is None:
             reqs = [eng.submit(
@@ -460,12 +680,23 @@ def engine_phase(cfg, params, tok, dev, gpu_line: str, label: str, *,
                              f"buckets {seen}, wanted {buckets} and a "
                              f"multi-chunk admission")
     out_tokens = sum(r.completion_tokens for r in reqs)
-    emit({"phase": "engine", "weights": label, "requests": len(reqs),
-          "prompt_tokens": lens, "output_tokens": out_tokens,
-          "wall_s": wall, "output_tok_per_s": out_tokens / wall,
-          "p50_ttft_ms": stats.get("p50_ttft_ms"),
-          "decode_steps": stats["decode_steps"] - steps0,
-          "launches": counts, "card": gpu_line})
+    line = {"phase": "engine", "weights": label, "requests": len(reqs),
+            "prompt_tokens": lens, "output_tokens": out_tokens,
+            "wall_s": wall, "output_tok_per_s": out_tokens / wall,
+            "p50_ttft_ms": stats.get("p50_ttft_ms"),
+            "decode_steps": stats["decode_steps"] - stats0["decode_steps"],
+            "launches": counts, "card": gpu_line}
+    if engine_kw.get("speculate_tokens"):
+        # acceptance is reported, not asserted: random weights seldom
+        # repeat what the prompt repeats
+        macro = stats["spec_macro_steps"] - stats0["spec_macro_steps"]
+        emitted = stats["spec_tokens"] - stats0["spec_tokens"]
+        if not macro or not stats["spec_on"]:
+            raise AssertionError(f"engine ({label}): speculation did not "
+                                 f"stay on ({stats})")
+        line.update(spec_macro_steps=macro, spec_tokens=emitted,
+                    tokens_per_macro_step=emitted / macro)
+    emit(line)
     return counts, lens
 
 
@@ -693,6 +924,38 @@ def main() -> int:
         "int4, in memory", buckets=[16, 64, 256, 512],
         must_launch=["int4_matmul_stacked", "int4_matmul_grouped",
                      "decode_attention", "prefill_attention"])
+
+    # speculation and the paged cache on the same weights and the same ten
+    # requests. Random weights accept few drafts, so the acceptance probe
+    # would switch speculation off after 128 slot-macro-steps: the runs
+    # keep it on with a break-even of 1.0 and no timing probes
+    spec_paged_model_phase(cfg, params, dev)
+    byte_tok = Tokenizer.byte_fallback(cfg.vocab_size)
+    keep_spec = dict(speculate_tokens=7, spec_auto_breakeven=False,
+                     spec_breakeven=1.0)
+    paged = dict(paged_pages=33, page_size=512)
+    matmuls = ["int4_matmul_stacked", "int4_matmul_grouped",
+               "prefill_attention"]
+    counts_spec, _ = engine_phase(
+        cfg, params, byte_tok, dev, gpu_line, "int4, in memory; "
+        "speculate 7", buckets=[16, 64, 256, 512],
+        must_launch=matmuls + ["verify_attention"], **keep_spec)
+    counts_pspec, _ = engine_phase(
+        cfg, params, byte_tok, dev, gpu_line, "int4, in memory; 33 pages "
+        "of 512; speculate 7", buckets=[512],
+        must_launch=matmuls + ["paged_verify_attention"], **paged,
+        **keep_spec)
+    counts_paged, _ = engine_phase(
+        cfg, params, byte_tok, dev, gpu_line, "int4, in memory; 33 pages "
+        "of 512", buckets=[512],
+        must_launch=matmuls + ["paged_decode_attention"], **paged)
+    for name, got in (("decode_attention", counts_spec),
+                      ("decode_attention", counts_pspec),
+                      ("verify_attention", counts_pspec),
+                      ("decode_attention", counts_paged)):
+        if got[name]:
+            raise AssertionError(f"{name} launched on a path that is not "
+                                 f"its own: {got}")
     del params
     torch.cuda.empty_cache()
 
@@ -741,10 +1004,16 @@ def main() -> int:
         http_phase("random int4", ["--preset", "llama32_1b",
                                    "--random-weights", "--quant", "4"])
         http_phase("int8 checkpoint", ["--model-dir", dirs[8]])
+        http_phase("random int4, speculate 7, 33 pages",
+                   ["--preset", "llama32_1b", "--random-weights", "--quant",
+                    "4", "--speculate", "7", "--paged-pages", "33"])
 
     # each kernel's launches come from the run of the path that is its own
     own = {"int8_matmul_stacked": counts8, "int8_matmul": counts8,
-           "int4_matmul": counts4, "int4_matmul_w4a8_stacked": counts4}
+           "int4_matmul": counts4, "int4_matmul_w4a8_stacked": counts4,
+           "verify_attention": counts_spec,
+           "paged_verify_attention": counts_pspec,
+           "paged_decode_attention": counts_paged}
     for k in kernels:
         k["launches"] = own.get(k["name"], counts)[k["name"]]
         if k["launches"] == 0:

@@ -6,8 +6,9 @@
   offset: no layer is ever sliced or copied out of a stack.
 * Params are a plain dict of tensors; quantized leaves are ops/quant.QTensor
   and `linear()` dispatches on the leaf type.
-* The KV cache is updated IN PLACE, layer by layer, right after that
-  layer's attention has read it. The reference instead collects every
+* The KV cache (dense KVCache or PagedKVCache; `decode_step`,
+  `prefill_slot` and `verify_step` dispatch on its type) is updated IN
+  PLACE, layer by layer, right after that layer's attention has read it. The reference instead collects every
   layer's new rows and writes them once after the scan (in-place writes
   inside the scan made XLA copy the cache); the read contract is the same
   either way — attention sees cache rows j < position plus the current
@@ -28,12 +29,16 @@ from gabby_tpu_torch.config import ModelConfig
 from gabby_tpu_torch.ops.attention import (cache_attention,
                                            cache_attention_quantized,
                                            causal_attention,
-                                           slot_prefill_attention)
+                                           paged_attention,
+                                           slot_prefill_attention,
+                                           verify_attention)
 from gabby_tpu_torch.ops.linear import linear
 from gabby_tpu_torch.ops.norms import rms_norm
 from gabby_tpu_torch.ops.quant import QTensor
 from gabby_tpu_torch.ops.rope import apply_rope, rope_inv_freq
 from gabby_tpu_torch.runtime.kv_cache import KVCache, quantize_kv
+from gabby_tpu_torch.runtime.paged import (PagedKVCache, gather_slot_rows,
+                                           write_rows, write_slot_chunk)
 
 Params = dict[str, Any]
 
@@ -206,6 +211,9 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     window: upper bound on every slot's live context (attention reads at
     most `window` rows). Returns (f32 logits [B, V], cache updated in place).
     """
+    if isinstance(cache, PagedKVCache):
+        return _decode_step_paged(params, cfg, tokens, positions, cache,
+                                  attn_positions=attn_positions)
     b = tokens.shape[0]
     read_pos = (positions if attn_positions is None
                 else attn_positions).to(torch.int32)
@@ -240,9 +248,45 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     return _unembed(params, cfg, h)[:, 0], cache
 
 
+def _quantized_rows(cache, k: torch.Tensor, v: torch.Tensor):
+    """The rows to store for fresh k/v [..., H]: int8 codes and f32 scales
+    for a quantized cache, else the cache's dtype and no scales."""
+    if cache.quantized:
+        k_codes, k_s = quantize_kv(k)
+        v_codes, v_s = quantize_kv(v)
+        return k_codes, v_codes, k_s, v_s
+    return k.to(cache.k.dtype), v.to(cache.v.dtype), None, None
+
+
+def _decode_step_paged(params: Params, cfg: ModelConfig,
+                       tokens: torch.Tensor, positions: torch.Tensor,
+                       cache: PagedKVCache, *,
+                       attn_positions: Optional[torch.Tensor] = None
+                       ) -> tuple[torch.Tensor, PagedKVCache]:
+    """decode_step against a paged pool: attention reads each slot's rows
+    through the page table (K10 over int8 pools), and each layer's fresh
+    row is written through the table after that layer's attention. A lane
+    whose position is frozen at max_seq writes to the scratch page."""
+    read_pos = (positions if attn_positions is None
+                else attn_positions).to(torch.int32)
+    h = params["embed"][tokens[:, None].long()]  # [B, 1, D]
+    blocks = params["blocks"]
+    for layer in range(cfg.num_layers):
+        xn = rms_norm(h, blocks["attn_norm"][layer], cfg.rms_norm_eps)
+        q, k, v = _qkv(cfg, blocks, xn, positions[:, None], layer)
+        attn = paged_attention(
+            q, cache.k, cache.v, cache.page_table, read_pos, cache.k_scale,
+            cache.v_scale, layer=layer, fresh_k=k[:, 0].contiguous(),
+            fresh_v=v[:, 0].contiguous())
+        write_rows(cache, positions[:, None], *_quantized_rows(cache, k, v),
+                   layer=layer)
+        h = _block_tail(cfg, blocks, h, attn, layer)
+    return _unembed(params, cfg, h)[:, 0], cache
+
+
 def prefill_slot(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                  length: int, slot: int, offset: int,
-                 cache: KVCache) -> tuple[torch.Tensor, KVCache]:
+                 cache) -> tuple[torch.Tensor, KVCache]:
     """Prefill ONE cache slot with a (padded) chunk of prompt tokens.
 
     tokens: [T] int, valid in [:length]; the chunk sits at global positions
@@ -251,6 +295,9 @@ def prefill_slot(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     chunk's rows (padding included, as in the reference) are written after
     each layer's attention. Returns (f32 logits [V] at the last valid
     token, cache updated in place)."""
+    if isinstance(cache, PagedKVCache):
+        return _prefill_slot_paged(params, cfg, tokens, length, slot, offset,
+                                   cache)
     t = tokens.shape[0]
     if offset + t > cache.max_seq:
         raise ValueError(f"chunk [{offset}, {offset + t}) overruns the "
@@ -284,3 +331,127 @@ def prefill_slot(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     # unembed only the last valid position (one row, not T)
     logits = _unembed(params, cfg, h[:, length - 1:length])[0, 0]
     return logits, cache
+
+
+def _prefill_slot_paged(params: Params, cfg: ModelConfig,
+                        tokens: torch.Tensor, length: int, slot: int,
+                        offset: int, cache: PagedKVCache
+                        ) -> tuple[torch.Tensor, PagedKVCache]:
+    """prefill_slot against a paged pool. Per layer, the slot's pages below
+    `offset` are gathered into a dense one-slot view (a per-chunk cost on
+    the order of the rows attention reads anyway), the chunk runs the dense
+    slot-prefill attention over it (K4 over int8 pools), and the chunk's
+    rows land with one page-granular write per pool. Chunk length and
+    offset must be page-aligned (the engine's paged bucket ladder)."""
+    t = tokens.shape[0]
+    ps = cache.page_size
+    if offset % ps or t % ps or offset + t > cache.max_seq:
+        raise ValueError(f"chunk [{offset}, {offset + t}) must be aligned to "
+                         f"the page size {ps} and fit {cache.max_seq} rows")
+    positions = offset + torch.arange(t, device=tokens.device)
+    h = params["embed"][tokens[None, :].long()]  # [1, T, D]
+    blocks = params["blocks"]
+    past = max(offset, ps)  # at least one page: the view is never empty
+    for layer in range(cfg.num_layers):
+        xn = rms_norm(h, blocks["attn_norm"][layer], cfg.rms_norm_eps)
+        q, k, v = _qkv(cfg, blocks, xn, positions[None, :], layer)
+        kt = k[0].transpose(0, 1).contiguous()  # [Nk, T, H]
+        vt = v[0].transpose(0, 1).contiguous()
+        gk, gv, gks, gvs = gather_slot_rows(cache, slot, past, layer=layer)
+        if cache.quantized:
+            gks, gvs = gks[None, None], gvs[None, None]
+        attn = slot_prefill_attention(
+            q, gk[None, None], gv[None, None], 0, offset, gks, gvs,
+            fresh_k=kt, fresh_v=vt, layer=0)
+        write_slot_chunk(cache, slot, offset, *_quantized_rows(cache, kt, vt),
+                         layer=layer)
+        h = _block_tail(cfg, blocks, h, attn, layer)
+    logits = _unembed(params, cfg, h[:, length - 1:length])[0, 0]
+    return logits, cache
+
+
+def verify_step(params: Params, cfg: ModelConfig, tokens_bt: torch.Tensor,
+                positions0: torch.Tensor, cache, *,
+                window: Optional[int] = None,
+                attn_positions: Optional[torch.Tensor] = None
+                ) -> tuple[torch.Tensor, KVCache]:
+    """Speculative-decoding verify pass: score T candidate tokens per slot
+    in ONE forward (the weights stream once for T positions).
+
+    tokens_bt: [B, T]; tokens_bt[:, 0] is each slot's CURRENT token (at
+    cache position positions0[b]), columns 1.. are draft tokens for the
+    following positions. Queries attend cache rows j < positions0[b] (or
+    attn_positions[b]) plus the T-token block itself causally at full
+    precision. Returns (f32 logits [B, T, V], cache with row i of the block
+    written at positions0[b] + i).
+
+    No rollback is needed: rows written for rejected drafts sit at positions
+    the slot has not reached, and are overwritten before anything reads
+    them. Near the cap a row at position >= max_seq is not written: the
+    block's rows are gathered so that every write past the cap repeats the
+    row that belongs at max_seq - 1, which leaves earlier rows untouched
+    (a lane whose position is frozen at max_seq rewrites row max_seq - 1,
+    as in `decode_step`)."""
+    if isinstance(cache, PagedKVCache):
+        return _verify_step_paged(params, cfg, tokens_bt, positions0, cache,
+                                  attn_positions=attn_positions)
+    b, t = tokens_bt.shape
+    dev = tokens_bt.device
+    read_pos = (positions0 if attn_positions is None
+                else attn_positions).to(torch.int32)
+    steps = torch.arange(t, device=dev)
+    positions = positions0[:, None] + steps  # [B, T]
+    last = cache.max_seq - 1
+    src = torch.clamp(torch.minimum(steps[None, :],
+                                    last - positions0[:, None].long()), min=0)
+    rows = torch.clamp(positions0[:, None].long() + src, max=last)  # [B, T]
+    lanes = torch.arange(b, device=dev)[:, None]
+    h = params["embed"][tokens_bt.long()]  # [B, T, D]
+    blocks = params["blocks"]
+    for layer in range(cfg.num_layers):
+        xn = rms_norm(h, blocks["attn_norm"][layer], cfg.rms_norm_eps)
+        q, k, v = _qkv(cfg, blocks, xn, positions, layer)
+        attn = verify_attention(
+            q, cache.k, cache.v, read_pos, cache.k_scale, cache.v_scale,
+            layer=layer, fresh_k=k.transpose(1, 2).contiguous(),
+            fresh_v=v.transpose(1, 2).contiguous(), window=window)
+        kr, vr, k_s, v_s = _quantized_rows(cache, k[lanes, src],
+                                           v[lanes, src])
+        cache.k[layer][lanes, :, rows] = kr
+        cache.v[layer][lanes, :, rows] = vr
+        if cache.quantized:
+            cache.k_scale[layer][lanes, :, rows] = k_s
+            cache.v_scale[layer][lanes, :, rows] = v_s
+        h = _block_tail(cfg, blocks, h, attn, layer)
+    return _unembed(params, cfg, h), cache
+
+
+def _verify_step_paged(params: Params, cfg: ModelConfig,
+                       tokens_bt: torch.Tensor, positions0: torch.Tensor,
+                       cache: PagedKVCache, *,
+                       attn_positions: Optional[torch.Tensor] = None
+                       ) -> tuple[torch.Tensor, PagedKVCache]:
+    """verify_step against the paged pool: attention through the page table
+    (K11 over int8 pools); the block's rows land row by row through the
+    table (a T-row block may straddle a page boundary), rows at positions
+    >= max_seq or past the slot's allocation on the scratch page. The
+    engine provisions pages to the verify horizon before each call."""
+    t = tokens_bt.shape[1]
+    read_pos = (positions0 if attn_positions is None
+                else attn_positions).to(torch.int32)
+    positions = positions0[:, None] + torch.arange(t,
+                                                   device=tokens_bt.device)
+    h = params["embed"][tokens_bt.long()]  # [B, T, D]
+    blocks = params["blocks"]
+    for layer in range(cfg.num_layers):
+        xn = rms_norm(h, blocks["attn_norm"][layer], cfg.rms_norm_eps)
+        q, k, v = _qkv(cfg, blocks, xn, positions, layer)
+        attn = paged_attention(
+            q, cache.k, cache.v, cache.page_table, read_pos, cache.k_scale,
+            cache.v_scale, layer=layer,
+            fresh_k=k.transpose(1, 2).contiguous(),
+            fresh_v=v.transpose(1, 2).contiguous())
+        write_rows(cache, positions, *_quantized_rows(cache, k, v),
+                   layer=layer)
+        h = _block_tail(cfg, blocks, h, attn, layer)
+    return _unembed(params, cfg, h), cache

@@ -1,11 +1,14 @@
 """Grouped-query attention contracts (counterpart of gabby_tpu/ops/attention.py).
 
 The plain PyTorch bodies here are the semantics the kernels are held to.
-`cache_attention_quantized` (decode, fresh-row form) and
-`slot_prefill_attention` (chunked prefill, fresh-block form) over an int8
-cache dispatch to their CUDA kernels (ops/cuda/attention.py K3,
-ops/cuda/prefill_attention.py K4), which take these plain bodies for CPU
-tensors. Math runs in f32; outputs return in q's dtype.
+`cache_attention_quantized` (decode, fresh-row form),
+`slot_prefill_attention` (chunked prefill, fresh-block form),
+`verify_attention` (speculative verify, T candidate positions per slot) and
+`paged_attention` (decode and verify against the paged pool) over an int8
+cache dispatch to their CUDA kernels (ops/cuda/attention.py K3 and K9,
+ops/cuda/prefill_attention.py K4, ops/cuda/paged_attention.py K10 and K11),
+which take these plain bodies for CPU tensors. Math runs in f32; outputs
+return in q's dtype.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from typing import Optional
 import torch
 
 from gabby_tpu_torch.ops.cuda import attention as cattn
+from gabby_tpu_torch.ops.cuda import paged_attention as cpaged
 from gabby_tpu_torch.ops.cuda import prefill_attention as cpfa
 from gabby_tpu_torch.runtime.kv_cache import dequantize_kv
 
@@ -161,3 +165,133 @@ def slot_prefill_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return slot_prefill_reference(q, k_cache, v_cache, slot, offset,
                                   k_scale, v_scale, fresh_k=fresh_k,
                                   fresh_v=fresh_v, layer=layer, scale=scale)
+
+
+def verify_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
+                               v_cache: torch.Tensor,
+                               positions: torch.Tensor, k_scale=None,
+                               v_scale=None, *, layer: Optional[int] = None,
+                               fresh_k: torch.Tensor, fresh_v: torch.Tensor,
+                               scale: Optional[float] = None) -> torch.Tensor:
+    """Speculative-verify contract: q [B, T, Nq, H], the T candidate
+    positions of every slot, attends cache rows j < positions[b] (cache
+    [(L,) B, Nk, S, H], dequantized when scales are given) for every query,
+    plus the block's own unquantized k/v (fresh_k/v [B, Nk, T, H]) causally.
+    Returns [B, T, Nq, H] in q's dtype."""
+    if layer is not None:
+        k_cache, v_cache = k_cache[layer], v_cache[layer]
+        if k_scale is not None:
+            k_scale, v_scale = k_scale[layer], v_scale[layer]
+    if k_scale is not None:
+        kk = dequantize_kv(k_cache, k_scale, q.dtype)
+        vv = dequantize_kv(v_cache, v_scale, q.dtype)
+    else:
+        kk, vv = k_cache.to(q.dtype), v_cache.to(q.dtype)
+    b, t, _, h = q.shape
+    s = kk.shape[2]
+    sc = h ** -0.5 if scale is None else scale
+    kk = torch.cat([kk, fresh_k.to(q.dtype)], dim=2).transpose(1, 2)
+    vv = torch.cat([vv, fresh_v.to(q.dtype)], dim=2).transpose(1, 2)
+    dev = q.device
+    past = (torch.arange(s, device=dev)[None, None, :]
+            < positions[:, None, None]).expand(b, t, s)
+    causal = (torch.arange(t, device=dev)[None, :]
+              <= torch.arange(t, device=dev)[:, None]).expand(b, t, t)
+    mask = torch.cat([past, causal], dim=2)  # [B, T, S+T]
+    return _gqa_core(_split_groups(q, fresh_k.shape[1]), kk, vv, mask,
+                     sc).to(q.dtype)
+
+
+def verify_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, positions: torch.Tensor,
+                     k_scale=None, v_scale=None, *, layer: int,
+                     fresh_k: torch.Tensor, fresh_v: torch.Tensor,
+                     scale: Optional[float] = None,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """Verify attention against the stacked dense cache [L, B, Nk, S, H].
+    Over an int8 cache that is the serving path, which goes to the
+    flash-verify kernel (K9); it reads rows j < min(positions[b], window)."""
+    if k_scale is not None:
+        return cattn.verify_attention(q, k_cache, v_cache, k_scale, v_scale,
+                                      positions, layer=layer,
+                                      fresh_k=fresh_k, fresh_v=fresh_v,
+                                      scale=scale, window=window)
+    return verify_attention_reference(q, k_cache, v_cache, positions,
+                                      layer=layer, fresh_k=fresh_k,
+                                      fresh_v=fresh_v, scale=scale)
+
+
+def gather_pages(pool: torch.Tensor, page_table: torch.Tensor,
+                 layer: int) -> torch.Tensor:
+    """One layer of a paged pool [P, L, Nk, page, *] gathered through
+    page_table [B, max_pages] into the dense view [B, Nk, max_pages * page,
+    *] (a copy: the contracts and the tests use it, the kernels do not)."""
+    g = pool[:, layer][page_table.long()]  # [B, mp, Nk, page, *]
+    g = g.movedim(1, 2)                    # [B, Nk, mp, page, *]
+    return g.reshape(g.shape[0], g.shape[1], -1, *g.shape[4:])
+
+
+def _gather_layer(k_pool, v_pool, page_table, k_scale, v_scale, layer):
+    kk = gather_pages(k_pool, page_table, layer)
+    vv = gather_pages(v_pool, page_table, layer)
+    if k_scale is None:
+        return kk, vv, None, None
+    return (kk, vv, gather_pages(k_scale, page_table, layer),
+            gather_pages(v_scale, page_table, layer))
+
+
+def paged_cache_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                          v_pool: torch.Tensor, page_table: torch.Tensor,
+                          positions: torch.Tensor, k_scale=None, v_scale=None,
+                          *, layer: int, fresh_k: torch.Tensor,
+                          fresh_v: torch.Tensor,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """Decode contract against a paged pool: q [B, 1, Nq, H]; k/v_pool
+    [P, L, Nk, page, H] (+ scale pools [P, L, Nk, page] when int8);
+    page_table [B, max_pages] int32. The layer's pages are gathered through
+    the table, then the dense fresh-row contract applies: rows
+    j < positions[b] plus the current token's unquantized fresh_k/v
+    [B, Nk, H]."""
+    kk, vv, ks, vs = _gather_layer(k_pool, v_pool, page_table, k_scale,
+                                   v_scale, layer)
+    if ks is not None:
+        kk = dequantize_kv(kk, ks, q.dtype)
+        vv = dequantize_kv(vv, vs, q.dtype)
+    return cache_attention(q, kk, vv, positions, scale=scale,
+                           fresh_k=fresh_k, fresh_v=fresh_v)
+
+
+def paged_verify_reference(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, page_table: torch.Tensor,
+                           positions: torch.Tensor, k_scale=None,
+                           v_scale=None, *, layer: int,
+                           fresh_k: torch.Tensor, fresh_v: torch.Tensor,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """Verify contract against a paged pool: the layer's pages gathered
+    through the table, then `verify_attention_reference`."""
+    kk, vv, ks, vs = _gather_layer(k_pool, v_pool, page_table, k_scale,
+                                   v_scale, layer)
+    return verify_attention_reference(q, kk, vv, positions, ks, vs,
+                                      fresh_k=fresh_k, fresh_v=fresh_v,
+                                      scale=scale)
+
+
+def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                    v_pool: torch.Tensor, page_table: torch.Tensor,
+                    positions: torch.Tensor, k_scale=None, v_scale=None, *,
+                    layer: int, fresh_k: torch.Tensor, fresh_v: torch.Tensor,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Attention of q [B, T, Nq, H] against the paged pool: decode (T = 1,
+    fresh_k/v [B, Nk, H]) or verify (T > 1, fresh_k/v [B, Nk, T, H]). Over
+    int8 pools that is the serving path, which goes to the paged kernels
+    (K10, K11): they read the page table themselves."""
+    t = q.shape[1]
+    args = (q, k_pool, v_pool, page_table, positions, k_scale, v_scale)
+    kw = dict(layer=layer, fresh_k=fresh_k, fresh_v=fresh_v, scale=scale)
+    if k_scale is not None:
+        if t == 1:
+            return cpaged.paged_decode_attention(*args, **kw)
+        return cpaged.paged_verify_attention(*args, **kw)
+    if t == 1:
+        return paged_cache_attention(*args, **kw)
+    return paged_verify_reference(*args, **kw)

@@ -1,6 +1,7 @@
 """Hand-written Hopper kernels of the serving path and their wrappers.
 
-Each wrapper module (quant_matmul, attention, prefill_attention) holds the
+Each wrapper module (quant_matmul, attention, prefill_attention,
+paged_attention) holds the
 kernel's plain PyTorch version beside it. A wrapper takes the plain version
 ONLY for CPU tensors; for CUDA tensors it launches its kernel (built from
 gabby_tpu_torch/csrc by `build.py` at first use) or raises. Each launch adds
@@ -22,6 +23,9 @@ launch_counts: dict[str, int] = {
     "int8_matmul": 0,
     "int4_matmul": 0,
     "int4_matmul_w4a8_stacked": 0,
+    "verify_attention": 0,
+    "paged_decode_attention": 0,
+    "paged_verify_attention": 0,
 }
 
 

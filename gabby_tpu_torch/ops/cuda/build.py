@@ -132,6 +132,13 @@ _SIGNATURES = {
     # q, k, v, k_scale, v_scale (layer + slot offset), fresh_k, fresh_v,
     # out; T, Nq, Nk, S, H, offset; sm_scale; stream
     "gabby_prefill_attention": [_P] * 8 + [_I] * 6 + [_F, _P],
+    # q, k, v, k_scale, v_scale (layer offset), fresh_k, fresh_v,
+    # positions, out; B, T, Nq, Nk, S, H, limit; sm_scale; stream
+    "gabby_verify_attention": [_P] * 9 + [_I] * 7 + [_F, _P],
+    # q, k, v, k_scale, v_scale (whole pools), page table, fresh_k,
+    # fresh_v, positions, out; B, T, Nq, Nk, L, layer, page, max_pages, H;
+    # sm_scale; stream
+    "gabby_paged_attention": [_P] * 10 + [_I] * 9 + [_F, _P],
 }
 
 

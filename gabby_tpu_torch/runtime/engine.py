@@ -13,12 +13,21 @@ gabby_tpu/runtime/engine.py).
 * Decode runs bursts of `steps_per_call` steps (`steps_per_call_busy`
   while an admission is in flight) in generate.decode_loop; tokens stream
   back between bursts through one host fetch each.
+* `speculate_tokens > 0` runs the bursts in generate.spec_decode_loop
+  instead: n-gram drafts from each slot's own history, verified in one
+  forward per macro-step. The engine measures what a macro-step yields
+  and costs, switches speculation off when it does not pay, and re-probes
+  later.
+* `paged_pages > 0` swaps the dense cache for a shared pool of pages
+  (runtime/paged.py): the host-side allocator backs each slot's rows on
+  demand, before every prefill chunk and every burst, and takes the pages
+  back when the request finishes.
 
 Not yet ported from the reference engine (a request or config that asks
 for them is refused, never silently ignored): burst admission, prefix KV
-reuse, penalties and logit_bias, logprobs/top_logprobs, per-request seed,
-speculative decoding, paged caches, paired kv heads, multi-host serving
-and pipelined fetches.
+reuse (dense row copies and paged page adoption), penalties and
+logit_bias, logprobs/top_logprobs, per-request seed, paired kv heads,
+multi-host serving and pipelined fetches.
 """
 
 from __future__ import annotations
@@ -27,6 +36,8 @@ import codecs
 import collections
 import dataclasses
 import queue
+import statistics
+import sys
 import threading
 import time
 import traceback
@@ -40,6 +51,7 @@ from gabby_tpu_torch.config import ModelConfig
 from gabby_tpu_torch.ops import sampling
 from gabby_tpu_torch.runtime import generate
 from gabby_tpu_torch.runtime.kv_cache import create_cache
+from gabby_tpu_torch.runtime.paged import PageAllocator, create_paged_cache
 from gabby_tpu_torch.tokenizer import ChatFormat, Tokenizer
 
 # chunk-length ladder for slot prefill: smallest bucket >= remaining,
@@ -51,6 +63,10 @@ class RequestError(ValueError):
     """Client-caused request rejection; maps to HTTP 400 at the API layer."""
 
     status = 400
+
+
+class PoolExhausted(RuntimeError):
+    """The paged pool cannot back an admission's next chunk."""
 
 
 @dataclasses.dataclass
@@ -71,6 +87,28 @@ class EngineConfig:
     default_top_p: float = 1.0
     kv_quantized: bool = False
     cache_dtype: str = "bfloat16"
+    # Paged KV cache (runtime/paged.py): > 0 switches the cache to a shared
+    # pool of this many pages of page_size rows (one of them the scratch
+    # page). Capacity then follows the tokens in use instead of
+    # slots x max_seq. 0 = dense per-slot cache.
+    paged_pages: int = 0
+    page_size: int = 512
+    # Speculative decoding (generate.spec_decode_loop): > 0 verifies up to
+    # this many n-gram prompt-lookup drafts per forward for GREEDY slots.
+    # Switches itself off when the measured acceptance does not pay for
+    # the wider verify pass. 0 = off.
+    speculate_tokens: int = 0
+    # tokens per verify macro-step below which speculation loses: the
+    # prior until the engine has measured its own ratio
+    spec_breakeven: float = 1.2
+    # measure the break-even instead of trusting the prior: the engine
+    # times its plain and verify bursts and uses median(verify s/step) /
+    # median(plain s/step) once both windows hold 8 samples; the derived
+    # value surfaces as stats["spec_breakeven_derived"]
+    spec_auto_breakeven: bool = True
+    # when > 0, a disabled engine re-probes speculation after this many
+    # plain decode steps (workloads shift); 0 = off for the engine's life
+    spec_reprobe_steps: int = 8192
     # waiting requests are admitted shortest prompt first; the oldest
     # waiter goes first once it has waited spf_age_limit seconds
     spf_age_limit: float = 5.0
@@ -149,12 +187,42 @@ class Engine:
             raise ValueError(
                 f"max_seq={econfig.max_seq} must be a multiple of "
                 f"{PREFILL_BUCKETS[0]} (the prefill bucket grid)")
+        if not 0 <= econfig.speculate_tokens <= 15:
+            # the verify block is draft + 1 rows: at most 16
+            raise ValueError("speculate_tokens must be in [0, 15]")
         b = econfig.batch_slots
         dev = self.device
-        self._cache = create_cache(cfg, b, econfig.max_seq,
-                                   dtype=getattr(torch, econfig.cache_dtype),
-                                   quantized=econfig.kv_quantized,
-                                   device=dev)
+        self._paged = econfig.paged_pages > 0
+        if self._paged:
+            ps = econfig.page_size
+            if econfig.max_seq % ps:
+                raise ValueError(f"max_seq must be a multiple of "
+                                 f"page_size={ps} in paged mode")
+            if dev.type == "cuda" and econfig.kv_quantized and ps % 32:
+                raise ValueError(f"page_size={ps}: the paged attention "
+                                 f"kernels take pages of a multiple of 32 "
+                                 f"rows")
+            self._cache = create_paged_cache(
+                cfg, b, econfig.max_seq, econfig.paged_pages,
+                dtype=getattr(torch, econfig.cache_dtype),
+                quantized=econfig.kv_quantized, page_size=ps, device=dev)
+            self._alloc = PageAllocator(econfig.paged_pages)
+            # physical page 0 is the permanent SCRATCH page: table entries
+            # past a slot's allocation point at it, so parked-position
+            # writes and dead-entry reads never touch a live page
+            if self._alloc.alloc(1) != [0]:
+                raise ValueError("paged_pages must be at least 1")
+            self._slot_pages: list[list[int]] = [[] for _ in range(b)]
+            self._pt_host = np.zeros((b, econfig.max_seq // ps), np.int32)
+            # paged chunk writes are page-granular: buckets sit on the
+            # page grid
+            self._buckets = tuple(sorted({ps, max(ps, 512)}))
+        else:
+            self._cache = create_cache(
+                cfg, b, econfig.max_seq,
+                dtype=getattr(torch, econfig.cache_dtype),
+                quantized=econfig.kv_quantized, device=dev)
+            self._buckets = PREFILL_BUCKETS
         stop = stop_ids if stop_ids is not None else self.chat.stop_ids()
         self._stop_set = {int(s) for s in stop}
         self._eos_ids = torch.tensor(sorted(self._stop_set),
@@ -169,8 +237,28 @@ class Engine:
                                      device=dev)
         self._active = torch.zeros(b, dtype=torch.bool, device=dev)
         self._sstate = generate.SamplingState.greedy(b, dev, econfig.seed)
+        # per-slot token history: the n-gram speculation corpus (the prompt
+        # placed at admission, generated tokens appended on the device)
+        self._history = torch.zeros((b, econfig.max_seq), dtype=torch.int32,
+                                    device=dev)
+        self._spec_enabled = econfig.speculate_tokens > 0
+        # the acceptance probe's window start (spec_macro_steps,
+        # spec_tokens) and, while disabled, the decode_steps count at the
+        # disable (the re-probe timer)
+        self._spec_probe_base = (0, 0)
+        self._spec_off_since: Optional[int] = None
+        # measured wall seconds per step of plain and verify bursts, for
+        # the auto break-even: rolling, so the ratio stays current
+        self._plain_step_s: "collections.deque[float]" = \
+            collections.deque(maxlen=32)
+        self._spec_step_s: "collections.deque[float]" = \
+            collections.deque(maxlen=32)
+        self._plain_probe_ctr = 0
 
         self._slots: list[Optional[_Slot]] = [None] * b
+        # the slot mid-prefill (-1: none): free in `_slots`, yet its pages
+        # are live
+        self._admitting_slot = -1
         self._queue: "queue.Queue[Request]" = queue.Queue()
         self._backlog: list[Request] = []
         self._wake = threading.Event()
@@ -179,7 +267,12 @@ class Engine:
         self._fail_msg: Optional[str] = None
         self._lock = threading.Lock()
         self.stats = {"requests": 0, "completion_tokens": 0,
-                      "prompt_tokens": 0, "decode_steps": 0}
+                      "prompt_tokens": 0, "decode_steps": 0,
+                      "spec_macro_steps": 0, "spec_tokens": 0,
+                      # gauge: is speculation on now (1/0), and how often
+                      # the acceptance probe switched it off
+                      "spec_on": int(self._spec_enabled),
+                      "spec_disables": 0}
         self._ttfts: list[float] = []
         self._spans: "collections.deque[dict]" = collections.deque(maxlen=32)
         self._thread = threading.Thread(target=self._loop_guarded,
@@ -275,16 +368,19 @@ class Engine:
         """Dress-rehearse serving before real traffic: one solo request,
         then a concurrent wave whose prompt lengths cover the bucket ladder
         and one multi-chunk prompt. Rehearsal requests are internal (kept
-        out of the stats). Raises if any rehearsal request fails. Returns
-        seconds elapsed."""
+        out of the stats). Raises if any rehearsal request fails. The
+        speculation state is restored afterwards: synthetic prompts would
+        otherwise feed the acceptance probe and could switch speculation
+        off for real traffic. Returns seconds elapsed."""
         t0 = time.monotonic()
         ec = self.ec
+        spec_was = self._spec_enabled
         gen = max(4, min(max(ec.steps_per_call, ec.steps_per_call_busy) + 2,
                          ec.max_seq // 4))
         limit = max(1, ec.max_seq - 1 - gen)
-        lens = sorted({min(b, limit) for b in PREFILL_BUCKETS})
-        if PREFILL_BUCKETS[-1] + PREFILL_BUCKETS[0] <= limit:
-            lens.append(PREFILL_BUCKETS[-1] + PREFILL_BUCKETS[0])
+        lens = sorted({min(b, limit) for b in self._buckets})
+        if self._buckets[-1] + self._buckets[0] <= limit:
+            lens.append(self._buckets[-1] + self._buckets[0])
         vocab = max(2, self.cfg.vocab_size - 2)
         errs: list[str] = []
 
@@ -310,6 +406,15 @@ class Engine:
         if errs:
             raise RuntimeError(f"warmup rehearsal failed ({len(errs)} "
                                f"request(s); first: {errs[0]})")
+        # the rehearsal's token streams are no evidence about real traffic,
+        # and its first bursts' wall times no evidence about steady state
+        self._spec_enabled = spec_was
+        if spec_was:
+            self._spec_off_since = None
+        with self._lock:
+            self.stats["spec_on"] = int(spec_was)
+        self._plain_step_s.clear()
+        self._spec_step_s.clear()
         return time.monotonic() - t0
 
     def cancel(self, req: Request) -> None:
@@ -340,12 +445,72 @@ class Engine:
 
     def _next_bucket(self, remaining: int, offset: int) -> int:
         """Smallest bucket >= remaining that fits before max_seq, else the
-        largest that fits (the prompt continues in later chunks)."""
+        largest that fits (the prompt continues in later chunks). Paged
+        mode uses a page-aligned ladder."""
         room = self.ec.max_seq - offset
-        for bkt in PREFILL_BUCKETS:
+        for bkt in self._buckets:
             if remaining <= bkt <= room:
                 return bkt
-        return max(b for b in PREFILL_BUCKETS if b <= room)
+        return max(b for b in self._buckets if b <= room)
+
+    def _attn_window(self, steps: int) -> Optional[int]:
+        """Bound on every live slot's furthest read in a burst of `steps`
+        steps: the smallest power of two from 1024 up that covers it,
+        capped at max_seq. Under speculation each macro-step may advance a
+        slot by the whole verify block. None for the paged cache, whose
+        kernels are bounded by the page table."""
+        if self._paged:
+            return None
+        live = [s.prompt_len + len(s.request.token_ids)
+                for s in self._slots if s is not None]
+        if not live:
+            return None
+        span = (self.ec.speculate_tokens + 1) if self._spec_enabled else 1
+        need = max(live) + steps * span + 2
+        w = 1024
+        while w < need:
+            w *= 2
+        return min(w, self.ec.max_seq)
+
+    # ---- paged-pool bookkeeping (self._paged only) ----
+
+    def _push_page_table(self) -> None:
+        self._cache.page_table.copy_(torch.from_numpy(self._pt_host))
+
+    def _release_slot_pages(self, slot_ix: int) -> None:
+        """Give the slot's pages back; its table row points at the scratch
+        page again."""
+        if self._slot_pages[slot_ix]:
+            self._alloc.release(self._slot_pages[slot_ix])
+            self._slot_pages[slot_ix] = []
+            self._pt_host[slot_ix, :] = 0
+            self._push_page_table()
+
+    def _evict_idle_pages(self, keep: int = -1) -> None:
+        """Pool pressure relief: free the pages still held by FREE slots.
+        Live slots and the slot being admitted are never touched."""
+        for i, s in enumerate(self._slots):
+            if (s is None and i not in (keep, self._admitting_slot)
+                    and self._slot_pages[i]):
+                self._release_slot_pages(i)
+
+    def _ensure_pages(self, slot_ix: int, upto_row: int) -> bool:
+        """Back rows [0, upto_row) of the slot with physical pages."""
+        ps = self.ec.page_size
+        need = (min(upto_row, self.ec.max_seq) + ps - 1) // ps
+        cur = len(self._slot_pages[slot_ix])
+        if need <= cur:
+            return True
+        got = self._alloc.alloc(need - cur)
+        if got is None:
+            self._evict_idle_pages(keep=slot_ix)
+            got = self._alloc.alloc(need - cur)
+            if got is None:
+                return False
+        self._slot_pages[slot_ix].extend(got)
+        self._pt_host[slot_ix, cur:need] = got
+        self._push_page_table()
+        return True
 
     def _chunk_schedule(self, n: int) -> tuple:
         """The (offset, bucket) chunks a prompt of n tokens prefills through."""
@@ -411,6 +576,9 @@ class Engine:
         remaining = len(adm.ids) - adm.offset
         bucket = self._next_bucket(remaining, adm.offset)
         take = min(bucket, remaining)
+        if self._paged and not self._ensure_pages(adm.slot_ix,
+                                                  adm.offset + bucket):
+            raise PoolExhausted("kv page pool exhausted")
         chunk = np.zeros((bucket,), np.int64)
         chunk[:take] = adm.ids[adm.offset:adm.offset + take]
         adm.last_logits, self._cache = generate.prefill_slot(
@@ -420,13 +588,25 @@ class Engine:
         adm.offset += take
         return adm.offset >= len(adm.ids)
 
+    def _drop_admission(self, adm: _Admission, msg: str) -> None:
+        """End an admission that will not become a live slot: its request
+        hears `msg`, and the pages its chunks took go back to the pool."""
+        adm.req.out.put((None, msg))
+        if self._paged:
+            self._release_slot_pages(adm.slot_ix)
+
     def _finish_admission(self, adm: _Admission) -> None:
         """Activate the prefilled slot; its first token is sampled on the
         device and reaches the host with the next burst's fetch."""
         req, n = adm.req, len(adm.ids)
+        padded = np.zeros((self.ec.max_seq,), np.int32)
+        padded[:n] = adm.ids
+        generate.write_history(self._history, adm.slot_ix,
+                               torch.from_numpy(padded).to(self.device), n)
         generate.admit_slot(adm.last_logits, adm.slot_ix, n, req.temperature,
                             req.top_k, req.top_p, self._tokens,
-                            self._positions, self._active, self._sstate)
+                            self._positions, self._active, self._sstate,
+                            history=self._history)
         self._slots[adm.slot_ix] = _Slot(request=req, prompt_len=n)
         with self._lock:
             req.first_token_ts = time.monotonic()
@@ -510,6 +690,8 @@ class Engine:
         # hears of the finish
         self._active[slot_ix] = False
         self._positions[slot_ix] = self._park
+        if self._paged:
+            self._release_slot_pages(slot_ix)
         req.out.put((tail or None, reason))
 
     # ---- the loop ----
@@ -555,7 +737,7 @@ class Engine:
                 self._finish(i, "deadline")
         self._drain_ingress()
         if admitting is not None and admitting.req.cancelled:
-            admitting.req.out.put((None, "cancelled"))
+            self._drop_admission(admitting, "cancelled")
             admitting = None
         if admitting is None:
             free = [i for i, s in enumerate(self._slots) if s is None]
@@ -571,11 +753,14 @@ class Engine:
                 if self._prefill_one_chunk(admitting):
                     self._finish_admission(admitting)
                     admitting = None
-            except (ValueError, IndexError, KeyError) as e:
+            except (ValueError, IndexError, KeyError, PoolExhausted) as e:
                 # a request the model cannot take (e.g. a token id outside
-                # the vocab): fail it alone, keep serving the rest
-                admitting.req.out.put((None, f"error: {e}"))
+                # the vocab) or the pool cannot back: fail it alone, keep
+                # serving the rest
+                self._drop_admission(admitting, f"error: {e}")
                 admitting = None
+        self._admitting_slot = (admitting.slot_ix if admitting is not None
+                                else -1)
         if not any(s is not None for s in self._slots):
             return busy, admitting
 
@@ -588,21 +773,69 @@ class Engine:
                          for s in self._slots if s is not None]
             tgt = max(1, min(steps, min(remaining)))
             steps = 1 << (tgt.bit_length() - 1)
+        if self._paged:
+            # back every live slot's rows past this burst's furthest
+            # possible write (a verify macro-step writes its whole block,
+            # which extends past the last accepted position); a slot the
+            # pool cannot back finishes now, its text so far delivered
+            span = ((self.ec.speculate_tokens + 1) if self._spec_enabled
+                    else 1)
+            for i, s in enumerate(self._slots):
+                if s is None:
+                    continue
+                horizon = (s.prompt_len + len(s.request.token_ids)
+                           + steps * span + span + 1)
+                if not self._ensure_pages(i, horizon):
+                    self._finish(i, "length")
+            if not any(s is not None for s in self._slots):
+                return True, admitting
         pre_tokens = self._tokens
-        out_tokens, out_active, self._tokens, self._positions, \
-            self._active = generate.decode_loop(
-                self.params, self.cfg, self._tokens, self._positions,
-                self._active, self._cache, self._sstate, steps,
-                eos_ids=self._eos_ids)
-        with self._lock:
-            self.stats["decode_steps"] += steps
+        window = self._attn_window(steps)
         first_slots = [i for i, s in enumerate(self._slots)
                        if s is not None and s.first_pending]
-        # ONE host transfer per burst
-        packed = generate.pack_host_view(out_tokens, out_active,
-                                         self._active, pre_tokens).cpu()
-        self._process_burst(packed.numpy(), steps, first_slots)
+        t_call = time.perf_counter()
+        if self._spec_enabled and not self._probe_plain_now():
+            dl = self.ec.speculate_tokens
+            out_em, out_n, self._tokens, self._positions, self._active = \
+                generate.spec_decode_loop(
+                    self.params, self.cfg, self._tokens, self._positions,
+                    self._active, self._cache, self._sstate, self._history,
+                    steps, dl, self._eos_ids, window=window)
+            # ONE host transfer per burst; it also ends the timed window
+            packed = generate.pack_spec_host_view(
+                out_em, out_n, self._active, pre_tokens).cpu().numpy()
+            self._spec_step_s.append((time.perf_counter() - t_call) / steps)
+            self._process_spec_burst(packed, steps, dl + 1, first_slots)
+            self._maybe_disable_spec()
+        else:
+            out_tokens, out_active, self._tokens, self._positions, \
+                self._active = generate.decode_loop(
+                    self.params, self.cfg, self._tokens, self._positions,
+                    self._active, self._cache, self._sstate, steps,
+                    eos_ids=self._eos_ids, window=window)
+            with self._lock:
+                self.stats["decode_steps"] += steps
+            packed = generate.pack_host_view(out_tokens, out_active,
+                                             self._active, pre_tokens).cpu()
+            self._plain_step_s.append((time.perf_counter() - t_call) / steps)
+            self._process_burst(packed.numpy(), steps, first_slots)
+            self._maybe_reprobe_spec()
         return True, admitting
+
+    def _emit_first_tokens(self, first_slots: list[int],
+                           first_toks: np.ndarray) -> None:
+        """First tokens of fresh admissions come before the burst's own."""
+        for slot_ix in first_slots:
+            slot = self._slots[slot_ix]
+            if slot is not None and slot.first_pending:
+                slot.first_pending = False
+                self._emit_token(slot_ix, int(first_toks[slot_ix]))
+
+    def _finish_stopped_lanes(self, active_host: np.ndarray) -> None:
+        """A lane the device stopped without an EOS hit the cache capacity."""
+        for slot_ix, slot in enumerate(self._slots):
+            if slot is not None and not active_host[slot_ix]:
+                self._finish(slot_ix, "length")
 
     def _process_burst(self, packed: np.ndarray, steps: int,
                        first_slots: list[int]) -> None:
@@ -611,21 +844,106 @@ class Engine:
         toks = packed[:kb].reshape(steps, b)
         emitted = packed[kb:2 * kb].reshape(steps, b) != 0
         active_host = packed[2 * kb:2 * kb + b] != 0
-        first_toks = packed[2 * kb + b:2 * kb + 2 * b]
-        # first tokens of fresh admissions come before this burst's tokens
-        for slot_ix in first_slots:
-            slot = self._slots[slot_ix]
-            if slot is not None and slot.first_pending:
-                slot.first_pending = False
-                self._emit_token(slot_ix, int(first_toks[slot_ix]))
+        self._emit_first_tokens(first_slots,
+                                packed[2 * kb + b:2 * kb + 2 * b])
         for step in range(steps):
             for slot_ix in range(b):
                 if emitted[step, slot_ix]:
                     self._emit_token(slot_ix, int(toks[step, slot_ix]))
-        # a lane the device stopped without an EOS hit the cache capacity
-        for slot_ix, slot in enumerate(self._slots):
-            if slot is not None and not active_host[slot_ix]:
-                self._finish(slot_ix, "length")
+        self._finish_stopped_lanes(active_host)
+
+    def _process_spec_burst(self, packed: np.ndarray, steps: int, t_blk: int,
+                            first_slots: list[int]) -> None:
+        """Host bookkeeping of one speculative burst: candidate tokens
+        [K, B, T] of which the first counts[k, b] were emitted."""
+        b = len(self._slots)
+        kbt, kb = steps * b * t_blk, steps * b
+        em = packed[:kbt].reshape(steps, b, t_blk)
+        counts = packed[kbt:kbt + kb].reshape(steps, b)
+        active_host = packed[kbt + kb:kbt + kb + b] != 0
+        with self._lock:
+            self.stats["decode_steps"] += steps
+            self.stats["spec_macro_steps"] += int(np.sum(counts > 0))
+            self.stats["spec_tokens"] += int(np.sum(counts))
+        self._emit_first_tokens(first_slots,
+                                packed[kbt + kb + b:kbt + kb + 2 * b])
+        for step in range(steps):
+            for slot_ix in range(b):
+                for t in range(int(counts[step, slot_ix])):
+                    if self._slots[slot_ix] is None:
+                        break  # finished mid-block (max_tokens, stop string)
+                    self._emit_token(slot_ix, int(em[step, slot_ix, t]))
+        self._finish_stopped_lanes(active_host)
+
+    # ---- speculation economics ----
+
+    def _probe_plain_now(self) -> bool:
+        """spec_auto_breakeven needs PLAIN-burst wall samples, but with
+        speculation on every burst takes the speculative branch: until the
+        plain window holds 8 samples every 16th burst runs plain, and after
+        that every 128th still does, so the denominator follows the current
+        batch occupancy. Output-safe: the two loops are interchangeable per
+        burst."""
+        if not self.ec.spec_auto_breakeven:
+            return False
+        self._plain_probe_ctr += 1
+        period = 16 if len(self._plain_step_s) < 8 else 128
+        return self._plain_probe_ctr % period == 0
+
+    def _spec_breakeven_now(self) -> float:
+        """The break-even in force: the measured verify/plain per-step cost
+        ratio once both rolling windows hold 8 samples (spec_auto_breakeven),
+        else the configured prior."""
+        if (not self.ec.spec_auto_breakeven
+                or len(self._plain_step_s) < 8
+                or len(self._spec_step_s) < 8):
+            return self.ec.spec_breakeven
+        plain = statistics.median(self._plain_step_s)
+        if plain <= 0:
+            return self.ec.spec_breakeven
+        return max(1.0, statistics.median(self._spec_step_s) / plain)
+
+    def _maybe_disable_spec(self) -> None:
+        """Speculation must PAY for its wider verify pass: if the measured
+        tokens per macro-step stay below the break-even over a fair sample
+        of 128 slot-macro-steps, fall back to the plain decode loop. With
+        spec_reprobe_steps > 0 the engine re-probes later; 0 keeps the
+        disable for the engine's life."""
+        breakeven = self._spec_breakeven_now()
+        with self._lock:
+            ms = self.stats["spec_macro_steps"] - self._spec_probe_base[0]
+            tk = self.stats["spec_tokens"] - self._spec_probe_base[1]
+            self.stats["spec_breakeven_derived"] = round(breakeven, 3)
+        if ms >= 128 and tk < breakeven * ms:
+            self._spec_enabled = False
+            with self._lock:
+                self._spec_off_since = self.stats["decode_steps"]
+                self.stats["spec_on"] = 0
+                self.stats["spec_disables"] += 1
+            print(f"[engine] speculation disabled: acceptance "
+                  f"{tk / max(ms, 1):.2f} tokens/verify over {ms} steps "
+                  f"(break-even {breakeven:.2f})", file=sys.stderr,
+                  flush=True)
+
+    def _maybe_reprobe_spec(self) -> None:
+        """Re-enable a disabled speculation for another acceptance sample
+        once enough plain decode steps have passed (spec_reprobe_steps)."""
+        if (self._spec_enabled or self.ec.speculate_tokens <= 0
+                or self.ec.spec_reprobe_steps <= 0
+                or self._spec_off_since is None):
+            return
+        with self._lock:
+            steps_off = self.stats["decode_steps"] - self._spec_off_since
+            base = (self.stats["spec_macro_steps"],
+                    self.stats["spec_tokens"])
+        if steps_off >= self.ec.spec_reprobe_steps:
+            self._spec_probe_base = base
+            self._spec_off_since = None
+            self._spec_enabled = True
+            with self._lock:
+                self.stats["spec_on"] = 1
+            print(f"[engine] speculation re-probe after {steps_off} plain "
+                  f"steps", file=sys.stderr, flush=True)
 
     def _loop(self) -> None:
         admitting: Optional[_Admission] = None
@@ -635,7 +953,7 @@ class Engine:
                 self._wake.wait(timeout=0.05)
                 self._wake.clear()
         if admitting is not None:
-            admitting.req.out.put((None, "abort"))
+            self._drop_admission(admitting, "abort")
         for slot_ix in range(len(self._slots)):
             if self._slots[slot_ix] is not None:
                 self._finish(slot_ix, "abort")

@@ -5,7 +5,9 @@
 the sampled token feeds the next step there and EOS is detected there, so
 the host pays ONE fetch per burst (`pack_host_view`), not one per token.
 Dead lanes (finished or empty slots) keep shapes static and read one cache
-row.
+row. `spec_decode_loop` is the speculative form: each macro-step drafts
+from the slot's own token history and verifies the drafts in one forward.
+The cache (dense or paged) is updated in place by the model steps.
 """
 
 from __future__ import annotations
@@ -79,6 +81,127 @@ def decode_loop(params, cfg: ModelConfig, tokens: torch.Tensor,
             positions, active)
 
 
+def spec_decode_loop(params, cfg: ModelConfig, tokens: torch.Tensor,
+                     positions: torch.Tensor, active: torch.Tensor, cache,
+                     sstate: SamplingState, history: torch.Tensor,
+                     num_steps: int, draft_len: int, eos_ids: torch.Tensor,
+                     window: Optional[int] = None):
+    """Speculative decode: `num_steps` MACRO-steps, each verifying up to
+    `draft_len` n-gram drafts in one forward (llama.verify_step), so one
+    weight stream can yield several tokens.
+
+    Drafting is prompt-lookup (no draft model): find the most recent
+    occurrence of the slot's current bigram in its own token `history`
+    [B, S] and propose the tokens that followed it. Greedy slots only:
+    acceptance compares drafts against the exact argmax, so in exact
+    arithmetic the emitted stream equals plain decode's. Sampled
+    (temperature > 0) lanes draft nothing and behave like decode_loop.
+
+    Returns (out_tokens [K, B, draft_len + 1], out_counts [K, B] — tokens
+    emitted per slot per macro-step, 0 for inactive lanes — and the final
+    tokens, positions, active). The cache and `history` are updated in
+    place."""
+    max_seq = cache.max_seq
+    d = draft_len
+    t_blk = d + 1
+    b, s_hist = history.shape
+    dev = tokens.device
+    j = torch.arange(s_hist - 1, device=dev)
+    tpos = torch.arange(t_blk, device=dev)[None, :]
+    darange = torch.arange(d, device=dev)[None, :]
+    greedy = sstate.temperature <= 0.0
+    one = torch.ones_like(positions)
+    out_em, out_n = [], []
+    for _ in range(num_steps):
+        pos = positions.long()
+        # ---- draft: most recent bigram match in the slot's own history
+        prev = torch.gather(history, 1,
+                            torch.clamp(pos - 1, min=0)[:, None])[:, 0]
+        matches = ((history[:, :-1] == prev[:, None])
+                   & (history[:, 1:] == tokens[:, None])
+                   & (j[None, :] + 1 < pos[:, None])
+                   & (pos[:, None] > 0))
+        jstar = torch.argmax(torch.where(matches, j[None, :], -1), dim=1)
+        found = matches.any(dim=1)
+        # near the window end a slot stops DRAFTING (the extra block rows
+        # would cross max_seq) but still emits single tokens to the same
+        # cache-capacity bound as decode_loop
+        cap_ok = pos + t_blk <= max_seq
+        # draft tokens = history[jstar + 2 ..], only as far as KNOWN history
+        navail = torch.clamp(pos - (jstar + 1), 0, d)
+        count = torch.where(found & active & cap_ok & greedy, navail,
+                            torch.zeros_like(navail))
+        didx = torch.clamp(jstar[:, None] + 2 + darange, 0, s_hist - 1)
+        draft = torch.gather(history, 1, didx)  # [B, d]
+
+        # ---- verify all candidates in one forward
+        tokens_bt = torch.cat([tokens[:, None], draft], dim=1)
+        read_pos = torch.where(active, positions, one)
+        logits_bt, cache = llama.verify_step(params, cfg, tokens_bt,
+                                             positions, cache, window=window,
+                                             attn_positions=read_pos)
+        pred = torch.argmax(logits_bt, dim=-1).to(torch.int32)  # [B, T]
+        # sampled lanes: token 0 via the full sampler (their count is 0)
+        em0 = sampling.sample(logits_bt[:, 0], sstate.generator,
+                              temperature=sstate.temperature,
+                              top_k=sstate.top_k, top_p=sstate.top_p)
+        em = torch.cat([em0[:, None].to(torch.int32), pred[:, 1:]], dim=1)
+
+        # accepted drafts: the longest prefix where each draft equals the
+        # argmax the verify computed for the PRECEDING position
+        okd = (draft == pred[:, :-1]) & (darange < count[:, None])
+        acc = torch.cumprod(okd.long(), dim=1).sum(dim=1)
+        n_emit = torch.where(active, acc + 1, torch.zeros_like(acc))
+        # clamp to capacity FIRST (decode_loop's bound), so an EOS beyond
+        # the clamp does not read as "stop"; then cut at the first EOS
+        n_emit = torch.minimum(n_emit, torch.clamp(max_seq - pos, min=0))
+        is_eos = torch.isin(em, eos_ids)
+        eos_pos = torch.where(is_eos, tpos, t_blk).min(dim=1).values
+        hit_eos = eos_pos < n_emit
+        n_emit = torch.minimum(n_emit, eos_pos + 1)
+
+        last_ix = torch.clamp(n_emit - 1, min=0)
+        new_tok = torch.where(n_emit > 0,
+                              torch.gather(em, 1, last_ix[:, None])[:, 0],
+                              tokens)
+        new_pos = pos + n_emit
+        # append the emitted tokens to history (rows past the new position
+        # are untrusted and excluded by the search's position bound)
+        upd_idx = torch.clamp(pos[:, None] + 1 + tpos, 0, s_hist - 1)
+        keep = tpos < n_emit[:, None]
+        history.scatter_(1, upd_idx,
+                         torch.where(keep, em,
+                                     torch.gather(history, 1, upd_idx)))
+        out_em.append(em)
+        out_n.append(n_emit)
+        active = active & ~hit_eos & (new_pos < max_seq)
+        tokens = new_tok
+        positions = new_pos.to(positions.dtype)
+    return (torch.stack(out_em), torch.stack(out_n), tokens, positions,
+            active)
+
+
+def write_history(history: torch.Tensor, row: int, ids: torch.Tensor,
+                  length: int) -> None:
+    """Admission time: place a slot's prompt ids (padded to the history's
+    width) at history[row], in place; entries past `length` are zeroed so
+    stale tokens cannot fake n-gram matches."""
+    history[row] = ids.to(history.dtype)
+    history[row, length:] = 0
+
+
+def pack_spec_host_view(out_tokens: torch.Tensor, out_counts: torch.Tensor,
+                        active: torch.Tensor,
+                        pre_tokens: torch.Tensor) -> torch.Tensor:
+    """Packs a speculative burst's host feedback — candidate tokens
+    [K, B, T], tokens emitted per slot per macro-step [K, B], final slot
+    liveness [B], and the pre-burst tokens [B] — into one int32 vector,
+    fetched with one transfer."""
+    return torch.cat([out_tokens.reshape(-1).to(torch.int32),
+                      out_counts.reshape(-1).to(torch.int32),
+                      active.to(torch.int32), pre_tokens.to(torch.int32)])
+
+
 def token_logprob(logits: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """log P(ids) under softmax(logits). logits [..., V] f32, ids [...]."""
     lse = torch.logsumexp(logits, dim=-1)
@@ -99,7 +222,7 @@ def pack_host_view(out_tokens: torch.Tensor, out_active: torch.Tensor,
 
 
 def prefill_slot(params, cfg: ModelConfig, tokens: torch.Tensor, length: int,
-                 slot: int, offset: int, cache: KVCache):
+                 slot: int, offset: int, cache):
     """Single-slot chunked prefill: a [T]-bucket chunk into cache row `slot`
     at `offset`. Returns (last-valid logits [V], cache)."""
     return llama.prefill_slot(params, cfg, tokens, length, slot, offset,
@@ -109,10 +232,14 @@ def prefill_slot(params, cfg: ModelConfig, tokens: torch.Tensor, length: int,
 def admit_slot(logits: torch.Tensor, slot: int, prompt_len: int,
                temperature: float, top_k: int, top_p: float,
                tokens: torch.Tensor, positions: torch.Tensor,
-               active: torch.Tensor, sstate: SamplingState) -> None:
+               active: torch.Tensor, sstate: SamplingState,
+               history: Optional[torch.Tensor] = None) -> None:
     """Finalizes an admission ON THE DEVICE: samples the first token from
     the prefill logits with the request's parameters and writes the slot's
-    state in place (the token reaches the host in the next packed fetch)."""
+    state in place (the token reaches the host in the next packed fetch).
+    With `history` (the n-gram speculation corpus, whose prompt part
+    `write_history` placed) the first token is recorded at
+    history[slot, prompt_len]."""
     dev = logits.device
     first = sampling.sample(
         logits[None, :], sstate.generator,
@@ -126,3 +253,5 @@ def admit_slot(logits: torch.Tensor, slot: int, prompt_len: int,
     sstate.temperature[slot] = temperature
     sstate.top_k[slot] = top_k
     sstate.top_p[slot] = top_p
+    if history is not None:
+        history[slot, min(prompt_len, history.shape[1] - 1)] = first[0]

@@ -12,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from gabby_tpu_torch import resolve_device
@@ -50,6 +51,19 @@ def create_cache(cfg: ModelConfig, batch: int, max_seq: int,
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
                    v=torch.zeros(shape, dtype=dtype, device=dev),
                    k_scale=None, v_scale=None)
+
+
+def cache_from_numpy(k, v, k_scale=None, v_scale=None,
+                     device=None) -> KVCache:
+    """Carry a dense cache across from numpy arrays (k, v and, when int8,
+    their scales), keeping their types."""
+    dev = resolve_device(device)
+
+    def leaf(a):
+        return None if a is None else torch.from_numpy(np.array(a)).to(dev)
+
+    return KVCache(k=leaf(k), v=leaf(v), k_scale=leaf(k_scale),
+                   v_scale=leaf(v_scale))
 
 
 def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

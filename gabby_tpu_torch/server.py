@@ -3,9 +3,10 @@
 The C++ HTTP front-end (cpp/, via gabby_tpu_torch.bridge) serving OpenAI
 chat completions, backed by the PyTorch continuous-batching engine. The
 flags are the reference server's (gabby_tpu/server.py) plus `--device`
-(default cuda). Flags of features not yet ported (paged caches,
-speculation, meshes, multi-host, fp8 activations, paired kv heads, ...)
-are accepted by the parser and refused with "not yet ported" when set.
+(default cuda). Flags of features not yet ported (paired kv heads, fp8
+activations, the int8 prefill shadow, meshes, multi-host, pipelined
+fetches, sequence-parallel prefill, the profiler port) are accepted by the
+parser and refused with "not yet ported" when set.
 
 Examples:
   python -m gabby_tpu_torch.tools.quantize --model-dir ~/hf/Llama-3.2-1B \\
@@ -14,6 +15,8 @@ Examples:
   python -m gabby_tpu_torch.server --model-dir ~/hf/Llama-3.2-1B --quant 8
   python -m gabby_tpu_torch.server --preset llama32_1b --random-weights \\
       --quant 4 --kv-quant
+  python -m gabby_tpu_torch.server --preset llama32_1b --random-weights \\
+      --quant 4 --kv-quant --speculate 7 --paged-pages 33 --page-size 512
   python -m gabby_tpu_torch.server --preset tiny --random-weights \\
       --device cpu --port 0
 """
@@ -32,9 +35,9 @@ import torch
 from gabby_tpu_torch.runtime.engine import RequestError
 
 # flag dest -> the value that means "feature off"
-_NOT_PORTED = {"act_fp8": False, "tp": 1, "dp": 1, "paged_pages": 0,
+_NOT_PORTED = {"act_fp8": False, "tp": 1, "dp": 1,
                "prefill_int8_shadow": False, "pair_kv": None,
-               "sp_ring": False, "pipeline_fetch": False, "speculate": 0,
+               "sp_ring": False, "pipeline_fetch": False,
                "coordinator": "", "profiler_port": 0}
 
 
@@ -82,7 +85,10 @@ def _build_engine(args):
         steps_per_call=args.steps_per_call,
         steps_per_call_busy=args.steps_per_call_busy,
         default_max_tokens=args.max_tokens, kv_quantized=args.kv_quant,
-        cache_dtype="float32" if dtype == torch.float32 else "bfloat16")
+        cache_dtype="float32" if dtype == torch.float32 else "bfloat16",
+        paged_pages=args.paged_pages, page_size=args.page_size,
+        speculate_tokens=args.speculate, spec_breakeven=args.spec_breakeven,
+        spec_reprobe_steps=args.spec_reprobe_steps)
     return Engine(cfg, params, tokenizer, econfig, device=device), cfg
 
 
@@ -202,22 +208,35 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--warmup", action=argparse.BooleanOptionalAction,
                    default=True,
                    help="rehearse the engine before /readyz reports ready")
-    # the reference server's flags of features not yet ported: accepted
-    # so scripts written for it parse, refused when set
+    p.add_argument("--paged-pages", type=int, default=0,
+                   help="> 0: paged KV cache with this many pool pages "
+                        "(one of them the scratch page) instead of the "
+                        "dense slots x max-seq cache")
+    p.add_argument("--page-size", type=int, default=512,
+                   help="rows per KV page (a multiple of 32 on the GPU)")
+    p.add_argument("--speculate", type=int, default=0,
+                   help="> 0: n-gram speculative decoding with this many "
+                        "draft tokens per step (greedy requests only)")
+    p.add_argument("--spec-breakeven", type=float, default=1.2,
+                   help="tokens per verify step below which speculation "
+                        "is switched off (the prior until the engine has "
+                        "measured its own ratio)")
+    p.add_argument("--spec-reprobe-steps", type=int, default=8192,
+                   help="re-probe a disabled speculation after this many "
+                        "plain decode steps (0 = stay off)")
+    # the reference server's flags of features not yet ported (paired kv
+    # heads, fp8 activations, the int8 prefill shadow, meshes, multi-host,
+    # pipelined fetches, sequence-parallel prefill, the profiler port):
+    # accepted so scripts written for it parse, refused when set
     p.add_argument("--act-fp8", action="store_true")
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--dp", type=int, default=1)
-    p.add_argument("--paged-pages", type=int, default=0)
-    p.add_argument("--page-size", type=int, default=512)
     p.add_argument("--prefill-int8-shadow", action="store_true")
     p.add_argument("--pair-kv", action=argparse.BooleanOptionalAction,
                    default=None)
     p.add_argument("--sp-prefill-tokens", type=int, default=1024)
     p.add_argument("--sp-ring", action="store_true")
     p.add_argument("--pipeline-fetch", action="store_true")
-    p.add_argument("--speculate", type=int, default=0)
-    p.add_argument("--spec-breakeven", type=float, default=1.2)
-    p.add_argument("--spec-reprobe-steps", type=int, default=8192)
     p.add_argument("--coordinator", default="")
     p.add_argument("--num-processes", type=int, default=0)
     p.add_argument("--process-id", type=int, default=-1)

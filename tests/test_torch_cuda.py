@@ -1,7 +1,8 @@
-"""The port's CUDA kernels (K1-K8) held against their plain PyTorch versions
+"""The port's CUDA kernels (K1-K11) held against their plain PyTorch versions
 on the card, at the serving path's shapes and at the edges (ragged
 positions, position 0, M = 1 and 64, M = 65..512 for the prefill matmul,
-multi-chunk offsets). Marked `cuda`:
+multi-chunk offsets, verify blocks of 2..16 rows, page sizes 128..512
+through a shuffled table, parked lanes, a window). Marked `cuda`:
 each test skips without a GPU. Run on the card with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -20,6 +21,7 @@ import torch
 
 from gabby_tpu_torch.ops import cuda as ck
 from gabby_tpu_torch.ops.cuda import attention as cattn
+from gabby_tpu_torch.ops.cuda import paged_attention as cpaged
 from gabby_tpu_torch.ops.cuda import prefill_attention as cpfa
 from gabby_tpu_torch.ops.cuda import quant_matmul as cqm
 from gabby_tpu_torch.runtime.kv_cache import quantize_kv
@@ -228,3 +230,183 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
         cqm.qmatmul_int4_stacked(
             torch.ones((65, 128), device=dev, dtype=torch.bfloat16), packed,
             scale, 0)
+
+
+# ragged read bounds: empty slot, parked lane (1 row), chunk and page
+# edges, the full cache
+RAGGED = [0, 1, 31, 32, 33, 500, 1023, 1024]
+
+
+def _block(dev, g, b, t, nq, nk, h=64):
+    q = torch.randn((b, t, nq, h), generator=g, device=dev).bfloat16()
+    fk = torch.randn((b, nk, t, h), generator=g, device=dev).bfloat16()
+    fv = torch.randn((b, nk, t, h), generator=g, device=dev).bfloat16()
+    return q, fk, fv
+
+
+@pytest.mark.parametrize("t", [2, 5, 8, 16])
+@pytest.mark.parametrize("nq", [32, 8, 64])
+def test_verify_attention(dev, t, nq):
+    g = _gen(dev, 10)
+    nl, b, nk, s = 2, 8, 8, 1024
+    kc, vc, ks, vs = _cache(dev, g, nl, b, nk, s)
+    q, fk, fv = _block(dev, g, b, t, nq, nk)
+    pos = torch.tensor(RAGGED, device=dev, dtype=torch.int32)
+    before = ck.launch_counts["verify_attention"]
+    out = cattn.verify_attention(q, kc, vc, ks, vs, pos, layer=1, fresh_k=fk,
+                                 fresh_v=fv)
+    torch.cuda.synchronize()
+    assert ck.launch_counts["verify_attention"] == before + 1
+    ref = cattn.verify_attention_plain(q, kc, vc, ks, vs, pos, layer=1,
+                                       fresh_k=fk, fresh_v=fv)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL)
+
+
+def test_verify_attention_window_bounds_the_read(dev):
+    """With window = 512 a slot at position 1024 reads rows j < 512 only:
+    equal to the plain version at positions clamped to the window."""
+    g = _gen(dev, 11)
+    nl, b, nk, nq, s, t = 2, 8, 8, 32, 1024, 8
+    kc, vc, ks, vs = _cache(dev, g, nl, b, nk, s)
+    q, fk, fv = _block(dev, g, b, t, nq, nk)
+    pos = torch.tensor(RAGGED, device=dev, dtype=torch.int32)
+    out = cattn.verify_attention(q, kc, vc, ks, vs, pos, layer=0, fresh_k=fk,
+                                 fresh_v=fv, window=512)
+    ref = cattn.verify_attention_plain(q, kc, vc, ks, vs,
+                                       torch.clamp(pos, max=512), layer=0,
+                                       fresh_k=fk, fresh_v=fv)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL)
+
+
+def test_verify_attention_first_row_is_the_decode_kernel(dev):
+    """Row 0 of a verify block sees the cache and fresh row 0 only: the
+    decode kernel's contract on the same inputs."""
+    g = _gen(dev, 12)
+    nl, b, nk, nq, s, t = 2, 8, 8, 32, 1024, 4
+    kc, vc, ks, vs = _cache(dev, g, nl, b, nk, s)
+    q, fk, fv = _block(dev, g, b, t, nq, nk)
+    pos = torch.tensor(RAGGED, device=dev, dtype=torch.int32)
+    out = cattn.verify_attention(q, kc, vc, ks, vs, pos, layer=1, fresh_k=fk,
+                                 fresh_v=fv)
+    dec = cattn.decode_attention(q[:, :1].contiguous(), kc, vc, ks, vs, pos,
+                                 layer=1, fresh_k=fk[:, :, 0].contiguous(),
+                                 fresh_v=fv[:, :, 0].contiguous())
+    torch.testing.assert_close(out[:, :1].float(), dec.float(), **TOL)
+
+
+def _pool(dev, g, nl, b, nk, page, max_pages, h=64):
+    """Pools of b * max_pages + 1 pages (page 0 the scratch page, filled
+    with large values so a stray read shows) and a shuffled table."""
+    npages = b * max_pages + 1
+    kp, ks = quantize_kv(torch.randn((npages, nl, nk, page, h), generator=g,
+                                     device=dev))
+    vp, vs = quantize_kv(torch.randn((npages, nl, nk, page, h), generator=g,
+                                     device=dev))
+    for pool in (ks, vs):
+        pool[0] = 1e4
+    perm = torch.randperm(npages - 1, generator=g, device=dev) + 1
+    table = perm.reshape(b, max_pages).to(torch.int32).contiguous()
+    return kp, vp, ks, vs, table
+
+
+def _unallocate_past(table, pos, page):
+    """Table entries past each slot's rows point at the scratch page, as
+    the engine keeps them."""
+    table = table.clone()
+    for i, p in enumerate(pos.tolist()):
+        table[i, (p + page - 1) // page:] = 0
+    return table
+
+
+@pytest.mark.parametrize("page", [128, 256, 512])
+@pytest.mark.parametrize("nq", [32, 8])
+def test_paged_decode_attention(dev, page, nq):
+    g = _gen(dev, 13)
+    nl, b, nk, s = 2, 8, 8, 1024
+    kp, vp, ks, vs, table = _pool(dev, g, nl, b, nk, page, s // page)
+    q = torch.randn((b, 1, nq, 64), generator=g, device=dev).bfloat16()
+    fk = torch.randn((b, nk, 64), generator=g, device=dev).bfloat16()
+    fv = torch.randn((b, nk, 64), generator=g, device=dev).bfloat16()
+    pos = torch.tensor(RAGGED, device=dev, dtype=torch.int32)
+    table = _unallocate_past(table, pos, page)
+    before = ck.launch_counts["paged_decode_attention"]
+    out = cpaged.paged_decode_attention(q, kp, vp, table, pos, ks, vs,
+                                        layer=1, fresh_k=fk, fresh_v=fv)
+    torch.cuda.synchronize()
+    assert ck.launch_counts["paged_decode_attention"] == before + 1
+    ref = cpaged.paged_decode_attention_plain(q, kp, vp, table, pos, ks, vs,
+                                              layer=1, fresh_k=fk, fresh_v=fv)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL)
+
+
+@pytest.mark.parametrize("page", [128, 256, 512])
+@pytest.mark.parametrize("t", [2, 8, 16])
+def test_paged_verify_attention(dev, page, t):
+    g = _gen(dev, 14)
+    nl, b, nk, nq, s = 2, 8, 8, 32, 1024
+    kp, vp, ks, vs, table = _pool(dev, g, nl, b, nk, page, s // page)
+    q, fk, fv = _block(dev, g, b, t, nq, nk)
+    pos = torch.tensor(RAGGED, device=dev, dtype=torch.int32)
+    table = _unallocate_past(table, pos, page)
+    before = ck.launch_counts["paged_verify_attention"]
+    out = cpaged.paged_verify_attention(q, kp, vp, table, pos, ks, vs,
+                                        layer=1, fresh_k=fk, fresh_v=fv)
+    torch.cuda.synchronize()
+    assert ck.launch_counts["paged_verify_attention"] == before + 1
+    ref = cpaged.paged_verify_attention_plain(q, kp, vp, table, pos, ks, vs,
+                                              layer=1, fresh_k=fk, fresh_v=fv)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL)
+
+
+def test_paged_kernels_equal_the_dense_ones_on_the_same_rows(dev):
+    """The pool gathered through the table into a dense cache gives the
+    dense kernels the same rows: K10 against K3, K11 against K9."""
+    from gabby_tpu_torch.ops.attention import gather_pages
+    g = _gen(dev, 15)
+    nl, b, nk, nq, s, page, t = 2, 8, 8, 32, 1024, 256, 8
+    kp, vp, ks, vs, table = _pool(dev, g, nl, b, nk, page, s // page)
+    pos = torch.tensor(RAGGED, device=dev, dtype=torch.int32)
+    dense = [torch.stack([gather_pages(p, table, i) for i in range(nl)])
+             for p in (kp, vp, ks, vs)]
+    q, fk, fv = _block(dev, g, b, t, nq, nk)
+    out = cpaged.paged_verify_attention(q, kp, vp, table, pos, ks, vs,
+                                        layer=1, fresh_k=fk, fresh_v=fv)
+    ref = cattn.verify_attention(q, dense[0], dense[1], dense[2], dense[3],
+                                 pos, layer=1, fresh_k=fk, fresh_v=fv)
+    assert torch.equal(out, ref)  # the same arithmetic in the same order
+    q1, fk1, fv1 = (q[:, :1].contiguous(), fk[:, :, 0].contiguous(),
+                    fv[:, :, 0].contiguous())
+    out = cpaged.paged_decode_attention(q1, kp, vp, table, pos, ks, vs,
+                                        layer=1, fresh_k=fk1, fresh_v=fv1)
+    ref = cattn.decode_attention(q1, dense[0], dense[1], dense[2], dense[3],
+                                 pos, layer=1, fresh_k=fk1, fresh_v=fv1)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL)
+
+
+def test_block_wrappers_refuse_what_their_kernels_do_not_take(dev):
+    g = _gen(dev, 16)
+    nl, b, nk, nq = 1, 2, 2, 8
+    kc, vc, ks, vs = _cache(dev, g, nl, b, nk, 64)
+    q, fk, fv = _block(dev, g, b, 4, nq, nk)
+    pos = torch.ones(b, device=dev, dtype=torch.int32)
+    with pytest.raises(ValueError, match="bf16"):
+        cattn.verify_attention(q.float(), kc, vc, ks, vs, pos, layer=0,
+                               fresh_k=fk, fresh_v=fv)
+    with pytest.raises(ValueError, match="shapes"):
+        cattn.verify_attention(q, kc, vc, ks, vs, pos, layer=0,
+                               fresh_k=fk[:, :, :3].contiguous(),
+                               fresh_v=fv[:, :, :3].contiguous())
+    with pytest.raises(ValueError, match="layer"):
+        cattn.verify_attention(q, kc, vc, ks, vs, pos, layer=1, fresh_k=fk,
+                               fresh_v=fv)
+    kp, vp, kps, vps, table = _pool(dev, g, nl, b, nk, 48, 2)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        cpaged.paged_verify_attention(q, kp, vp, table, pos, kps, vps,
+                                      layer=0, fresh_k=fk, fresh_v=fv)
+    kp, vp, kps, vps, table = _pool(dev, g, nl, b, nk, 64, 2)
+    with pytest.raises(ValueError, match="int32 page table"):
+        cpaged.paged_verify_attention(q, kp, vp, table.long(), pos, kps, vps,
+                                      layer=0, fresh_k=fk, fresh_v=fv)
+    with pytest.raises(ValueError, match="single-position"):
+        cpaged.paged_decode_attention(q, kp, vp, table, pos, kps, vps,
+                                      layer=0, fresh_k=fk, fresh_v=fv)

@@ -46,13 +46,15 @@ def weights():
                                                  device="cpu")
 
 
-@pytest.fixture(scope="module")
-def reference(weights):
-    """gabby_tpu's greedy token ids for each prompt, one request at a time."""
+PAGED = dict(paged_pages=1 + 4 * (MAX_SEQ // 16), page_size=16)
+
+
+def _reference_tokens(weights, **kw):
     cfg, params, _ = weights
     eng = JEngine(cfg, params, JTokenizer.byte_fallback(cfg.vocab_size),
                   JEngineConfig(batch_slots=4, max_seq=MAX_SEQ,
-                                kv_quantized=True, cache_dtype="float32"))
+                                kv_quantized=True, cache_dtype="float32",
+                                **kw))
     try:
         out = []
         for msgs in PROMPTS:
@@ -63,6 +65,21 @@ def reference(weights):
         return out
     finally:
         eng.shutdown()
+
+
+@pytest.fixture(scope="module")
+def reference(weights):
+    """gabby_tpu's greedy token ids for each prompt, one request at a time."""
+    return _reference_tokens(weights)
+
+
+@pytest.fixture(scope="module")
+def paged_reference(weights):
+    """The same from gabby_tpu's engine on its paged cache: with pages of
+    16 rows every prefill chunk is 16 tokens, so a long prompt reads more
+    of itself back through int8 codes than in the dense engine's 64-token
+    chunk, and the greedy streams may part."""
+    return _reference_tokens(weights, **PAGED)
 
 
 @pytest.fixture()
@@ -96,6 +113,38 @@ def test_greedy_tokens_match_reference_engine(engine, reference):
         assert fin in ("stop", "length")
         assert req.token_ids == ref_ids
         assert text == engine.tokenizer.decode(ref_ids)
+
+
+@pytest.mark.parametrize("mode", ["spec", "paged", "paged-spec"])
+def test_spec_and_paged_engines_match_reference_engine(weights, reference,
+                                                       paged_reference,
+                                                       mode):
+    """The int4 tree on an int8 cache through the speculative loop, the
+    paged pool (pages of 16 rows), and both: all four prompts at once give
+    the greedy tokens of the reference engine (plain, on the same kind of
+    cache)."""
+    _, _, tparams = weights
+    cfg = tcfg.tiny(max_seq_len=MAX_SEQ)
+    kw = {}
+    if "spec" in mode:
+        kw.update(speculate_tokens=4)
+    if "paged" in mode:
+        kw.update(PAGED)
+        reference = paged_reference
+    eng = Engine(cfg, tparams, Tokenizer.byte_fallback(cfg.vocab_size),
+                 EngineConfig(batch_slots=4, max_seq=MAX_SEQ,
+                              kv_quantized=True, cache_dtype="float32",
+                              steps_per_call=4, **kw), device="cpu")
+    try:
+        reqs = [eng.submit(m, max_tokens=MAX_TOKENS) for m in PROMPTS]
+        for req, ref_ids in zip(reqs, reference):
+            _, fin = _drain(req)
+            assert fin in ("stop", "length")
+            assert req.token_ids == ref_ids
+        stats = eng.stats_snapshot()
+        assert (stats["spec_macro_steps"] > 0) == ("spec" in mode)
+    finally:
+        eng.shutdown()
 
 
 def test_generate_sync_matches_reference_engine(engine, reference):

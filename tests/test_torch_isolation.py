@@ -21,7 +21,8 @@ sys.path.insert(0, sys.argv[1])
 import gabby_tpu_torch
 names = ["chip_smoke"] + [m.name for m in pkgutil.walk_packages(
     gabby_tpu_torch.__path__, "gabby_tpu_torch.")]
-for name in ("loader", "tools.quantize", "eval.ppl"):
+for name in ("loader", "tools.quantize", "eval.ppl", "runtime.paged",
+             "ops.cuda.paged_attention"):
     assert "gabby_tpu_torch." + name in names, name
 for name in names:
     importlib.import_module(name)
@@ -36,7 +37,7 @@ def test_port_imports_without_jax_or_gabby_tpu():
     out = subprocess.run([sys.executable, "-c", _PROBE, REPO], check=True,
                          capture_output=True, text=True, timeout=120,
                          cwd=REPO)
-    assert int(out.stdout.strip()) >= 25  # chip_smoke + the package modules
+    assert int(out.stdout.strip()) >= 27  # chip_smoke + the package modules
 
 
 _ROUNDTRIP = r"""

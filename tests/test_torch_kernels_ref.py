@@ -1,14 +1,17 @@
-"""The plain PyTorch versions of the port's kernels (K1-K8) held against
-gabby_tpu's kernel-bearing ops — `qlinear` (stacked and grouped int4,
-stacked and 2-D int8, int4 at prefill-sized M, W4A8),
-`cache_attention_quantized` and `slot_prefill_attention` — each run
+"""The plain PyTorch versions of the port's kernels (K1-K8, K10) held
+against gabby_tpu's kernel-bearing ops — `qlinear` (stacked and grouped
+int4, stacked and 2-D int8, int4 at prefill-sized M, W4A8),
+`cache_attention_quantized`, `slot_prefill_attention` and
+`paged_cache_attention` — each run
 twice: with kernels off (the jnp contract) and with kernels on, which on
 the CPU runs the Pallas kernels in interpret mode (as
 tests/test_pallas_kernels.py does). The reference's route switches
 (GABBY_QMM_INT8, GABBY_QMM_PREFILL, GABBY_W4A8) are set so that the
 kernels-on run reaches the Pallas kernel each test is about. Shapes are ones the Pallas kernels
 tile. The CUDA kernels themselves are held against these plain versions on
-the card (tests/test_torch_cuda.py, chip_smoke.py).
+the card (tests/test_torch_cuda.py, chip_smoke.py). The verify kernels'
+plain versions (K9, K11) are held against the Pallas verify kernels in
+tests/test_torch_spec_paged.py.
 
 Tolerance: inputs are bf16 on both sides; the Pallas kernels also round
 probabilities and dequantized rows to bf16 inside, so agreement is to bf16
@@ -24,6 +27,7 @@ from gabby_tpu.ops import pallas as pk
 from gabby_tpu.ops import quant as jquant
 from gabby_tpu.ops.pallas import quant_matmul as pqm
 from gabby_tpu_torch.ops.cuda import attention as cattn
+from gabby_tpu_torch.ops.cuda import paged_attention as cpaged
 from gabby_tpu_torch.ops.cuda import prefill_attention as cpfa
 from gabby_tpu_torch.ops.cuda import quant_matmul as cqm
 from gabby_tpu_torch.runtime.kv_cache import quantize_kv
@@ -251,4 +255,33 @@ def test_prefill_attention(kernels, t, offset):
     out = cpfa.prefill_attention_plain(
         _t(q).to(torch.bfloat16), kc, vc, ks, vs, slot, offset, layer=1,
         fresh_k=_t(fk).to(torch.bfloat16), fresh_v=_t(fv).to(torch.bfloat16))
+    _close(out, ref)
+
+
+@pytest.mark.parametrize("positions", [(19, 55), (0, 64)])
+def test_paged_decode_attention(kernels, positions):
+    """K10's plain version against gabby_tpu's paged_cache_attention: a
+    pool of 10 pages of 16 rows behind a scattered table; page 0, the
+    scratch page, holds large values and is in no table row."""
+    r = np.random.default_rng(11)
+    nl, nk, g, h, page = 2, 2, 4, 64, 16
+    kp = r.standard_normal((10, nl, nk, page, h)).astype(np.float32) * 0.5
+    vp = r.standard_normal((10, nl, nk, page, h)).astype(np.float32) * 0.5
+    kp[0] = vp[0] = 50.0
+    kc, ks = quantize_kv(torch.from_numpy(kp))
+    vc, vs = quantize_kv(torch.from_numpy(vp))
+    table = np.asarray([[3, 5, 1, 7], [2, 8, 9, 4]], np.int32)
+    pos = np.asarray(positions, np.int32)
+    q = r.standard_normal((2, 1, nk * g, h)).astype(np.float32) * 0.5
+    fk = r.standard_normal((2, nk, h)).astype(np.float32) * 0.5
+    fv = r.standard_normal((2, nk, h)).astype(np.float32) * 0.5
+    bf = jnp.bfloat16
+    ref = jattn.paged_cache_attention(
+        jnp.asarray(q, bf), _j(kc), _j(vc), jnp.asarray(table),
+        jnp.asarray(pos), _j(ks), _j(vs), layer=jnp.int32(1),
+        fresh_k=jnp.asarray(fk, bf), fresh_v=jnp.asarray(fv, bf))
+    out = cpaged.paged_decode_attention_plain(
+        _t(q).to(torch.bfloat16), kc, vc, _t(table), _t(pos), ks, vs,
+        layer=1, fresh_k=_t(fk).to(torch.bfloat16),
+        fresh_v=_t(fv).to(torch.bfloat16))
     _close(out, ref)

@@ -41,9 +41,10 @@ def _serving(argv):
         bound.append(p)
         ready.set()
 
-    argv = argv + ["--device", "cpu", "--port", "0", "--slots", "2",
-                   "--max-seq", "128", "--kv-quant", "--no-warmup",
-                   "--log-level", "0", "--workers", "2"]
+    # the caller's flags come last, so they override these
+    argv = ["--device", "cpu", "--port", "0", "--slots", "2",
+            "--max-seq", "128", "--kv-quant", "--no-warmup",
+            "--log-level", "0", "--workers", "2"] + argv
     th = threading.Thread(target=server.main, args=(argv,),
                           kwargs=dict(on_ready=on_ready, stop=stop),
                           daemon=True)
@@ -203,3 +204,54 @@ def test_deferred_field_gets_400(port, field, value):
     status, body = _post(port, {**CHAT, field: value})
     assert status == 400, body
     assert field in body
+
+
+@pytest.mark.parametrize("flags", [
+    ["--speculate", "4"],
+    ["--paged-pages", "33", "--page-size", "16", "--max-seq", "256"],
+    ["--speculate", "4", "--paged-pages", "33", "--page-size", "16",
+     "--max-seq", "256", "--spec-breakeven", "1.0",
+     "--spec-reprobe-steps", "64"],
+], ids=["speculate", "paged", "paged-speculate"])
+def test_speculate_and_paged_flags_serve(flags):
+    with _serving(["--preset", "tiny", "--random-weights"] + flags) as p:
+        status, body = _post(p, CHAT)
+        assert status == 200, body
+        reply = json.loads(body)
+        assert reply["choices"][0]["finish_reason"] in ("stop", "length")
+        assert 0 < reply["usage"]["completion_tokens"] <= 5
+        conn = http.client.HTTPConnection("127.0.0.1", p, timeout=120)
+        conn.request("GET", "/statusz")
+        stats = json.loads(conn.getresponse().read())["engine"]
+        conn.close()
+        assert stats["spec_on"] == int("--speculate" in flags)
+        assert (stats["spec_macro_steps"] > 0) == ("--speculate" in flags)
+
+
+def test_ported_flags_reach_the_engine_config():
+    from gabby_tpu_torch import server
+    args = server.build_parser().parse_args(
+        ["--preset", "tiny", "--random-weights", "--device", "cpu",
+         "--max-seq", "256", "--speculate", "3", "--spec-breakeven", "1.5",
+         "--spec-reprobe-steps", "99", "--paged-pages", "33",
+         "--page-size", "16"])
+    engine, _ = server._build_engine(args)
+    try:
+        ec = engine.ec
+        assert (ec.speculate_tokens, ec.spec_breakeven,
+                ec.spec_reprobe_steps, ec.paged_pages, ec.page_size) == (
+                    3, 1.5, 99, 33, 16)
+    finally:
+        engine.shutdown()
+
+
+@pytest.mark.parametrize("flag", [["--pair-kv"], ["--act-fp8"],
+                                  ["--prefill-int8-shadow"], ["--tp", "2"],
+                                  ["--pipeline-fetch"], ["--sp-ring"],
+                                  ["--coordinator", "host:1"]])
+def test_unported_flags_are_still_refused(flag):
+    from gabby_tpu_torch import server
+    args = server.build_parser().parse_args(
+        ["--preset", "tiny", "--random-weights", "--device", "cpu"] + flag)
+    with pytest.raises(SystemExit, match="not yet ported"):
+        server._build_engine(args)
