@@ -1,4 +1,5 @@
-// GQA flash-decode attention over the int8 KV cache, Hopper (sm_90a).
+// GQA flash-decode attention over the int8 KV cache, Hopper (sm_90a): K3,
+// and its slot-batched launch K16.
 //
 // Replaces gabby_tpu/ops/pallas/attention.py:_decode_call (its
 // _flash_step body, reached from decode_attention) in the form the
@@ -24,6 +25,14 @@
 // of the 64 output dims. The four warps' partial (max, sum, acc) merge in
 // shared memory together with the fresh row. A slot whose position is 0
 // sees only the fresh row; parked lanes are given position 1 by the caller.
+//
+// The slot-batched launch replaces _decode_call_multi of the same file (the
+// same function, SB slots per grid step, chosen by GABBY_ATTN_MULTI=1): one
+// block of SB * 128 threads takes SB slots of a kv head, four warps a slot,
+// each slot's loop ending at its own position. The TPU form exists to
+// spread a grid step's fixed cost over more slots; here it only makes the
+// blocks larger and fewer (SB <= 4 keeps a block at 512 threads and 42 KB
+// of shared memory), and every slot's arithmetic is K3's, bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -34,6 +43,7 @@ namespace {
 constexpr int kH = 64;  // head_dim
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
+constexpr int kMaxSlots = 4;  // slots per block of the slot-batched launch
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -49,25 +59,32 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// One slot's shared state: its four warps' partial results.
 template <int G>
-__global__ void __launch_bounds__(kThreads)
-decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
-                        const int8_t* __restrict__ kc,
-                        const int8_t* __restrict__ vc,
-                        const float* __restrict__ ks,
-                        const float* __restrict__ vs,
-                        const __nv_bfloat16* __restrict__ fk,
-                        const __nv_bfloat16* __restrict__ fv,
-                        const int* __restrict__ positions,
-                        __nv_bfloat16* __restrict__ out, int Nq, int Nk,
-                        int S, int limit, float sm_scale) {
-  __shared__ float q_s[G][kH];
-  __shared__ float m_s[kWarps][G], l_s[kWarps][G];
-  __shared__ float acc_s[kWarps][G][kH];
-  __shared__ float fresh_s[G];
+struct SlotShared {
+  float q_s[G][kH];
+  float m_s[kWarps][G], l_s[kWarps][G];
+  float acc_s[kWarps][G][kH];
+  float fresh_s[G];
+};
 
-  const int b = blockIdx.x, kh = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+// Slot b, kv head kh, by the 128 threads tid = 0..127 that own the slot.
+// Every thread of the block calls it: its two barriers are block-wide.
+template <int G>
+__device__ __forceinline__ void decode_slot(
+    SlotShared<G>& sh, int b, int kh, int tid,
+    const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ kc,
+    const int8_t* __restrict__ vc, const float* __restrict__ ks,
+    const float* __restrict__ vs, const __nv_bfloat16* __restrict__ fk,
+    const __nv_bfloat16* __restrict__ fv, const int* __restrict__ positions,
+    __nv_bfloat16* __restrict__ out, int Nq, int Nk, int S, int limit,
+    float sm_scale) {
+  float (&q_s)[G][kH] = sh.q_s;
+  float (&m_s)[kWarps][G] = sh.m_s;
+  float (&l_s)[kWarps][G] = sh.l_s;
+  float (&acc_s)[kWarps][G][kH] = sh.acc_s;
+  float (&fresh_s)[G] = sh.fresh_s;
+  const int warp = tid / 32, lane = tid % 32;
   for (int e = tid; e < G * kH; e += kThreads) {
     const int g = e / kH, d = e % kH;
     q_s[g][d] = __bfloat162float(q[((size_t)b * Nq + kh * G + g) * kH + d]) *
@@ -188,17 +205,83 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int G>
+__global__ void __launch_bounds__(kThreads)
+decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
+                        const int8_t* __restrict__ kc,
+                        const int8_t* __restrict__ vc,
+                        const float* __restrict__ ks,
+                        const float* __restrict__ vs,
+                        const __nv_bfloat16* __restrict__ fk,
+                        const __nv_bfloat16* __restrict__ fv,
+                        const int* __restrict__ positions,
+                        __nv_bfloat16* __restrict__ out, int Nq, int Nk,
+                        int S, int limit, float sm_scale) {
+  __shared__ SlotShared<G> sh;
+  decode_slot<G>(sh, blockIdx.x, blockIdx.y, threadIdx.x, q, kc, vc, ks, vs,
+                 fk, fv, positions, out, Nq, Nk, S, limit, sm_scale);
+}
+
+// blockDim.x = sb * 128: thread group i of 128 takes slot blockIdx.x * sb + i
+template <int G>
+__global__ void __launch_bounds__(kThreads * kMaxSlots)
+decode_attention_multi_kernel(const __nv_bfloat16* __restrict__ q,
+                              const int8_t* __restrict__ kc,
+                              const int8_t* __restrict__ vc,
+                              const float* __restrict__ ks,
+                              const float* __restrict__ vs,
+                              const __nv_bfloat16* __restrict__ fk,
+                              const __nv_bfloat16* __restrict__ fv,
+                              const int* __restrict__ positions,
+                              __nv_bfloat16* __restrict__ out, int Nq, int Nk,
+                              int S, int limit, float sm_scale) {
+  __shared__ SlotShared<G> sh[kMaxSlots];
+  const int group = threadIdx.x / kThreads;
+  decode_slot<G>(sh[group], blockIdx.x * (blockDim.x / kThreads) + group,
+                 blockIdx.y, threadIdx.x % kThreads, q, kc, vc, ks, vs, fk,
+                 fv, positions, out, Nq, Nk, S, limit, sm_scale);
+}
+
+template <int G>
 int launch(const void* q, const void* k, const void* v, const void* ks,
            const void* vs, const void* fk, const void* fv, const void* pos,
            void* out, int B, int Nq, int Nk, int S, int limit, float sm_scale,
-           cudaStream_t stream) {
-  decode_attention_kernel<G><<<dim3(B, Nk), kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k),
-      static_cast<const int8_t*>(v), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<const __nv_bfloat16*>(fk),
-      static_cast<const __nv_bfloat16*>(fv), static_cast<const int*>(pos),
-      static_cast<__nv_bfloat16*>(out), Nq, Nk, S, limit, sm_scale);
+           int sb, cudaStream_t stream) {
+  const dim3 grid(B / sb, Nk);
+  const __nv_bfloat16* qp = static_cast<const __nv_bfloat16*>(q);
+  const int8_t* kp = static_cast<const int8_t*>(k);
+  const int8_t* vp = static_cast<const int8_t*>(v);
+  const float* ksp = static_cast<const float*>(ks);
+  const float* vsp = static_cast<const float*>(vs);
+  const __nv_bfloat16* fkp = static_cast<const __nv_bfloat16*>(fk);
+  const __nv_bfloat16* fvp = static_cast<const __nv_bfloat16*>(fv);
+  const int* pp = static_cast<const int*>(pos);
+  __nv_bfloat16* op = static_cast<__nv_bfloat16*>(out);
+  if (sb == 1)
+    decode_attention_kernel<G><<<grid, kThreads, 0, stream>>>(
+        qp, kp, vp, ksp, vsp, fkp, fvp, pp, op, Nq, Nk, S, limit, sm_scale);
+  else
+    decode_attention_multi_kernel<G><<<grid, kThreads * sb, 0, stream>>>(
+        qp, kp, vp, ksp, vsp, fkp, fvp, pp, op, Nq, Nk, S, limit, sm_scale);
   return (int)cudaGetLastError();
+}
+
+int dispatch(const void* q, const void* k, const void* v, const void* ks,
+             const void* vs, const void* fk, const void* fv, const void* pos,
+             void* out, int B, int Nq, int Nk, int S, int H, int limit,
+             float sm_scale, int sb, cudaStream_t s) {
+  if (H != kH || Nq % Nk != 0 || sb < 1 || sb > kMaxSlots || B % sb != 0)
+    return (int)cudaErrorInvalidValue;
+  switch (Nq / Nk) {
+    case 1: return launch<1>(q, k, v, ks, vs, fk, fv, pos, out, B, Nq, Nk, S,
+                             limit, sm_scale, sb, s);
+    case 2: return launch<2>(q, k, v, ks, vs, fk, fv, pos, out, B, Nq, Nk, S,
+                             limit, sm_scale, sb, s);
+    case 4: return launch<4>(q, k, v, ks, vs, fk, fv, pos, out, B, Nq, Nk, S,
+                             limit, sm_scale, sb, s);
+    case 8: return launch<8>(q, k, v, ks, vs, fk, fv, pos, out, B, Nq, Nk, S,
+                             limit, sm_scale, sb, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -215,19 +298,23 @@ int gabby_decode_attention(const void* q, const void* k, const void* v,
                            const void* positions, void* out, int B, int Nq,
                            int Nk, int S, int H, int limit, float sm_scale,
                            void* stream) {
-  if (H != kH || Nq % Nk != 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (Nq / Nk) {
-    case 1: return launch<1>(q, k, v, k_scale, v_scale, fresh_k, fresh_v,
-                             positions, out, B, Nq, Nk, S, limit, sm_scale, s);
-    case 2: return launch<2>(q, k, v, k_scale, v_scale, fresh_k, fresh_v,
-                             positions, out, B, Nq, Nk, S, limit, sm_scale, s);
-    case 4: return launch<4>(q, k, v, k_scale, v_scale, fresh_k, fresh_v,
-                             positions, out, B, Nq, Nk, S, limit, sm_scale, s);
-    case 8: return launch<8>(q, k, v, k_scale, v_scale, fresh_k, fresh_v,
-                             positions, out, B, Nq, Nk, S, limit, sm_scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return dispatch(q, k, v, k_scale, v_scale, fresh_k, fresh_v, positions, out,
+                  B, Nq, Nk, S, H, limit, sm_scale, 1,
+                  static_cast<cudaStream_t>(stream));
+}
+
+// The same call with `sb` slots of a kv head per block (sb in 2..4, B a
+// multiple of sb).
+int gabby_decode_attention_multi(const void* q, const void* k, const void* v,
+                                 const void* k_scale, const void* v_scale,
+                                 const void* fresh_k, const void* fresh_v,
+                                 const void* positions, void* out, int B,
+                                 int Nq, int Nk, int S, int H, int limit,
+                                 int sb, float sm_scale, void* stream) {
+  if (sb < 2) return (int)cudaErrorInvalidValue;
+  return dispatch(q, k, v, k_scale, v_scale, fresh_k, fresh_v, positions, out,
+                  B, Nq, Nk, S, H, limit, sm_scale, sb,
+                  static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

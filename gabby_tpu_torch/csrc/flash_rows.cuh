@@ -1,9 +1,11 @@
 // Flash attention of a small block of query rows over the int8 KV cache,
-// dense or paged, Hopper (sm_90a). Shared body of verify_attention.cu (K9)
-// and paged_attention.cu (K10, K11).
+// dense or paged, unpaired or paired, Hopper (sm_90a). Shared body of
+// verify_attention.cu (K9, K12, K13) and paged_attention.cu (K10, K11,
+// K17, K18); attention_s8.cu shares its row addressing.
 //
 // Replaces the tq > 1 form of gabby_tpu/ops/pallas/attention.py:_decode_call
-// and both forms of _paged_decode_call (their _flash_step body): T query
+// and both forms of _paged_decode_call (their _flash_step body), and the
+// pair=True forms of both: T query
 // positions x G query heads of one kv head (row = t * G + g) attend cache
 // rows j < min(pos[b], limit) of one layer, int8 codes with per-(token,
 // kv-head) f32 scales folded into scores (k) and probabilities (v), and
@@ -12,6 +14,16 @@
 // fresh row. In the paged form row j of slot b lives at
 // pool[table[b, j / page], layer, kh, j % page]; the table is read here,
 // nothing gathers the pool.
+//
+// The paired layout stores the codes of kv heads 2p and 2p + 1 side by
+// side: a cache row is one 128-byte line, head 2p in bytes [0, 64), head
+// 2p + 1 in bytes [64, 128), scales still per head. The TPU kernel pads the
+// queries block-diagonally to fill a 128-deep matrix unit and throws half
+// of each output row away; here a block still owns ONE kv head and reads
+// its half of each line (two 32-byte sectors, so no byte is fetched in
+// vain; the pair's other block finds the line's neighbourhood in L2). The
+// arithmetic and its order are the unpaired kernel's, so the outputs are
+// equal bit for bit on the same rows re-laid.
 //
 // What bounds it on the H100: bytes, as for the decode kernel. A (slot, kv
 // head) streams 2 * n * 64 code bytes and 2 * n * 4 scale bytes for n live
@@ -51,9 +63,10 @@ constexpr int kMaxT = 32;   // fresh rows: one per lane of one warp
 constexpr float kNegInf = -1e30f;
 
 // Where the cache rows of one layer live. Dense: k/v/ks/vs point at the
-// layer's [B, Nk, rows, 64] codes and [B, Nk, rows] scales. Paged: they
-// point at the pools [P, L, Nk, rows, 64] and [P, L, Nk, rows], `rows` is
-// the page size, and table is [B, max_pages].
+// layer's [B, Nk, rows, 64] codes and [B, Nk, rows] scales (layers = 1,
+// layer = 0). Paged: they point at the pools [P, L, Nk, rows, 64] and
+// [P, L, Nk, rows], `rows` is the page size, and table is [B, max_pages].
+// pair = 1: the codes are [.., Nk/2, rows, 128]; the scales keep Nk planes.
 struct KvSource {
   const int8_t* k;
   const int8_t* v;
@@ -62,8 +75,18 @@ struct KvSource {
   const int* table;
   int rows;
   int max_pages;
-  long long page_rows;  // rows from one physical page to the next: L*Nk*rows
-  long long layer_row;  // layer * Nk * rows
+  int layers;
+  int layer;
+  int pair;
+};
+
+// Where 32 consecutive cache rows of one kv head start: `code` is the byte
+// offset of the first row's 64 codes, `stride` the bytes from one row's
+// codes to the next row's, `scale` the index of the first row's scale.
+struct RowAddr {
+  size_t code;
+  size_t scale;
+  int stride;
 };
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -79,17 +102,25 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Row index (into codes / 64 and scales) of cache row j0 of (slot b, head
-// kh); rows j0 .. j0 + 31 follow it contiguously (j0 % 32 == 0).
+// Address of cache row j0 of (slot b, head kh); rows j0 .. j0 + 31 follow
+// it (j0 % 32 == 0, and a page holds a multiple of 32 rows).
 template <bool kPaged>
-__device__ __forceinline__ size_t chunk_row(const KvSource& src, int b, int kh,
-                                            int Nk, int j0) {
+__device__ __forceinline__ RowAddr chunk_row(const KvSource& src, int b,
+                                             int kh, int Nk, int j0) {
+  size_t lead = b;  // (slot), or (physical page, layer)
+  int j = j0;
   if (kPaged) {
     const int phys = src.table[(size_t)b * src.max_pages + j0 / src.rows];
-    return (size_t)phys * src.page_rows + src.layer_row +
-           (size_t)kh * src.rows + j0 % src.rows;
+    lead = (size_t)phys * src.layers + src.layer;
+    j = j0 % src.rows;
   }
-  return ((size_t)b * Nk + kh) * src.rows + j0;
+  RowAddr a;
+  a.scale = (lead * Nk + kh) * src.rows + j;
+  a.stride = kH << src.pair;
+  a.code = ((lead * (Nk >> src.pair) + (kh >> src.pair)) * src.rows + j) *
+               a.stride +
+           (src.pair ? (kh & 1) * kH : 0);
+  return a;
 }
 
 // One online-softmax step of a warp over its 32 keys: s[r] is this lane's
@@ -177,9 +208,11 @@ flash_rows_kernel(const __nv_bfloat16* __restrict__ q, const KvSource src,
 #pragma unroll
     for (int v4 = 0; v4 < kH / 16; ++v4) vrow[v4] = make_int4(0, 0, 0, 0);
     if (valid) {
-      const size_t row = chunk_row<kPaged>(src, b, kh, Nk, j0) + lane;
-      const int4* kp = reinterpret_cast<const int4*>(src.k + row * kH);
-      const int4* vp = reinterpret_cast<const int4*>(src.v + row * kH);
+      const RowAddr at = chunk_row<kPaged>(src, b, kh, Nk, j0);
+      const size_t code = at.code + (size_t)lane * at.stride;
+      const size_t row = at.scale + lane;
+      const int4* kp = reinterpret_cast<const int4*>(src.k + code);
+      const int4* vp = reinterpret_cast<const int4*>(src.v + code);
       int4 krow[kH / 16];
 #pragma unroll
       for (int v4 = 0; v4 < kH / 16; ++v4) {
@@ -328,7 +361,8 @@ int launch_flash_rows(const void* q, const KvSource& src, const void* fk,
                       const void* fv, const void* pos, void* out, int B, int T,
                       int Nq, int Nk, int H, int limit, float sm_scale,
                       cudaStream_t stream) {
-  if (H != kH || Nk < 1 || Nq % Nk != 0 || T < 1 || T > kMaxT || B < 1)
+  if (H != kH || Nk < 1 || Nq % Nk != 0 || T < 1 || T > kMaxT || B < 1 ||
+      (src.pair != 0 && src.pair != 1) || (src.pair && Nk % 2))
     return (int)cudaErrorInvalidValue;
   const int total = T * (Nq / Nk);
   if (total == 1)

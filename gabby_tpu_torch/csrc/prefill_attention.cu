@@ -1,14 +1,22 @@
 // Single-slot flash prefill attention over the int8 KV cache, Hopper
-// (sm_90a).
+// (sm_90a): K4, and over the paired cache K21.
 //
 // Replaces gabby_tpu/ops/pallas/prefill_attention.py:_prefill_call (its
-// _kernel body, reached from prefill_attention) in the unpaired form: the
+// _kernel body, reached from prefill_attention), unpaired and pair=True: the
 // T queries of one slot's prompt chunk (global positions offset..offset+T-1)
 // attend that slot's cache rows j < offset of one layer, with the int8
 // k scale folded into the scores and the v scale into the probabilities,
 // and then the chunk's own unquantized k/v causally (query t sees chunk
 // keys t' <= t). The cache holds only earlier chunks while this runs; the
-// caller writes the chunk's rows after the layer's attention.
+// caller writes the chunk's rows after the layer's attention. In the
+// paired cache a row is one 128-byte line holding the codes of kv heads 2p
+// and 2p + 1 side by side, scales still per head; the block of head
+// 2p + h stages bytes [64 h, 64 h + 64) of each line, and everything after
+// the staging is the unpaired kernel's, so the outputs are equal bit for
+// bit on the same rows re-laid. (The reference adds a query-group grid axis
+// to fit the paired form into the TPU compiler's memory limit; a block here
+// owns one kv head either way and needs no such axis.) The fresh block
+// arrives head-major in both layouts.
 //
 // What bounds it on the H100: operations. At T = 512, offset = 512, 32
 // query heads and head_dim 64 a layer does 2 * 2 * 32 * 512 * 64 *
@@ -26,11 +34,13 @@
 // then the fresh chunk keys up to the tile's last query position. An
 // online softmax in f32 carries (max, sum, acc) across key tiles; the
 // 64 KB of shared tiles needs dynamic shared memory above 48 KB
-// (cudaFuncSetAttribute, set once).
+// (cudaFuncSetAttribute, set once a device).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
 
 namespace {
 
@@ -59,7 +69,8 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ fk,
                          const __nv_bfloat16* __restrict__ fv,
                          __nv_bfloat16* __restrict__ out, int T, int Nq,
-                         int Nk, int S, int offset, float sm_scale) {
+                         int Nk, int S, int offset, int pair,
+                         float sm_scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Tiles& sm = *reinterpret_cast<Tiles*>(smem_raw);
   const int G = Nq / Nk;
@@ -96,8 +107,12 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
     for (int c = 0; c < kTC; ++c) acc[i][c] = 0.f;
   }
 
-  const int8_t* kbase = kc + (size_t)kh * S * kH;
-  const int8_t* vbase = vc + (size_t)kh * S * kH;
+  // codes of cache row j of this head: base + j * stride
+  const int stride = kH << pair;
+  const size_t code0 =
+      (size_t)(kh >> pair) * S * stride + (pair ? (kh & 1) * kH : 0);
+  const int8_t* kbase = kc + code0;
+  const int8_t* vbase = vc + code0;
   const float* ksb = ks + (size_t)kh * S;
   const float* vsb = vs + (size_t)kh * S;
   const __nv_bfloat16* fkb = fk + (size_t)kh * T * kH;
@@ -116,9 +131,9 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
       float kv[16], vv[16];
       if (past && j < offset) {
         const int4 kw = *reinterpret_cast<const int4*>(
-            kbase + (size_t)j * kH + d0);
+            kbase + (size_t)j * stride + d0);
         const int4 vw = *reinterpret_cast<const int4*>(
-            vbase + (size_t)j * kH + d0);
+            vbase + (size_t)j * stride + d0);
         const float ksc = ksb[j], vsc = vsb[j];
         const uint32_t kwords[4] = {(uint32_t)kw.x, (uint32_t)kw.y,
                                     (uint32_t)kw.z, (uint32_t)kw.w};
@@ -231,22 +246,36 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
 
 extern "C" {
 
-// q [T, Nq, 64] bf16; k/v [Nk, S, 64] int8 and k/v_scale [Nk, S] f32 of
-// one (layer, slot) cache row (the caller offsets the pointers); fresh_k/v
-// [Nk, T, 64] bf16; out [T, Nq, 64] bf16. Reads cache rows j < offset.
+// q [T, Nq, 64] bf16; k/v [Nk, S, 64] int8 (pair = 1: [Nk/2, S, 128]) and
+// k/v_scale [Nk, S] f32 of one (layer, slot) cache row (the caller offsets
+// the pointers); fresh_k/v [Nk, T, 64] bf16; out [T, Nq, 64] bf16. Reads
+// cache rows j < offset.
 int gabby_prefill_attention(const void* q, const void* k, const void* v,
                             const void* k_scale, const void* v_scale,
                             const void* fresh_k, const void* fresh_v,
                             void* out, int T, int Nq, int Nk, int S, int H,
-                            int offset, float sm_scale, void* stream) {
-  if (H != kH || Nq % Nk != 0 || offset > S) return (int)cudaErrorInvalidValue;
-  static bool attr_set = false;  // first call happens on one thread
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        prefill_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)kSmemBytes);
+                            int offset, int pair, float sm_scale,
+                            void* stream) {
+  if (H != kH || Nq % Nk != 0 || offset > S || (pair != 0 && pair != 1) ||
+      (pair && Nk % 2))
+    return (int)cudaErrorInvalidValue;
+  {
+    // the leave to take 64 KB holds per device; set under a lock, so calls
+    // may come from several threads and go to several devices
+    static std::mutex mu;
+    static bool attr_set[64] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return (int)err;
-    attr_set = true;
+    if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+    std::lock_guard<std::mutex> lock(mu);
+    if (!attr_set[dev]) {
+      err = cudaFuncSetAttribute(prefill_attention_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)kSmemBytes);
+      if (err != cudaSuccess) return (int)err;
+      attr_set[dev] = true;
+    }
   }
   const int rows = T * (Nq / Nk);
   dim3 grid((rows + kRows - 1) / kRows, Nk);
@@ -257,7 +286,8 @@ int gabby_prefill_attention(const void* q, const void* k, const void* v,
       static_cast<const float*>(v_scale),
       static_cast<const __nv_bfloat16*>(fresh_k),
       static_cast<const __nv_bfloat16*>(fresh_v),
-      static_cast<__nv_bfloat16*>(out), T, Nq, Nk, S, offset, sm_scale);
+      static_cast<__nv_bfloat16*>(out), T, Nq, Nk, S, offset, pair,
+      sm_scale);
   return (int)cudaGetLastError();
 }
 

@@ -56,6 +56,35 @@ def ppl_from_tokens(params, cfg: ModelConfig, token_stream: np.ndarray, *,
     return float(np.exp(total / max(count, 1)))
 
 
+@torch.no_grad()
+def decode_nll(params, cfg: ModelConfig, token_stream: np.ndarray, *,
+               prefill: int = 16, steps: int = 48, max_seq: int = 128,
+               paired: bool = False) -> float:
+    """Mean teacher-forced NLL of tokens prefill .. prefill + steps - 1
+    through the serving path: one `prefill_slot` chunk of `prefill` tokens,
+    then `decode_step` token by token, over an int8 cache of one slot
+    (paired or not). This is what the decode-attention form moves
+    (`ops.cuda.attn_s8`), so the s8 gate compares two calls of it; the
+    cache-free `ppl_from_tokens` never reaches decode attention."""
+    from gabby_tpu_torch.runtime.generate import token_logprob
+    from gabby_tpu_torch.runtime.kv_cache import create_cache
+    device = params["embed"].device
+    toks = torch.from_numpy(np.asarray(
+        token_stream[:prefill + steps], np.int64)).to(device)
+    cache = create_cache(cfg, 1, max_seq, quantized=True, paired=paired,
+                         device=device)
+    cur, cache = llama.prefill_slot(params, cfg, toks[:prefill], prefill, 0,
+                                    0, cache)
+    nll = 0.0
+    for i in range(prefill, prefill + steps):
+        nll -= float(token_logprob(cur, toks[i]))
+        logits, cache = llama.decode_step(
+            params, cfg, toks[i:i + 1].to(torch.int32),
+            torch.tensor([i], dtype=torch.int32, device=device), cache)
+        cur = logits[0]
+    return nll / steps
+
+
 def evaluate_ppl(params, cfg: ModelConfig, text: str, tokenizer, *,
                  seq_len: int = 512, batch: int = 4,
                  max_windows: Optional[int] = None) -> float:

@@ -13,6 +13,11 @@
   inside the scan made XLA copy the cache); the read contract is the same
   either way — attention sees cache rows j < position plus the current
   token's (or chunk's) own unquantized k/v.
+* A paired cache (kv heads 2p and 2p + 1 side by side on the last axis,
+  detected by its lane width) changes only how rows are stored: single
+  rows and verify blocks pair by a reshape (adjacent heads are adjacent in
+  memory), head-major prefill chunks through `pair_heads`. Attention gets
+  the fresh k/v head-major either way.
 """
 
 from __future__ import annotations
@@ -36,7 +41,8 @@ from gabby_tpu_torch.ops.linear import linear
 from gabby_tpu_torch.ops.norms import rms_norm
 from gabby_tpu_torch.ops.quant import QTensor
 from gabby_tpu_torch.ops.rope import apply_rope, rope_inv_freq
-from gabby_tpu_torch.runtime.kv_cache import KVCache, quantize_kv
+from gabby_tpu_torch.runtime.kv_cache import (KVCache, pair_heads,
+                                              quantize_kv)
 from gabby_tpu_torch.runtime.paged import (PagedKVCache, gather_slot_rows,
                                            write_rows, write_slot_chunk)
 
@@ -232,30 +238,40 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 q, cache.k, cache.v, cache.k_scale, cache.v_scale, read_pos,
                 layer=layer, fresh_k=fresh_k.contiguous(),
                 fresh_v=fresh_v.contiguous(), window=window)
-            k_codes, k_s = quantize_kv(fresh_k)
-            v_codes, v_s = quantize_kv(fresh_v)
-            cache.k[layer][lanes, :, write_pos] = k_codes
-            cache.v[layer][lanes, :, write_pos] = v_codes
-            cache.k_scale[layer][lanes, :, write_pos] = k_s
-            cache.v_scale[layer][lanes, :, write_pos] = v_s
         else:
             attn = cache_attention(q, cache.k[layer], cache.v[layer],
                                    read_pos, fresh_k=fresh_k,
                                    fresh_v=fresh_v)
-            cache.k[layer][lanes, :, write_pos] = fresh_k.to(cache.k.dtype)
-            cache.v[layer][lanes, :, write_pos] = fresh_v.to(cache.v.dtype)
+        kr, vr, k_s, v_s = _quantized_rows(cache, fresh_k, fresh_v)
+        cache.k[layer][lanes, :, write_pos] = kr
+        cache.v[layer][lanes, :, write_pos] = vr
+        if cache.quantized:
+            cache.k_scale[layer][lanes, :, write_pos] = k_s
+            cache.v_scale[layer][lanes, :, write_pos] = v_s
         h = _block_tail(cfg, blocks, h, attn, layer)
     return _unembed(params, cfg, h)[:, 0], cache
 
 
-def _quantized_rows(cache, k: torch.Tensor, v: torch.Tensor):
-    """The rows to store for fresh k/v [..., H]: int8 codes and f32 scales
-    for a quantized cache, else the cache's dtype and no scales."""
+def _quantized_rows(cache, k: torch.Tensor, v: torch.Tensor, *,
+                    head_major: bool = False):
+    """The rows to store for fresh k/v: int8 codes and f32 scales (per
+    head) for a quantized cache, else the cache's dtype and no scales. k/v
+    are token-major [..., Nk, H], or head-major [Nk, T, H] chunks with
+    `head_major`; for a paired cache the rows come back paired
+    ([..., Nk/2, 2H], a reshape, or [Nk/2, T, 2H] through pair_heads)."""
     if cache.quantized:
-        k_codes, k_s = quantize_kv(k)
-        v_codes, v_s = quantize_kv(v)
-        return k_codes, v_codes, k_s, v_s
-    return k.to(cache.k.dtype), v.to(cache.v.dtype), None, None
+        k, k_s = quantize_kv(k)
+        v, v_s = quantize_kv(v)
+    else:
+        k, v, k_s, v_s = k.to(cache.k.dtype), v.to(cache.v.dtype), None, None
+    if cache.k.shape[-1] == 2 * k.shape[-1]:
+        if head_major:
+            k, v = pair_heads(k), pair_heads(v)
+        else:
+            lead, (nk, hd) = k.shape[:-2], k.shape[-2:]
+            k = k.reshape(*lead, nk // 2, 2 * hd)
+            v = v.reshape(*lead, nk // 2, 2 * hd)
+    return k, v, k_s, v_s
 
 
 def _decode_step_paged(params: Params, cfg: ModelConfig,
@@ -315,18 +331,16 @@ def prefill_slot(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             attn = slot_prefill_attention(
                 q, cache.k, cache.v, slot, offset, cache.k_scale,
                 cache.v_scale, fresh_k=kt, fresh_v=vt, layer=layer)
-            k_codes, k_s = quantize_kv(kt)
-            v_codes, v_s = quantize_kv(vt)
-            cache.k[layer, slot, :, rows] = k_codes
-            cache.v[layer, slot, :, rows] = v_codes
-            cache.k_scale[layer, slot, :, rows] = k_s
-            cache.v_scale[layer, slot, :, rows] = v_s
         else:
             attn = slot_prefill_attention(q, cache.k, cache.v, slot, offset,
                                           fresh_k=kt, fresh_v=vt,
                                           layer=layer)
-            cache.k[layer, slot, :, rows] = kt.to(cache.k.dtype)
-            cache.v[layer, slot, :, rows] = vt.to(cache.v.dtype)
+        kr, vr, k_s, v_s = _quantized_rows(cache, kt, vt, head_major=True)
+        cache.k[layer, slot, :, rows] = kr
+        cache.v[layer, slot, :, rows] = vr
+        if cache.quantized:
+            cache.k_scale[layer, slot, :, rows] = k_s
+            cache.v_scale[layer, slot, :, rows] = v_s
         h = _block_tail(cfg, blocks, h, attn, layer)
     # unembed only the last valid position (one row, not T)
     logits = _unembed(params, cfg, h[:, length - 1:length])[0, 0]
@@ -340,7 +354,8 @@ def _prefill_slot_paged(params: Params, cfg: ModelConfig,
     """prefill_slot against a paged pool. Per layer, the slot's pages below
     `offset` are gathered into a dense one-slot view (a per-chunk cost on
     the order of the rows attention reads anyway), the chunk runs the dense
-    slot-prefill attention over it (K4 over int8 pools), and the chunk's
+    slot-prefill attention over it (K4 over int8 pools, K21 over paired
+    ones: the gathered view keeps the pool's layout), and the chunk's
     rows land with one page-granular write per pool. Chunk length and
     offset must be page-aligned (the engine's paged bucket ladder)."""
     t = tokens.shape[0]
@@ -363,7 +378,8 @@ def _prefill_slot_paged(params: Params, cfg: ModelConfig,
         attn = slot_prefill_attention(
             q, gk[None, None], gv[None, None], 0, offset, gks, gvs,
             fresh_k=kt, fresh_v=vt, layer=0)
-        write_slot_chunk(cache, slot, offset, *_quantized_rows(cache, kt, vt),
+        write_slot_chunk(cache, slot, offset,
+                         *_quantized_rows(cache, kt, vt, head_major=True),
                          layer=layer)
         h = _block_tail(cfg, blocks, h, attn, layer)
     logits = _unembed(params, cfg, h[:, length - 1:length])[0, 0]

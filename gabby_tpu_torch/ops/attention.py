@@ -5,9 +5,13 @@ The plain PyTorch bodies here are the semantics the kernels are held to.
 `slot_prefill_attention` (chunked prefill, fresh-block form),
 `verify_attention` (speculative verify, T candidate positions per slot) and
 `paged_attention` (decode and verify against the paged pool) over an int8
-cache dispatch to their CUDA kernels (ops/cuda/attention.py K3 and K9,
-ops/cuda/prefill_attention.py K4, ops/cuda/paged_attention.py K10 and K11),
-which take these plain bodies for CPU tensors. Math runs in f32; outputs
+cache dispatch to their CUDA kernels (ops/cuda/attention.py,
+ops/cuda/prefill_attention.py, ops/cuda/paged_attention.py), which take
+plain bodies for CPU tensors. Every contract takes the paired cache layout
+too ([.., Nk/2, S, 2H], detected by the lane width; scales per head) and
+un-pairs it for the plain bodies. Single-position decode over an int8 cache
+takes the s8 form when `ops.cuda.attn_s8()` is on (the default), else the
+bf16/f32 form; verify and prefill have no s8 form. Math runs in f32; outputs
 return in q's dtype.
 """
 
@@ -17,10 +21,11 @@ from typing import Optional
 
 import torch
 
+from gabby_tpu_torch.ops import cuda as ck
 from gabby_tpu_torch.ops.cuda import attention as cattn
 from gabby_tpu_torch.ops.cuda import paged_attention as cpaged
 from gabby_tpu_torch.ops.cuda import prefill_attention as cpfa
-from gabby_tpu_torch.runtime.kv_cache import dequantize_kv
+from gabby_tpu_torch.runtime.kv_cache import dequantize_kv, unpaired
 
 NEG_INF = -1e30  # large-but-finite: keeps fully-masked rows NaN-free
 
@@ -64,13 +69,15 @@ def cache_attention(q: torch.Tensor, k_cache: torch.Tensor,
                     scale: Optional[float] = None,
                     fresh_k: Optional[torch.Tensor] = None,
                     fresh_v: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Decode attention against a head-major cache [B, Nk, S, H].
+    """Decode attention against a head-major cache [B, Nk, S, H] (or the
+    paired [B, Nk/2, S, 2H]).
 
     q: [B, 1, Nq, H] at positions[b]. Without fresh rows the cache holds the
     current token and rows j <= positions[b] are attended; with fresh_k/v
     ([B, Nk, H], the current token's unquantized k/v) rows j < positions[b]
     are attended plus the fresh row. Output [B, 1, Nq, H] in q's dtype."""
     b, _, _, h = q.shape
+    k_cache, v_cache = unpaired(k_cache, h), unpaired(v_cache, h)
     nk, s = k_cache.shape[1], k_cache.shape[2]
     scale = h ** -0.5 if scale is None else scale
     kk = k_cache.transpose(1, 2).to(q.dtype)  # [B, S, Nk, H]
@@ -98,19 +105,31 @@ def cache_attention_quantized(q: torch.Tensor, k_codes: torch.Tensor,
     """Decode attention straight off an int8 head-major cache.
 
     k/v_codes: [B, Nk, S, H] int8, or the stacked [L, B, Nk, S, H] with
-    `layer`; k/v_scale: [(L,) B, Nk, S] f32. The fresh-row form with a
-    stacked cache is the serving path: it goes to the flash-decode kernel
-    (K3), which reads only rows j < min(positions[b], window)."""
+    `layer` (or their paired layouts); k/v_scale: [(L,) B, Nk, S] f32. The
+    fresh-row form with a stacked cache is the serving path: it goes to a
+    flash-decode kernel, which reads only rows j < min(positions[b],
+    window): slot-batched in the bf16/f32 form when `attn_multi()` is on,
+    the cache is unpaired and a slot block divides B (whatever `attn_s8()`
+    says, as in the reference); else the s8 form when `attn_s8()` is on,
+    else the bf16/f32 form."""
     if (layer is not None and fresh_k is not None and q.shape[1] == 1):
-        return cattn.decode_attention(q, k_codes, v_codes, k_scale, v_scale,
-                                      positions, layer=layer,
-                                      fresh_k=fresh_k, fresh_v=fresh_v,
-                                      scale=scale, window=window)
+        kw = dict(layer=layer, fresh_k=fresh_k, fresh_v=fresh_v, scale=scale,
+                  window=window)
+        args = (q, k_codes, v_codes, k_scale, v_scale, positions)
+        # the reference's order: on the unpaired cache the slot-batched
+        # launch (bf16/f32 form) comes before the s8 switch is looked at
+        if (ck.attn_multi() and k_codes.shape[-1] == q.shape[-1]
+                and cattn.pick_slot_block(q.shape[0]) > 1):
+            return cattn.decode_attention_multi(*args, **kw)
+        if ck.attn_s8():
+            return cattn.decode_attention_s8(*args, **kw)
+        return cattn.decode_attention(*args, **kw)
     if layer is not None:
         k_codes, v_codes = k_codes[layer], v_codes[layer]
         k_scale, v_scale = k_scale[layer], v_scale[layer]
-    kk = dequantize_kv(k_codes, k_scale, q.dtype)
-    vv = dequantize_kv(v_codes, v_scale, q.dtype)
+    h = q.shape[-1]
+    kk = dequantize_kv(unpaired(k_codes, h), k_scale, q.dtype)
+    vv = dequantize_kv(unpaired(v_codes, h), v_scale, q.dtype)
     return cache_attention(q, kk, vv, positions, scale=scale,
                            fresh_k=fresh_k, fresh_v=fresh_v)
 
@@ -126,7 +145,9 @@ def slot_prefill_reference(q, k_cache, v_cache, slot: int, offset: int,
         k_cache, v_cache = k_cache[layer], v_cache[layer]
         if k_scale is not None:
             k_scale, v_scale = k_scale[layer], v_scale[layer]
-    row_k, row_v = k_cache[slot:slot + 1], v_cache[slot:slot + 1]
+    h = q.shape[-1]
+    row_k = unpaired(k_cache[slot:slot + 1], h)
+    row_v = unpaired(v_cache[slot:slot + 1], h)
     if k_scale is not None:
         kk = dequantize_kv(row_k, k_scale[slot:slot + 1], q.dtype)
         vv = dequantize_kv(row_v, v_scale[slot:slot + 1], q.dtype)
@@ -156,7 +177,7 @@ def slot_prefill_attention(q: torch.Tensor, k_cache: torch.Tensor,
     cache is read strictly below `offset` and the chunk attends its own
     k/v ([Nk, T, H]) causally at full precision. Over an int8 stacked
     cache that is the serving path, which goes to the flash-prefill kernel
-    (K4)."""
+    (K4; K21 when the cache is paired)."""
     if k_scale is not None and layer is not None:
         return cpfa.prefill_attention(q, k_cache, v_cache, k_scale, v_scale,
                                       slot, offset, layer=layer,
@@ -182,12 +203,13 @@ def verify_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
         k_cache, v_cache = k_cache[layer], v_cache[layer]
         if k_scale is not None:
             k_scale, v_scale = k_scale[layer], v_scale[layer]
+    b, t, _, h = q.shape
+    k_cache, v_cache = unpaired(k_cache, h), unpaired(v_cache, h)
     if k_scale is not None:
         kk = dequantize_kv(k_cache, k_scale, q.dtype)
         vv = dequantize_kv(v_cache, v_scale, q.dtype)
     else:
         kk, vv = k_cache.to(q.dtype), v_cache.to(q.dtype)
-    b, t, _, h = q.shape
     s = kk.shape[2]
     sc = h ** -0.5 if scale is None else scale
     kk = torch.cat([kk, fresh_k.to(q.dtype)], dim=2).transpose(1, 2)
@@ -210,7 +232,8 @@ def verify_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      window: Optional[int] = None) -> torch.Tensor:
     """Verify attention against the stacked dense cache [L, B, Nk, S, H].
     Over an int8 cache that is the serving path, which goes to the
-    flash-verify kernel (K9); it reads rows j < min(positions[b], window)."""
+    flash-verify kernel (K9; K13 when the cache is paired); it reads rows
+    j < min(positions[b], window)."""
     if k_scale is not None:
         return cattn.verify_attention(q, k_cache, v_cache, k_scale, v_scale,
                                       positions, layer=layer,
@@ -231,9 +254,12 @@ def gather_pages(pool: torch.Tensor, page_table: torch.Tensor,
     return g.reshape(g.shape[0], g.shape[1], -1, *g.shape[4:])
 
 
-def _gather_layer(k_pool, v_pool, page_table, k_scale, v_scale, layer):
-    kk = gather_pages(k_pool, page_table, layer)
-    vv = gather_pages(v_pool, page_table, layer)
+def gather_layer(k_pool, v_pool, page_table, k_scale, v_scale, layer,
+                 head_dim: int):
+    """One layer of the pools (and scale pools, or None) as dense unpaired
+    views [B, Nk, max_pages * page, H] and [B, Nk, max_pages * page]."""
+    kk = unpaired(gather_pages(k_pool, page_table, layer), head_dim)
+    vv = unpaired(gather_pages(v_pool, page_table, layer), head_dim)
     if k_scale is None:
         return kk, vv, None, None
     return (kk, vv, gather_pages(k_scale, page_table, layer),
@@ -247,13 +273,13 @@ def paged_cache_attention(q: torch.Tensor, k_pool: torch.Tensor,
                           fresh_v: torch.Tensor,
                           scale: Optional[float] = None) -> torch.Tensor:
     """Decode contract against a paged pool: q [B, 1, Nq, H]; k/v_pool
-    [P, L, Nk, page, H] (+ scale pools [P, L, Nk, page] when int8);
-    page_table [B, max_pages] int32. The layer's pages are gathered through
-    the table, then the dense fresh-row contract applies: rows
-    j < positions[b] plus the current token's unquantized fresh_k/v
-    [B, Nk, H]."""
-    kk, vv, ks, vs = _gather_layer(k_pool, v_pool, page_table, k_scale,
-                                   v_scale, layer)
+    [P, L, Nk, page, H] or paired [P, L, Nk/2, page, 2H] (+ scale pools
+    [P, L, Nk, page] when int8); page_table [B, max_pages] int32. The
+    layer's pages are gathered through the table, then the dense fresh-row
+    contract applies: rows j < positions[b] plus the current token's
+    unquantized fresh_k/v [B, Nk, H]."""
+    kk, vv, ks, vs = gather_layer(k_pool, v_pool, page_table, k_scale,
+                                  v_scale, layer, q.shape[-1])
     if ks is not None:
         kk = dequantize_kv(kk, ks, q.dtype)
         vv = dequantize_kv(vv, vs, q.dtype)
@@ -269,8 +295,8 @@ def paged_verify_reference(q: torch.Tensor, k_pool: torch.Tensor,
                            scale: Optional[float] = None) -> torch.Tensor:
     """Verify contract against a paged pool: the layer's pages gathered
     through the table, then `verify_attention_reference`."""
-    kk, vv, ks, vs = _gather_layer(k_pool, v_pool, page_table, k_scale,
-                                   v_scale, layer)
+    kk, vv, ks, vs = gather_layer(k_pool, v_pool, page_table, k_scale,
+                                  v_scale, layer, q.shape[-1])
     return verify_attention_reference(q, kk, vv, positions, ks, vs,
                                       fresh_k=fresh_k, fresh_v=fresh_v,
                                       scale=scale)
@@ -283,12 +309,15 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Attention of q [B, T, Nq, H] against the paged pool: decode (T = 1,
     fresh_k/v [B, Nk, H]) or verify (T > 1, fresh_k/v [B, Nk, T, H]). Over
-    int8 pools that is the serving path, which goes to the paged kernels
-    (K10, K11): they read the page table themselves."""
+    int8 pools that is the serving path, which goes to the paged kernels:
+    they read the page table themselves. Decode takes the s8 form when
+    `attn_s8()` is on, else the bf16/f32 form; verify has only the latter."""
     t = q.shape[1]
     args = (q, k_pool, v_pool, page_table, positions, k_scale, v_scale)
     kw = dict(layer=layer, fresh_k=fresh_k, fresh_v=fresh_v, scale=scale)
     if k_scale is not None:
+        if t == 1 and ck.attn_s8():
+            return cpaged.paged_decode_attention_s8(*args, **kw)
         if t == 1:
             return cpaged.paged_decode_attention(*args, **kw)
         return cpaged.paged_verify_attention(*args, **kw)

@@ -26,6 +26,16 @@ launch_counts: dict[str, int] = {
     "verify_attention": 0,
     "paged_decode_attention": 0,
     "paged_verify_attention": 0,
+    "decode_attention_paired": 0,
+    "verify_attention_paired": 0,
+    "decode_attention_s8": 0,
+    "decode_attention_s8_paired": 0,
+    "decode_attention_multi": 0,
+    "paged_decode_attention_paired": 0,
+    "paged_verify_attention_paired": 0,
+    "paged_decode_attention_s8": 0,
+    "paged_decode_attention_s8_paired": 0,
+    "prefill_attention_paired": 0,
 }
 
 
@@ -34,12 +44,15 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-# The two route switches of the int4 matmuls, with the reference's names
-# and defaults (gabby_tpu/ops/pallas/__init__.py). Each chooses between two
-# routes that both exist; neither is a fallback: when a switch is on and
-# the kernel cannot take a call, its wrapper raises.
+# The route switches, with the reference's names and defaults
+# (gabby_tpu/ops/pallas/__init__.py, gabby_tpu/ops/pallas/attention.py).
+# Each chooses between two routes that both exist; neither is a fallback:
+# when a switch is on and the kernel cannot take a call, its wrapper raises.
 _W4A8: Optional[bool] = None
 _INT4_PREFILL: Optional[bool] = None
+_ATTN_S8: Optional[bool] = None
+_ATTN_MULTI: Optional[bool] = None
+ATTN_CHUNK = 1024  # default rows per s8 quantization chunk (see attn_chunk)
 
 
 def w4a8() -> bool:
@@ -71,3 +84,47 @@ def set_int4_prefill_kernel(enabled: Optional[bool]) -> None:
     """True/False force; None restores the environment's setting."""
     global _INT4_PREFILL
     _INT4_PREFILL = enabled
+
+
+def attn_s8() -> bool:
+    """s8 decode attention: over an int8 cache, single-position decode
+    with the fresh row quantizes q per row and the value-scaled
+    probabilities per row and chunk to int8 and takes both products in
+    int32 (dense and paged, paired or not). Changes numerics about as the
+    int8 cache itself does. Default ON, as in the reference;
+    GABBY_ATTN_S8=0 or set_attn_s8(False) restores the bf16/f32 form."""
+    if _ATTN_S8 is not None:
+        return _ATTN_S8
+    return os.environ.get("GABBY_ATTN_S8", "1") != "0"
+
+
+def set_attn_s8(enabled: Optional[bool]) -> None:
+    """True/False force; None restores the environment's setting."""
+    global _ATTN_S8
+    _ATTN_S8 = enabled
+
+
+def attn_multi() -> bool:
+    """Slot-batched decode attention: the bf16/f32 form over an unpaired
+    dense int8 cache gives one thread block several slots of a kv head.
+    Default off, as in the reference; opt-in with GABBY_ATTN_MULTI=1 or
+    set_attn_multi(True). Where it applies it is taken before `attn_s8()`
+    is looked at, as in the reference: such a cache then decodes in the
+    bf16/f32 form."""
+    if _ATTN_MULTI is not None:
+        return _ATTN_MULTI
+    return os.environ.get("GABBY_ATTN_MULTI", "0") == "1"
+
+
+def set_attn_multi(enabled: Optional[bool]) -> None:
+    """True/False force; None restores the environment's setting."""
+    global _ATTN_MULTI
+    _ATTN_MULTI = enabled
+
+
+def attn_chunk() -> int:
+    """Rows of the dense cache over which s8 decode attention takes one
+    quantization scale of the probabilities (GABBY_ATTN_CHUNK, default
+    1024; the chunk is min(attn_chunk(), max_seq), counted from row 0).
+    Over the paged pool the chunk is a page."""
+    return int(os.environ.get("GABBY_ATTN_CHUNK", str(ATTN_CHUNK)))

@@ -1,15 +1,25 @@
-"""Flash-decode and flash-verify attention over the dense int8 KV cache (K3
-and K9; counterparts of gabby_tpu/ops/pallas/attention.py:decode_attention
-and verify_attention in their unpaired forms) and their plain PyTorch
-versions.
+"""Flash-decode and flash-verify attention over the dense int8 KV cache and
+their plain PyTorch versions (counterparts of
+gabby_tpu/ops/pallas/attention.py:decode_attention and verify_attention in
+all their forms).
 
-csrc/decode_attention.cu replaces _decode_call/_flash_step: one block per
-(slot, kv head) reads rows j < min(positions[b], window) of one layer of
-the stacked cache (a pointer offset, no copy), folds the int8 scales into
-scores and probabilities, and folds the current token's unquantized k/v
-in last. csrc/verify_attention.cu is the same call with T > 1 query
-positions per slot and the block's own T fresh rows attended causally.
-CPU tensors take the plain versions; CUDA tensors launch or raise.
+Over the unpaired cache [L, B, Nk, S, H]:
+  K3   decode, bf16/f32 form (csrc/decode_attention.cu, _decode_call tq = 1);
+  K9   verify, T > 1 (csrc/verify_attention.cu, _decode_call tq > 1);
+  K14  decode, s8 form (csrc/attention_s8.cu, _decode_call use_s8=True);
+  K16  decode, bf16/f32 form, several slots per block
+       (csrc/decode_attention.cu, _decode_call_multi).
+Over the paired cache [L, B, Nk/2, S, 2H] (adjacent kv heads side by side
+on the last axis, scales per head; detected by the lane width):
+  K12  decode, bf16/f32 form; K13 verify (csrc/verify_attention.cu,
+       _decode_call pair=True);
+  K15  decode, s8 form (csrc/attention_s8.cu, pair=True and use_s8=True).
+Every kernel reads rows j < min(positions[b], window) of one layer of the
+stacked cache (a pointer offset, no copy) and folds the block's own
+unquantized k/v in last. A paired kernel's block owns one kv head and reads
+its half of each 128-byte row, so the paired results equal the unpaired
+ones on the same rows re-laid. CPU tensors take the plain versions; CUDA
+tensors launch or raise.
 """
 
 from __future__ import annotations
@@ -19,19 +29,132 @@ from typing import Optional
 import torch
 
 from gabby_tpu_torch.ops import cuda as ck
+from gabby_tpu_torch.runtime.kv_cache import dequantize_kv, unpaired
+
+NEG_INF = -1e30
 
 
 def decode_attention_plain(q, k_cache, v_cache, k_scale, v_scale, positions,
                            *, layer: int, fresh_k, fresh_v,
                            scale: Optional[float] = None) -> torch.Tensor:
-    """The reference's contract: dequantize the layer's cache in q's dtype,
-    attend rows j < positions[b] plus the fresh row, in f32."""
+    """The reference's contract: dequantize the layer's cache (un-paired
+    first when it is paired) in q's dtype, attend rows j < positions[b]
+    plus the fresh row, in f32."""
     from gabby_tpu_torch.ops.attention import cache_attention
-    from gabby_tpu_torch.runtime.kv_cache import dequantize_kv
-    kk = dequantize_kv(k_cache[layer], k_scale[layer], q.dtype)
-    vv = dequantize_kv(v_cache[layer], v_scale[layer], q.dtype)
+    h = q.shape[-1]
+    kk = dequantize_kv(unpaired(k_cache[layer], h), k_scale[layer], q.dtype)
+    vv = dequantize_kv(unpaired(v_cache[layer], h), v_scale[layer], q.dtype)
     return cache_attention(q, kk, vv, positions, scale=scale,
                            fresh_k=fresh_k, fresh_v=fresh_v)
+
+
+def s8_attention_core(q, k_codes, v_codes, k_scale, v_scale, positions,
+                      fresh_k, fresh_v, sm_scale: float,
+                      chunk: int) -> torch.Tensor:
+    """The s8 decode contract on one layer's head-major rows: q
+    [B, 1, Nq, H]; k/v_codes [B, Nk, S, H] int8; k/v_scale [B, Nk, S] f32;
+    fresh_k/v [B, Nk, H]. Per kv head and query row: q quantized to int8 by
+    its own absmax, integer scores scaled by qs * (k_scale * sm_scale), an
+    online softmax in f32 over chunks of `chunk` rows from row 0 (a chunk is
+    entered while its first row is below positions[b]), the value-scaled
+    probabilities quantized to int8 by their maximum over the chunk, the
+    integer value product scaled back, and the fresh row folded last in
+    f32. Integer products are taken in float64, where they are exact."""
+    b, _, nq, h = q.shape
+    nk, s = k_codes.shape[1], k_codes.shape[2]
+    g = nq // nk
+    qf = q[:, 0].float().reshape(b, nk, g, h)
+    qs = torch.clamp(qf.abs().amax(-1, keepdim=True), min=1e-9) * (1.0 / 127.0)
+    q8 = torch.round(qf / qs).double()
+    m = torch.full((b, nk, g, 1), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, nk, g, h), dtype=torch.float32, device=q.device)
+    top = int(positions.max())
+    for lo in range(0, min(s, top), chunk):
+        hi = min(lo + chunk, s)
+        live = (lo < positions)[:, None, None, None]
+        si = torch.einsum("bkgh,bkch->bkgc", q8, k_codes[:, :, lo:hi].double())
+        scores = (si.float() * qs) * (k_scale[:, :, None, lo:hi] * sm_scale)
+        cols = torch.arange(lo, hi, device=q.device)
+        scores = torch.where(cols[None, :] < positions[:, None, None, None],
+                             scores, torch.full_like(scores, NEG_INF))
+        m_new = torch.maximum(m, scores.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(scores - m_new)
+        pvf = p * v_scale[:, :, None, lo:hi]
+        pscale = torch.clamp(pvf.amax(-1, keepdim=True),
+                             min=1e-30) * (1.0 / 127.0)
+        p8 = torch.round(pvf / pscale).double()
+        ci = torch.einsum("bkgc,bkch->bkgh", p8, v_codes[:, :, lo:hi].double())
+        m = torch.where(live, m_new, m)
+        l = torch.where(live, l * alpha + p.sum(-1, keepdim=True), l)
+        acc = torch.where(live, acc * alpha + ci.float() * pscale, acc)
+    sf = torch.einsum("bkgh,bkh->bkg", qf, fresh_k.float())[..., None] * sm_scale
+    m_new = torch.maximum(m, sf)
+    alpha = torch.exp(m - m_new)
+    pf = torch.exp(sf - m_new)
+    out = ((acc * alpha + pf * fresh_v.float()[:, :, None, :])
+           / (l * alpha + pf))
+    return out.reshape(b, 1, nq, h).to(q.dtype)
+
+
+def decode_attention_s8_plain(q, k_cache, v_cache, k_scale, v_scale,
+                              positions, *, layer: int, fresh_k, fresh_v,
+                              scale: Optional[float] = None) -> torch.Tensor:
+    """The s8 form of the decode contract (`s8_attention_core`) on one layer
+    of the dense cache, paired or not, with the reference's chunk:
+    min(attn_chunk(), S) rows."""
+    h = q.shape[-1]
+    s = k_cache.shape[3]
+    return s8_attention_core(
+        q, unpaired(k_cache[layer], h), unpaired(v_cache[layer], h),
+        k_scale[layer], v_scale[layer], positions, fresh_k, fresh_v,
+        float(scale) if scale is not None else h ** -0.5,
+        min(ck.attn_chunk(), s))
+
+
+def _dense_cache(what: str, q, k_cache, v_cache, k_scale, v_scale,
+                 layer: int):
+    """Shape and type checks of one layer of a dense int8 cache against q
+    [B, T, Nq, 64]. Returns (Nk, S, pair, byte offsets of the layer in the
+    codes and in the scales)."""
+    b, _, nq, h = q.shape
+    if k_cache.dim() != 5 or k_scale.dim() != 4:
+        raise ValueError(f"{what}: the cache must be stacked "
+                         f"[L, B, Nk, S, H], got {tuple(k_cache.shape)}")
+    nl, _, heads, s, lanes = k_cache.shape
+    pair = int(lanes == 2 * h)
+    nk = heads * 2 if pair else heads
+    if (k_cache.dtype != torch.int8 or v_cache.dtype != torch.int8
+            or k_scale.dtype != torch.float32
+            or v_scale.dtype != torch.float32):
+        raise ValueError(f"{what} takes an int8 cache with f32 scales")
+    if (h != 64 or lanes not in (h, 2 * h) or nq % nk
+            or k_cache.shape != (nl, b, heads, s, lanes)
+            or v_cache.shape != k_cache.shape
+            or k_scale.shape != (nl, b, nk, s)
+            or v_scale.shape != k_scale.shape or not 0 <= layer < nl):
+        raise ValueError(f"{what}: unsupported shapes q {tuple(q.shape)}, "
+                         f"cache {tuple(k_cache.shape)}, scales "
+                         f"{tuple(k_scale.shape)}, layer {layer}")
+    return nk, s, pair, layer * b * nk * s * h, layer * b * nk * s * 4
+
+
+def check_decode_inputs(what: str, q, fresh_k, fresh_v, positions, tensors,
+                         nk: int, groups=(1, 2, 4, 8)) -> None:
+    """`check_block_inputs` for single-position decode: q [B, 1, Nq, 64],
+    fresh_k/v [B, Nk, 64], and a group size the kernel is built for."""
+    if (q.shape[1] != 1 or fresh_k.dim() != 3 or fresh_v.dim() != 3
+            or (groups and q.shape[2] // nk not in groups)):
+        raise ValueError(f"{what}: unsupported shapes q {tuple(q.shape)}, "
+                         f"fresh {tuple(fresh_k.shape)}, {nk} kv heads")
+    check_block_inputs(what, q, fresh_k[:, :, None], fresh_v[:, :, None],
+                       positions, tensors, nk)
+
+
+def _limit(s: int, window: Optional[int]) -> int:
+    return s if window is None else min(window, s)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -40,65 +163,143 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      layer: int, fresh_k: torch.Tensor,
                      fresh_v: torch.Tensor, scale: Optional[float] = None,
                      window: Optional[int] = None) -> torch.Tensor:
-    """q [B, 1, Nq, H] bf16; k/v_cache [L, B, Nk, S, H] int8; k/v_scale
-    [L, B, Nk, S] f32; positions [B] int32; fresh_k/v [B, Nk, H] bf16.
-    Returns [B, 1, Nq, H]. `window` (when given) bounds every slot's read,
-    which the caller guarantees covers positions[b]."""
+    """The bf16/f32 form. q [B, 1, Nq, H] bf16; k/v_cache [L, B, Nk, S, H]
+    int8 (K3) or paired [L, B, Nk/2, S, 2H] (K12); k/v_scale [L, B, Nk, S]
+    f32; positions [B] int32; fresh_k/v [B, Nk, H] bf16. Returns
+    [B, 1, Nq, H]. `window` (when given) bounds every slot's read, which
+    the caller guarantees covers positions[b]."""
     if not q.is_cuda:
         return decode_attention_plain(q, k_cache, v_cache, k_scale, v_scale,
                                       positions, layer=layer,
                                       fresh_k=fresh_k, fresh_v=fresh_v,
                                       scale=scale)
-    b, t, nq, h = q.shape
-    nl, _, nk, s, _ = k_cache.shape
-    tensors = (q, k_cache, v_cache, k_scale, v_scale, positions, fresh_k,
-               fresh_v)
-    if not all(x.is_cuda and x.is_contiguous() for x in tensors):
-        raise ValueError("decode attention: tensors must be contiguous on "
-                         "the GPU")
-    if (q.dtype != torch.bfloat16 or k_cache.dtype != torch.int8
-            or v_cache.dtype != torch.int8 or k_scale.dtype != torch.float32
-            or v_scale.dtype != torch.float32
-            or positions.dtype != torch.int32
-            or fresh_k.dtype != torch.bfloat16
-            or fresh_v.dtype != torch.bfloat16):
-        raise ValueError("decode attention takes bf16 q/fresh, int8 cache, "
-                         "f32 scales and int32 positions")
-    if (t != 1 or h != 64 or nq % nk or nq // nk not in (1, 2, 4, 8)
-            or k_scale.shape != (nl, b, nk, s)
-            or fresh_k.shape != (b, nk, h) or positions.shape != (b,)
-            or not 0 <= layer < nl):
-        raise ValueError(f"decode attention: unsupported shapes q "
-                         f"{tuple(q.shape)}, cache {tuple(k_cache.shape)}, "
-                         f"layer {layer}")
+    what = "decode attention"
+    b, _, nq, h = q.shape
+    nk, s, pair, kv_off, sc_off = _dense_cache(what, q, k_cache, v_cache,
+                                               k_scale, v_scale, layer)
+    check_decode_inputs(what, q, fresh_k, fresh_v, positions,
+                         (k_cache, v_cache, k_scale, v_scale), nk,
+                         groups=None if pair else (1, 2, 4, 8))
     from gabby_tpu_torch.ops.cuda import build
     lib = build.library()
     out = torch.empty_like(q)
-    kv_off = layer * b * nk * s * h        # int8 bytes
-    sc_off = layer * b * nk * s * 4        # f32 bytes
-    limit = s if window is None else min(window, s)
     sm_scale = float(scale) if scale is not None else h ** -0.5
-    build.check(lib.gabby_decode_attention(
+    cache = (k_cache.data_ptr() + kv_off, v_cache.data_ptr() + kv_off,
+             k_scale.data_ptr() + sc_off, v_scale.data_ptr() + sc_off,
+             fresh_k.data_ptr(), fresh_v.data_ptr(), positions.data_ptr(),
+             out.data_ptr())
+    if pair:
+        # the shared row body at T = 1 (fresh [B, Nk, 1, H] is [B, Nk, H])
+        build.check(lib.gabby_verify_attention(
+            q.data_ptr(), *cache, b, 1, nq, nk, s, h, _limit(s, window), 1,
+            sm_scale, build.stream_ptr(q.device)), what)
+        ck.launch_counts["decode_attention_paired"] += 1
+    else:
+        build.check(lib.gabby_decode_attention(
+            q.data_ptr(), *cache, b, nq, nk, s, h, _limit(s, window),
+            sm_scale, build.stream_ptr(q.device)), what)
+        ck.launch_counts["decode_attention"] += 1
+    return out
+
+
+def pick_slot_block(b: int) -> int:
+    """Slots per block of the slot-batched decode kernel: the largest of 4
+    and 2 that divides B, else 1 (then the plain launch serves). A block
+    holds sb x 128 threads and sb x 10.3 KB of shared memory at G = 8, so 4
+    slots are the most that stay inside 512 threads and the 48 KB static
+    shared-memory limit. (The reference picks 8, 4 or 2 under the TPU
+    compiler's memory budget.)"""
+    for sb in (4, 2):
+        if b % sb == 0:
+            return sb
+    return 1
+
+
+def decode_attention_multi(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, k_scale: torch.Tensor,
+                           v_scale: torch.Tensor, positions: torch.Tensor, *,
+                           layer: int, fresh_k: torch.Tensor,
+                           fresh_v: torch.Tensor,
+                           scale: Optional[float] = None,
+                           window: Optional[int] = None) -> torch.Tensor:
+    """`decode_attention` over the unpaired cache with `pick_slot_block(B)`
+    slots of a kv head per thread block (K16). Same inputs, same result."""
+    if not q.is_cuda:
+        return decode_attention_plain(q, k_cache, v_cache, k_scale, v_scale,
+                                      positions, layer=layer,
+                                      fresh_k=fresh_k, fresh_v=fresh_v,
+                                      scale=scale)
+    what = "slot-batched decode attention"
+    b, _, nq, h = q.shape
+    nk, s, pair, kv_off, sc_off = _dense_cache(what, q, k_cache, v_cache,
+                                               k_scale, v_scale, layer)
+    sb = pick_slot_block(b)
+    if pair or sb < 2:
+        raise ValueError(f"{what} takes the unpaired cache and a slot count "
+                         f"that 2 divides, got cache {tuple(k_cache.shape)}")
+    check_decode_inputs(what, q, fresh_k, fresh_v, positions,
+                         (k_cache, v_cache, k_scale, v_scale), nk)
+    from gabby_tpu_torch.ops.cuda import build
+    lib = build.library()
+    out = torch.empty_like(q)
+    sm_scale = float(scale) if scale is not None else h ** -0.5
+    build.check(lib.gabby_decode_attention_multi(
         q.data_ptr(), k_cache.data_ptr() + kv_off,
         v_cache.data_ptr() + kv_off, k_scale.data_ptr() + sc_off,
         v_scale.data_ptr() + sc_off, fresh_k.data_ptr(), fresh_v.data_ptr(),
-        positions.data_ptr(), out.data_ptr(), b, nq, nk, s, h, limit,
-        sm_scale, build.stream_ptr(q.device)), "decode attention")
-    ck.launch_counts["decode_attention"] += 1
+        positions.data_ptr(), out.data_ptr(), b, nq, nk, s, h,
+        _limit(s, window), sb, sm_scale, build.stream_ptr(q.device)), what)
+    ck.launch_counts["decode_attention_multi"] += 1
+    return out
+
+
+def decode_attention_s8(q: torch.Tensor, k_cache: torch.Tensor,
+                        v_cache: torch.Tensor, k_scale: torch.Tensor,
+                        v_scale: torch.Tensor, positions: torch.Tensor, *,
+                        layer: int, fresh_k: torch.Tensor,
+                        fresh_v: torch.Tensor, scale: Optional[float] = None,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """The s8 form (`s8_attention_core`), inputs as `decode_attention`:
+    unpaired cache K14, paired cache K15. The quantization chunk is
+    min(attn_chunk(), S) rows."""
+    if not q.is_cuda:
+        return decode_attention_s8_plain(
+            q, k_cache, v_cache, k_scale, v_scale, positions, layer=layer,
+            fresh_k=fresh_k, fresh_v=fresh_v, scale=scale)
+    what = "s8 decode attention"
+    b, _, nq, h = q.shape
+    nk, s, pair, kv_off, sc_off = _dense_cache(what, q, k_cache, v_cache,
+                                               k_scale, v_scale, layer)
+    check_decode_inputs(what, q, fresh_k, fresh_v, positions,
+                         (k_cache, v_cache, k_scale, v_scale), nk)
+    from gabby_tpu_torch.ops.cuda import build
+    lib = build.library()
+    out = torch.empty_like(q)
+    sm_scale = float(scale) if scale is not None else h ** -0.5
+    build.check(lib.gabby_attention_s8(
+        q.data_ptr(), k_cache.data_ptr() + kv_off,
+        v_cache.data_ptr() + kv_off, k_scale.data_ptr() + sc_off,
+        v_scale.data_ptr() + sc_off, None, fresh_k.data_ptr(),
+        fresh_v.data_ptr(), positions.data_ptr(), out.data_ptr(), b, nq, nk,
+        1, 0, s, 1, h, _limit(s, window), min(ck.attn_chunk(), s), pair,
+        sm_scale, build.stream_ptr(q.device)), what)
+    ck.launch_counts["decode_attention_s8_paired" if pair
+                     else "decode_attention_s8"] += 1
     return out
 
 
 def verify_attention_plain(q, k_cache, v_cache, k_scale, v_scale, positions,
                            *, layer: int, fresh_k, fresh_v,
                            scale: Optional[float] = None) -> torch.Tensor:
-    """The reference's contract: dequantize the layer's cache in q's dtype,
-    attend rows j < positions[b] for every query plus the block's own fresh
-    rows causally, in f32."""
+    """The reference's contract: dequantize the layer's cache (un-paired
+    first when it is paired) in q's dtype, attend rows j < positions[b] for
+    every query plus the block's own fresh rows causally, in f32."""
     from gabby_tpu_torch.ops.attention import verify_attention_reference
-    return verify_attention_reference(q, k_cache, v_cache, positions,
-                                      k_scale, v_scale, layer=layer,
-                                      fresh_k=fresh_k, fresh_v=fresh_v,
-                                      scale=scale)
+    h = q.shape[-1]
+    return verify_attention_reference(
+        q, unpaired(k_cache[layer], h), unpaired(v_cache[layer], h),
+        positions, k_scale[layer], v_scale[layer], fresh_k=fresh_k,
+        fresh_v=fresh_v, scale=scale)
 
 
 def check_block_inputs(what: str, q, fresh_k, fresh_v, positions, tensors,
@@ -130,41 +331,32 @@ def verify_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      fresh_v: torch.Tensor, scale: Optional[float] = None,
                      window: Optional[int] = None) -> torch.Tensor:
     """q [B, T, Nq, H] bf16, 2 <= T <= 32 candidate positions per slot;
-    k/v_cache [L, B, Nk, S, H] int8; k/v_scale [L, B, Nk, S] f32; positions
-    [B] int32 (the read bound; parked lanes are given 1); fresh_k/v
-    [B, Nk, T, H] bf16. Returns [B, T, Nq, H]. `window` (when given) bounds
-    every slot's read, which the caller guarantees covers positions[b]."""
+    k/v_cache [L, B, Nk, S, H] int8 (K9) or paired [L, B, Nk/2, S, 2H]
+    (K13); k/v_scale [L, B, Nk, S] f32; positions [B] int32 (the read bound;
+    parked lanes are given 1); fresh_k/v [B, Nk, T, H] bf16, head-major in
+    both layouts. Returns [B, T, Nq, H]. `window` (when given) bounds every
+    slot's read, which the caller guarantees covers positions[b]."""
     if not q.is_cuda:
         return verify_attention_plain(q, k_cache, v_cache, k_scale, v_scale,
                                       positions, layer=layer,
                                       fresh_k=fresh_k, fresh_v=fresh_v,
                                       scale=scale)
+    what = "verify attention"
     b, t, nq, h = q.shape
-    nl, _, nk, s, _ = k_cache.shape
-    check_block_inputs("verify attention", q, fresh_k, fresh_v, positions,
+    nk, s, pair, kv_off, sc_off = _dense_cache(what, q, k_cache, v_cache,
+                                               k_scale, v_scale, layer)
+    check_block_inputs(what, q, fresh_k, fresh_v, positions,
                        (k_cache, v_cache, k_scale, v_scale), nk)
-    if (k_cache.dtype != torch.int8 or v_cache.dtype != torch.int8
-            or k_scale.dtype != torch.float32
-            or v_scale.dtype != torch.float32):
-        raise ValueError("verify attention takes an int8 cache with f32 "
-                         "scales")
-    if (k_cache.shape != (nl, b, nk, s, h) or v_cache.shape != k_cache.shape
-            or k_scale.shape != (nl, b, nk, s)
-            or v_scale.shape != k_scale.shape or not 0 <= layer < nl):
-        raise ValueError(f"verify attention: unsupported cache "
-                         f"{tuple(k_cache.shape)}, layer {layer}")
     from gabby_tpu_torch.ops.cuda import build
     lib = build.library()
     out = torch.empty_like(q)
-    kv_off = layer * b * nk * s * h        # int8 bytes
-    sc_off = layer * b * nk * s * 4        # f32 bytes
-    limit = s if window is None else min(window, s)
     sm_scale = float(scale) if scale is not None else h ** -0.5
     build.check(lib.gabby_verify_attention(
         q.data_ptr(), k_cache.data_ptr() + kv_off,
         v_cache.data_ptr() + kv_off, k_scale.data_ptr() + sc_off,
         v_scale.data_ptr() + sc_off, fresh_k.data_ptr(), fresh_v.data_ptr(),
-        positions.data_ptr(), out.data_ptr(), b, t, nq, nk, s, h, limit,
-        sm_scale, build.stream_ptr(q.device)), "verify attention")
-    ck.launch_counts["verify_attention"] += 1
+        positions.data_ptr(), out.data_ptr(), b, t, nq, nk, s, h,
+        _limit(s, window), pair, sm_scale, build.stream_ptr(q.device)), what)
+    ck.launch_counts["verify_attention_paired" if pair
+                     else "verify_attention"] += 1
     return out

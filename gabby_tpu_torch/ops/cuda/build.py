@@ -129,16 +129,22 @@ _SIGNATURES = {
     # q, k, v, k_scale, v_scale (layer offset), fresh_k, fresh_v,
     # positions, out; B, Nq, Nk, S, H, limit; sm_scale; stream
     "gabby_decode_attention": [_P] * 9 + [_I] * 6 + [_F, _P],
+    # the same, with sb (slots per block) after limit
+    "gabby_decode_attention_multi": [_P] * 9 + [_I] * 7 + [_F, _P],
     # q, k, v, k_scale, v_scale (layer + slot offset), fresh_k, fresh_v,
-    # out; T, Nq, Nk, S, H, offset; sm_scale; stream
-    "gabby_prefill_attention": [_P] * 8 + [_I] * 6 + [_F, _P],
+    # out; T, Nq, Nk, S, H, offset, pair; sm_scale; stream
+    "gabby_prefill_attention": [_P] * 8 + [_I] * 7 + [_F, _P],
     # q, k, v, k_scale, v_scale (layer offset), fresh_k, fresh_v,
-    # positions, out; B, T, Nq, Nk, S, H, limit; sm_scale; stream
-    "gabby_verify_attention": [_P] * 9 + [_I] * 7 + [_F, _P],
+    # positions, out; B, T, Nq, Nk, S, H, limit, pair; sm_scale; stream
+    "gabby_verify_attention": [_P] * 9 + [_I] * 8 + [_F, _P],
     # q, k, v, k_scale, v_scale (whole pools), page table, fresh_k,
-    # fresh_v, positions, out; B, T, Nq, Nk, L, layer, page, max_pages, H;
-    # sm_scale; stream
-    "gabby_paged_attention": [_P] * 10 + [_I] * 9 + [_F, _P],
+    # fresh_v, positions, out; B, T, Nq, Nk, L, layer, page, max_pages, H,
+    # pair; sm_scale; stream
+    "gabby_paged_attention": [_P] * 10 + [_I] * 10 + [_F, _P],
+    # q, k, v, k_scale, v_scale (dense: layer offset; paged: whole pools),
+    # page table or NULL, fresh_k, fresh_v, positions, out; B, Nq, Nk,
+    # layers, layer, rows, max_pages, H, limit, chunk, pair; sm_scale; stream
+    "gabby_attention_s8": [_P] * 10 + [_I] * 11 + [_F, _P],
 }
 
 

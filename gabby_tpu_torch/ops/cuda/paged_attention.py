@@ -1,17 +1,20 @@
-"""Decode and verify attention over the paged int8 KV pool (K10 and K11;
-counterparts of gabby_tpu/ops/pallas/attention.py:paged_decode_attention
-and paged_verify_attention in their unpaired forms) and their plain
-PyTorch versions.
+"""Decode and verify attention over the paged int8 KV pool and their plain
+PyTorch versions (counterparts of
+gabby_tpu/ops/pallas/attention.py:paged_decode_attention and
+paged_verify_attention in all their forms).
 
-csrc/paged_attention.cu replaces _paged_decode_call: the dense decode and
-verify contracts, with row j of slot b read from
-pool[page_table[b, j // page], layer, kv head, j % page]. The kernel reads
-the page table itself and stops at each slot's own position, so nothing
+Over the unpaired pool [P, L, Nk, page, H]: K10 decode and K11 verify in
+the bf16/f32 form (csrc/paged_attention.cu), K19 decode in the s8 form
+(csrc/attention_s8.cu). Over the paired pool [P, L, Nk/2, page, 2H]
+(detected by the lane width; scale pools per head either way): K17, K18
+and K20. They replace _paged_decode_call: the dense decode and verify
+contracts, with row j of slot b read from
+pool[page_table[b, j // page], layer, kv head, j % page]. The kernels read
+the page table themselves and stop at each slot's own position, so nothing
 gathers the pool and table entries past a slot's rows are never followed.
-Both wrappers share one C entry point (T = 1 and T > 1) and keep their own
-launch counters. CPU tensors take the plain versions, which gather the
-layer's pages into a dense view; CUDA tensors launch or raise. On the GPU
-the page size must be a multiple of 32 rows.
+The wrappers keep their own launch counters. CPU tensors take the plain
+versions, which gather the layer's pages into a dense view; CUDA tensors
+launch or raise. On the GPU the page size must be a multiple of 32 rows.
 """
 
 from __future__ import annotations
@@ -21,7 +24,9 @@ from typing import Optional
 import torch
 
 from gabby_tpu_torch.ops import cuda as ck
-from gabby_tpu_torch.ops.cuda.attention import check_block_inputs
+from gabby_tpu_torch.ops.cuda.attention import (check_decode_inputs,
+                                                check_block_inputs,
+                                                s8_attention_core)
 
 
 def paged_decode_attention_plain(q, k_pool, v_pool, page_table, positions,
@@ -50,29 +55,60 @@ def paged_verify_attention_plain(q, k_pool, v_pool, page_table, positions,
                                   scale=scale)
 
 
-def _launch(what: str, q, k_pool, v_pool, page_table, positions, k_scale,
-            v_scale, layer: int, fresh_k, fresh_v,
-            scale: Optional[float]) -> torch.Tensor:
-    b, t, nq, h = q.shape
-    npages, nl, nk, page, _ = k_pool.shape
-    check_block_inputs(what, q, fresh_k, fresh_v, positions,
-                       (k_pool, v_pool, k_scale, v_scale, page_table), nk)
+def paged_decode_attention_s8_plain(q, k_pool, v_pool, page_table, positions,
+                                    k_scale, v_scale, *, layer: int, fresh_k,
+                                    fresh_v, scale: Optional[float] = None
+                                    ) -> torch.Tensor:
+    """The s8 form of the decode contract (`s8_attention_core`) on the
+    layer's pages gathered through the table (and un-paired); the
+    quantization chunk is a page."""
+    from gabby_tpu_torch.ops.attention import gather_layer
+    kk, vv, ks, vs = gather_layer(k_pool, v_pool, page_table, k_scale,
+                                  v_scale, layer, q.shape[-1])
+    return s8_attention_core(
+        q, kk, vv, ks, vs, positions, fresh_k, fresh_v,
+        float(scale) if scale is not None else q.shape[-1] ** -0.5,
+        k_pool.shape[3])
+
+
+def _check_pool(what: str, q, k_pool, v_pool, page_table, k_scale, v_scale,
+                layer: int):
+    """Shape and type checks of the pools against q [B, T, Nq, 64]. Returns
+    (Nk, layers, page, pair)."""
+    b, _, nq, h = q.shape
+    if k_pool.dim() != 5 or k_scale.dim() != 4 or page_table.dim() != 2:
+        raise ValueError(f"{what}: unsupported pool {tuple(k_pool.shape)}, "
+                         f"table {tuple(page_table.shape)}")
+    npages, nl, heads, page, lanes = k_pool.shape
+    pair = int(lanes == 2 * h)
+    nk = heads * 2 if pair else heads
     if (k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8
             or k_scale.dtype != torch.float32
             or v_scale.dtype != torch.float32
             or page_table.dtype != torch.int32):
         raise ValueError(f"{what} takes int8 pools, f32 scale pools and an "
                          f"int32 page table")
-    if (k_pool.shape != (npages, nl, nk, page, h)
-            or v_pool.shape != k_pool.shape
+    if (lanes not in (h, 2 * h) or v_pool.shape != k_pool.shape
             or k_scale.shape != (npages, nl, nk, page)
-            or v_scale.shape != k_scale.shape or page_table.dim() != 2
+            or v_scale.shape != k_scale.shape
             or page_table.shape[0] != b or not 0 <= layer < nl):
         raise ValueError(f"{what}: unsupported pool {tuple(k_pool.shape)}, "
-                         f"table {tuple(page_table.shape)}, layer {layer}")
+                         f"scales {tuple(k_scale.shape)}, table "
+                         f"{tuple(page_table.shape)}, layer {layer}")
     if page % 32:
         raise ValueError(f"{what}: the page size must be a multiple of 32 "
                          f"rows on the GPU, got {page}")
+    return nk, nl, page, pair
+
+
+def _launch(what: str, q, k_pool, v_pool, page_table, positions, k_scale,
+            v_scale, layer: int, fresh_k, fresh_v, scale: Optional[float]):
+    """The bf16/f32 form through the table. Returns (out, pair)."""
+    b, t, nq, h = q.shape
+    nk, nl, page, pair = _check_pool(what, q, k_pool, v_pool, page_table,
+                                     k_scale, v_scale, layer)
+    check_block_inputs(what, q, fresh_k, fresh_v, positions,
+                       (k_pool, v_pool, k_scale, v_scale, page_table), nk)
     from gabby_tpu_torch.ops.cuda import build
     lib = build.library()
     out = torch.empty_like(q)
@@ -82,8 +118,8 @@ def _launch(what: str, q, k_pool, v_pool, page_table, positions, k_scale,
         k_scale.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(),
         fresh_k.data_ptr(), fresh_v.data_ptr(), positions.data_ptr(),
         out.data_ptr(), b, t, nq, nk, nl, layer, page, page_table.shape[1],
-        h, sm_scale, build.stream_ptr(q.device)), what)
-    return out
+        h, pair, sm_scale, build.stream_ptr(q.device)), what)
+    return out, pair
 
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -92,10 +128,11 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_scale: torch.Tensor, *, layer: int,
                            fresh_k: torch.Tensor, fresh_v: torch.Tensor,
                            scale: Optional[float] = None) -> torch.Tensor:
-    """q [B, 1, Nq, H] bf16; k/v_pool [P, L, Nk, page, H] int8; k/v_scale
-    [P, L, Nk, page] f32; page_table [B, max_pages] int32; positions [B]
-    int32 (the read bound; parked lanes are given 1); fresh_k/v [B, Nk, H]
-    bf16. Returns [B, 1, Nq, H]."""
+    """The bf16/f32 form. q [B, 1, Nq, H] bf16; k/v_pool
+    [P, L, Nk, page, H] int8 (K10) or paired [P, L, Nk/2, page, 2H] (K17);
+    k/v_scale [P, L, Nk, page] f32; page_table [B, max_pages] int32;
+    positions [B] int32 (the read bound; parked lanes are given 1);
+    fresh_k/v [B, Nk, H] bf16. Returns [B, 1, Nq, H]."""
     if not q.is_cuda:
         return paged_decode_attention_plain(
             q, k_pool, v_pool, page_table, positions, k_scale, v_scale,
@@ -103,10 +140,45 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if q.shape[1] != 1 or fresh_k.dim() != 3:
         raise ValueError(f"paged decode attention is single-position, got "
                          f"q {tuple(q.shape)}")
-    out = _launch("paged decode attention", q, k_pool, v_pool, page_table,
-                  positions, k_scale, v_scale, layer, fresh_k[:, :, None],
-                  fresh_v[:, :, None], scale)
-    ck.launch_counts["paged_decode_attention"] += 1
+    out, pair = _launch("paged decode attention", q, k_pool, v_pool,
+                        page_table, positions, k_scale, v_scale, layer,
+                        fresh_k[:, :, None], fresh_v[:, :, None], scale)
+    ck.launch_counts["paged_decode_attention_paired" if pair
+                     else "paged_decode_attention"] += 1
+    return out
+
+
+def paged_decode_attention_s8(q: torch.Tensor, k_pool: torch.Tensor,
+                              v_pool: torch.Tensor, page_table: torch.Tensor,
+                              positions: torch.Tensor, k_scale: torch.Tensor,
+                              v_scale: torch.Tensor, *, layer: int,
+                              fresh_k: torch.Tensor, fresh_v: torch.Tensor,
+                              scale: Optional[float] = None) -> torch.Tensor:
+    """The s8 form (`s8_attention_core`, one quantization chunk per page),
+    inputs as `paged_decode_attention`: unpaired pool K19, paired K20."""
+    if not q.is_cuda:
+        return paged_decode_attention_s8_plain(
+            q, k_pool, v_pool, page_table, positions, k_scale, v_scale,
+            layer=layer, fresh_k=fresh_k, fresh_v=fresh_v, scale=scale)
+    what = "paged s8 decode attention"
+    b, t, nq, h = q.shape
+    nk, nl, page, pair = _check_pool(what, q, k_pool, v_pool, page_table,
+                                     k_scale, v_scale, layer)
+    check_decode_inputs(what, q, fresh_k, fresh_v, positions,
+                         (k_pool, v_pool, k_scale, v_scale, page_table), nk)
+    from gabby_tpu_torch.ops.cuda import build
+    lib = build.library()
+    out = torch.empty_like(q)
+    sm_scale = float(scale) if scale is not None else h ** -0.5
+    build.check(lib.gabby_attention_s8(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        k_scale.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(),
+        fresh_k.data_ptr(), fresh_v.data_ptr(), positions.data_ptr(),
+        out.data_ptr(), b, nq, nk, nl, layer, page, page_table.shape[1], h,
+        page * page_table.shape[1], page, pair, sm_scale,
+        build.stream_ptr(q.device)), what)
+    ck.launch_counts["paged_decode_attention_s8_paired" if pair
+                     else "paged_decode_attention_s8"] += 1
     return out
 
 
@@ -117,13 +189,16 @@ def paged_verify_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            fresh_k: torch.Tensor, fresh_v: torch.Tensor,
                            scale: Optional[float] = None) -> torch.Tensor:
     """q [B, T, Nq, H] bf16, 2 <= T <= 32 candidate positions per slot;
-    pools, table and positions as `paged_decode_attention`; fresh_k/v
-    [B, Nk, T, H] bf16. Returns [B, T, Nq, H]."""
+    pools (unpaired K11, paired K18), table and positions as
+    `paged_decode_attention`; fresh_k/v [B, Nk, T, H] bf16, head-major in
+    both layouts. Returns [B, T, Nq, H]."""
     if not q.is_cuda:
         return paged_verify_attention_plain(
             q, k_pool, v_pool, page_table, positions, k_scale, v_scale,
             layer=layer, fresh_k=fresh_k, fresh_v=fresh_v, scale=scale)
-    out = _launch("paged verify attention", q, k_pool, v_pool, page_table,
-                  positions, k_scale, v_scale, layer, fresh_k, fresh_v, scale)
-    ck.launch_counts["paged_verify_attention"] += 1
+    out, pair = _launch("paged verify attention", q, k_pool, v_pool,
+                        page_table, positions, k_scale, v_scale, layer,
+                        fresh_k, fresh_v, scale)
+    ck.launch_counts["paged_verify_attention_paired" if pair
+                     else "paged_verify_attention"] += 1
     return out

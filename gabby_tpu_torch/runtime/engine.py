@@ -26,8 +26,8 @@ gabby_tpu/runtime/engine.py).
 Not yet ported from the reference engine (a request or config that asks
 for them is refused, never silently ignored): burst admission, prefix KV
 reuse (dense row copies and paged page adoption), penalties and
-logit_bias, logprobs/top_logprobs, per-request seed, paired kv heads,
-multi-host serving and pipelined fetches.
+logit_bias, logprobs/top_logprobs, per-request seed, multi-host serving
+and pipelined fetches.
 """
 
 from __future__ import annotations
@@ -93,6 +93,12 @@ class EngineConfig:
     # slots x max_seq. 0 = dense per-slot cache.
     paged_pages: int = 0
     page_size: int = 512
+    # Paired kv-head cache layout (kv_cache.create_cache(paired=True) /
+    # paged.create_paged_cache(paired=True)): adjacent kv heads side by
+    # side in one cache row, dense and paged caches; needs an even kv-head
+    # count. It changes where rows are stored, not what is computed; the
+    # server turns it on whenever the head count allows.
+    pair_kv_heads: bool = False
     # Speculative decoding (generate.spec_decode_loop): > 0 verifies up to
     # this many n-gram prompt-lookup drafts per forward for GREEDY slots.
     # Switches itself off when the measured acceptance does not pay for
@@ -193,6 +199,8 @@ class Engine:
         b = econfig.batch_slots
         dev = self.device
         self._paged = econfig.paged_pages > 0
+        if econfig.pair_kv_heads and cfg.num_kv_heads % 2:
+            raise ValueError("pair_kv_heads needs an even kv-head count")
         if self._paged:
             ps = econfig.page_size
             if econfig.max_seq % ps:
@@ -205,7 +213,8 @@ class Engine:
             self._cache = create_paged_cache(
                 cfg, b, econfig.max_seq, econfig.paged_pages,
                 dtype=getattr(torch, econfig.cache_dtype),
-                quantized=econfig.kv_quantized, page_size=ps, device=dev)
+                quantized=econfig.kv_quantized, page_size=ps,
+                paired=econfig.pair_kv_heads, device=dev)
             self._alloc = PageAllocator(econfig.paged_pages)
             # physical page 0 is the permanent SCRATCH page: table entries
             # past a slot's allocation point at it, so parked-position
@@ -221,7 +230,8 @@ class Engine:
             self._cache = create_cache(
                 cfg, b, econfig.max_seq,
                 dtype=getattr(torch, econfig.cache_dtype),
-                quantized=econfig.kv_quantized, device=dev)
+                quantized=econfig.kv_quantized,
+                paired=econfig.pair_kv_heads, device=dev)
             self._buckets = PREFILL_BUCKETS
         stop = stop_ids if stop_ids is not None else self.chat.stop_ids()
         self._stop_set = {int(s) for s in stop}

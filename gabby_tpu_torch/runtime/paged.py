@@ -1,5 +1,5 @@
 """Paged KV cache: fixed-size pages + per-slot page tables (counterpart of
-gabby_tpu/runtime/paged.py, unpaired layout).
+gabby_tpu/runtime/paged.py).
 
 The dense cache (kv_cache.py) reserves max_seq rows per slot; paging hands
 out `page_size`-row pages on demand from a shared pool, so capacity
@@ -9,8 +9,10 @@ in the same device memory when sequences are short.
 The pool is page-major, [P, L, Nk, page, H] (int8 codes when quantized,
 with scale pools [P, L, Nk, page] f32): each (page, layer, kv head) plane
 [page, H] is contiguous, the unit the paged attention kernels stream. The
-kernels read `page_table` [B, max_pages] int32 themselves, so nothing
-gathers the pool on the decode path. Chunked prefill (per admission, not
+paired layout (`create_paged_cache(paired=True)`) is the dense cache's:
+pools [P, L, Nk/2, page, 2H], scale pools still per head. The kernels read
+`page_table` [B, max_pages] int32 themselves, so nothing gathers the pool
+on the decode path. Chunked prefill (per admission, not
 per step) does gather the slot's earlier pages into a dense view and runs
 the dense prefill kernel over it.
 
@@ -28,6 +30,7 @@ import torch
 
 from gabby_tpu_torch import resolve_device
 from gabby_tpu_torch.config import ModelConfig
+from gabby_tpu_torch.runtime.kv_cache import kv_shape
 
 PAGE_SIZE = 512  # rows per page (the reference's default)
 
@@ -77,24 +80,23 @@ def create_paged_cache(cfg: ModelConfig, batch: int, max_seq: int,
                        quantized: bool = False, page_size: int = PAGE_SIZE,
                        paired: bool = False, device=None) -> PagedKVCache:
     """A zeroed pool of `num_pages` pages and a zeroed table on `device`
-    (CUDA unless the caller asks for the CPU)."""
-    if paired:
-        raise NotImplementedError("the paired kv-head layout is not yet "
-                                  "ported to gabby_tpu_torch")
+    (CUDA unless the caller asks for the CPU). paired=True: pools
+    [P, L, Nk/2, page, 2H], scale pools still [P, L, Nk, page]."""
     if max_seq % page_size:
         raise ValueError(f"max_seq={max_seq} must be a multiple of "
                          f"page_size={page_size}")
     dev = resolve_device(device)
-    shape = (num_pages, cfg.num_layers, cfg.num_kv_heads, page_size,
-             cfg.head_dim)
+    heads, lanes = kv_shape(cfg, paired)
+    shape = (num_pages, cfg.num_layers, heads, page_size, lanes)
+    sshape = (num_pages, cfg.num_layers, cfg.num_kv_heads, page_size)
     table = torch.zeros((batch, max_seq // page_size), dtype=torch.int32,
                         device=dev)
     if quantized:
         return PagedKVCache(
             k=torch.zeros(shape, dtype=torch.int8, device=dev),
             v=torch.zeros(shape, dtype=torch.int8, device=dev),
-            k_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
-            v_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
+            k_scale=torch.zeros(sshape, dtype=torch.float32, device=dev),
+            v_scale=torch.zeros(sshape, dtype=torch.float32, device=dev),
             page_table=table)
     return PagedKVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
                         v=torch.zeros(shape, dtype=dtype, device=dev),
@@ -104,7 +106,8 @@ def create_paged_cache(cfg: ModelConfig, batch: int, max_seq: int,
 def paged_cache_from_numpy(k, v, k_scale, v_scale, page_table,
                            device=None) -> PagedKVCache:
     """Carry a paged cache across from numpy arrays (pools, scale pools or
-    None, page table), keeping their types."""
+    None, page table), keeping their types and their layout (paired or
+    not)."""
     dev = resolve_device(device)
 
     def leaf(a):

@@ -3,10 +3,12 @@
 The C++ HTTP front-end (cpp/, via gabby_tpu_torch.bridge) serving OpenAI
 chat completions, backed by the PyTorch continuous-batching engine. The
 flags are the reference server's (gabby_tpu/server.py) plus `--device`
-(default cuda). Flags of features not yet ported (paired kv heads, fp8
-activations, the int8 prefill shadow, meshes, multi-host, pipelined
-fetches, sequence-parallel prefill, the profiler port) are accepted by the
-parser and refused with "not yet ported" when set.
+(default cuda). `--pair-kv` defaults to AUTO as there: the paired kv-head
+cache layout whenever the kv-head count is even (`--no-pair-kv` reverts),
+dense and paged. Flags of features not yet ported (fp8 activations, the
+int8 prefill shadow, meshes, multi-host, pipelined fetches,
+sequence-parallel prefill, the profiler port) are accepted by the parser
+and refused with "not yet ported" when set.
 
 Examples:
   python -m gabby_tpu_torch.tools.quantize --model-dir ~/hf/Llama-3.2-1B \\
@@ -36,7 +38,7 @@ from gabby_tpu_torch.runtime.engine import RequestError
 
 # flag dest -> the value that means "feature off"
 _NOT_PORTED = {"act_fp8": False, "tp": 1, "dp": 1,
-               "prefill_int8_shadow": False, "pair_kv": None,
+               "prefill_int8_shadow": False,
                "sp_ring": False, "pipeline_fetch": False,
                "coordinator": "", "profiler_port": 0}
 
@@ -80,6 +82,8 @@ def _build_engine(args):
             params = quant.quantize_tree(params, args.quant, **unembed)
         tokenizer = Tokenizer.byte_fallback(cfg.vocab_size)
     params = llama.fuse_projections(params)
+    if args.pair_kv and cfg.num_kv_heads % 2:
+        sys.exit("--pair-kv: pair_kv_heads needs an even kv-head count")
     econfig = EngineConfig(
         batch_slots=args.slots, max_seq=args.max_seq,
         steps_per_call=args.steps_per_call,
@@ -88,7 +92,11 @@ def _build_engine(args):
         cache_dtype="float32" if dtype == torch.float32 else "bfloat16",
         paged_pages=args.paged_pages, page_size=args.page_size,
         speculate_tokens=args.speculate, spec_breakeven=args.spec_breakeven,
-        spec_reprobe_steps=args.spec_reprobe_steps)
+        spec_reprobe_steps=args.spec_reprobe_steps,
+        # auto: on whenever eligible (the port has no mesh, so: an even
+        # kv-head count), dense and paged
+        pair_kv_heads=(args.pair_kv if args.pair_kv is not None
+                       else cfg.num_kv_heads % 2 == 0))
     return Engine(cfg, params, tokenizer, econfig, device=device), cfg
 
 
@@ -224,16 +232,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--spec-reprobe-steps", type=int, default=8192,
                    help="re-probe a disabled speculation after this many "
                         "plain decode steps (0 = stay off)")
-    # the reference server's flags of features not yet ported (paired kv
-    # heads, fp8 activations, the int8 prefill shadow, meshes, multi-host,
-    # pipelined fetches, sequence-parallel prefill, the profiler port):
-    # accepted so scripts written for it parse, refused when set
+    p.add_argument("--pair-kv", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="paired kv-head cache layout (dense and paged "
+                        "caches; see EngineConfig.pair_kv_heads). Default: "
+                        "auto, on when the kv-head count is even. "
+                        "--no-pair-kv reverts")
+    # the reference server's flags of features not yet ported (fp8
+    # activations, the int8 prefill shadow, meshes, multi-host, pipelined
+    # fetches, sequence-parallel prefill, the profiler port): accepted so
+    # scripts written for it parse, refused when set
     p.add_argument("--act-fp8", action="store_true")
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--dp", type=int, default=1)
     p.add_argument("--prefill-int8-shadow", action="store_true")
-    p.add_argument("--pair-kv", action=argparse.BooleanOptionalAction,
-                   default=None)
     p.add_argument("--sp-prefill-tokens", type=int, default=1024)
     p.add_argument("--sp-ring", action="store_true")
     p.add_argument("--pipeline-fetch", action="store_true")
@@ -252,8 +264,6 @@ def main(argv: Optional[list[str]] = None,
     """Serve until SIGINT/SIGTERM, or until `stop` is set. Embedders may
     pass `on_ready`, called with the bound port once warm-up is done."""
     args = build_parser().parse_args(argv)
-    if args.pair_kv is False:
-        args.pair_kv = None  # --no-pair-kv is this port's only layout
     from gabby_tpu_torch.bridge import NativeServer
 
     engine, _ = _build_engine(args)

@@ -19,9 +19,20 @@ from gabby_tpu.runtime.engine import EngineConfig as JEngineConfig
 from gabby_tpu.tokenizer import Tokenizer as JTokenizer
 from gabby_tpu_torch import config as tcfg
 from gabby_tpu_torch.models import llama as tllama
+from gabby_tpu_torch.ops import cuda as ck
 from gabby_tpu_torch.runtime.engine import Engine, EngineConfig, RequestError
 from gabby_tpu_torch.tokenizer import Tokenizer
 from test_torch_model import to_numpy_tree
+
+
+@pytest.fixture(autouse=True)
+def _bf16_form_of_decode_attention():
+    """gabby_tpu's engine runs its jnp contracts on the CPU, which have no
+    s8 form of decode attention, so the port's s8 switch is off here;
+    tests/test_torch_pair_s8.py holds the s8 form against the JAX kernel."""
+    ck.set_attn_s8(False)
+    yield
+    ck.set_attn_s8(None)
 
 MAX_SEQ = 128
 PROMPTS = [

@@ -23,6 +23,7 @@ from gabby_tpu.ops import quant as jquant
 from gabby_tpu.runtime.kv_cache import create_cache as jcreate_cache
 from gabby_tpu_torch import config as tcfg
 from gabby_tpu_torch.models import llama as tllama
+from gabby_tpu_torch.ops import cuda as ck
 from gabby_tpu_torch.runtime.kv_cache import create_cache as tcreate_cache
 
 LOGIT_TOL = dict(rtol=1e-2, atol=3e-2)
@@ -30,9 +31,14 @@ LOGIT_TOL = dict(rtol=1e-2, atol=3e-2)
 
 @pytest.fixture(autouse=True)
 def _jnp_contracts():
+    """The JAX side runs its jnp contracts, which have no s8 form of decode
+    attention, so the port's s8 switch is off here; the s8 form is held
+    against the JAX kernel in tests/test_torch_pair_s8.py."""
     pk.set_kernels(False)
+    ck.set_attn_s8(False)
     yield
     pk.set_kernels(None)
+    ck.set_attn_s8(None)
 
 
 def to_numpy_tree(tree):

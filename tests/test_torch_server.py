@@ -245,7 +245,82 @@ def test_ported_flags_reach_the_engine_config():
         engine.shutdown()
 
 
-@pytest.mark.parametrize("flag", [["--pair-kv"], ["--act-fp8"],
+@pytest.mark.parametrize("flags,paired", [
+    ([], True), (["--no-pair-kv"], False), (["--pair-kv"], True),
+    (["--paged-pages", "33", "--page-size", "16", "--max-seq", "256"], True),
+    (["--no-pair-kv", "--paged-pages", "33", "--page-size", "16",
+      "--max-seq", "256"], False),
+], ids=["auto", "no-pair-kv", "pair-kv", "auto-paged", "no-pair-kv-paged"])
+def test_pair_kv_flag_follows_the_reference_auto_rule(flags, paired):
+    """`--pair-kv` defaults to auto (gabby_tpu/server.py:140-142): the
+    paired cache whenever the kv-head count is even, dense and paged;
+    `--no-pair-kv` reverts. The tiny preset has 2 kv heads."""
+    from gabby_tpu_torch import server
+    from gabby_tpu_torch.runtime.kv_cache import cache_is_paired
+    args = server.build_parser().parse_args(
+        ["--preset", "tiny", "--random-weights", "--device", "cpu",
+         "--kv-quant"] + flags)
+    engine, cfg = server._build_engine(args)
+    try:
+        assert engine.ec.pair_kv_heads is paired
+        assert cache_is_paired(engine._cache, cfg) is paired
+        assert engine._cache.k_scale.shape[2] == cfg.num_kv_heads
+    finally:
+        engine.shutdown()
+
+
+@pytest.mark.parametrize("flags,paired", [([], False), (["--pair-kv"], None)],
+                         ids=["auto", "pair-kv"])
+def test_pair_kv_with_an_odd_kv_head_count(monkeypatch, flags, paired):
+    """An odd kv-head count: auto leaves pairing off, and an explicit
+    `--pair-kv` is refused with the reference's message."""
+    from gabby_tpu_torch import config as cfglib
+    from gabby_tpu_torch import server
+    tiny = cfglib.tiny
+    monkeypatch.setattr(cfglib, "tiny",
+                        lambda **kw: tiny(num_kv_heads=1, **kw))
+    args = server.build_parser().parse_args(
+        ["--preset", "tiny", "--random-weights", "--device", "cpu"] + flags)
+    if paired is None:
+        with pytest.raises(SystemExit,
+                           match="pair_kv_heads needs an even kv-head count"):
+            server._build_engine(args)
+        return
+    engine, _ = server._build_engine(args)
+    try:
+        assert engine.ec.pair_kv_heads is paired
+    finally:
+        engine.shutdown()
+
+
+def test_default_server_decodes_with_the_s8_form(monkeypatch):
+    """The default command line serves as the reference's does: paired
+    cache, s8 decode attention; GABBY_ATTN_S8=0 restores the bf16/f32
+    form."""
+    from gabby_tpu_torch.ops import cuda as ck
+    from gabby_tpu_torch.ops.cuda import attention as cattn
+    calls = []
+    for name in ("decode_attention_s8", "decode_attention"):
+        real = getattr(cattn, name)
+
+        def spy(*a, _real=real, _name=name, **k):
+            calls.append((_name, a[1].shape[-1]))
+            return _real(*a, **k)
+
+        monkeypatch.setattr(cattn, name, spy)
+    monkeypatch.delenv("GABBY_ATTN_S8", raising=False)
+    ck.set_attn_s8(None)
+    with _serving(["--preset", "tiny", "--random-weights"]) as p:
+        assert _post(p, CHAT)[0] == 200
+        # lanes 32 = 2 * head_dim of the tiny preset: the paired cache
+        assert calls and set(calls) == {("decode_attention_s8", 32)}
+        calls.clear()
+        monkeypatch.setenv("GABBY_ATTN_S8", "0")
+        assert _post(p, CHAT)[0] == 200
+        assert calls and set(calls) == {("decode_attention", 32)}
+
+
+@pytest.mark.parametrize("flag", [["--dp", "2"], ["--act-fp8"],
                                   ["--prefill-int8-shadow"], ["--tp", "2"],
                                   ["--pipeline-fetch"], ["--sp-ring"],
                                   ["--coordinator", "host:1"]])

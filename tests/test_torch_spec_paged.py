@@ -38,6 +38,7 @@ from gabby_tpu.tokenizer import Tokenizer as JTokenizer
 from gabby_tpu_torch import config as tcfg
 from gabby_tpu_torch.models import llama as tllama
 from gabby_tpu_torch.ops import attention as tattn
+from gabby_tpu_torch.ops import cuda as ck
 from gabby_tpu_torch.ops.cuda import attention as cattn
 from gabby_tpu_torch.ops.cuda import paged_attention as cpaged
 from gabby_tpu_torch.runtime import generate as tgen
@@ -57,10 +58,15 @@ MAX_SEQ = 128
 @pytest.fixture(autouse=True)
 def _jnp_contracts():
     """Model-level JAX calls take the jnp contracts; the attention tests
-    call the Pallas kernels directly (interpret mode on the CPU)."""
+    call the Pallas kernels directly (interpret mode on the CPU). The jnp
+    contracts have no s8 form of decode attention, so the port's s8 switch
+    is off here; tests/test_torch_pair_s8.py holds the s8 form against the
+    JAX kernel."""
     pk.set_kernels(False)
+    ck.set_attn_s8(False)
     yield
     pk.set_kernels(None)
+    ck.set_attn_s8(None)
 
 
 def _t(a, dtype=None):
@@ -234,9 +240,16 @@ def test_page_allocator_matches_reference():
         assert ours.available() == ref.available()
     with pytest.raises(ValueError, match="double free"):
         tpaged.PageAllocator(2).release([1])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tpaged.create_paged_cache(tcfg.tiny(), 1, 32, 4, paired=True,
-                                  device="cpu")
+    # the paired pool keeps the reference's shapes
+    tc = tcfg.tiny()
+    ours_p = tpaged.create_paged_cache(tc, 1, 32, 4, quantized=True,
+                                       page_size=16, paired=True,
+                                       device="cpu")
+    ref_p = jpaged.create_paged_cache(jcfg.tiny(), 1, 32, 4, quantized=True,
+                                      page_size=16, paired=True)
+    for name in ("k", "v", "k_scale", "v_scale", "page_table"):
+        assert tuple(getattr(ours_p, name).shape) == getattr(ref_p,
+                                                             name).shape
 
 
 def test_gather_and_chunk_write_match_reference():
@@ -300,17 +313,18 @@ def _np_cache(jcache):
 
 
 def _new_caches(jc, paged: bool, quantized: bool, batch: int = 2,
-                max_seq: int = MAX_SEQ, ps: int = 16):
+                max_seq: int = MAX_SEQ, ps: int = 16, paired: bool = False):
     """The same empty cache on both sides; paged tables map slot b's
     logical pages onto a scattered run of the pool (page 0 is scratch)."""
     if not paged:
         jcache = jcreate_cache(jc, batch, max_seq, dtype=jnp.float32,
-                               quantized=quantized)
+                               quantized=quantized, paired=paired)
         return jcache, _np_cache(jcache)
     mp = max_seq // ps
     jcache = jpaged.create_paged_cache(jc, batch, max_seq, 1 + batch * mp,
                                        dtype=jnp.float32,
-                                       quantized=quantized, page_size=ps)
+                                       quantized=quantized, page_size=ps,
+                                       paired=paired)
     table = 1 + np.random.default_rng(7).permutation(batch * mp).reshape(
         batch, mp).astype(np.int32)
     jcache = dataclasses.replace(jcache, page_table=jnp.asarray(table))
