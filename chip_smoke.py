@@ -99,6 +99,8 @@ third serve them from the checkpoints, whose unembed is int8 per channel.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
+import io
 import json
 import os
 import shutil
@@ -214,6 +216,8 @@ def bound(nbytes: float, ops: float,
 
 def kernel_phase(cfg, dev):
     """K1-K21 at the 1B serving shapes against their plain versions."""
+    from gabby_tpu_torch.ops import cuda as ck
+    from gabby_tpu_torch.ops import quant
     from gabby_tpu_torch.ops.attention import gather_layer
     from gabby_tpu_torch.ops.cuda import attention as cattn
     from gabby_tpu_torch.ops.cuda import paged_attention as cpaged
@@ -236,12 +240,16 @@ def kernel_phase(cfg, dev):
              (d, 2 * cfg.intermediate_size), (cfg.intermediate_size, d)]
 
     def stacked_case(name, source, replaces, kernel, plain, *, bits, m,
-                     what, iters=10, exact=None, peak=BF16_FLOP_PER_S):
+                     what, iters=10, exact=None, peak=BF16_FLOP_PER_S,
+                     default=None):
         """One call set of a stacked-weight kernel: 4 projections x 16
         layers at M = m, against its plain version, timed, with the
         dequantized bf16 `torch.matmul` as the library yardstick. `exact`
         names a keyword that makes kernel and plain version also return an
-        integer tensor that must be equal."""
+        integer tensor that must be equal. `default`: the port's own path
+        for the same products when the kernel is switched off, timed as
+        `default_path_ms`; the kernel's and the library's graph times are
+        then also given by projection."""
         rows = 2 if bits == 4 else 1  # weight rows per packed byte row
         mats = []
         for k, n in projs:
@@ -269,6 +277,18 @@ def kernel_phase(cfg, dev):
         dense = [(q if bits == 8 else torch.stack(
             [unpack_int4(q[i]) for i in range(nl)])).bfloat16()
             * sc[:, None, :].bfloat16() for q, sc, _ in mats]
+        extra = {}
+        if default is not None:
+            extra["default_path_ms"] = time_ms(
+                lambda: [default(*c) for c in calls], iters)
+            extra["by_projection_graph_ms"] = {
+                f"{k}x{n}": [graph_ms(lambda: [kernel(x, q, sc, layer)
+                                               for layer in range(nl)],
+                                      iters),
+                             graph_ms(lambda: [torch.matmul(x, w[layer])
+                                               for layer in range(nl)],
+                                      iters)]
+                for (k, n), (q, sc, x), w in zip(projs, mats, dense)}
         nbytes = sum(nl * (q[0].numel() + sc[0].numel() * 4 + x.numel() * 2
                            + m * q.shape[2] * 2) for q, sc, x in mats)
         ops = sum(nl * 2 * m * x.shape[1] * q.shape[2] for q, sc, x in mats)
@@ -284,11 +304,12 @@ def kernel_phase(cfg, dev):
                                         for w, (_, _, x) in zip(dense,
                                                                 mats)],
                                iters),
-            **bound(nbytes, ops, peak)))
+            **extra, **bound(nbytes, ops, peak)))
 
     def attn_case(name, shapes, source, replaces, kernel, plain, library,
                   nbytes, ops, *, iters=10, peak=BF16_FLOP_PER_S, equal=None,
-                  close=None, contract=None, tol=ATTN_TOL, apart=()):
+                  close=None, contract=None, tol=ATTN_TOL, apart=(),
+                  case=None):
         """One attention kernel's 16 launches (one per layer; kernel, plain
         and library take the layer) against its plain version, timed
         beside it and beside the library call, eagerly (`ms`, what the
@@ -298,7 +319,9 @@ def kernel_phase(cfg, dev):
         same rows re-laid); `close`: one held to `tol`; `contract`: the
         dequantized form, held to S8_CONTRACT_TOL; `apart`: (what, function)
         pairs of other forms of the same attention, from each of which the
-        kernel must lie further than `tol` in every layer."""
+        kernel must lie further than `tol` in every layer; `case`: a second
+        timing of a kernel at other shapes, listed under its name with the
+        case beside it."""
         outs = [kernel(i) for i in range(nl)]
         err = check(name, outs, [plain(i) for i in range(nl)], tol)
         far = {what: check_apart(f"{name} and {what}", outs,
@@ -316,7 +339,8 @@ def kernel_phase(cfg, dev):
                   [contract(i) for i in range(nl)], S8_CONTRACT_TOL)
         del outs
         results.append(dict(
-            name=name, shapes=shapes, route="cuda", source=source,
+            name=name if case is None else f"{name} ({case})", counter=name,
+            shapes=shapes, route="cuda", source=source,
             replaces=replaces, max_abs_err=err, tol=tol, apart=far,
             ms=time_ms(lambda: [kernel(i) for i in range(nl)], iters),
             graph_ms=graph_ms(lambda: [kernel(i) for i in range(nl)], iters),
@@ -338,11 +362,33 @@ def kernel_phase(cfg, dev):
                  "gabby_tpu_torch/csrc/quant_matmul.cu", qm + ":504",
                  cqm.qmatmul_int8_stacked, cqm.int8_stacked_plain, bits=8,
                  m=b, what="one decode step")
-    # K7: one 512-token prefill chunk's 64 launches
+    # K7: one 512-token prefill chunk's 64 launches; beside it the port's
+    # default for the same products (`qlinear` with the switch off: unpack
+    # the layer, then torch.matmul)
+    def qlinear_default(x, q, sc, layer):
+        ck.set_int4_prefill_kernel(False)
+        try:
+            return quant.qlinear(x, quant.QTensor(q=q, scale=sc, bits=4,
+                                                  group=0), layer)
+        finally:
+            ck.set_int4_prefill_kernel(None)
+
     stacked_case("int4_matmul",
                  "gabby_tpu_torch/csrc/quant_matmul_prefill.cu", qm + ":321",
                  cqm.qmatmul_int4, cqm.int4_plain, bits=4, m=512,
-                 what="one 512-token prefill chunk", iters=3)
+                 what="one 512-token prefill chunk", iters=3,
+                 default=qlinear_default)
+    # K7's repeat: the same call twice, bit for bit (one fixed order of sums)
+    x7 = torch.randn((512, 8192), generator=g, device=dev).bfloat16()
+    w7 = rand_bytes(2, 4096, 2048)
+    s7 = torch.rand((2, 2048), generator=g, device=dev) * 0.02
+    if not torch.equal(cqm.qmatmul_int4(x7, w7, s7, 1),
+                       cqm.qmatmul_int4(x7, w7, s7, 1)) or not torch.equal(
+            cqm.qmatmul_int4(x7, w7, s7, 1),
+            cqm.qmatmul_int4(x7, w7[1].contiguous(), s7[1].contiguous())):
+        raise AssertionError("int4_matmul: a repeat or the 2-D launch "
+                             "differs from the stacked one")
+    del x7, w7, s7
     # K8: K1's call set with int8 activations and integer dots; the int8
     # tensor-core rate is the operations peak of its operand type
     stacked_case("int4_matmul_w4a8_stacked",
@@ -482,45 +528,65 @@ def kernel_phase(cfg, dev):
                 equal=k3)
     del kd, vd
 
-    # K4: one 512-token prefill chunk at offset 512 (16 launches)
-    t, off, slot = 512, 512, 3
-    q4 = torch.randn((1, t, nq, h), generator=g, device=dev).bfloat16()
-    fk4 = torch.randn((nk, t, h), generator=g, device=dev).bfloat16()
-    fv4 = torch.randn((nk, t, h), generator=g, device=dev).bfloat16()
-    kw4 = dict(fresh_k=fk4, fresh_v=fv4)
-    mask = torch.cat([torch.ones((t, off), dtype=torch.bool, device=dev),
-                      torch.ones((t, t), dtype=torch.bool,
-                                 device=dev).tril()], dim=1)
-    kd = [torch.cat([(kc[i, slot, :, :off].float()
-                      * ks[i, slot, :, :off, None]).bfloat16(), fk4],
-                    dim=1)[None] for i in range(nl)]
-    vd = [torch.cat([(vc[i, slot, :, :off].float()
-                      * vs[i, slot, :, :off, None]).bfloat16(), fv4],
-                    dim=1)[None] for i in range(nl)]
-    qt4 = q4.transpose(1, 2)
-    keys = t * off + t * (t + 1) // 2  # (query, key) pairs the mask keeps
-    nbytes = nl * (2 * nk * off * (h + 4) + 2 * t * nq * h * 2
-                   + 2 * nk * t * h * 2)
+    def prefill_inputs(t, off):
+        """One slot's chunk of t tokens at offset off (slot 3), and what
+        the library call is given ready-made: the dequantized past rows
+        and the fresh block in bf16, and the causal mask."""
+        q4 = torch.randn((1, t, nq, h), generator=g, device=dev).bfloat16()
+        fk4 = torch.randn((nk, t, h), generator=g, device=dev).bfloat16()
+        fv4 = torch.randn((nk, t, h), generator=g, device=dev).bfloat16()
+        mask = torch.cat([torch.ones((t, off), dtype=torch.bool, device=dev),
+                          torch.ones((t, t), dtype=torch.bool,
+                                     device=dev).tril()], dim=1)
+        kd = [torch.cat([(kc[i, 3, :, :off].float()
+                          * ks[i, 3, :, :off, None]).bfloat16(), fk4],
+                        dim=1)[None] for i in range(nl)]
+        vd = [torch.cat([(vc[i, 3, :, :off].float()
+                          * vs[i, 3, :, :off, None]).bfloat16(), fv4],
+                        dim=1)[None] for i in range(nl)]
+        keys = t * off + t * (t + 1) // 2  # (query, key) pairs kept
+        nbytes = nl * (2 * nk * off * (h + 4) + 2 * t * nq * h * 2
+                       + 2 * nk * t * h * 2)
+        return dict(t=t, off=off, q=q4, kw=dict(fresh_k=fk4, fresh_v=fv4),
+                    mask=mask, kd=kd, vd=vd, qt=q4.transpose(1, 2),
+                    nbytes=nbytes, ops=nl * 4 * nq * h * keys)
 
-    def prefill_case(name, k_, v_, what, **extra):
+    def prefill_case(name, k_, v_, what, pi, **extra):
+        t, off, q4, kw4 = pi["t"], pi["off"], pi["q"], pi["kw"]
         attn_case(
-            name, "16 layers x [T=512 at offset 512, 32 q heads, 8 kv "
+            name, f"16 layers x [T={t} at offset {off}, 32 q heads, 8 kv "
             "heads, head 64], one slot" + what, csrc + "prefill_attention.cu",
             pf,
-            lambda i: cpfa.prefill_attention(q4, k_, v_, ks, vs, slot, off,
+            lambda i: cpfa.prefill_attention(q4, k_, v_, ks, vs, 3, off,
                                              layer=i, **kw4),
-            lambda i: cpfa.prefill_attention_plain(q4, k_, v_, ks, vs, slot,
+            lambda i: cpfa.prefill_attention_plain(q4, k_, v_, ks, vs, 3,
                                                    off, layer=i, **kw4),
-            lambda i: sdpa(qt4, kd[i], vd[i], attn_mask=mask,
-                           enable_gqa=True),
-            nbytes, nl * 4 * nq * h * keys, iters=3, **extra)
+            lambda i: sdpa(pi["qt"], pi["kd"][i], pi["vd"][i],
+                           attn_mask=pi["mask"], enable_gqa=True),
+            pi["nbytes"], pi["ops"], iters=3, **extra)
 
-    prefill_case("prefill_attention", kc, vc, "")
+    def k4_of(pi):
+        return lambda i: cpfa.prefill_attention(
+            pi["q"], kc, vc, ks, vs, 3, pi["off"], layer=i, **pi["kw"])
+
+    # K4: one 512-token prefill chunk at offset 512 (16 launches)
+    pi = prefill_inputs(512, 512)
+    prefill_case("prefill_attention", kc, vc, "", pi)
     # K21: K4's work on the paired cache
-    prefill_case("prefill_attention_paired", kcp, vcp, ", paired",
-                 equal=lambda i: cpfa.prefill_attention(
-                     q4, kc, vc, ks, vs, slot, off, layer=i, **kw4))
-    del kd, vd
+    prefill_case("prefill_attention_paired", kcp, vcp, ", paired", pi,
+                 equal=k4_of(pi))
+    # K21 at a short bucket over a long past: 32 blocks of 16 past tiles
+    pi = prefill_inputs(64, 1024)
+    prefill_case("prefill_attention_paired", kcp, vcp, ", paired", pi,
+                 equal=k4_of(pi), case="T=64, offset 1024")
+    # both rebuilt bodies repeat their bits
+    for k_, v_ in ((kc, vc), (kcp, vcp)):
+        again = [cpfa.prefill_attention(pi["q"], k_, v_, ks, vs, 3, 1024,
+                                        layer=0, **pi["kw"])
+                 for _ in range(2)]
+        if not torch.equal(*again):
+            raise AssertionError("prefill attention: a repeat differs")
+    del pi, again
 
     # K9: one verify step's 16 launches, a block of 8 (speculate 7) on all
     # 8 slots at context 1024
@@ -1137,6 +1203,19 @@ def http_phase(label: str, weights_args: list, env=None):
           "completion_tokens": body["usage"]["completion_tokens"]})
 
 
+def ptxas_lines(log: str, src: str) -> list:
+    """The registers, shared memory and spills `-Xptxas -v` reported for
+    the kernels of one source, from the verbose build's output."""
+    keep, on = [], False
+    for line in log.splitlines():
+        if line.startswith("[nvcc "):
+            on = line == f"[nvcc {src}]"
+        elif on and any(w in line for w in ("Compiling entry", "Used",
+                                            "spill")):
+            keep.append(" ".join(line.split()))
+    return keep
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1163,8 +1242,14 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        build.build(verbose=True)  # with -Xptxas -v
     build.library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0})
+    for src in ("quant_matmul_prefill.cu", "prefill_attention.cu"):
+        emit({"phase": "build", "ptxas": src,
+              "lines": ptxas_lines(log.getvalue(), src)})
 
     cfg = cfglib.llama32_1b(max_seq_len=2048)
     kernels = kernel_phase(cfg, dev)
@@ -1339,7 +1424,8 @@ def main() -> int:
                runs["unpaired, s8; 33 pages of 512"],
            "decode_attention_multi": runs["unpaired, slot-batched"]}
     for k in kernels:
-        k["launches"] = own.get(k["name"], counts)[k["name"]]
+        name = k.get("counter", k["name"])
+        k["launches"] = own.get(name, counts)[name]
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} never launched on its path")
     print(json.dumps({"kernels": [

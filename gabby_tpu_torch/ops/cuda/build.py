@@ -120,8 +120,11 @@ _SIGNATURES = {
     # x, codes (layer offset), scale (layer offset), out, workspace;
     # M, K, N, n_split; stream
     "gabby_int8_matmul": [_P] * 5 + [_I] * 4 + [_P],
-    # x, packed (layer offset), scale (layer offset), out; M, K, N; stream
-    "gabby_int4_matmul_prefill": [_P] * 4 + [_I] * 3 + [_P],
+    # x, packed (layer offset), scale (layer offset), out, part (the split
+    # K's workspace or NULL); M, K, N, k_split; stream
+    "gabby_int4_matmul_prefill": [_P] * 5 + [_I] * 4 + [_P],
+    # M, K, N -> k_split
+    "gabby_int4_matmul_prefill_splits": [_I] * 3,
     # xq, packed (layer offset), int32 workspace; M, K, N, n_split; stream
     "gabby_w4a8_matmul": [_P] * 3 + [_I] * 4 + [_P],
     # int32 workspace, xs, scale (layer offset), out; M, N; stream
@@ -132,8 +135,11 @@ _SIGNATURES = {
     # the same, with sb (slots per block) after limit
     "gabby_decode_attention_multi": [_P] * 9 + [_I] * 7 + [_F, _P],
     # q, k, v, k_scale, v_scale (layer + slot offset), fresh_k, fresh_v,
-    # out; T, Nq, Nk, S, H, offset, pair; sm_scale; stream
-    "gabby_prefill_attention": [_P] * 8 + [_I] * 7 + [_F, _P],
+    # out, part (the split's workspace or NULL); T, Nq, Nk, S, H, offset,
+    # pair, n_split; sm_scale; stream
+    "gabby_prefill_attention": [_P] * 9 + [_I] * 8 + [_F, _P],
+    # T, Nq, Nk, offset -> n_split
+    "gabby_prefill_attention_splits": [_I] * 4,
     # q, k, v, k_scale, v_scale (layer offset), fresh_k, fresh_v,
     # positions, out; B, T, Nq, Nk, S, H, limit, pair; sm_scale; stream
     "gabby_verify_attention": [_P] * 9 + [_I] * 8 + [_F, _P],

@@ -37,8 +37,8 @@ def prefill_attention(q: torch.Tensor, k_cache: torch.Tensor,
                       fresh_v: torch.Tensor,
                       scale: Optional[float] = None) -> torch.Tensor:
     """q [1, T, Nq, H] bf16; k/v_cache [L, B, Nk, S, H] int8 (K4) or paired
-    [L, B, Nk/2, S, 2H] (K21); k/v_scale [L, B, Nk, S] f32; fresh_k/v
-    [Nk, T, H] bf16. Returns [1, T, Nq, H]."""
+    [L, B, Nk/2, S, 2H] (K21), S a multiple of 4; k/v_scale [L, B, Nk, S]
+    f32; fresh_k/v [Nk, T, H] bf16. Returns [1, T, Nq, H]."""
     if not q.is_cuda:
         return prefill_attention_plain(q, k_cache, v_cache, k_scale, v_scale,
                                        slot, offset, layer=layer,
@@ -64,6 +64,7 @@ def prefill_attention(q: torch.Tensor, k_cache: torch.Tensor,
             or v_cache.shape != k_cache.shape
             or k_scale.shape != (nl, nb, nk, s)
             or v_scale.shape != k_scale.shape or not 0 <= layer < nl
+            or s % 4
             or not 0 <= slot < nb or not 0 <= offset <= s):
         raise ValueError(f"prefill attention: unsupported shapes q "
                          f"{tuple(q.shape)}, cache {tuple(k_cache.shape)}, "
@@ -75,12 +76,19 @@ def prefill_attention(q: torch.Tensor, k_cache: torch.Tensor,
     kv_off = row * nk * s * h   # int8 bytes
     sc_off = row * nk * s * 4   # f32 bytes
     sm_scale = float(scale) if scale is not None else h ** -0.5
+    # a short chunk over a long past splits its key range across blocks;
+    # the partial results (68 floats a row: 64 outputs, the max, the sum,
+    # padding; kPart in the source) are merged in a fixed order
+    n_split = lib.gabby_prefill_attention_splits(t, nq, nk, offset)
+    part = (torch.empty((n_split, t * nq, 68), dtype=torch.float32,
+                        device=q.device) if n_split > 1 else None)
     build.check(lib.gabby_prefill_attention(
         q.data_ptr(), k_cache.data_ptr() + kv_off,
         v_cache.data_ptr() + kv_off, k_scale.data_ptr() + sc_off,
         v_scale.data_ptr() + sc_off, fresh_k.data_ptr(), fresh_v.data_ptr(),
-        out.data_ptr(), t, nq, nk, s, h, offset, pair, sm_scale,
-        build.stream_ptr(q.device)), "prefill attention")
+        out.data_ptr(), 0 if part is None else part.data_ptr(), t, nq, nk, s,
+        h, offset, pair, n_split, sm_scale, build.stream_ptr(q.device)),
+        "prefill attention")
     ck.launch_counts["prefill_attention_paired" if pair
                      else "prefill_attention"] += 1
     return out

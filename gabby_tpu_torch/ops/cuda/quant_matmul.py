@@ -255,14 +255,21 @@ def qmatmul_int4(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
                              f"packed {tuple(packed.shape)}")
         q_ptr, s_ptr = packed.data_ptr(), scale.data_ptr()
     kp, n = packed.shape[-2:]
-    # tiles of 64 columns and 32 packed rows (csrc/quant_matmul_prefill.cu)
+    # K and N multiples of 64 (csrc/quant_matmul_prefill.cu's TMA boxes)
     _check(what, x, packed, scale, 2 * kp, n, max_m=None, k_multiple=64,
            n_multiple=64)
     from gabby_tpu_torch.ops.cuda import build
+    lib = build.library()
     m = x.shape[0]
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    build.check(build.library().gabby_int4_matmul_prefill(
-        x.data_ptr(), q_ptr, s_ptr, out.data_ptr(), m, 2 * kp, n,
+    # where the output tiles cannot fill the card, K is split in two and
+    # the parts' f32 sums are merged in a fixed order by a second pass
+    k_split = lib.gabby_int4_matmul_prefill_splits(m, 2 * kp, n)
+    part = (torch.empty((k_split, m, n), dtype=torch.float32,
+                        device=x.device) if k_split > 1 else None)
+    build.check(lib.gabby_int4_matmul_prefill(
+        x.data_ptr(), q_ptr, s_ptr, out.data_ptr(),
+        0 if part is None else part.data_ptr(), m, 2 * kp, n, k_split,
         build.stream_ptr(x.device)), "int4_matmul")
     ck.launch_counts["int4_matmul"] += 1
     return out

@@ -1,11 +1,11 @@
 """The port's CUDA kernels (K1-K21) held against their plain PyTorch versions
 on the card, at the serving path's shapes and at the edges (ragged
 positions, position 0, M = 1 and 64, M = 65..512 for the prefill matmul,
-multi-chunk offsets, verify blocks of 2..32 rows, page sizes 128..512
-through a shuffled table, parked lanes, a window, group sizes 1..8), the
-paired kernels also against the unpaired ones on the same rows re-laid, by
-equality. Marked `cuda`:
-each test skips without a GPU. Run on the card with
+multi-chunk offsets, every prefill bucket over a long past, verify blocks
+of 2..32 rows, page sizes 128..512 through a shuffled table, parked lanes,
+a window, group sizes 1..8), the paired kernels also against the unpaired
+ones on the same rows re-laid, by equality. Marked `cuda`: each test skips
+without a GPU. Run on the card with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
@@ -115,19 +115,27 @@ def test_decode_attention(dev):
     torch.testing.assert_close(out.float(), ref.float(), **TOL)
 
 
-@pytest.mark.parametrize("t,offset", [(16, 0), (64, 100), (512, 512),
-                                      (256, 1792)])
-def test_prefill_attention(dev, t, offset):
-    g = _gen(dev, 3)
+# every engine bucket; short chunks over a long past (a split key range);
+# chunks at offset 0 (at T = 256 one part of the split is empty)
+PREFILL_CASES = [(16, 0), (64, 100), (512, 512), (256, 1792), (16, 1792),
+                 (64, 1024), (512, 0), (256, 0)]
+
+
+def _prefill_inputs(dev, g, t, offset):
     nl, b, nk, nq, s, h, slot = 2, 4, 8, 32, 2048, 64, 3
     kc, vc, ks, vs = _cache(dev, g, nl, b, nk, s)
     q = torch.randn((1, t, nq, h), generator=g, device=dev).bfloat16()
     fk = torch.randn((nk, t, h), generator=g, device=dev).bfloat16()
     fv = torch.randn((nk, t, h), generator=g, device=dev).bfloat16()
-    out = cpfa.prefill_attention(q, kc, vc, ks, vs, slot, offset, layer=1,
-                                 fresh_k=fk, fresh_v=fv)
-    ref = cpfa.prefill_attention_plain(q, kc, vc, ks, vs, slot, offset,
-                                       layer=1, fresh_k=fk, fresh_v=fv)
+    return (q, kc, vc, ks, vs, slot, offset), dict(layer=1, fresh_k=fk,
+                                                   fresh_v=fv)
+
+
+@pytest.mark.parametrize("t,offset", PREFILL_CASES)
+def test_prefill_attention(dev, t, offset):
+    args, kw = _prefill_inputs(dev, _gen(dev, 3), t, offset)
+    out = cpfa.prefill_attention(*args, **kw)
+    ref = cpfa.prefill_attention_plain(*args, **kw)
     torch.testing.assert_close(out.float(), ref.float(), **TOL)
 
 
@@ -164,7 +172,8 @@ def test_int8_unembed(dev, m):
     torch.testing.assert_close(out.float(), ref.float(), **TOL)
 
 
-@pytest.mark.parametrize("m", [1, 8, 64, 65, 256, 512])
+# M = 129 and 320 cut the 64- and 128-token tiles raggedly
+@pytest.mark.parametrize("m", [1, 8, 64, 65, 129, 256, 320, 512])
 @pytest.mark.parametrize("k,n", STACKED_SHAPES)
 def test_int4_prefill(dev, m, k, n):
     g = _gen(dev, 7)
@@ -183,6 +192,32 @@ def test_int4_prefill(dev, m, k, n):
     if m <= cqm.MAX_M:
         k1 = cqm.qmatmul_int4_stacked(x, packed, scale, 2)
         torch.testing.assert_close(out.float(), k1.float(), **TOL)
+
+
+@pytest.mark.parametrize("kernel", ["int4_matmul", "prefill_attention",
+                                    "prefill_attention_paired"])
+def test_prefill_kernel_repeats_its_bits(dev, kernel):
+    """Two calls on the same inputs are equal bit for bit: K7 sums each
+    output in one fixed order (here K is split in two, the parts merged in
+    part order; no atomics); K4/K21 walk the keys in one order, and a split
+    key range (T = 64 over 1024 rows) is merged in part order."""
+    g = _gen(dev, 29)
+    if kernel == "int4_matmul":
+        packed = _packed(dev, g, 2, 4096, 2048)
+        scale = torch.rand((2, 2048), generator=g, device=dev) * 0.02
+        x = torch.randn((320, 8192), generator=g, device=dev).bfloat16()
+        calls = [lambda: cqm.qmatmul_int4(x, packed, scale, 1)]
+    else:
+        calls = []
+        for t, offset in ((512, 512), (64, 1024)):
+            args, kw = _prefill_inputs(dev, g, t, offset)
+            if kernel.endswith("paired"):
+                args = (args[0], pair_heads(args[1]), pair_heads(args[2]),
+                        *args[3:])
+            calls.append(lambda args=args, kw=kw: _counted(
+                kernel, cpfa.prefill_attention, *args, **kw))
+    for call in calls:
+        assert torch.equal(call(), call())
 
 
 @pytest.mark.parametrize("m", [1, 8, 64])
@@ -526,17 +561,11 @@ def test_paired_verify_attention(dev, t, group):
                                                    **kw))
 
 
-@pytest.mark.parametrize("t,offset", [(16, 0), (64, 100), (512, 512),
-                                      (256, 1792)])
+@pytest.mark.parametrize("t,offset", PREFILL_CASES)
 def test_paired_prefill_attention(dev, t, offset):
-    g = _gen(dev, 22)
-    nl, b, nk, nq, s, h, slot = 2, 4, 8, 32, 2048, 64, 3
-    kc, vc, ks, vs = _cache(dev, g, nl, b, nk, s)
-    q = torch.randn((1, t, nq, h), generator=g, device=dev).bfloat16()
-    fk = torch.randn((nk, t, h), generator=g, device=dev).bfloat16()
-    fv = torch.randn((nk, t, h), generator=g, device=dev).bfloat16()
+    (q, kc, vc, ks, vs, slot, _), kw = _prefill_inputs(dev, _gen(dev, 22), t,
+                                                       offset)
     kp, vp = pair_heads(kc), pair_heads(vc)
-    kw = dict(layer=1, fresh_k=fk, fresh_v=fv)
     out = _counted("prefill_attention_paired", cpfa.prefill_attention, q, kp,
                    vp, ks, vs, slot, offset, **kw)
     ref = cpfa.prefill_attention_plain(q, kp, vp, ks, vs, slot, offset, **kw)
