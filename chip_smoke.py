@@ -8,11 +8,12 @@ a non-zero exit:
   1. card        the GPU's name and power limit (nvidia-smi);
   2. build       nvcc builds gabby_tpu_torch/csrc/*.cu (one process per
                  source, all started together);
-  3. kernels     each kernel (K1-K21) at the serving path's shapes for
-                 Llama-3.2-1B (8 slots, context 1024 in a 2048-row cache;
-                 K4 and K21 at T=512, offset 512; K7 at one 512-token
-                 chunk; the verify kernels at a block of 8; the paged ones
-                 through a shuffled table of 512-row pages) against its
+  3. kernels     each kernel (K1-K32) at the serving path's shapes for
+                 Llama-3.2-1B (8 slots, context 1024 in a 2048-row cache,
+                 int8 for K3-K21, bf16 for K22-K32; prefill at T=512,
+                 offset 512; K7 at one 512-token chunk; the verify kernels
+                 at a block of 8; the paged ones through a shuffled table
+                 of 512-row pages) against its
                  plain PyTorch version on the same inputs (the attention
                  kernels within 2e-2 relative plus a share of the plain
                  row's RMS, 5e-2 for the bf16/f32 forms and 1e-2 for the
@@ -31,7 +32,10 @@ a non-zero exit:
                  call computing the same function (yardstick only), and the
                  least time the card could take (bytes at 3.35 TB/s or
                  operations at the tensor-core peak of the operand type,
-                 whichever is larger);
+                 whichever is larger); then one case per attention source
+                 at Llama-3.2-3B's heads (24 q heads over 8 kv heads of
+                 128 dims, 28 layers: K3, K13, K17, K15, K21), the same
+                 way, on lines of their own;
   4. model       the 1B model's prefill + decode on the card (kernels)
                  against the same functions on the CPU (plain versions),
                  same weights (unpaired cache, bf16/f32 decode attention):
@@ -62,9 +66,18 @@ a non-zero exit:
                  and the s8 switch left on (K16: the slot-batched launch is
                  taken first, as in the reference). Speculation is kept on
                  (`spec_auto_breakeven=False, spec_breakeven=1.0`) and its
-                 tokens per verify step are printed. In every run an
-                 attention kernel that is not the run's own must not
-                 launch;
+                 tokens per verify step are printed. Then the reference
+                 server's literal defaults: the bf16 weights on a bf16
+                 paired cache, held card against CPU, then the ten
+                 requests (K23, K25), and nine runs of three requests for
+                 every other bf16-cache kernel (unpaired K22, K24;
+                 speculation K26, K27; 33 pages of 512 K28, K29; both
+                 K30, K31; slot-batched K32). Then `int4_3b`:
+                 Llama-3.2-3B at full width and depth, int4 weights,
+                 paired int8 cache, s8 (K1, K2, K15, K21), three requests,
+                 and the card against the CPU on 2 of its 28 layers (int8
+                 and bf16 paired caches). In every run an attention kernel
+                 that is not the run's own must not launch;
   6. checkpoint  the same seed-0 weights written as an HF-layout directory
                  (bf16 safetensors, config.json, generation_config.json,
                  the BPE tokenizer of tests/fixtures) into a temporary
@@ -78,16 +91,18 @@ a non-zero exit:
                  requests (one with a 512-token chunk) from the int4
                  directory with `w4a8` and `int4_prefill_kernel` on: K7, K8
                  and K6 must launch;
-  8. http        `python -m gabby_tpu_torch.server` three times side by
-                 side, each in its own process:
-                 once with random weights on the default command line
-                 (paired cache, s8), once with `--model-dir <int8
-                 directory> --kv-quant --no-pair-kv` and GABBY_ATTN_S8=0,
-                 and once with random weights and `--speculate 7
-                 --paged-pages 33`, one chat completion each through the
+  8. http        `python -m gabby_tpu_torch.server` four times side by
+                 side, each in its own process: once on the literal
+                 default command line (`--preset llama32_1b
+                 --random-weights`: bf16 weights, bf16 paired cache), once
+                 with random int4 weights and `--kv-quant` (paired cache,
+                 s8), once with `--model-dir <int8 directory> --kv-quant
+                 --no-pair-kv` and GABBY_ATTN_S8=0, and once with random
+                 int4 weights, `--kv-quant --speculate 7 --paged-pages
+                 33`, one chat completion each through the
                  C++ front-end, then SIGTERM, where cmake exists to build
                  it (else a skip line saying why);
-  9. summary     the kernels line (twenty-one kernels), then
+  9. summary     the kernels line (thirty-two kernels), then
                  {"ok": true, "device": {...}} last.
 
 Weights are random (Llama-3.2-1B at full width and depth, seed 0). The
@@ -100,6 +115,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -214,8 +230,52 @@ def bound(nbytes: float, ops: float,
             else dict(bound_ms=t_ops, bound_by="operations"))
 
 
+def attn_case_into(results, nl, name, shapes, source, replaces, kernel, plain,
+                   library, nbytes, ops, *, iters=10, peak=BF16_FLOP_PER_S,
+                   equal=None, close=None, contract=None, tol=ATTN_TOL,
+                   apart=(), case=None):
+    """One attention kernel's `nl` launches (one per layer; kernel, plain
+    and library take the layer) against its plain version, timed
+    beside it and beside the library call, eagerly (`ms`, what the
+    engine pays today) and replayed from a CUDA graph (`graph_ms`, the
+    device's share); the result is appended to `results`. `equal`: another
+    kernel whose outputs must be the same bit for bit (the same body on
+    the same rows re-laid); `close`: one held to `tol`; `contract`: the
+    dequantized form, held to S8_CONTRACT_TOL; `apart`: (what, function)
+    pairs of other forms of the same attention, from each of which the
+    kernel must lie further than `tol` in every layer; `case`: a second
+    timing of a kernel at other shapes, listed under its name with the
+    case beside it."""
+    outs = [kernel(i) for i in range(nl)]
+    err = check(name, outs, [plain(i) for i in range(nl)], tol)
+    far = {what: check_apart(f"{name} and {what}", outs,
+                             [other(i) for i in range(nl)], tol)
+           for what, other in apart}
+    if equal is not None and not all(
+            torch.equal(o, equal(i)) for i, o in enumerate(outs)):
+        raise AssertionError(f"{name}: differs from the same kernel on "
+                             f"the unpaired rows")
+    if close is not None:
+        check(name + " vs the unpaired kernel", outs,
+              [close(i) for i in range(nl)], tol)
+    if contract is not None:
+        check(name + " vs the dequantized contract", outs,
+              [contract(i) for i in range(nl)], S8_CONTRACT_TOL)
+    del outs
+    results.append(dict(
+        name=name if case is None else f"{name} ({case})", counter=name,
+        shapes=shapes, route="cuda", source=source,
+        replaces=replaces, max_abs_err=err, tol=tol, apart=far,
+        ms=time_ms(lambda: [kernel(i) for i in range(nl)], iters),
+        graph_ms=graph_ms(lambda: [kernel(i) for i in range(nl)], iters),
+        plain_ms=time_ms(lambda: [plain(i) for i in range(nl)], 3),
+        library_ms=time_ms(lambda: [library(i) for i in range(nl)],
+                           iters),
+        **bound(nbytes, ops, peak)))
+
+
 def kernel_phase(cfg, dev):
-    """K1-K21 at the 1B serving shapes against their plain versions."""
+    """K1-K32 at the 1B serving shapes against their plain versions."""
     from gabby_tpu_torch.ops import cuda as ck
     from gabby_tpu_torch.ops import quant
     from gabby_tpu_torch.ops.attention import gather_layer
@@ -306,48 +366,8 @@ def kernel_phase(cfg, dev):
                                iters),
             **extra, **bound(nbytes, ops, peak)))
 
-    def attn_case(name, shapes, source, replaces, kernel, plain, library,
-                  nbytes, ops, *, iters=10, peak=BF16_FLOP_PER_S, equal=None,
-                  close=None, contract=None, tol=ATTN_TOL, apart=(),
-                  case=None):
-        """One attention kernel's 16 launches (one per layer; kernel, plain
-        and library take the layer) against its plain version, timed
-        beside it and beside the library call, eagerly (`ms`, what the
-        engine pays today) and replayed from a CUDA graph (`graph_ms`, the
-        device's share). `equal`: another kernel
-        whose outputs must be the same bit for bit (the same body on the
-        same rows re-laid); `close`: one held to `tol`; `contract`: the
-        dequantized form, held to S8_CONTRACT_TOL; `apart`: (what, function)
-        pairs of other forms of the same attention, from each of which the
-        kernel must lie further than `tol` in every layer; `case`: a second
-        timing of a kernel at other shapes, listed under its name with the
-        case beside it."""
-        outs = [kernel(i) for i in range(nl)]
-        err = check(name, outs, [plain(i) for i in range(nl)], tol)
-        far = {what: check_apart(f"{name} and {what}", outs,
-                                 [other(i) for i in range(nl)], tol)
-               for what, other in apart}
-        if equal is not None and not all(
-                torch.equal(o, equal(i)) for i, o in enumerate(outs)):
-            raise AssertionError(f"{name}: differs from the same kernel on "
-                                 f"the unpaired rows")
-        if close is not None:
-            check(name + " vs the unpaired kernel", outs,
-                  [close(i) for i in range(nl)], tol)
-        if contract is not None:
-            check(name + " vs the dequantized contract", outs,
-                  [contract(i) for i in range(nl)], S8_CONTRACT_TOL)
-        del outs
-        results.append(dict(
-            name=name if case is None else f"{name} ({case})", counter=name,
-            shapes=shapes, route="cuda", source=source,
-            replaces=replaces, max_abs_err=err, tol=tol, apart=far,
-            ms=time_ms(lambda: [kernel(i) for i in range(nl)], iters),
-            graph_ms=graph_ms(lambda: [kernel(i) for i in range(nl)], iters),
-            plain_ms=time_ms(lambda: [plain(i) for i in range(nl)], 3),
-            library_ms=time_ms(lambda: [library(i) for i in range(nl)],
-                               iters),
-            **bound(nbytes, ops, peak)))
+    def attn_case(*args, **kw):
+        attn_case_into(results, nl, *args, **kw)
 
     pa = "gabby_tpu/ops/pallas/attention.py"
     csrc = "gabby_tpu_torch/csrc/"
@@ -733,18 +753,314 @@ def kernel_phase(cfg, dev):
     paged_verify_case("paged_verify_attention_paired", pool_p, ", paired",
                       equal=lambda i: cpaged.paged_verify_attention(
                           qv, *pool, layer=i, **kwv))
+    del kd, vd, kp, vp, kps, vps, kpp, vpp, pool, pool_p
+    torch.cuda.empty_cache()
+
+    # K22-K32: the bf16 cache of one 2048-row engine [16, 8, 8, 2048, 64]
+    # (no scales: the reference's k_scale=None forms), the same calls
+    kb = torch.randn((nl, b, nk, s, h), generator=g, device=dev).bfloat16()
+    vb = torch.randn((nl, b, nk, s, h), generator=g, device=dev).bfloat16()
+    kbp, vbp = pair_heads(kb), pair_heads(vb)
+    bf16_shapes = ("16 layers x [8 slots, 32 q heads, 8 kv heads, context "
+                   "1024, head 64], bf16 cache of 2048 rows")
+    # rows j < ctx of k and v once, q and the output, the fresh rows
+    bbytes = nl * (2 * b * nk * ctx * h * 2 + 2 * b * nq * h * 2
+                   + 2 * b * nk * h * 2)
+    kd = [torch.cat([kb[i, :, :, :ctx], fk[:, :, None]], dim=2)
+          for i in range(nl)]
+    vd = [torch.cat([vb[i, :, :, :ctx], fv[:, :, None]], dim=2)
+          for i in range(nl)]
+
+    def bf16_decode_case(name, fn, k_, v_, what, source, replaces, **extra):
+        attn_case(
+            name, bf16_shapes + what, source, replaces,
+            lambda i: fn(q, k_, v_, None, None, pos, layer=i, window=ctx + 1,
+                         **kw),
+            lambda i: cattn.decode_attention_plain(q, k_, v_, None, None, pos,
+                                                   layer=i, **kw),
+            lambda i: sdpa(qt, kd[i], vd[i], enable_gqa=True), bbytes, flops,
+            **extra)
+
+    def k24(i):
+        return cattn.decode_attention(q, kb, vb, None, None, pos, layer=i,
+                                      window=ctx + 1, **kw)
+
+    # K24, K25: dense decode on the shared row body at T = 1
+    bf16_decode_case("decode_attention_bf16", cattn.decode_attention, kb, vb,
+                     "", csrc + "verify_attention.cu", pa + ":256")
+    bf16_decode_case("decode_attention_bf16_paired", cattn.decode_attention,
+                     kbp, vbp, ", paired", csrc + "verify_attention.cu",
+                     pa + ":256", equal=k24)
+    # K32: the slot-batched launch over the unpaired bf16 cache
+    bf16_decode_case("decode_attention_multi_bf16",
+                     cattn.decode_attention_multi, kb, vb,
+                     f", {cattn.pick_slot_block(b, h)} slots a block",
+                     csrc + "decode_attention.cu", pa + ":460")
+    # K26, K27: verify, a block of 8
+    kd = [torch.cat([kb[i, :, :, :ctx], fkv], dim=2) for i in range(nl)]
+    vd = [torch.cat([vb[i, :, :, :ctx], fvv], dim=2) for i in range(nl)]
+    vbbytes = nl * (2 * b * nk * ctx * h * 2 + 2 * b * tv * nq * h * 2
+                    + 2 * b * nk * tv * h * 2)
+
+    def bf16_verify_case(name, k_, v_, what, **extra):
+        attn_case(
+            name, "16 layers x [8 slots, block of 8, 32 q heads, 8 kv "
+            "heads, context 1024, head 64], bf16 cache of 2048 rows" + what,
+            csrc + "verify_attention.cu", pa + ":649",
+            lambda i: cattn.verify_attention(qv, k_, v_, None, None, pos,
+                                             layer=i, window=2048, **kwv),
+            lambda i: cattn.verify_attention_plain(qv, k_, v_, None, None,
+                                                   pos, layer=i, **kwv),
+            lambda i: sdpa(qtv, kd[i], vd[i], attn_mask=vmask,
+                           enable_gqa=True),
+            vbbytes, vflops, **extra)
+
+    bf16_verify_case("verify_attention_bf16", kb, vb, "")
+    bf16_verify_case("verify_attention_bf16_paired", kbp, vbp, ", paired",
+                     equal=lambda i: cattn.verify_attention(
+                         qv, kb, vb, None, None, pos, layer=i, window=2048,
+                         **kwv))
+    # K22, K23: one 512-token prefill chunk at offset 512 of slot 3
+    t4, off4 = 512, 512
+    q4 = torch.randn((1, t4, nq, h), generator=g, device=dev).bfloat16()
+    fk4 = torch.randn((nk, t4, h), generator=g, device=dev).bfloat16()
+    fv4 = torch.randn((nk, t4, h), generator=g, device=dev).bfloat16()
+    kw4 = dict(fresh_k=fk4, fresh_v=fv4)
+    mask4 = torch.cat([torch.ones((t4, off4), dtype=torch.bool, device=dev),
+                       torch.ones((t4, t4), dtype=torch.bool,
+                                  device=dev).tril()], dim=1)
+    kd = [torch.cat([kb[i, 3, :, :off4], fk4], dim=1)[None]
+          for i in range(nl)]
+    vd = [torch.cat([vb[i, 3, :, :off4], fv4], dim=1)[None]
+          for i in range(nl)]
+    keys4 = t4 * off4 + t4 * (t4 + 1) // 2
+
+    def bf16_prefill_case(name, k_, v_, what, **extra):
+        attn_case(
+            name, f"16 layers x [T={t4} at offset {off4}, 32 q heads, 8 kv "
+            "heads, head 64], one slot, bf16 cache" + what,
+            csrc + "prefill_attention.cu", pf,
+            lambda i: cpfa.prefill_attention(q4, k_, v_, None, None, 3, off4,
+                                             layer=i, **kw4),
+            lambda i: cpfa.prefill_attention_plain(q4, k_, v_, None, None, 3,
+                                                   off4, layer=i, **kw4),
+            lambda i: sdpa(q4.transpose(1, 2), kd[i], vd[i],
+                           attn_mask=mask4, enable_gqa=True),
+            nl * (2 * nk * off4 * h * 2 + 2 * t4 * nq * h * 2
+                  + 2 * nk * t4 * h * 2), nl * 4 * nq * h * keys4, iters=3,
+            **extra)
+
+    bf16_prefill_case("prefill_attention_bf16", kb, vb, "")
+    bf16_prefill_case("prefill_attention_bf16_paired", kbp, vbp, ", paired",
+                      equal=lambda i: cpfa.prefill_attention(
+                          q4, kb, vb, None, None, 3, off4, layer=i, **kw4))
+    del kd, vd, kbp, vbp
+    # K28-K31: the same rows through a shuffled table of 512-row pages
+    kpb = torch.randn((npages, nl, nk, page, h), generator=g,
+                      device=dev).bfloat16()
+    vpb = torch.randn((npages, nl, nk, page, h), generator=g,
+                      device=dev).bfloat16()
+    pool_b = (kpb, vpb, table, pos, None, None)
+    pool_bp = (pair_heads(kpb), pair_heads(vpb), table, pos, None, None)
+    idx = table[:, :ctx // page].long()
+
+    def gathered_bf16(rows, layer, fresh):
+        got = rows[:, layer][idx].movedim(1, 2).reshape(b, nk, ctx, h)
+        return torch.cat([got, fresh], dim=2)
+
+    bf16_pool = ("16 layers x [8 slots, 32 q heads, 8 kv heads, context "
+                 "1024, head 64], bf16 pool of 33 pages of 512 rows, "
+                 "shuffled table")
+    for tq, fn, plain, replaces in (
+            (1, cpaged.paged_decode_attention,
+             cpaged.paged_decode_attention_plain, pa + ":800"),
+            (tv, cpaged.paged_verify_attention,
+             cpaged.paged_verify_attention_plain, pa + ":842")):
+        qq, kwq, qqt = (q, kw, qt) if tq == 1 else (qv, kwv, qtv)
+        fks = fk[:, :, None] if tq == 1 else fkv
+        fvs = fv[:, :, None] if tq == 1 else fvv
+        kd = [gathered_bf16(kpb, i, fks) for i in range(nl)]
+        vd = [gathered_bf16(vpb, i, fvs) for i in range(nl)]
+        name = ("paged_decode_attention_bf16" if tq == 1
+                else "paged_verify_attention_bf16")
+        work = ((bbytes, flops) if tq == 1 else (vbbytes, vflops))
+        for suffix, pl, extra in (
+                ("", pool_b, {}),
+                ("_paired", pool_bp, dict(equal=lambda i, fn=fn, qq=qq,
+                                          kwq=kwq: fn(qq, *pool_b, layer=i,
+                                                      **kwq)))):
+            attn_case(
+                name + suffix, bf16_pool + (", paired" if suffix else "")
+                + ("" if tq == 1 else ", block of 8"),
+                csrc + "paged_attention.cu", replaces,
+                lambda i, fn=fn, pl=pl, qq=qq, kwq=kwq: fn(qq, *pl, layer=i,
+                                                           **kwq),
+                lambda i, plain=plain, pl=pl, qq=qq, kwq=kwq: plain(
+                    qq, *pl, layer=i, **kwq),
+                lambda i, qqt=qqt, kd=kd, vd=vd, tq=tq: sdpa(
+                    qqt, kd[i], vd[i], attn_mask=None if tq == 1 else vmask,
+                    enable_gqa=True),
+                work[0] + tbytes, work[1], **extra)
     for r in results:
         emit({"phase": "kernels", "tol": TOL, **r})
     return results
 
 
-def model_phase(cfg, params, dev, label: str, tol: float = 0.05):
+def head128_phase(cfg3, dev) -> list:
+    """One case per attention source at Llama-3.2-3B's heads (24 q heads
+    over 8 kv heads of 128 dims: G = 3) and depth (28 launches), over the
+    int8 cache of the 3B engine run: K3 (decode_attention.cu), K13 paired
+    verify (verify_attention.cu), K17 paired paged decode
+    (paged_attention.cu), K15 paired s8 decode (attention_s8.cu, the 3B
+    default) and K21 paired prefill (prefill_attention.cu), each against
+    its plain version, timed as the 1B cases are. Emitted on lines of
+    their own."""
+    from gabby_tpu_torch.ops.cuda import attention as cattn
+    from gabby_tpu_torch.ops.cuda import paged_attention as cpaged
+    from gabby_tpu_torch.ops.cuda import prefill_attention as cpfa
+    from gabby_tpu_torch.runtime.kv_cache import pair_heads, quantize_kv
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    nl, b, s, ctx, tv, page = cfg3.num_layers, 8, 2048, 1024, 8, 512
+    nq, nk, h = cfg3.num_heads, cfg3.num_kv_heads, cfg3.head_dim
+    results = []
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    kc, ks = quantize_kv(rand(nl, b, nk, s, h))
+    vc, vs = quantize_kv(rand(nl, b, nk, s, h))
+    kcp, vcp = pair_heads(kc), pair_heads(vc)
+    pos = torch.full((b,), ctx, dtype=torch.int32, device=dev)
+    q = rand(b, 1, nq, h).bfloat16()
+    fk, fv = rand(b, nk, h).bfloat16(), rand(b, nk, h).bfloat16()
+    kw = dict(fresh_k=fk, fresh_v=fv)
+    qv = rand(b, tv, nq, h).bfloat16()
+    fkv, fvv = rand(b, nk, tv, h).bfloat16(), rand(b, nk, tv, h).bfloat16()
+    kwv = dict(fresh_k=fkv, fresh_v=fvv)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    pa = "gabby_tpu/ops/pallas/attention.py"
+    csrc = "gabby_tpu_torch/csrc/"
+    heads = f"{nl} layers x [8 slots, 24 q heads, 8 kv heads, head 128]"
+
+    def deq(codes, scales, fresh):
+        return torch.cat([(codes[:, :, :ctx].float()
+                           * scales[:, :, :ctx, None]).bfloat16(), fresh],
+                         dim=2)
+
+    def case(*args, **extra):
+        attn_case_into(results, nl, *args, **extra)
+
+    dbytes = nl * (2 * b * nk * ctx * (h + 4) + 2 * b * nq * h * 2
+                   + 2 * b * nk * h * 2)
+    dflops = nl * 4 * b * nq * (ctx + 1) * h
+    kd = [deq(kc[i], ks[i], fk[:, :, None]) for i in range(nl)]
+    vd = [deq(vc[i], vs[i], fv[:, :, None]) for i in range(nl)]
+    lib = (lambda i: sdpa(q.transpose(1, 2), kd[i], vd[i], enable_gqa=True))
+    case("decode_attention", heads + ", context 1024, int8 cache",
+         csrc + "decode_attention.cu", pa + ":256",
+         lambda i: cattn.decode_attention(q, kc, vc, ks, vs, pos, layer=i,
+                                          window=ctx + 1, **kw),
+         lambda i: cattn.decode_attention_plain(q, kc, vc, ks, vs, pos,
+                                                layer=i, **kw),
+         lib, dbytes, dflops)
+    case("decode_attention_s8_paired", heads + ", context 1024, paired int8 "
+         "cache, s8 dots", csrc + "attention_s8.cu", pa + ":256",
+         lambda i: cattn.decode_attention_s8(q, kcp, vcp, ks, vs, pos,
+                                             layer=i, window=ctx + 1, **kw),
+         lambda i: cattn.decode_attention_s8_plain(q, kcp, vcp, ks, vs, pos,
+                                                   layer=i, **kw),
+         lib, dbytes, dflops, tol=S8_TOL, peak=INT8_OP_PER_S,
+         equal=lambda i: cattn.decode_attention_s8(
+             q, kc, vc, ks, vs, pos, layer=i, window=ctx + 1, **kw))
+    # the same rows through a shuffled table of 512-row pages, paired
+    npages = b * s // page + 1
+    table = (torch.randperm(npages - 1, generator=g, device=dev) + 1
+             ).reshape(b, s // page).to(torch.int32).contiguous()
+
+    def paged(x):
+        """[L, B, Nk(/2), S, *] as a pool [P, L, Nk(/2), page, *] behind
+        `table` (page 0 the unused scratch page)."""
+        pool = torch.zeros((npages, nl, *x.shape[2:3], page, *x.shape[4:]),
+                           dtype=x.dtype, device=dev)
+        split = x.reshape(nl, b, x.shape[2], s // page, page, *x.shape[4:])
+        pool[table.long()] = split.permute(1, 3, 0, 2, 4,
+                                           *range(5, split.dim()))
+        return pool
+
+    pool = (paged(kcp), paged(vcp), table, pos, paged(ks), paged(vs))
+    case("paged_decode_attention_paired", heads + ", context 1024, paired "
+         "int8 pool of 33 pages of 512, shuffled table",
+         csrc + "paged_attention.cu", pa + ":800",
+         lambda i: cpaged.paged_decode_attention(q, *pool, layer=i, **kw),
+         lambda i: cpaged.paged_decode_attention_plain(q, *pool, layer=i,
+                                                       **kw),
+         lib, dbytes + nl * b * (s // page) * 4, dflops,
+         equal=lambda i: cattn.verify_attention(
+             q, kcp, vcp, ks, vs, pos, layer=i, window=2048,
+             fresh_k=fk[:, :, None].contiguous(),
+             fresh_v=fv[:, :, None].contiguous()))
+    del pool
+    kd = [deq(kc[i], ks[i], fkv) for i in range(nl)]
+    vd = [deq(vc[i], vs[i], fvv) for i in range(nl)]
+    vmask = torch.cat([torch.ones((tv, ctx), dtype=torch.bool, device=dev),
+                       torch.ones((tv, tv), dtype=torch.bool,
+                                  device=dev).tril()], dim=1)
+    case("verify_attention_paired", heads + ", block of 8, context 1024, "
+         "paired int8 cache", csrc + "verify_attention.cu", pa + ":649",
+         lambda i: cattn.verify_attention(qv, kcp, vcp, ks, vs, pos, layer=i,
+                                          window=2048, **kwv),
+         lambda i: cattn.verify_attention_plain(qv, kcp, vcp, ks, vs, pos,
+                                                layer=i, **kwv),
+         lambda i: sdpa(qv.transpose(1, 2), kd[i], vd[i], attn_mask=vmask,
+                        enable_gqa=True),
+         nl * (2 * b * nk * ctx * (h + 4) + 2 * b * tv * nq * h * 2
+               + 2 * b * nk * tv * h * 2),
+         nl * 4 * b * nq * h * (tv * ctx + tv * (tv + 1) // 2),
+         equal=lambda i: cattn.verify_attention(qv, kc, vc, ks, vs, pos,
+                                                layer=i, window=2048, **kwv))
+    t4, off4 = 512, 512
+    q4 = rand(1, t4, nq, h).bfloat16()
+    fk4, fv4 = rand(nk, t4, h).bfloat16(), rand(nk, t4, h).bfloat16()
+    kw4 = dict(fresh_k=fk4, fresh_v=fv4)
+    mask4 = torch.cat([torch.ones((t4, off4), dtype=torch.bool, device=dev),
+                       torch.ones((t4, t4), dtype=torch.bool,
+                                  device=dev).tril()], dim=1)
+    kd = [torch.cat([(kc[i, 3, :, :off4].float()
+                      * ks[i, 3, :, :off4, None]).bfloat16(), fk4],
+                    dim=1)[None] for i in range(nl)]
+    vd = [torch.cat([(vc[i, 3, :, :off4].float()
+                      * vs[i, 3, :, :off4, None]).bfloat16(), fv4],
+                    dim=1)[None] for i in range(nl)]
+    keys4 = t4 * off4 + t4 * (t4 + 1) // 2
+    case("prefill_attention_paired", f"{nl} layers x [T={t4} at offset "
+         f"{off4}, 24 q heads, 8 kv heads, head 128], one slot, paired int8 "
+         "cache", csrc + "prefill_attention.cu",
+         "gabby_tpu/ops/pallas/prefill_attention.py:142",
+         lambda i: cpfa.prefill_attention(q4, kcp, vcp, ks, vs, 3, off4,
+                                          layer=i, **kw4),
+         lambda i: cpfa.prefill_attention_plain(q4, kcp, vcp, ks, vs, 3,
+                                                off4, layer=i, **kw4),
+         lambda i: sdpa(q4.transpose(1, 2), kd[i], vd[i], attn_mask=mask4,
+                        enable_gqa=True),
+         nl * (2 * nk * off4 * (h + 4) + 2 * t4 * nq * h * 2
+               + 2 * nk * t4 * h * 2), nl * 4 * nq * h * keys4, iters=3,
+         equal=lambda i: cpfa.prefill_attention(q4, kc, vc, ks, vs, 3, off4,
+                                                layer=i, **kw4))
+    for r in results:
+        emit({"phase": "kernels_h128", "model": "llama32_3b", **r})
+    return results
+
+
+def model_phase(cfg, params, dev, label: str, tol: float = 0.05, *,
+                kv_quantized: bool = True, paired: bool = False):
     """The card's forward (kernels) against the CPU's (plain versions) on
     the same weights: a 16-token prefill, then 3 greedy decode steps, on
-    the unpaired cache with the bf16/f32 form of decode attention (the
+    the unpaired int8 cache with the bf16/f32 form of decode attention (the
     paired layout and the s8 form are held against these on the card, in
-    `steps_model_phase`). `tol` bounds the largest logit difference
-    relative to the largest logit."""
+    `steps_model_phase`), or on the cache `kv_quantized` and `paired` ask
+    for. `tol` bounds the largest logit difference relative to the largest
+    logit."""
     from gabby_tpu_torch.models import llama
     from gabby_tpu_torch.ops import cuda as ck
     from gabby_tpu_torch.ops.quant import QTensor
@@ -758,8 +1074,9 @@ def model_phase(cfg, params, dev, label: str, tol: float = 0.05):
         return None if tree is None else tree.cpu()
 
     cpu_params = to_cpu(params)
-    caches = {"card": create_cache(cfg, 1, 64, quantized=True, device=dev),
-              "cpu": create_cache(cfg, 1, 64, quantized=True, device="cpu")}
+    caches = {key: create_cache(cfg, 1, 64, quantized=kv_quantized,
+                                paired=paired, device=dv)
+              for key, dv in (("card", dev), ("cpu", "cpu"))}
     ps = {"card": params, "cpu": cpu_params}
     ids = torch.arange(16) * 7919 % 128000 + 100
     logits = {}
@@ -787,8 +1104,8 @@ def model_phase(cfg, params, dev, label: str, tol: float = 0.05):
     finally:
         ck.set_attn_s8(None)
     emit({"phase": "model", "weights": label, "steps": steps,
-          "argmax_agree": agree,
-          "max_rel_logit_err": worst})
+          "kv_quantized": kv_quantized, "paired": paired,
+          "argmax_agree": agree, "max_rel_logit_err": worst})
     # bf16 activations through 16 layers on the card vs the CPU's bf16
     # rounding in other places: a few percent of the logit range
     if worst > tol or agree < steps - 1:
@@ -921,23 +1238,25 @@ NEW_TOKENS = 32
 
 def engine_phase(cfg, params, tok, dev, gpu_line: str, label: str, *,
                  prompt_lens=None, must_launch, buckets, s8: bool = False,
-                 multi: bool = False, **engine_kw):
+                 multi: bool = False, kv_quantized: bool = True,
+                 **engine_kw):
     """Serves one batch of concurrent requests through the engine with the
     launch counts set to 0 just before and read just after. The prompts
     are chat messages (prompt_lens None: CONTENT_SIZES) or token ids of
-    the given lengths; `engine_kw` are further EngineConfig fields
-    (`pair_kv_heads` among them, off unless given); `s8` and `multi` set
-    the two decode-attention switches for the run. Every attention kernel
-    outside `must_launch` must stay at 0: each has a path of its own.
-    Returns (counts, prompt lengths)."""
+    the given lengths; the cache is int8 (`kv_quantized`) or bf16;
+    `engine_kw` are further EngineConfig fields (`pair_kv_heads` among
+    them, off unless given); `s8` and `multi` set the two
+    decode-attention switches for the run. Every attention kernel outside
+    `must_launch` must stay at 0: each has a path of its own. Returns
+    (counts, prompt lengths)."""
     from gabby_tpu_torch.ops import cuda as ck
     from gabby_tpu_torch.runtime.engine import Engine, EngineConfig
 
     ck.set_attn_s8(s8)
     ck.set_attn_multi(multi)
     eng = Engine(cfg, params, tok, EngineConfig(
-        batch_slots=8, max_seq=2048, kv_quantized=True, **engine_kw),
-        device=dev)
+        batch_slots=8, max_seq=2048, kv_quantized=kv_quantized,
+        **engine_kw), device=dev)
     try:
         warm = eng.submit([{"role": "user", "content": "warm up"}],
                           max_tokens=4)
@@ -997,6 +1316,8 @@ def engine_phase(cfg, params, tok, dev, gpu_line: str, label: str, *,
                              f"multi-chunk admission")
     out_tokens = sum(r.completion_tokens for r in reqs)
     line = {"phase": "engine", "weights": label, "requests": len(reqs),
+            "model": f"{cfg.num_layers} layers, hidden {cfg.hidden_size}",
+            "kv_quantized": kv_quantized,
             "prompt_tokens": lens, "output_tokens": out_tokens,
             "wall_s": wall, "output_tok_per_s": out_tokens / wall,
             "p50_ttft_ms": stats.get("p50_ttft_ms"),
@@ -1146,8 +1467,8 @@ def load_checkpoint(path: str, bits: int, source, dev):
 def http_phase(label: str, weights_args: list, env=None):
     """`python -m gabby_tpu_torch.server` as a user starts it (its own
     process, the server on its main thread; `env` adds to its
-    environment), one chat completion through the C++ front-end, then
-    SIGTERM."""
+    environment) with `weights_args` and a small engine, one chat
+    completion through the C++ front-end, then SIGTERM."""
     if shutil.which("cmake") is None:
         emit({"phase": "http", "weights": label,
               "skipped": "cmake is not installed, so the "
@@ -1158,7 +1479,7 @@ def http_phase(label: str, weights_args: list, env=None):
 
     proc = subprocess.Popen(
         [sys.executable, "-X", "faulthandler", "-m",
-         "gabby_tpu_torch.server", *weights_args, "--kv-quant",
+         "gabby_tpu_torch.server", *weights_args,
          "--slots", "2", "--max-seq", "512", "--port", "0", "--no-warmup",
          "--log-level", "0"],
         cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -1252,7 +1573,10 @@ def main() -> int:
               "lines": ptxas_lines(log.getvalue(), src)})
 
     cfg = cfglib.llama32_1b(max_seq_len=2048)
+    cfg3 = cfglib.llama32_3b(max_seq_len=2048)
     kernels = kernel_phase(cfg, dev)
+    torch.cuda.empty_cache()
+    head128_phase(cfg3, dev)
     torch.cuda.empty_cache()
     clock("build, kernels")
 
@@ -1336,6 +1660,77 @@ def main() -> int:
         s8=True, multi=True)
     del params
     torch.cuda.empty_cache()
+
+    # the reference server's literal defaults (no --quant, no --kv-quant):
+    # bf16 weights (the source, fused) on a bf16 paired dense cache, ten
+    # requests; then every other bf16-cache kernel on a path of its own,
+    # three requests each
+    bf16 = llama.fuse_projections(source)
+    model_phase(cfg, bf16, dev, "bf16, bf16 paired cache",
+                kv_quantized=False, paired=True)
+
+    def run_bf16(label, attention, *, size, **kw):
+        runs["bf16; " + label], _ = engine_phase(
+            cfg, bf16, byte_tok, dev, gpu_line, "bf16; " + label,
+            must_launch=attention, kv_quantized=False, **size, **kw)
+
+    pre = ["prefill_attention_bf16"]
+    pre_p = ["prefill_attention_bf16_paired"]
+    run_bf16("paired, the literal defaults",
+             ["decode_attention_bf16_paired"] + pre_p, size=full,
+             pair_kv_heads=True)
+    run_bf16("unpaired", ["decode_attention_bf16"] + pre, size=short)
+    run_bf16("paired; speculate 7", ["verify_attention_bf16_paired"] + pre_p,
+             size=short, pair_kv_heads=True, **keep_spec)
+    run_bf16("unpaired; speculate 7", ["verify_attention_bf16"] + pre,
+             size=short, **keep_spec)
+    run_bf16("paired; 33 pages of 512",
+             ["paged_decode_attention_bf16_paired"] + pre_p,
+             size=short_paged, pair_kv_heads=True, **paged)
+    run_bf16("unpaired; 33 pages of 512",
+             ["paged_decode_attention_bf16"] + pre, size=short_paged,
+             **paged)
+    run_bf16("paired; 33 pages of 512; speculate 7",
+             ["paged_verify_attention_bf16_paired"] + pre_p,
+             size=short_paged, pair_kv_heads=True, **paged, **keep_spec)
+    run_bf16("unpaired; 33 pages of 512; speculate 7",
+             ["paged_verify_attention_bf16"] + pre, size=short_paged,
+             **paged, **keep_spec)
+    run_bf16("unpaired, slot-batched", ["decode_attention_multi_bf16"] + pre,
+             size=short, multi=True)
+    del bf16
+    torch.cuda.empty_cache()
+
+    # Llama-3.2-3B (head_dim 128, 24 q heads over 8 kv heads) at full width
+    # and depth: int4 weights, the paired int8 cache and s8 decode, three
+    # requests (bench.py's int4_3b); then the card against the CPU on 2 of
+    # its 28 layers, on the int8 and on the bf16 paired cache
+    t0 = time.perf_counter()
+    params3 = llama.fuse_projections(quant.quantize_tree(llama.init_params(
+        cfg3, torch.Generator(device=dev).manual_seed(0),
+        dtype=torch.bfloat16, device=dev), 4, unembed_bits=4,
+        unembed_group=256))
+    torch.cuda.synchronize()
+    emit({"phase": "weights", "model": "llama32_3b",
+          "seconds": time.perf_counter() - t0})
+    runs["int4_3b"], _ = engine_phase(
+        cfg3, params3, Tokenizer.byte_fallback(cfg3.vocab_size), dev,
+        gpu_line, "int4_3b: Llama-3.2-3B, int4, paired int8 cache, s8",
+        must_launch=matmuls + ["decode_attention_s8_paired",
+                               "prefill_attention_paired"],
+        pair_kv_heads=True, s8=True, **short)
+    del params3
+    torch.cuda.empty_cache()
+    cfg3s = dataclasses.replace(cfg3, num_layers=2)
+    params3s = llama.fuse_projections(quant.quantize_tree(llama.init_params(
+        cfg3s, torch.Generator(device=dev).manual_seed(0),
+        dtype=torch.bfloat16, device=dev), 4, unembed_bits=4,
+        unembed_group=256))
+    model_phase(cfg3s, params3s, dev, "int4_3b, 2 of 28 layers")
+    model_phase(cfg3s, params3s, dev, "int4_3b, 2 of 28 layers",
+                kv_quantized=False, paired=True)
+    del params3s
+    torch.cuda.empty_cache()
     clock("model and engine, weights in memory")
 
     with tempfile.TemporaryDirectory(prefix="gabby_smoke_") as root:
@@ -1389,11 +1784,13 @@ def main() -> int:
             from gabby_tpu_torch.bridge import build_native
             build_native()
         random_int4 = ["--preset", "llama32_1b", "--random-weights",
-                       "--quant", "4"]
+                       "--quant", "4", "--kv-quant"]
         servers = [
+            ("the literal defaults: random bf16, bf16 paired cache",
+             ["--preset", "llama32_1b", "--random-weights"], None),
             ("random int4", random_int4, None),
             ("int8 checkpoint, --no-pair-kv, GABBY_ATTN_S8=0",
-             ["--model-dir", dirs[8], "--no-pair-kv"],
+             ["--model-dir", dirs[8], "--kv-quant", "--no-pair-kv"],
              {"GABBY_ATTN_S8": "0"}),
             ("random int4, speculate 7, 33 pages",
              random_int4 + ["--speculate", "7", "--paged-pages", "33"], None)]
@@ -1422,7 +1819,25 @@ def main() -> int:
            "decode_attention_s8": runs["unpaired, s8"],
            "paged_decode_attention_s8":
                runs["unpaired, s8; 33 pages of 512"],
-           "decode_attention_multi": runs["unpaired, slot-batched"]}
+           "decode_attention_multi": runs["unpaired, slot-batched"],
+           "prefill_attention_bf16": runs["bf16; unpaired"],
+           "decode_attention_bf16": runs["bf16; unpaired"],
+           "prefill_attention_bf16_paired":
+               runs["bf16; paired, the literal defaults"],
+           "decode_attention_bf16_paired":
+               runs["bf16; paired, the literal defaults"],
+           "verify_attention_bf16": runs["bf16; unpaired; speculate 7"],
+           "verify_attention_bf16_paired": runs["bf16; paired; speculate 7"],
+           "paged_decode_attention_bf16":
+               runs["bf16; unpaired; 33 pages of 512"],
+           "paged_decode_attention_bf16_paired":
+               runs["bf16; paired; 33 pages of 512"],
+           "paged_verify_attention_bf16":
+               runs["bf16; unpaired; 33 pages of 512; speculate 7"],
+           "paged_verify_attention_bf16_paired":
+               runs["bf16; paired; 33 pages of 512; speculate 7"],
+           "decode_attention_multi_bf16":
+               runs["bf16; unpaired, slot-batched"]}
     for k in kernels:
         name = k.get("counter", k["name"])
         k["launches"] = own.get(name, counts)[name]

@@ -1,37 +1,33 @@
-// Decode and speculative-verify attention over the paged int8 KV pool,
-// Hopper (sm_90a): K10 (T = 1) and K11 (T > 1), and over the paired pool
-// K17 (T = 1, bf16/f32 form) and K18 (T > 1).
+// Decode and speculative-verify attention over the paged KV pool, Hopper
+// (sm_90a), on the shared row body of flash_rows.cuh (head_dim 64 or 128):
+//   int8 pool: K10 (T = 1) and K11 (T > 1), paired K17 (T = 1, bf16/f32
+//     form) and K18 (T > 1);
+//   bf16 pool: K28 (T = 1) and K30 (T > 1), paired K29 and K31.
 //
 // Replaces gabby_tpu/ops/pallas/attention.py:_paged_decode_call (reached
 // from paged_decode_attention with tq = 1 and from paged_verify_attention
-// with tq > 1), unpaired and pair=True: the decode and verify contracts of the
-// dense kernels, with row j of slot b read from
-// pool[table[b, j / page], layer, kh, j % page]. The page table is read
-// inside the kernel, so nothing gathers the pool; the loop ends at the
-// slot's own position, so table entries past its rows are never followed.
-// The body, what bounds it and its design are in flash_rows.cuh.
+// with tq > 1), unpaired and pair=True, with scales and in its
+// k_scale=None form: the decode and verify contracts of the dense kernels,
+// with row j of slot b read from pool[table[b, j / page], layer, kh,
+// j % page]. The page table is read inside the kernel, so nothing gathers
+// the pool; the loop ends at the slot's own position, so table entries past
+// its rows are never followed. The body, what bounds it and its design are
+// in flash_rows.cuh.
 
 #include "flash_rows.cuh"
 
-extern "C" {
+namespace {
 
-// q [B, T, Nq, 64] bf16; k/v pools [P, L, Nk, page, 64] int8 (pair = 1:
-// [P, L, Nk/2, page, 128]) and scale
-// pools [P, L, Nk, page] f32 (whole, not offset); table [B, max_pages]
-// int32; fresh_k/v [B, Nk, T, 64] bf16; positions [B] int32; out
-// [B, T, Nq, 64] bf16. page must be a multiple of 32.
-int gabby_paged_attention(const void* q, const void* k, const void* v,
-                          const void* k_scale, const void* v_scale,
-                          const void* table, const void* fresh_k,
-                          const void* fresh_v, const void* positions,
-                          void* out, int B, int T, int Nq, int Nk, int L,
-                          int layer, int page, int max_pages, int H,
-                          int pair, float sm_scale, void* stream) {
+int paged(const void* q, const void* k, const void* v, const void* k_scale,
+          const void* v_scale, const void* table, const void* fresh_k,
+          const void* fresh_v, const void* positions, void* out, int B, int T,
+          int Nq, int Nk, int L, int layer, int page, int max_pages, int H,
+          int pair, float sm_scale, void* stream) {
   if (page < 32 || page % 32 != 0 || max_pages < 1 || layer < 0 || layer >= L)
     return (int)cudaErrorInvalidValue;
   gabby_flash::KvSource src;
-  src.k = static_cast<const int8_t*>(k);
-  src.v = static_cast<const int8_t*>(v);
+  src.k = k;
+  src.v = v;
   src.ks = static_cast<const float*>(k_scale);
   src.vs = static_cast<const float*>(v_scale);
   src.table = static_cast<const int*>(table);
@@ -40,9 +36,50 @@ int gabby_paged_attention(const void* q, const void* k, const void* v,
   src.layers = L;
   src.layer = layer;
   src.pair = pair;
-  return gabby_flash::launch_flash_rows<true>(
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k_scale != nullptr)
+    return gabby_flash::launch_flash_rows<true, true>(
+        q, src, fresh_k, fresh_v, positions, out, B, T, Nq, Nk, H,
+        page * max_pages, sm_scale, s);
+  return gabby_flash::launch_flash_rows<true, false>(
       q, src, fresh_k, fresh_v, positions, out, B, T, Nq, Nk, H,
-      page * max_pages, sm_scale, static_cast<cudaStream_t>(stream));
+      page * max_pages, sm_scale, s);
+}
+
+}  // namespace
+
+extern "C" {
+
+// q [B, T, Nq, H] bf16; k/v pools [P, L, Nk, page, H] int8 (pair = 1:
+// [P, L, Nk/2, page, 2H]) and scale pools [P, L, Nk, page] f32 (whole, not
+// offset); table [B, max_pages] int32; fresh_k/v [B, Nk, T, H] bf16;
+// positions [B] int32; out [B, T, Nq, H] bf16. page must be a multiple of
+// 32; H 64 or 128.
+int gabby_paged_attention(const void* q, const void* k, const void* v,
+                          const void* k_scale, const void* v_scale,
+                          const void* table, const void* fresh_k,
+                          const void* fresh_v, const void* positions,
+                          void* out, int B, int T, int Nq, int Nk, int L,
+                          int layer, int page, int max_pages, int H,
+                          int pair, float sm_scale, void* stream) {
+  if (k_scale == nullptr || v_scale == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return paged(q, k, v, k_scale, v_scale, table, fresh_k, fresh_v, positions,
+               out, B, T, Nq, Nk, L, layer, page, max_pages, H, pair,
+               sm_scale, stream);
+}
+
+// The same over bf16 pools [P, L, Nk, page, H] (pair = 1:
+// [P, L, Nk/2, page, 2H]), no scales.
+int gabby_paged_attention_bf16(const void* q, const void* k, const void* v,
+                               const void* table, const void* fresh_k,
+                               const void* fresh_v, const void* positions,
+                               void* out, int B, int T, int Nq, int Nk, int L,
+                               int layer, int page, int max_pages, int H,
+                               int pair, float sm_scale, void* stream) {
+  return paged(q, k, v, nullptr, nullptr, table, fresh_k, fresh_v, positions,
+               out, B, T, Nq, Nk, L, layer, page, max_pages, H, pair,
+               sm_scale, stream);
 }
 
 }  // extern "C"

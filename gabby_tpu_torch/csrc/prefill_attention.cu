@@ -1,39 +1,44 @@
-// Single-slot flash prefill attention over the int8 KV cache, Hopper
-// (sm_90a): K4, and over the paired cache K21.
+// Single-slot flash prefill attention over the KV cache, Hopper (sm_90a):
+// over an int8 cache K4, and over the paired one K21; over a bf16 cache K22,
+// and over the paired one K23. head_dim 64 or 128, any group size.
 //
 // Replaces gabby_tpu/ops/pallas/prefill_attention.py:_prefill_call (its
-// _kernel body, reached from prefill_attention), unpaired and pair=True: the
-// T queries of one slot's prompt chunk (global positions offset..offset+T-1)
-// attend that slot's cache rows j < offset of one layer, and then the
-// chunk's own unquantized k/v causally (query t sees chunk keys t' <= t).
-// The cache holds only earlier chunks while this runs; the caller writes
-// the chunk's rows after the layer's attention. In the paired cache a row
-// is one 128-byte line holding the codes of kv heads 2p and 2p + 1 side by
-// side, scales still per head; the block of head 2p + h stages bytes
-// [64 h, 64 h + 64) of each line, and everything after the staging copy is
-// the unpaired kernel's, so the outputs are equal bit for bit on the same
-// rows re-laid. (The reference adds a query-group grid axis to fit the
-// paired form into the TPU compiler's memory limit; a block here owns one
-// kv head either way and needs no such axis.) The fresh block arrives
-// head-major in both layouts.
+// _kernel body, reached from prefill_attention), unpaired and pair=True,
+// with scales and in its k_scale=None form: the T queries of one slot's
+// prompt chunk (global positions offset..offset+T-1) attend that slot's
+// cache rows j < offset of one layer, and then the chunk's own unquantized
+// k/v causally (query t sees chunk keys t' <= t). The cache holds only
+// earlier chunks while this runs; the caller writes the chunk's rows after
+// the layer's attention. In the paired cache a row is one line of 2H
+// elements holding kv heads 2p and 2p + 1 side by side (scales still per
+// head); the block of head 2p + h stages its half of each line, and
+// everything after the staging copy is the unpaired kernel's, so the
+// outputs are equal bit for bit on the same rows re-laid. (The reference
+// adds a query-group grid axis to fit the paired form into the TPU
+// compiler's memory limit; a block here owns one kv head either way and
+// needs no such axis.) The fresh block arrives head-major in both layouts.
 //
 // The arithmetic is the reference's: both products in bf16 on the tensor
-// cores with f32 sums; bf16 queries unscaled; the int8 key codes as bf16
-// (exact) and ks[j] * sm_scale on the f32 scores; p * vs[j] rounded to bf16
-// against the value codes; the fresh block's k/v and p in bf16.
+// cores with f32 sums; bf16 queries unscaled. Over an int8 cache the key
+// codes are bf16 (exact) with ks[j] * sm_scale on the f32 scores and
+// p * vs[j] rounded to bf16 against the value codes; over a bf16 cache the
+// rows are read as they are, the scores take sm_scale alone and p is
+// rounded to bf16. The fresh block's k/v and p are bf16 in both.
 //
 // What bounds it on the H100: operations. At T = 512, offset = 512, 32
 // query heads and head_dim 64 a layer does 2 * 2 * 32 * 512 * 64 *
 // (512 + 256.5) ~ 3.2 GFLOP of score and value products for ~1.1 MB of
-// cache, queries and output; against 989 TFLOP/s of bf16 tensor-core rate
-// that is ~3.3 us.
+// cache (int8; ~2.1 MB bf16), queries and output; against 989 TFLOP/s of
+// bf16 tensor-core rate that is ~3.3 us.
 //
 // Design, FlashAttention-2 on mma.sync m16n8k16 (bf16 in, f32 sums):
 //   * The T * G query rows of one kv head (row = t * G + g) are cut into
 //     64-row tiles; one block per (row tile, kv head, part of the key
 //     range), 4 warps, each owning 16 rows whose query fragments stay in
-//     registers for the whole sweep; at most 168 registers a thread, so
-//     three blocks share a multiprocessor.
+//     registers for the whole sweep. At H = 64 a thread has at most 168
+//     registers, so three blocks share a multiprocessor; at H = 128 the
+//     query fragments and the output accumulator double (96 of them) and
+//     two blocks share one.
 //   * A short chunk over a long past would leave most multiprocessors idle
 //     (8 blocks at T = 16), so its key tiles are split into n_split parts
 //     (min(8, 2 x SMs / blocks, tiles / 2); gabby_prefill_attention_splits)
@@ -44,29 +49,33 @@
 //     past holds 15 tiles (960 rows), at T = 256 two always.
 //   * Keys stream in 64-row tiles: the past cache rows j < offset, then the
 //     fresh chunk keys up to the tile's last query position (the causal
-//     skip). A ring of three shared-memory stages is filled by cp.async
-//     (zero-filled past offset or T) two tiles ahead of the one computed:
-//     int8 codes and their scales for a past tile, bf16 rows for a fresh
-//     one. A past tile's codes become bf16 once per block (exact) in a
-//     swizzled tile, one extra barrier; a fresh tile is read in place.
-//   * Scores: per warp 16 x 64, 32 mma; B fragments by ldmatrix from the
-//     128-byte-swizzled [key][dim] tile (conflict-free). Each column takes
-//     ks[j] * sm_scale (past) or sm_scale (fresh), then the mask.
+//     skip). A ring of shared-memory stages (three at H = 64, two at
+//     H = 128) is filled by cp.async (zero-filled past offset or T) ahead
+//     of the tile computed: int8 codes and their scales for a past tile of
+//     an int8 cache, bf16 rows straight into the swizzled layout for a
+//     fresh tile and for a past tile of a bf16 cache. A past tile's codes
+//     become bf16 once per block (exact) in a swizzled tile, one extra
+//     barrier; every bf16 tile is read in place. The queries' staging tile
+//     is the codes' conversion tile: the queries are in registers by then.
+//   * Scores: per warp 16 x 64, 2H / 4 mma; B fragments by ldmatrix from
+//     the swizzled [key][dim] tile (16-byte chunk c of row r at
+//     r * 2H + ((c ^ (r & 7)) << 4): conflict-free). Each column takes
+//     ks[j] * sm_scale (past, int8) or sm_scale, then the mask.
 //   * Online softmax in registers: a row lives in the four lanes of a quad,
 //     its max by two shuffles; the running sum stays per lane until the end.
-//   * Values: p * vs[j] (past) or p (fresh) rounded to bf16 in registers is
+//   * Values: p * vs[j] (past, int8) or p rounded to bf16 in registers is
 //     the A fragment of the value product as it stands (the accumulator
 //     layout of m16n8k16 is its A layout); the value tile's B fragments come
-//     by ldmatrix.trans. 32 mma per warp per tile.
-//   * One block barrier per fresh tile, two per past tile; the next tiles'
-//     copies are in flight meanwhile.
-// Times (python3 chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W): 16
-// launches at T = 512, offset 512 take 0.567 ms replayed from a CUDA graph
-// (K21 0.571; the earlier f32 form 4.056), SDPA on dequantized rows 0.67-0.93
-// in the same run, bound 0.052; K21 at T = 64 over 1024 rows (8 parts)
-// 0.225.
+//     by ldmatrix.trans. H / 2 mma per warp per tile.
+//   * One block barrier per bf16 tile, two per int8 past tile; the next
+//     tiles' copies are in flight meanwhile.
+// Times (python3 chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W; int8,
+// H = 64): 16 launches at T = 512, offset 512 take 0.567 ms replayed from a
+// CUDA graph (K21 0.571; the earlier f32 form 4.056), SDPA on dequantized
+// rows 0.67-0.93 in the same run, bound 0.052; K21 at T = 64 over 1024 rows
+// (8 parts) 0.225.
 // What is left: ~10x the bound, because a block's walk of up to 16 tiles
-// is a chain of barriers, conversions and dependent mma that three blocks
+// is a chain of barriers, conversions and dependent mma that a few blocks
 // a multiprocessor do not hide.
 
 #include <cuda_bf16.h>
@@ -74,45 +83,61 @@
 #include <stdint.h>
 
 #include <algorithm>
-#include <mutex>
+
+#include "smem_leave.cuh"
 
 namespace {
 
-constexpr int kH = 64;       // head_dim
 constexpr int kRows = 64;    // query rows per block
 constexpr int kKeys = 64;    // keys per tile
 constexpr int kThreads = 128;
-constexpr int kStages = 3;
-constexpr int kAhead = kStages - 1;  // tiles loading ahead of the computed one
 constexpr float kNegInf = -1e30f;
-constexpr int kPart = 68;  // floats per row of a split's partial result:
-                           // 64 unnormalized outputs, its max, its sum
 
-// A tile of 64 rows x 64 bf16 (128 bytes a row), 16-byte chunk c of row r
-// at r * 128 + ((c ^ (r & 7)) << 4).
-constexpr int kTileBytes = kKeys * 128;
+// Sizes that follow from head_dim H.
+template <int H>
+struct Dims {
+  static constexpr int kRowB = 2 * H;         // bytes of a bf16 tile row
+  static constexpr int kChunks = kRowB / 16;  // its 16-byte chunks
+  static constexpr int kCodeChunks = H / 16;  // 16-byte chunks of int8 codes
+  static constexpr int kTile = kKeys * kRowB;
+  static constexpr int kStages = H == 64 ? 3 : 2;
+  static constexpr int kAhead = kStages - 1;  // tiles loading ahead
+  static constexpr int kMinBlocks = H == 64 ? 3 : 2;
+  // floats per row of a split's partial result: H unnormalized outputs,
+  // its max, its sum, padding
+  static constexpr int kPart = H + 4;
+};
 
+template <int H>
 struct Stage {
-  uint8_t k[kTileBytes];  // bf16 fresh rows (swizzled), or int8 codes
-  uint8_t v[kTileBytes];  // (row r at r * 64, the first 4 KB)
+  uint8_t k[Dims<H>::kTile];  // bf16 rows (swizzled), or int8 codes
+  uint8_t v[Dims<H>::kTile];  // (row r at r * H, the first half)
   float ks[kKeys];
   float vs[kKeys];
 };
 
+template <int H>
 struct Smem {
-  Stage st[kStages];
-  uint8_t kb[kTileBytes];  // a past tile's codes as bf16 (swizzled)
-  uint8_t vb[kTileBytes];
-  uint8_t q[kRows * 128];  // the block's queries (swizzled)
+  Stage<H> st[Dims<H>::kStages];
+  // the block's queries (swizzled) until they are in registers; then, over
+  // an int8 cache, a past tile's codes as bf16 (swizzled)
+  union {
+    uint8_t q[kRows * Dims<H>::kRowB];
+    struct {
+      uint8_t kb[Dims<H>::kTile];
+      uint8_t vb[Dims<H>::kTile];
+    } cv;
+  } u;
 };
-constexpr size_t kSmemBytes = sizeof(Smem);
+
+// 16-byte chunk c of row r of a tile of 2H-byte rows
+template <int H>
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * Dims<H>::kRowB + ((c ^ (r & 7)) << 4);
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * 128 + ((c ^ (r & 7)) << 4);
 }
 
 // 16 bytes to shared memory, of which the first `bytes` come from src and
@@ -189,10 +214,11 @@ __device__ __forceinline__ void codes_to_bf16(uint4 w, uint4& lo, uint4& hi) {
   hi = make_uint4(o[4], o[5], o[6], o[7]);
 }
 
-__global__ void __launch_bounds__(kThreads, 3)
+template <int H, bool kQuant>
+__global__ void __launch_bounds__(kThreads, Dims<H>::kMinBlocks)
 prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
-                         const int8_t* __restrict__ kc,
-                         const int8_t* __restrict__ vc,
+                         const void* __restrict__ kc,
+                         const void* __restrict__ vc,
                          const float* __restrict__ ks,
                          const float* __restrict__ vs,
                          const __nv_bfloat16* __restrict__ fk,
@@ -200,8 +226,9 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
                          __nv_bfloat16* __restrict__ out,
                          float* __restrict__ part, int T, int Nq, int Nk,
                          int S, int offset, int pair, float sm_scale) {
+  using D = Dims<H>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  Smem<H>& sm = *reinterpret_cast<Smem<H>*>(smem_raw);
   const int G = Nq / Nk;
   const int kh = blockIdx.y;
   const int row0 = blockIdx.x * kRows;
@@ -209,16 +236,18 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const int g = lane / 4, t = lane % 4;
   const int total_rows = T * G;
 
-  // codes of cache row j of this head: base + j * stride
-  const int stride = kH << pair;
+  // cache row j of this head: base + j * stride bytes
+  constexpr int kElem = kQuant ? 1 : 2;
+  const int stride = (H << pair) * kElem;
   const size_t code0 =
-      (size_t)(kh >> pair) * S * stride + (pair ? (kh & 1) * kH : 0);
-  const int8_t* kbase = kc + code0;
-  const int8_t* vbase = vc + code0;
-  const float* ksb = ks + (size_t)kh * S;
-  const float* vsb = vs + (size_t)kh * S;
-  const __nv_bfloat16* fkb = fk + (size_t)kh * T * kH;
-  const __nv_bfloat16* fvb = fv + (size_t)kh * T * kH;
+      ((size_t)(kh >> pair) * S * (H << pair) + (pair ? (kh & 1) * H : 0)) *
+      kElem;
+  const uint8_t* kbase = static_cast<const uint8_t*>(kc) + code0;
+  const uint8_t* vbase = static_cast<const uint8_t*>(vc) + code0;
+  const float* ksb = kQuant ? ks + (size_t)kh * S : nullptr;
+  const float* vsb = kQuant ? vs + (size_t)kh * S : nullptr;
+  const __nv_bfloat16* fkb = fk + (size_t)kh * T * H;
+  const __nv_bfloat16* fvb = fv + (size_t)kh * T * H;
 
   const int t_last = min(T - 1, (row0 + kRows - 1) / G);
   const int n_past = (offset + kKeys - 1) / kKeys;
@@ -228,19 +257,22 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const int lo = z * n_tiles / n_split, hi = (z + 1) * n_tiles / n_split;
 
   auto load_tile = [&](int tile) {
-    Stage& st = sm.st[tile % kStages];
-    if (tile < n_past) {
-      const int j0 = tile * kKeys;
-      // 64 rows x 4 chunks of codes, K and V: 4 copies a thread
+    Stage<H>& st = sm.st[tile % D::kStages];
+    const bool past = tile < n_past;
+    const int j0 = (past ? tile : tile - n_past) * kKeys;
+    if (kQuant && past) {
+      // 64 rows x H / 16 chunks of codes, K and V
 #pragma unroll
-      for (int i = 0; i < 2 * kKeys * 4 / kThreads; ++i) {
+      for (int i = 0; i < 2 * kKeys * D::kCodeChunks / kThreads; ++i) {
         const int idx = tid + i * kThreads;
-        const int kv = idx / (kKeys * 4), r = (idx / 4) % kKeys, c = idx % 4;
+        const int kv = idx / (kKeys * D::kCodeChunks);
+        const int r = (idx / D::kCodeChunks) % kKeys;
+        const int c = idx % D::kCodeChunks;
         const bool ok = j0 + r < offset;
-        const int8_t* src =
-            (kv ? vbase : kbase) + (ok ? (size_t)(j0 + r) * stride + c * 16
-                                       : 0);
-        cp16(smem_addr((kv ? st.v : st.k) + r * 64 + c * 16), src, ok);
+        const uint8_t* src =
+            (kv ? vbase : kbase) +
+            (ok ? (size_t)(j0 + r) * stride + c * 16 : 0);
+        cp16(smem_addr((kv ? st.v : st.k) + r * H + c * 16), src, ok);
       }
       if (tid < 32) {  // 16 chunks of scales each, zeros from offset on
         const int kv = tid / 16, c = tid % 16;
@@ -248,35 +280,40 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
         const float* src = (kv ? vsb : ksb) + (n ? j0 + c * 4 : 0);
         cp16n(smem_addr((kv ? st.vs : st.ks) + c * 4), src, 4 * n);
       }
-    } else {
-      const int j0 = (tile - n_past) * kKeys;
-      // 64 rows x 8 chunks of bf16, K and V: 8 copies a thread
+      return;
+    }
+    // bf16 rows, K and V, 2H / 16 chunks each, swizzled: the chunk's own
+    // (fresh) rows, or a past tile of a bf16 cache
+    const uint8_t* kb = past ? kbase : reinterpret_cast<const uint8_t*>(fkb);
+    const uint8_t* vb = past ? vbase : reinterpret_cast<const uint8_t*>(fvb);
+    const size_t rstride = past ? stride : D::kRowB;
+    const int n = past ? offset : T;
 #pragma unroll
-      for (int i = 0; i < 2 * kKeys * 8 / kThreads; ++i) {
-        const int idx = tid + i * kThreads;
-        const int kv = idx / (kKeys * 8), r = (idx / 8) % kKeys, c = idx % 8;
-        const bool ok = j0 + r < T;
-        const __nv_bfloat16* src =
-            (kv ? fvb : fkb) + (ok ? (size_t)(j0 + r) * kH + c * 8 : 0);
-        cp16(smem_addr((kv ? st.v : st.k) + swz(r, c)), src, ok);
-      }
+    for (int i = 0; i < 2 * kKeys * D::kChunks / kThreads; ++i) {
+      const int idx = tid + i * kThreads;
+      const int kv = idx / (kKeys * D::kChunks);
+      const int r = (idx / D::kChunks) % kKeys, c = idx % D::kChunks;
+      const bool ok = j0 + r < n;
+      const uint8_t* src =
+          (kv ? vb : kb) + (ok ? (size_t)(j0 + r) * rstride + c * 16 : 0);
+      cp16(smem_addr((kv ? st.v : st.k) + swz<H>(r, c)), src, ok);
     }
   };
 
-  // the block's queries (zero past the last row), with tile 0
+  // the block's queries (zero past the last row), with tile lo
 #pragma unroll
-  for (int i = 0; i < kRows * 8 / kThreads; ++i) {
+  for (int i = 0; i < kRows * D::kChunks / kThreads; ++i) {
     const int idx = tid + i * kThreads;
-    const int r = idx / 8, c = idx % 8;
+    const int r = idx / D::kChunks, c = idx % D::kChunks;
     const int flat = row0 + r;
     const bool ok = flat < total_rows;
     const __nv_bfloat16* src =
-        q + (ok ? ((size_t)(flat / G) * Nq + kh * G + flat % G) * kH + c * 8
+        q + (ok ? ((size_t)(flat / G) * Nq + kh * G + flat % G) * H + c * 8
                 : 0);
-    cp16(smem_addr(sm.q + swz(r, c)), src, ok);
+    cp16(smem_addr(sm.u.q + swz<H>(r, c)), src, ok);
   }
 #pragma unroll
-  for (int s = 0; s < kAhead; ++s) {
+  for (int s = 0; s < D::kAhead; ++s) {
     if (lo + s < hi) load_tile(lo + s);
     cp_commit();
   }
@@ -285,48 +322,51 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const int flat0 = row0 + warp * 16 + g;
   const int t_row[2] = {flat0 / G, (flat0 + 8) / G};
 
-  uint32_t qa[4][4];  // query A fragments, one per 16 dims
+  uint32_t qa[H / 16][4];  // query A fragments, one per 16 dims
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float o[8][4];
+  float o[H / 8][4];
 #pragma unroll
-  for (int dt = 0; dt < 8; ++dt)
+  for (int dt = 0; dt < H / 8; ++dt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
 
   for (int tile = lo; tile < hi; ++tile) {
-    cp_wait<kAhead - 1>();  // this tile (and the queries) landed
-    __syncthreads();        // ... for every thread; the last tile is done
-    if (tile + kAhead < hi) load_tile(tile + kAhead);
+    cp_wait<D::kAhead - 1>();  // this tile (and the queries) landed
+    __syncthreads();           // ... for every thread; the last tile is done
+    if (tile + D::kAhead < hi) load_tile(tile + D::kAhead);
     cp_commit();
+    const Stage<H>& st = sm.st[tile % D::kStages];
+    const bool past = tile < n_past;
     if (tile == lo) {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        ldsm_x4(qa[kk], smem_addr(sm.q + swz(warp * 16 + lane % 16,
-                                             2 * kk + lane / 16)));
+      for (int kk = 0; kk < H / 16; ++kk)
+        ldsm_x4(qa[kk], smem_addr(sm.u.q + swz<H>(warp * 16 + lane % 16,
+                                                  2 * kk + lane / 16)));
+      // the codes' conversion below writes over the queries' tile
+      if (kQuant && past) __syncthreads();
     }
-    const Stage& st = sm.st[tile % kStages];
-    const bool past = tile < n_past;
     const int j0 = (past ? tile : tile - n_past) * kKeys;
     const uint8_t* kt = st.k;
     const uint8_t* vt = st.v;
-    if (past) {
-      // codes -> bf16 once per block: K and V, 64 rows x 4 chunks each
+    if (kQuant && past) {
+      // codes -> bf16 once per block: K and V, 64 rows x H / 16 chunks each
 #pragma unroll
-      for (int i = 0; i < 2 * kKeys * 4 / kThreads; ++i) {
+      for (int i = 0; i < 2 * kKeys * D::kCodeChunks / kThreads; ++i) {
         const int idx = tid + i * kThreads;
-        const int kv = idx / (kKeys * 4), r = (idx / 4) % kKeys, c = idx % 4;
-        const uint4 w =
-            *reinterpret_cast<const uint4*>((kv ? st.v : st.k) + r * 64 +
-                                            c * 16);
+        const int kv = idx / (kKeys * D::kCodeChunks);
+        const int r = (idx / D::kCodeChunks) % kKeys;
+        const int c = idx % D::kCodeChunks;
+        const uint4 w = *reinterpret_cast<const uint4*>(
+            (kv ? st.v : st.k) + r * H + c * 16);
         uint4 w0, w1;
         codes_to_bf16(w, w0, w1);
-        uint8_t* dst = kv ? sm.vb : sm.kb;
-        *reinterpret_cast<uint4*>(dst + swz(r, 2 * c)) = w0;
-        *reinterpret_cast<uint4*>(dst + swz(r, 2 * c + 1)) = w1;
+        uint8_t* dst = kv ? sm.u.cv.vb : sm.u.cv.kb;
+        *reinterpret_cast<uint4*>(dst + swz<H>(r, 2 * c)) = w0;
+        *reinterpret_cast<uint4*>(dst + swz<H>(r, 2 * c + 1)) = w1;
       }
       __syncthreads();
-      kt = sm.kb;
-      vt = sm.vb;
+      kt = sm.u.cv.kb;
+      vt = sm.u.cv.vb;
     }
 
     // scores: 16 rows x 64 keys a warp
@@ -336,12 +376,12 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < H / 16; ++kk) {
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t b[4];
-        ldsm_x4(b, smem_addr(kt + swz(16 * np + 8 * (lane / 16) + lane % 8,
-                                      2 * kk + (lane / 8) % 2)));
+        ldsm_x4(b, smem_addr(kt + swz<H>(16 * np + 8 * (lane / 16) + lane % 8,
+                                         2 * kk + (lane / 8) % 2)));
         mma_bf16(s[2 * np], qa[kk], b[0], b[1]);
         mma_bf16(s[2 * np + 1], qa[kk], b[2], b[3]);
       }
@@ -358,7 +398,9 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
         const int j = j0 + col;
         float v;
         if (past)
-          v = j < offset ? s[nt][e] * (st.ks[col] * sm_scale) : kNegInf;
+          v = j < offset ? s[nt][e] * (kQuant ? st.ks[col] * sm_scale
+                                              : sm_scale)
+                         : kNegInf;
         else
           v = j <= t_row[e >> 1] ? s[nt][e] * sm_scale : kNegInf;
         s[nt][e] = v;
@@ -375,12 +417,12 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
       l[r] *= alpha[r];
     }
 #pragma unroll
-    for (int dt = 0; dt < 8; ++dt)
+    for (int dt = 0; dt < H / 8; ++dt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[dt][e] *= alpha[e >> 1];
 
-    // p (summed unrounded), then p * vs (past) in bf16 as A fragments:
-    // keys 16 kk .. 16 kk + 15 are score tiles 2 kk and 2 kk + 1
+    // p (summed unrounded), then p * vs (past, int8) in bf16 as A
+    // fragments: keys 16 kk .. 16 kk + 15 are score tiles 2 kk and 2 kk + 1
     uint32_t pa[4][4];
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
@@ -391,7 +433,7 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
                                          : 0.f;
         l[e >> 1] += p[e];
       }
-      if (past) {
+      if (kQuant && past) {
         const float v0 = st.vs[8 * nt + 2 * t], v1 = st.vs[8 * nt + 2 * t + 1];
         p[0] *= v0;
         p[1] *= v1;
@@ -404,11 +446,11 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-      for (int dp = 0; dp < 4; ++dp) {
+      for (int dp = 0; dp < H / 16; ++dp) {
         uint32_t b[4];
-        ldsm_x4_t(b, smem_addr(vt + swz(16 * kk + 8 * ((lane / 8) % 2) +
-                                            lane % 8,
-                                        2 * dp + lane / 16)));
+        ldsm_x4_t(b, smem_addr(vt + swz<H>(16 * kk + 8 * ((lane / 8) % 2) +
+                                               lane % 8,
+                                           2 * dp + lane / 16)));
         mma_bf16(o[2 * dp], pa[kk], b[0], b[1]);
         mma_bf16(o[2 * dp + 1], pa[kk], b[2], b[3]);
       }
@@ -423,51 +465,106 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
     const int flat = flat0 + 8 * r;
     if (flat >= total_rows) continue;
     if (n_split > 1) {  // the split's share, for the combine pass
-      float* dst = part + ((size_t)(z * Nk + kh) * total_rows + flat) * kPart;
+      float* dst =
+          part + ((size_t)(z * Nk + kh) * total_rows + flat) * D::kPart;
 #pragma unroll
-      for (int dt = 0; dt < 8; ++dt)
+      for (int dt = 0; dt < H / 8; ++dt)
         *reinterpret_cast<float2*>(dst + 8 * dt + 2 * t) =
             make_float2(o[dt][2 * r], o[dt][2 * r + 1]);
       if (t == 0)
-        *reinterpret_cast<float2*>(dst + 64) = make_float2(m[r], l[r]);
+        *reinterpret_cast<float2*>(dst + H) = make_float2(m[r], l[r]);
       continue;
     }
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
     __nv_bfloat16* dst =
-        out + ((size_t)(flat / G) * Nq + kh * G + flat % G) * kH + 2 * t;
+        out + ((size_t)(flat / G) * Nq + kh * G + flat % G) * H + 2 * t;
 #pragma unroll
-    for (int dt = 0; dt < 8; ++dt)
+    for (int dt = 0; dt < H / 8; ++dt)
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * dt) =
           __floats2bfloat162_rn(o[dt][2 * r] * inv, o[dt][2 * r + 1] * inv);
   }
 }
 
 // Merges the n_split partial results of each query row in split order
-// (deterministic): one warp a (row, kv head), two dims a lane.
+// (deterministic): one warp a (row, kv head), H / 32 dims a lane.
+template <int H>
 __global__ void __launch_bounds__(128)
 prefill_combine_kernel(const float* __restrict__ part,
                        __nv_bfloat16* __restrict__ out, int rows, int Nq,
                        int Nk, int n_split) {
+  constexpr int kD = H / 32, kPart = Dims<H>::kPart;
   const int w = blockIdx.x * 4 + threadIdx.x / 32, lane = threadIdx.x % 32;
   if (w >= rows * Nk) return;
   const int kh = w / rows, flat = w % rows, G = Nq / Nk;
   const float* p = part + ((size_t)kh * rows + flat) * kPart;
   const size_t zs = (size_t)Nk * rows * kPart;  // one split to the next
   float mx = kNegInf;
-  for (int z = 0; z < n_split; ++z) mx = fmaxf(mx, p[z * zs + 64]);
-  float l = 0.f, o0 = 0.f, o1 = 0.f;
+  for (int z = 0; z < n_split; ++z) mx = fmaxf(mx, p[z * zs + H]);
+  float l = 0.f, o[kD];
+#pragma unroll
+  for (int d = 0; d < kD; ++d) o[d] = 0.f;
   for (int z = 0; z < n_split; ++z) {
     const float* pz = p + z * zs;
-    const float e = __expf(pz[64] - mx);
-    const float2 oz = *reinterpret_cast<const float2*>(pz + 2 * lane);
-    l += pz[65] * e;
-    o0 += oz.x * e;
-    o1 += oz.y * e;
+    const float e = __expf(pz[H] - mx);
+    l += pz[H + 1] * e;
+#pragma unroll
+    for (int d = 0; d < kD; ++d) o[d] += pz[kD * lane + d] * e;
   }
   const float inv = 1.f / fmaxf(l, 1e-30f);
-  *reinterpret_cast<__nv_bfloat162*>(
-      out + ((size_t)(flat / G) * Nq + kh * G + flat % G) * kH + 2 * lane) =
-      __floats2bfloat162_rn(o0 * inv, o1 * inv);
+  __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(
+      out + ((size_t)(flat / G) * Nq + kh * G + flat % G) * H + kD * lane);
+#pragma unroll
+  for (int d = 0; d < kD; d += 2)
+    dst[d / 2] = __floats2bfloat162_rn(o[d] * inv, o[d + 1] * inv);
+}
+
+template <int H, bool kQuant>
+int run(const void* q, const void* k, const void* v, const void* k_scale,
+        const void* v_scale, const void* fresh_k, const void* fresh_v,
+        void* out, void* part, int T, int Nq, int Nk, int S, int offset,
+        int pair, int n_split, float sm_scale, cudaStream_t st) {
+  static gabby_smem::SmemLeave leave;
+  constexpr int bytes = (int)sizeof(Smem<H>);
+  cudaError_t err = leave.raise(prefill_attention_kernel<H, kQuant>, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int rows = T * (Nq / Nk);
+  dim3 grid((rows + kRows - 1) / kRows, Nk, n_split);
+  prefill_attention_kernel<H, kQuant><<<grid, kThreads, bytes, st>>>(
+      static_cast<const __nv_bfloat16*>(q), k, v,
+      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+      static_cast<const __nv_bfloat16*>(fresh_k),
+      static_cast<const __nv_bfloat16*>(fresh_v),
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(part), T, Nq, Nk,
+      S, offset, pair, sm_scale);
+  if (n_split > 1) {
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    prefill_combine_kernel<H><<<(rows * Nk + 3) / 4, 128, 0, st>>>(
+        static_cast<const float*>(part), static_cast<__nv_bfloat16*>(out),
+        rows, Nq, Nk, n_split);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <bool kQuant>
+int by_head(const void* q, const void* k, const void* v, const void* k_scale,
+            const void* v_scale, const void* fresh_k, const void* fresh_v,
+            void* out, void* part, int T, int Nq, int Nk, int S, int H,
+            int offset, int pair, int n_split, float sm_scale, void* stream) {
+  if (Nk < 1 || Nq % Nk != 0 || offset < 0 || offset > S ||
+      (pair != 0 && pair != 1) || (pair && Nk % 2) || n_split < 1 ||
+      (n_split > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (H == 64)
+    return run<64, kQuant>(q, k, v, k_scale, v_scale, fresh_k, fresh_v, out,
+                           part, T, Nq, Nk, S, offset, pair, n_split,
+                           sm_scale, st);
+  if (H == 128)
+    return run<128, kQuant>(q, k, v, k_scale, v_scale, fresh_k, fresh_v, out,
+                            part, T, Nq, Nk, S, offset, pair, n_split,
+                            sm_scale, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -488,59 +585,35 @@ int gabby_prefill_attention_splits(int T, int Nq, int Nk, int offset) {
                   std::min({8, 2 * sms / std::max(blocks, 1), tiles / 2}));
 }
 
-// q [T, Nq, 64] bf16; k/v [Nk, S, 64] int8 (pair = 1: [Nk/2, S, 128]) and
-// k/v_scale [Nk, S] f32 of one (layer, slot) cache row (the caller offsets
-// the pointers); fresh_k/v [Nk, T, 64] bf16; out [T, Nq, 64] bf16. Reads
-// cache rows j < offset. S % 4 == 0 (16-byte rows of scales). With
-// n_split > 1 (gabby_prefill_attention_splits) `part` holds
-// n_split * Nk * T * (Nq / Nk) * 68 floats of partial results.
+// q [T, Nq, H] bf16 (H 64 or 128); k/v [Nk, S, H] int8 (pair = 1:
+// [Nk/2, S, 2H]) and k/v_scale [Nk, S] f32 of one (layer, slot) cache row
+// (the caller offsets the pointers); fresh_k/v [Nk, T, H] bf16; out
+// [T, Nq, H] bf16. Reads cache rows j < offset. S % 4 == 0 (16-byte rows of
+// scales). With n_split > 1 (gabby_prefill_attention_splits) `part` holds
+// n_split * Nk * T * (Nq / Nk) * (H + 4) floats of partial results.
 int gabby_prefill_attention(const void* q, const void* k, const void* v,
                             const void* k_scale, const void* v_scale,
                             const void* fresh_k, const void* fresh_v,
                             void* out, void* part, int T, int Nq, int Nk,
                             int S, int H, int offset, int pair, int n_split,
                             float sm_scale, void* stream) {
-  if (H != kH || Nq % Nk != 0 || offset > S || S % 4 ||
-      (pair != 0 && pair != 1) || (pair && Nk % 2) || n_split < 1 ||
-      (n_split > 1 && part == nullptr))
+  if (S % 4 || k_scale == nullptr || v_scale == nullptr)
     return (int)cudaErrorInvalidValue;
-  {
-    // the leave to take more than 48 KB holds per device; set under a lock,
-    // so calls may come from several threads and go to several devices
-    static std::mutex mu;
-    static bool attr_set[64] = {};
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
-    std::lock_guard<std::mutex> lock(mu);
-    if (!attr_set[dev]) {
-      err = cudaFuncSetAttribute(prefill_attention_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)kSmemBytes);
-      if (err != cudaSuccess) return (int)err;
-      attr_set[dev] = true;
-    }
-  }
-  const int rows = T * (Nq / Nk);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid((rows + kRows - 1) / kRows, Nk, n_split);
-  prefill_attention_kernel<<<grid, kThreads, kSmemBytes, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k),
-      static_cast<const int8_t*>(v), static_cast<const float*>(k_scale),
-      static_cast<const float*>(v_scale),
-      static_cast<const __nv_bfloat16*>(fresh_k),
-      static_cast<const __nv_bfloat16*>(fresh_v),
-      static_cast<__nv_bfloat16*>(out), static_cast<float*>(part), T, Nq, Nk,
-      S, offset, pair, sm_scale);
-  if (n_split > 1) {
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    prefill_combine_kernel<<<(rows * Nk + 3) / 4, 128, 0, st>>>(
-        static_cast<const float*>(part), static_cast<__nv_bfloat16*>(out),
-        rows, Nq, Nk, n_split);
-  }
-  return (int)cudaGetLastError();
+  return by_head<true>(q, k, v, k_scale, v_scale, fresh_k, fresh_v, out,
+                       part, T, Nq, Nk, S, H, offset, pair, n_split, sm_scale,
+                       stream);
+}
+
+// The same over a bf16 cache: k/v [Nk, S, H] bf16 (pair = 1:
+// [Nk/2, S, 2H]) of one (layer, slot) cache row, no scales.
+int gabby_prefill_attention_bf16(const void* q, const void* k, const void* v,
+                                 const void* fresh_k, const void* fresh_v,
+                                 void* out, void* part, int T, int Nq, int Nk,
+                                 int S, int H, int offset, int pair,
+                                 int n_split, float sm_scale, void* stream) {
+  return by_head<false>(q, k, v, nullptr, nullptr, fresh_k, fresh_v, out,
+                        part, T, Nq, Nk, S, H, offset, pair, n_split,
+                        sm_scale, stream);
 }
 
 }  // extern "C"

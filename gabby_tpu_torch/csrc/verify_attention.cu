@@ -1,32 +1,29 @@
-// Speculative-verify attention over the dense int8 KV cache, Hopper
-// (sm_90a): K9, and over the paired cache K13 (T > 1) and K12 (T = 1, the
-// paired decode in its bf16/f32 form).
+// Decode and speculative-verify attention over the dense KV cache, Hopper
+// (sm_90a), on the shared row body of flash_rows.cuh (head_dim 64 or 128):
+//   int8 cache: K9 (unpaired, T > 1), K12 (paired, T = 1, the paired
+//     decode in its bf16/f32 form) and K13 (paired, T > 1);
+//   bf16 cache: K24 (unpaired, T = 1), K25 (paired, T = 1), K26
+//     (unpaired, T > 1) and K27 (paired, T > 1).
 //
-// Replaces gabby_tpu/ops/pallas/attention.py:_decode_call in its tq > 1
-// form (reached from verify_attention) and in its pair=True form without
-// s8 dots (tq = 1 from decode_attention, tq > 1 from verify_attention):
-// the T candidate positions of every slot attend that slot's cache rows
-// j < min(pos[b], limit) of one layer plus the block's own T unquantized
-// k/v rows causally. The body, the paired addressing, what bounds it and
-// its design are in flash_rows.cuh.
+// Replaces gabby_tpu/ops/pallas/attention.py:_decode_call without s8 dots:
+// its tq > 1 form (reached from verify_attention), its pair=True form (tq
+// = 1 from decode_attention, tq > 1 from verify_attention) and its
+// k_scale=None form over a bf16 cache (all of those): the T candidate
+// positions of every slot attend that slot's cache rows j < min(pos[b],
+// limit) of one layer plus the block's own T unquantized k/v rows
+// causally. The body, the paired addressing, what bounds it and its design
+// are in flash_rows.cuh.
 
 #include "flash_rows.cuh"
 
-extern "C" {
+namespace {
 
-// q [B, T, Nq, 64] bf16; k/v [B, Nk, S, 64] int8 (pair = 1:
-// [B, Nk/2, S, 128]) and k/v_scale [B, Nk, S] f32 of one layer (the caller
-// offsets the pointers); fresh_k/v [B, Nk, T, 64] bf16; positions [B]
-// int32; out [B, T, Nq, 64] bf16.
-int gabby_verify_attention(const void* q, const void* k, const void* v,
-                           const void* k_scale, const void* v_scale,
-                           const void* fresh_k, const void* fresh_v,
-                           const void* positions, void* out, int B, int T,
-                           int Nq, int Nk, int S, int H, int limit, int pair,
-                           float sm_scale, void* stream) {
+gabby_flash::KvSource dense_source(const void* k, const void* v,
+                                   const void* k_scale, const void* v_scale,
+                                   int S, int pair) {
   gabby_flash::KvSource src;
-  src.k = static_cast<const int8_t*>(k);
-  src.v = static_cast<const int8_t*>(v);
+  src.k = k;
+  src.v = v;
   src.ks = static_cast<const float*>(k_scale);
   src.vs = static_cast<const float*>(v_scale);
   src.table = nullptr;
@@ -35,9 +32,41 @@ int gabby_verify_attention(const void* q, const void* k, const void* v,
   src.layers = 1;
   src.layer = 0;
   src.pair = pair;
-  return gabby_flash::launch_flash_rows<false>(
-      q, src, fresh_k, fresh_v, positions, out, B, T, Nq, Nk, H, limit,
-      sm_scale, static_cast<cudaStream_t>(stream));
+  return src;
+}
+
+}  // namespace
+
+extern "C" {
+
+// q [B, T, Nq, H] bf16; k/v [B, Nk, S, H] int8 (pair = 1:
+// [B, Nk/2, S, 2H]) and k/v_scale [B, Nk, S] f32 of one layer (the caller
+// offsets the pointers); fresh_k/v [B, Nk, T, H] bf16; positions [B]
+// int32; out [B, T, Nq, H] bf16; H 64 or 128.
+int gabby_verify_attention(const void* q, const void* k, const void* v,
+                           const void* k_scale, const void* v_scale,
+                           const void* fresh_k, const void* fresh_v,
+                           const void* positions, void* out, int B, int T,
+                           int Nq, int Nk, int S, int H, int limit, int pair,
+                           float sm_scale, void* stream) {
+  return gabby_flash::launch_flash_rows<false, true>(
+      q, dense_source(k, v, k_scale, v_scale, S, pair), fresh_k, fresh_v,
+      positions, out, B, T, Nq, Nk, H, limit, sm_scale,
+      static_cast<cudaStream_t>(stream));
+}
+
+// The same over a bf16 cache: k/v [B, Nk, S, H] bf16 (pair = 1:
+// [B, Nk/2, S, 2H]) of one layer, no scales.
+int gabby_verify_attention_bf16(const void* q, const void* k, const void* v,
+                                const void* fresh_k, const void* fresh_v,
+                                const void* positions, void* out, int B,
+                                int T, int Nq, int Nk, int S, int H,
+                                int limit, int pair, float sm_scale,
+                                void* stream) {
+  return gabby_flash::launch_flash_rows<false, false>(
+      q, dense_source(k, v, nullptr, nullptr, S, pair), fresh_k, fresh_v,
+      positions, out, B, T, Nq, Nk, H, limit, sm_scale,
+      static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

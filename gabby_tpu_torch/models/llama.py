@@ -31,7 +31,7 @@ import torch.nn.functional as F
 
 from gabby_tpu_torch import resolve_device
 from gabby_tpu_torch.config import ModelConfig
-from gabby_tpu_torch.ops.attention import (cache_attention,
+from gabby_tpu_torch.ops.attention import (cache_attention_bf16,
                                            cache_attention_quantized,
                                            causal_attention,
                                            paged_attention,
@@ -239,9 +239,10 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 layer=layer, fresh_k=fresh_k.contiguous(),
                 fresh_v=fresh_v.contiguous(), window=window)
         else:
-            attn = cache_attention(q, cache.k[layer], cache.v[layer],
-                                   read_pos, fresh_k=fresh_k,
-                                   fresh_v=fresh_v)
+            attn = cache_attention_bf16(
+                q, cache.k, cache.v, read_pos, layer=layer,
+                fresh_k=fresh_k.contiguous(), fresh_v=fresh_v.contiguous(),
+                window=window)
         kr, vr, k_s, v_s = _quantized_rows(cache, fresh_k, fresh_v)
         cache.k[layer][lanes, :, write_pos] = kr
         cache.v[layer][lanes, :, write_pos] = vr
@@ -280,9 +281,10 @@ def _decode_step_paged(params: Params, cfg: ModelConfig,
                        attn_positions: Optional[torch.Tensor] = None
                        ) -> tuple[torch.Tensor, PagedKVCache]:
     """decode_step against a paged pool: attention reads each slot's rows
-    through the page table (K10 over int8 pools), and each layer's fresh
-    row is written through the table after that layer's attention. A lane
-    whose position is frozen at max_seq writes to the scratch page."""
+    through the page table (K10 over int8 pools, K28 over bf16 ones), and
+    each layer's fresh row is written through the table after that layer's
+    attention. A lane whose position is frozen at max_seq writes to the
+    scratch page."""
     read_pos = (positions if attn_positions is None
                 else attn_positions).to(torch.int32)
     h = params["embed"][tokens[:, None].long()]  # [B, 1, D]
@@ -327,14 +329,9 @@ def prefill_slot(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         kt = k[0].transpose(0, 1).contiguous()  # [Nk, T, H]
         vt = v[0].transpose(0, 1).contiguous()
         rows = slice(offset, offset + t)
-        if cache.quantized:
-            attn = slot_prefill_attention(
-                q, cache.k, cache.v, slot, offset, cache.k_scale,
-                cache.v_scale, fresh_k=kt, fresh_v=vt, layer=layer)
-        else:
-            attn = slot_prefill_attention(q, cache.k, cache.v, slot, offset,
-                                          fresh_k=kt, fresh_v=vt,
-                                          layer=layer)
+        attn = slot_prefill_attention(
+            q, cache.k, cache.v, slot, offset, cache.k_scale, cache.v_scale,
+            fresh_k=kt, fresh_v=vt, layer=layer)
         kr, vr, k_s, v_s = _quantized_rows(cache, kt, vt, head_major=True)
         cache.k[layer, slot, :, rows] = kr
         cache.v[layer, slot, :, rows] = vr
@@ -354,10 +351,11 @@ def _prefill_slot_paged(params: Params, cfg: ModelConfig,
     """prefill_slot against a paged pool. Per layer, the slot's pages below
     `offset` are gathered into a dense one-slot view (a per-chunk cost on
     the order of the rows attention reads anyway), the chunk runs the dense
-    slot-prefill attention over it (K4 over int8 pools, K21 over paired
-    ones: the gathered view keeps the pool's layout), and the chunk's
-    rows land with one page-granular write per pool. Chunk length and
-    offset must be page-aligned (the engine's paged bucket ladder)."""
+    slot-prefill attention over it (K4 over int8 pools, K22 over bf16
+    ones, K21 and K23 over paired ones: the gathered view keeps the pool's
+    layout), and the chunk's rows land with one page-granular write per
+    pool. Chunk length and offset must be page-aligned (the engine's paged
+    bucket ladder)."""
     t = tokens.shape[0]
     ps = cache.page_size
     if offset % ps or t % ps or offset + t > cache.max_seq:
@@ -448,10 +446,11 @@ def _verify_step_paged(params: Params, cfg: ModelConfig,
                        attn_positions: Optional[torch.Tensor] = None
                        ) -> tuple[torch.Tensor, PagedKVCache]:
     """verify_step against the paged pool: attention through the page table
-    (K11 over int8 pools); the block's rows land row by row through the
-    table (a T-row block may straddle a page boundary), rows at positions
-    >= max_seq or past the slot's allocation on the scratch page. The
-    engine provisions pages to the verify horizon before each call."""
+    (K11 over int8 pools, K30 over bf16 ones); the block's rows land row
+    by row through the table (a T-row block may straddle a page boundary),
+    rows at positions >= max_seq or past the slot's allocation on the
+    scratch page. The engine provisions pages to the verify horizon before
+    each call."""
     t = tokens_bt.shape[1]
     read_pos = (positions0 if attn_positions is None
                 else attn_positions).to(torch.int32)

@@ -1,18 +1,27 @@
 """Grouped-query attention contracts (counterpart of gabby_tpu/ops/attention.py).
 
 The plain PyTorch bodies here are the semantics the kernels are held to.
-`cache_attention_quantized` (decode, fresh-row form),
-`slot_prefill_attention` (chunked prefill, fresh-block form),
-`verify_attention` (speculative verify, T candidate positions per slot) and
-`paged_attention` (decode and verify against the paged pool) over an int8
-cache dispatch to their CUDA kernels (ops/cuda/attention.py,
-ops/cuda/prefill_attention.py, ops/cuda/paged_attention.py), which take
-plain bodies for CPU tensors. Every contract takes the paired cache layout
-too ([.., Nk/2, S, 2H], detected by the lane width; scales per head) and
-un-pairs it for the plain bodies. Single-position decode over an int8 cache
-takes the s8 form when `ops.cuda.attn_s8()` is on (the default), else the
-bf16/f32 form; verify and prefill have no s8 form. Math runs in f32; outputs
-return in q's dtype.
+`cache_attention_quantized` and `cache_attention_bf16` (decode, fresh-row
+form, over an int8 and a bf16 cache), `slot_prefill_attention` (chunked
+prefill, fresh-block form), `verify_attention` (speculative verify, T
+candidate positions per slot) and `paged_attention` (decode and verify
+against the paged pool) over a stacked cache dispatch to their CUDA
+kernels (ops/cuda/attention.py, ops/cuda/prefill_attention.py,
+ops/cuda/paged_attention.py), which take plain bodies for CPU tensors (of
+any float type). On the GPU the cache is int8 with scales or bf16 without
+(the reference's k_scale=None form); another type raises. Every contract
+takes the paired cache layout too ([.., Nk/2, S, 2H], detected by the lane
+width; scales per head) and un-pairs it for the plain bodies.
+Single-position decode over an int8 cache takes the s8 form when
+`ops.cuda.attn_s8()` is on (the default), else the bf16/f32 form; verify,
+prefill and every bf16-cache form have no s8 form. Math runs in f32;
+outputs return in q's dtype.
+
+One designed divergence: at max_seq < 4096 the reference leaves dense
+decode over a bf16 cache to XLA (KERNEL_ATTN_MIN_SEQ,
+gabby_tpu/ops/attention.py:33, a TPU measurement). On the GPU the port
+takes its kernel at every max_seq: the plain body copies the layer's whole
+cache to f32 in every call, the kernel reads only the live rows.
 """
 
 from __future__ import annotations
@@ -119,7 +128,7 @@ def cache_attention_quantized(q: torch.Tensor, k_codes: torch.Tensor,
         # the reference's order: on the unpaired cache the slot-batched
         # launch (bf16/f32 form) comes before the s8 switch is looked at
         if (ck.attn_multi() and k_codes.shape[-1] == q.shape[-1]
-                and cattn.pick_slot_block(q.shape[0]) > 1):
+                and cattn.pick_slot_block(q.shape[0], q.shape[-1]) > 1):
             return cattn.decode_attention_multi(*args, **kw)
         if ck.attn_s8():
             return cattn.decode_attention_s8(*args, **kw)
@@ -132,6 +141,28 @@ def cache_attention_quantized(q: torch.Tensor, k_codes: torch.Tensor,
     vv = dequantize_kv(unpaired(v_codes, h), v_scale, q.dtype)
     return cache_attention(q, kk, vv, positions, scale=scale,
                            fresh_k=fresh_k, fresh_v=fresh_v)
+
+
+def cache_attention_bf16(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, positions: torch.Tensor, *,
+                         layer: int, fresh_k: torch.Tensor,
+                         fresh_v: torch.Tensor,
+                         scale: Optional[float] = None,
+                         window: Optional[int] = None) -> torch.Tensor:
+    """Decode attention over the stacked unquantized cache [L, B, Nk, S, H]
+    (or paired [L, B, Nk/2, S, 2H]) in the fresh-row form: rows
+    j < min(positions[b], window) of `layer` plus the current token's
+    fresh_k/v [B, Nk, H]. The serving path over a bf16 cache: the
+    slot-batched launch (K32) when `attn_multi()` is on, the cache is
+    unpaired and a slot block divides B, as in the reference's order; else
+    the flash-decode kernel (K24; K25 when paired)."""
+    kw = dict(layer=layer, fresh_k=fresh_k, fresh_v=fresh_v, scale=scale,
+              window=window)
+    args = (q, k_cache, v_cache, None, None, positions)
+    if (ck.attn_multi() and k_cache.shape[-1] == q.shape[-1]
+            and cattn.pick_slot_block(q.shape[0], q.shape[-1]) > 1):
+        return cattn.decode_attention_multi(*args, **kw)
+    return cattn.decode_attention(*args, **kw)
 
 
 def slot_prefill_reference(q, k_cache, v_cache, slot: int, offset: int,
@@ -175,10 +206,11 @@ def slot_prefill_attention(q: torch.Tensor, k_cache: torch.Tensor,
                            scale: Optional[float] = None) -> torch.Tensor:
     """Chunked-prefill attention for ONE slot in the fresh-block form: the
     cache is read strictly below `offset` and the chunk attends its own
-    k/v ([Nk, T, H]) causally at full precision. Over an int8 stacked
-    cache that is the serving path, which goes to the flash-prefill kernel
-    (K4; K21 when the cache is paired)."""
-    if k_scale is not None and layer is not None:
+    k/v ([Nk, T, H]) causally at full precision. Over a stacked cache that
+    is the serving path, which goes to the flash-prefill kernel: K4 over
+    an int8 cache (K21 when paired), K22 over a bf16 one (K23 when
+    paired)."""
+    if layer is not None:
         return cpfa.prefill_attention(q, k_cache, v_cache, k_scale, v_scale,
                                       slot, offset, layer=layer,
                                       fresh_k=fresh_k, fresh_v=fresh_v,
@@ -231,17 +263,12 @@ def verify_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      scale: Optional[float] = None,
                      window: Optional[int] = None) -> torch.Tensor:
     """Verify attention against the stacked dense cache [L, B, Nk, S, H].
-    Over an int8 cache that is the serving path, which goes to the
-    flash-verify kernel (K9; K13 when the cache is paired); it reads rows
-    j < min(positions[b], window)."""
-    if k_scale is not None:
-        return cattn.verify_attention(q, k_cache, v_cache, k_scale, v_scale,
-                                      positions, layer=layer,
-                                      fresh_k=fresh_k, fresh_v=fresh_v,
-                                      scale=scale, window=window)
-    return verify_attention_reference(q, k_cache, v_cache, positions,
-                                      layer=layer, fresh_k=fresh_k,
-                                      fresh_v=fresh_v, scale=scale)
+    That is the serving path, which goes to the flash-verify kernel: K9
+    over an int8 cache (K13 when paired), K26 over a bf16 one (K27 when
+    paired); it reads rows j < min(positions[b], window)."""
+    return cattn.verify_attention(q, k_cache, v_cache, k_scale, v_scale,
+                                  positions, layer=layer, fresh_k=fresh_k,
+                                  fresh_v=fresh_v, scale=scale, window=window)
 
 
 def gather_pages(pool: torch.Tensor, page_table: torch.Tensor,
@@ -308,19 +335,16 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     layer: int, fresh_k: torch.Tensor, fresh_v: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Attention of q [B, T, Nq, H] against the paged pool: decode (T = 1,
-    fresh_k/v [B, Nk, H]) or verify (T > 1, fresh_k/v [B, Nk, T, H]). Over
-    int8 pools that is the serving path, which goes to the paged kernels:
-    they read the page table themselves. Decode takes the s8 form when
-    `attn_s8()` is on, else the bf16/f32 form; verify has only the latter."""
+    fresh_k/v [B, Nk, H]) or verify (T > 1, fresh_k/v [B, Nk, T, H]). That
+    is the serving path, which goes to the paged kernels: they read the
+    page table themselves. Over int8 pools decode takes the s8 form when
+    `attn_s8()` is on, else the bf16/f32 form; verify and bf16 pools have
+    only the latter."""
     t = q.shape[1]
     args = (q, k_pool, v_pool, page_table, positions, k_scale, v_scale)
     kw = dict(layer=layer, fresh_k=fresh_k, fresh_v=fresh_v, scale=scale)
-    if k_scale is not None:
-        if t == 1 and ck.attn_s8():
-            return cpaged.paged_decode_attention_s8(*args, **kw)
-        if t == 1:
-            return cpaged.paged_decode_attention(*args, **kw)
-        return cpaged.paged_verify_attention(*args, **kw)
+    if t == 1 and k_scale is not None and ck.attn_s8():
+        return cpaged.paged_decode_attention_s8(*args, **kw)
     if t == 1:
-        return paged_cache_attention(*args, **kw)
-    return paged_verify_reference(*args, **kw)
+        return cpaged.paged_decode_attention(*args, **kw)
+    return cpaged.paged_verify_attention(*args, **kw)

@@ -36,6 +36,18 @@ launch_counts: dict[str, int] = {
     "paged_decode_attention_s8": 0,
     "paged_decode_attention_s8_paired": 0,
     "prefill_attention_paired": 0,
+    # over a bf16 cache (K22-K32)
+    "prefill_attention_bf16": 0,
+    "prefill_attention_bf16_paired": 0,
+    "decode_attention_bf16": 0,
+    "decode_attention_bf16_paired": 0,
+    "verify_attention_bf16": 0,
+    "verify_attention_bf16_paired": 0,
+    "paged_decode_attention_bf16": 0,
+    "paged_decode_attention_bf16_paired": 0,
+    "paged_verify_attention_bf16": 0,
+    "paged_verify_attention_bf16_paired": 0,
+    "decode_attention_multi_bf16": 0,
 }
 
 
@@ -106,7 +118,8 @@ def set_attn_s8(enabled: Optional[bool]) -> None:
 
 def attn_multi() -> bool:
     """Slot-batched decode attention: the bf16/f32 form over an unpaired
-    dense int8 cache gives one thread block several slots of a kv head.
+    dense cache (int8 or bf16) gives one thread block several slots of a
+    kv head.
     Default off, as in the reference; opt-in with GABBY_ATTN_MULTI=1 or
     set_attn_multi(True). Where it applies it is taken before `attn_s8()`
     is looked at, as in the reference: such a cache then decodes in the

@@ -1,25 +1,32 @@
-"""Flash-decode and flash-verify attention over the dense int8 KV cache and
-their plain PyTorch versions (counterparts of
+"""Flash-decode and flash-verify attention over the dense KV cache and their
+plain PyTorch versions (counterparts of
 gabby_tpu/ops/pallas/attention.py:decode_attention and verify_attention in
 all their forms).
 
-Over the unpaired cache [L, B, Nk, S, H]:
+Over an int8 cache with f32 scales, unpaired [L, B, Nk, S, H]:
   K3   decode, bf16/f32 form (csrc/decode_attention.cu, _decode_call tq = 1);
   K9   verify, T > 1 (csrc/verify_attention.cu, _decode_call tq > 1);
   K14  decode, s8 form (csrc/attention_s8.cu, _decode_call use_s8=True);
   K16  decode, bf16/f32 form, several slots per block
        (csrc/decode_attention.cu, _decode_call_multi).
-Over the paired cache [L, B, Nk/2, S, 2H] (adjacent kv heads side by side
-on the last axis, scales per head; detected by the lane width):
+Over the paired int8 cache [L, B, Nk/2, S, 2H] (adjacent kv heads side by
+side on the last axis, scales per head; detected by the lane width):
   K12  decode, bf16/f32 form; K13 verify (csrc/verify_attention.cu,
        _decode_call pair=True);
   K15  decode, s8 form (csrc/attention_s8.cu, pair=True and use_s8=True).
-Every kernel reads rows j < min(positions[b], window) of one layer of the
-stacked cache (a pointer offset, no copy) and folds the block's own
-unquantized k/v in last. A paired kernel's block owns one kv head and reads
-its half of each 128-byte row, so the paired results equal the unpaired
-ones on the same rows re-laid. CPU tensors take the plain versions; CUDA
-tensors launch or raise.
+Over a bf16 cache (no scales: the reference's k_scale=None form):
+  K24  decode, K26 verify, unpaired; K25 decode, K27 verify, paired
+       (csrc/verify_attention.cu, _decode_call with k_scale=None);
+  K32  decode, several slots per block, unpaired
+       (csrc/decode_attention.cu, _decode_call_multi with k_scale=None).
+Every kernel takes head_dim 64 or 128 and any group size (the s8 form and
+K3/K16/K32: 1, 2, 3, 4 or 8), reads rows j < min(positions[b], window) of
+one layer of the stacked cache (a pointer offset, no copy) and folds the
+block's own unquantized k/v in last. A paired kernel's block owns one kv
+head and reads its half of each row, so the paired results equal the
+unpaired ones on the same rows re-laid. The cache form is chosen by the
+scales: given, the cache must be int8; None, it must be bf16. CPU tensors
+take the plain versions; CUDA tensors launch or raise.
 """
 
 from __future__ import annotations
@@ -32,15 +39,20 @@ from gabby_tpu_torch.ops import cuda as ck
 from gabby_tpu_torch.runtime.kv_cache import dequantize_kv, unpaired
 
 NEG_INF = -1e30
+HEAD_DIMS = (64, 128)      # head_dim the kernels are built for
+GROUPS = (1, 2, 3, 4, 8)   # group sizes of K3, K16, K32 and the s8 form
 
 
 def decode_attention_plain(q, k_cache, v_cache, k_scale, v_scale, positions,
                            *, layer: int, fresh_k, fresh_v,
                            scale: Optional[float] = None) -> torch.Tensor:
-    """The reference's contract: dequantize the layer's cache (un-paired
-    first when it is paired) in q's dtype, attend rows j < positions[b]
-    plus the fresh row, in f32."""
+    """The reference's contract: the layer's cache (dequantized when scales
+    are given, un-paired when it is paired) in q's dtype, rows
+    j < positions[b] plus the fresh row, in f32."""
     from gabby_tpu_torch.ops.attention import cache_attention
+    if k_scale is None:
+        return cache_attention(q, k_cache[layer], v_cache[layer], positions,
+                               scale=scale, fresh_k=fresh_k, fresh_v=fresh_v)
     h = q.shape[-1]
     kk = dequantize_kv(unpaired(k_cache[layer], h), k_scale[layer], q.dtype)
     vv = dequantize_kv(unpaired(v_cache[layer], h), v_scale[layer], q.dtype)
@@ -114,37 +126,59 @@ def decode_attention_s8_plain(q, k_cache, v_cache, k_scale, v_scale,
         min(ck.attn_chunk(), s))
 
 
+def check_cache_form(what: str, k_cache, v_cache, k_scale,
+                     v_scale) -> None:
+    """The two cache forms a kernel takes: int8 codes with f32 scales, or
+    bf16 rows without scales (the reference's k_scale=None form)."""
+    if k_scale is None or v_scale is None:
+        if (k_scale is not None or v_scale is not None
+                or k_cache.dtype != torch.bfloat16
+                or v_cache.dtype != torch.bfloat16):
+            raise ValueError(f"{what} takes a bf16 cache when it is given "
+                             f"no scales, got {k_cache.dtype}")
+    elif (k_cache.dtype != torch.int8 or v_cache.dtype != torch.int8
+            or k_scale.dtype != torch.float32
+            or v_scale.dtype != torch.float32):
+        raise ValueError(f"{what} takes an int8 cache with f32 scales")
+
+
 def _dense_cache(what: str, q, k_cache, v_cache, k_scale, v_scale,
                  layer: int):
-    """Shape and type checks of one layer of a dense int8 cache against q
-    [B, T, Nq, 64]. Returns (Nk, S, pair, byte offsets of the layer in the
-    codes and in the scales)."""
+    """Shape and type checks of one layer of a dense cache (int8 with
+    scales, or bf16 with none) against q [B, T, Nq, H]. Returns (Nk, S,
+    pair, byte offsets of the layer in the rows and in the scales)."""
     b, _, nq, h = q.shape
-    if k_cache.dim() != 5 or k_scale.dim() != 4:
+    check_cache_form(what, k_cache, v_cache, k_scale, v_scale)
+    if k_cache.dim() != 5 or (k_scale is not None and k_scale.dim() != 4):
         raise ValueError(f"{what}: the cache must be stacked "
                          f"[L, B, Nk, S, H], got {tuple(k_cache.shape)}")
     nl, _, heads, s, lanes = k_cache.shape
     pair = int(lanes == 2 * h)
     nk = heads * 2 if pair else heads
-    if (k_cache.dtype != torch.int8 or v_cache.dtype != torch.int8
-            or k_scale.dtype != torch.float32
-            or v_scale.dtype != torch.float32):
-        raise ValueError(f"{what} takes an int8 cache with f32 scales")
-    if (h != 64 or lanes not in (h, 2 * h) or nq % nk
+    if (h not in HEAD_DIMS or lanes not in (h, 2 * h) or nq % nk
             or k_cache.shape != (nl, b, heads, s, lanes)
             or v_cache.shape != k_cache.shape
-            or k_scale.shape != (nl, b, nk, s)
-            or v_scale.shape != k_scale.shape or not 0 <= layer < nl):
+            or (k_scale is not None and (k_scale.shape != (nl, b, nk, s)
+                                         or v_scale.shape != k_scale.shape))
+            or not 0 <= layer < nl):
         raise ValueError(f"{what}: unsupported shapes q {tuple(q.shape)}, "
                          f"cache {tuple(k_cache.shape)}, scales "
-                         f"{tuple(k_scale.shape)}, layer {layer}")
-    return nk, s, pair, layer * b * nk * s * h, layer * b * nk * s * 4
+                         f"{None if k_scale is None else tuple(k_scale.shape)}"
+                         f", layer {layer}")
+    return (nk, s, pair, layer * b * nk * s * h * k_cache.element_size(),
+            layer * b * nk * s * 4)
+
+
+def scale_planes(k_scale, v_scale) -> tuple:
+    """The scale planes a wrapper checks beside the cache: both, or none
+    for a bf16 cache."""
+    return () if k_scale is None else (k_scale, v_scale)
 
 
 def check_decode_inputs(what: str, q, fresh_k, fresh_v, positions, tensors,
-                         nk: int, groups=(1, 2, 4, 8)) -> None:
-    """`check_block_inputs` for single-position decode: q [B, 1, Nq, 64],
-    fresh_k/v [B, Nk, 64], and a group size the kernel is built for."""
+                         nk: int, groups=GROUPS) -> None:
+    """`check_block_inputs` for single-position decode: q [B, 1, Nq, H],
+    fresh_k/v [B, Nk, H], and a group size the kernel is built for."""
     if (q.shape[1] != 1 or fresh_k.dim() != 3 or fresh_v.dim() != 3
             or (groups and q.shape[2] // nk not in groups)):
         raise ValueError(f"{what}: unsupported shapes q {tuple(q.shape)}, "
@@ -163,11 +197,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      layer: int, fresh_k: torch.Tensor,
                      fresh_v: torch.Tensor, scale: Optional[float] = None,
                      window: Optional[int] = None) -> torch.Tensor:
-    """The bf16/f32 form. q [B, 1, Nq, H] bf16; k/v_cache [L, B, Nk, S, H]
-    int8 (K3) or paired [L, B, Nk/2, S, 2H] (K12); k/v_scale [L, B, Nk, S]
-    f32; positions [B] int32; fresh_k/v [B, Nk, H] bf16. Returns
-    [B, 1, Nq, H]. `window` (when given) bounds every slot's read, which
-    the caller guarantees covers positions[b]."""
+    """The bf16/f32 form. q [B, 1, Nq, H] bf16, H 64 or 128; k/v_cache
+    [L, B, Nk, S, H] int8 (K3) or paired [L, B, Nk/2, S, 2H] (K12) with
+    k/v_scale [L, B, Nk, S] f32, or a bf16 cache of either layout with
+    k/v_scale None (K24, K25); positions [B] int32; fresh_k/v [B, Nk, H]
+    bf16. Returns [B, 1, Nq, H]. `window` (when given) bounds every slot's
+    read, which the caller guarantees covers positions[b]."""
     if not q.is_cuda:
         return decode_attention_plain(q, k_cache, v_cache, k_scale, v_scale,
                                       positions, layer=layer,
@@ -177,17 +212,29 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     b, _, nq, h = q.shape
     nk, s, pair, kv_off, sc_off = _dense_cache(what, q, k_cache, v_cache,
                                                k_scale, v_scale, layer)
+    quant = k_scale is not None
     check_decode_inputs(what, q, fresh_k, fresh_v, positions,
-                         (k_cache, v_cache, k_scale, v_scale), nk,
-                         groups=None if pair else (1, 2, 4, 8))
+                         (k_cache, v_cache,
+                          *scale_planes(k_scale, v_scale)), nk,
+                         groups=GROUPS if quant and not pair else None)
     from gabby_tpu_torch.ops.cuda import build
     lib = build.library()
     out = torch.empty_like(q)
     sm_scale = float(scale) if scale is not None else h ** -0.5
-    cache = (k_cache.data_ptr() + kv_off, v_cache.data_ptr() + kv_off,
-             k_scale.data_ptr() + sc_off, v_scale.data_ptr() + sc_off,
-             fresh_k.data_ptr(), fresh_v.data_ptr(), positions.data_ptr(),
+    rows = (k_cache.data_ptr() + kv_off, v_cache.data_ptr() + kv_off)
+    fresh = (fresh_k.data_ptr(), fresh_v.data_ptr(), positions.data_ptr(),
              out.data_ptr())
+    if not quant:
+        # the shared row body at T = 1 (fresh [B, Nk, 1, H] is [B, Nk, H])
+        build.check(lib.gabby_verify_attention_bf16(
+            q.data_ptr(), *rows, *fresh, b, 1, nq, nk, s, h,
+            _limit(s, window), pair, sm_scale, build.stream_ptr(q.device)),
+            what)
+        ck.launch_counts["decode_attention_bf16_paired" if pair
+                         else "decode_attention_bf16"] += 1
+        return out
+    cache = (*rows, k_scale.data_ptr() + sc_off, v_scale.data_ptr() + sc_off,
+             *fresh)
     if pair:
         # the shared row body at T = 1 (fresh [B, Nk, 1, H] is [B, Nk, H])
         build.check(lib.gabby_verify_attention(
@@ -202,14 +249,15 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out
 
 
-def pick_slot_block(b: int) -> int:
-    """Slots per block of the slot-batched decode kernel: the largest of 4
-    and 2 that divides B, else 1 (then the plain launch serves). A block
-    holds sb x 128 threads and sb x 10.3 KB of shared memory at G = 8, so 4
-    slots are the most that stay inside 512 threads and the 48 KB static
-    shared-memory limit. (The reference picks 8, 4 or 2 under the TPU
-    compiler's memory budget.)"""
-    for sb in (4, 2):
+def pick_slot_block(b: int, head_dim: int = 64) -> int:
+    """Slots per block of the slot-batched decode kernels: the largest of 4
+    and 2 (at head_dim 128: 2) that divides B, else 1 (then the plain
+    launch serves). A block holds sb x 128 threads and sb x 10.3 KB of
+    shared memory at G = 8 and head_dim 64 (20.6 KB at 128), so 4 slots (2)
+    are the most that stay inside the 48 KB static shared-memory limit.
+    (The reference picks 8, 4 or 2 under the TPU compiler's memory
+    budget.)"""
+    for sb in ((4, 2) if head_dim <= 64 else (2,)):
         if b % sb == 0:
             return sb
     return 1
@@ -222,8 +270,10 @@ def decode_attention_multi(q: torch.Tensor, k_cache: torch.Tensor,
                            fresh_v: torch.Tensor,
                            scale: Optional[float] = None,
                            window: Optional[int] = None) -> torch.Tensor:
-    """`decode_attention` over the unpaired cache with `pick_slot_block(B)`
-    slots of a kv head per thread block (K16). Same inputs, same result."""
+    """`decode_attention` over the unpaired cache with
+    `pick_slot_block(B, H)` slots of a kv head per thread block: K16 over
+    an int8 cache, K32 over a bf16 one (k/v_scale None). Same inputs, same
+    result."""
     if not q.is_cuda:
         return decode_attention_plain(q, k_cache, v_cache, k_scale, v_scale,
                                       positions, layer=layer,
@@ -233,22 +283,29 @@ def decode_attention_multi(q: torch.Tensor, k_cache: torch.Tensor,
     b, _, nq, h = q.shape
     nk, s, pair, kv_off, sc_off = _dense_cache(what, q, k_cache, v_cache,
                                                k_scale, v_scale, layer)
-    sb = pick_slot_block(b)
+    sb = pick_slot_block(b, h)
     if pair or sb < 2:
         raise ValueError(f"{what} takes the unpaired cache and a slot count "
                          f"that 2 divides, got cache {tuple(k_cache.shape)}")
     check_decode_inputs(what, q, fresh_k, fresh_v, positions,
-                         (k_cache, v_cache, k_scale, v_scale), nk)
+                         (k_cache, v_cache,
+                          *scale_planes(k_scale, v_scale)), nk)
     from gabby_tpu_torch.ops.cuda import build
     lib = build.library()
     out = torch.empty_like(q)
     sm_scale = float(scale) if scale is not None else h ** -0.5
+    rows = (q.data_ptr(), k_cache.data_ptr() + kv_off,
+            v_cache.data_ptr() + kv_off)
+    rest = (fresh_k.data_ptr(), fresh_v.data_ptr(), positions.data_ptr(),
+            out.data_ptr(), b, nq, nk, s, h, _limit(s, window), sb, sm_scale,
+            build.stream_ptr(q.device))
+    if k_scale is None:
+        build.check(lib.gabby_decode_attention_multi_bf16(*rows, *rest), what)
+        ck.launch_counts["decode_attention_multi_bf16"] += 1
+        return out
     build.check(lib.gabby_decode_attention_multi(
-        q.data_ptr(), k_cache.data_ptr() + kv_off,
-        v_cache.data_ptr() + kv_off, k_scale.data_ptr() + sc_off,
-        v_scale.data_ptr() + sc_off, fresh_k.data_ptr(), fresh_v.data_ptr(),
-        positions.data_ptr(), out.data_ptr(), b, nq, nk, s, h,
-        _limit(s, window), sb, sm_scale, build.stream_ptr(q.device)), what)
+        *rows, k_scale.data_ptr() + sc_off, v_scale.data_ptr() + sc_off,
+        *rest), what)
     ck.launch_counts["decode_attention_multi"] += 1
     return out
 
@@ -268,6 +325,8 @@ def decode_attention_s8(q: torch.Tensor, k_cache: torch.Tensor,
             fresh_k=fresh_k, fresh_v=fresh_v, scale=scale)
     what = "s8 decode attention"
     b, _, nq, h = q.shape
+    if k_scale is None:
+        raise ValueError(f"{what} takes an int8 cache with f32 scales")
     nk, s, pair, kv_off, sc_off = _dense_cache(what, q, k_cache, v_cache,
                                                k_scale, v_scale, layer)
     check_decode_inputs(what, q, fresh_k, fresh_v, positions,
@@ -291,22 +350,24 @@ def decode_attention_s8(q: torch.Tensor, k_cache: torch.Tensor,
 def verify_attention_plain(q, k_cache, v_cache, k_scale, v_scale, positions,
                            *, layer: int, fresh_k, fresh_v,
                            scale: Optional[float] = None) -> torch.Tensor:
-    """The reference's contract: dequantize the layer's cache (un-paired
-    first when it is paired) in q's dtype, attend rows j < positions[b] for
-    every query plus the block's own fresh rows causally, in f32."""
+    """The reference's contract: the layer's cache (dequantized when scales
+    are given, un-paired when it is paired) in q's dtype, rows
+    j < positions[b] for every query plus the block's own fresh rows
+    causally, in f32."""
     from gabby_tpu_torch.ops.attention import verify_attention_reference
     h = q.shape[-1]
     return verify_attention_reference(
         q, unpaired(k_cache[layer], h), unpaired(v_cache[layer], h),
-        positions, k_scale[layer], v_scale[layer], fresh_k=fresh_k,
+        positions, None if k_scale is None else k_scale[layer],
+        None if v_scale is None else v_scale[layer], fresh_k=fresh_k,
         fresh_v=fresh_v, scale=scale)
 
 
 def check_block_inputs(what: str, q, fresh_k, fresh_v, positions, tensors,
                        nk: int) -> None:
-    """Checks shared by the kernels of csrc/flash_rows.cuh: q [B, T, Nq, 64]
-    and fresh_k/v [B, Nk, T, 64] bf16, positions [B] int32, everything
-    contiguous on the GPU and 16-byte aligned."""
+    """Checks shared by the kernels of csrc/flash_rows.cuh: q [B, T, Nq, H]
+    (H 64 or 128) and fresh_k/v [B, Nk, T, H] bf16, positions [B] int32,
+    everything contiguous on the GPU and 16-byte aligned."""
     b, t, nq, h = q.shape
     tensors = (q, fresh_k, fresh_v, positions, *tensors)
     if not all(x.is_cuda and x.is_contiguous() and x.data_ptr() % 16 == 0
@@ -317,7 +378,7 @@ def check_block_inputs(what: str, q, fresh_k, fresh_v, positions, tensors,
             or fresh_v.dtype != torch.bfloat16
             or positions.dtype != torch.int32):
         raise ValueError(f"{what} takes bf16 q/fresh and int32 positions")
-    if (h != 64 or nq % nk or not 1 <= t <= 32
+    if (h not in HEAD_DIMS or nq % nk or not 1 <= t <= 32
             or fresh_k.shape != (b, nk, t, h) or fresh_v.shape != (b, nk, t, h)
             or positions.shape != (b,)):
         raise ValueError(f"{what}: unsupported shapes q {tuple(q.shape)}, "
@@ -330,12 +391,14 @@ def verify_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      layer: int, fresh_k: torch.Tensor,
                      fresh_v: torch.Tensor, scale: Optional[float] = None,
                      window: Optional[int] = None) -> torch.Tensor:
-    """q [B, T, Nq, H] bf16, 2 <= T <= 32 candidate positions per slot;
-    k/v_cache [L, B, Nk, S, H] int8 (K9) or paired [L, B, Nk/2, S, 2H]
-    (K13); k/v_scale [L, B, Nk, S] f32; positions [B] int32 (the read bound;
-    parked lanes are given 1); fresh_k/v [B, Nk, T, H] bf16, head-major in
-    both layouts. Returns [B, T, Nq, H]. `window` (when given) bounds every
-    slot's read, which the caller guarantees covers positions[b]."""
+    """q [B, T, Nq, H] bf16, 2 <= T <= 32 candidate positions per slot, H
+    64 or 128; k/v_cache [L, B, Nk, S, H] int8 (K9) or paired
+    [L, B, Nk/2, S, 2H] (K13) with k/v_scale [L, B, Nk, S] f32, or a bf16
+    cache of either layout with k/v_scale None (K26, K27); positions [B]
+    int32 (the read bound; parked lanes are given 1); fresh_k/v
+    [B, Nk, T, H] bf16, head-major in both layouts. Returns [B, T, Nq, H].
+    `window` (when given) bounds every slot's read, which the caller
+    guarantees covers positions[b]."""
     if not q.is_cuda:
         return verify_attention_plain(q, k_cache, v_cache, k_scale, v_scale,
                                       positions, layer=layer,
@@ -346,17 +409,25 @@ def verify_attention(q: torch.Tensor, k_cache: torch.Tensor,
     nk, s, pair, kv_off, sc_off = _dense_cache(what, q, k_cache, v_cache,
                                                k_scale, v_scale, layer)
     check_block_inputs(what, q, fresh_k, fresh_v, positions,
-                       (k_cache, v_cache, k_scale, v_scale), nk)
+                       (k_cache, v_cache, *scale_planes(k_scale, v_scale)),
+                       nk)
     from gabby_tpu_torch.ops.cuda import build
     lib = build.library()
     out = torch.empty_like(q)
     sm_scale = float(scale) if scale is not None else h ** -0.5
+    rows = (q.data_ptr(), k_cache.data_ptr() + kv_off,
+            v_cache.data_ptr() + kv_off)
+    rest = (fresh_k.data_ptr(), fresh_v.data_ptr(), positions.data_ptr(),
+            out.data_ptr(), b, t, nq, nk, s, h, _limit(s, window), pair,
+            sm_scale, build.stream_ptr(q.device))
+    if k_scale is None:
+        build.check(lib.gabby_verify_attention_bf16(*rows, *rest), what)
+        ck.launch_counts["verify_attention_bf16_paired" if pair
+                         else "verify_attention_bf16"] += 1
+        return out
     build.check(lib.gabby_verify_attention(
-        q.data_ptr(), k_cache.data_ptr() + kv_off,
-        v_cache.data_ptr() + kv_off, k_scale.data_ptr() + sc_off,
-        v_scale.data_ptr() + sc_off, fresh_k.data_ptr(), fresh_v.data_ptr(),
-        positions.data_ptr(), out.data_ptr(), b, t, nq, nk, s, h,
-        _limit(s, window), pair, sm_scale, build.stream_ptr(q.device)), what)
+        *rows, k_scale.data_ptr() + sc_off, v_scale.data_ptr() + sc_off,
+        *rest), what)
     ck.launch_counts["verify_attention_paired" if pair
                      else "verify_attention"] += 1
     return out

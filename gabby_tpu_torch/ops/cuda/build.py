@@ -151,6 +151,11 @@ _SIGNATURES = {
     # page table or NULL, fresh_k, fresh_v, positions, out; B, Nq, Nk,
     # layers, layer, rows, max_pages, H, limit, chunk, pair; sm_scale; stream
     "gabby_attention_s8": [_P] * 10 + [_I] * 11 + [_F, _P],
+    # the bf16-cache forms: the int8 forms' arguments without the scales
+    "gabby_decode_attention_multi_bf16": [_P] * 7 + [_I] * 7 + [_F, _P],
+    "gabby_prefill_attention_bf16": [_P] * 7 + [_I] * 8 + [_F, _P],
+    "gabby_verify_attention_bf16": [_P] * 7 + [_I] * 8 + [_F, _P],
+    "gabby_paged_attention_bf16": [_P] * 8 + [_I] * 10 + [_F, _P],
 }
 
 

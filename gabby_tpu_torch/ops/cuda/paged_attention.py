@@ -1,20 +1,23 @@
-"""Decode and verify attention over the paged int8 KV pool and their plain
+"""Decode and verify attention over the paged KV pool and their plain
 PyTorch versions (counterparts of
 gabby_tpu/ops/pallas/attention.py:paged_decode_attention and
 paged_verify_attention in all their forms).
 
-Over the unpaired pool [P, L, Nk, page, H]: K10 decode and K11 verify in
-the bf16/f32 form (csrc/paged_attention.cu), K19 decode in the s8 form
-(csrc/attention_s8.cu). Over the paired pool [P, L, Nk/2, page, 2H]
+Over the unpaired int8 pool [P, L, Nk, page, H]: K10 decode and K11 verify
+in the bf16/f32 form (csrc/paged_attention.cu), K19 decode in the s8 form
+(csrc/attention_s8.cu). Over the paired int8 pool [P, L, Nk/2, page, 2H]
 (detected by the lane width; scale pools per head either way): K17, K18
-and K20. They replace _paged_decode_call: the dense decode and verify
-contracts, with row j of slot b read from
+and K20. Over a bf16 pool (no scale pools, the reference's k_scale=None
+form): K28 decode and K30 verify, paired K29 and K31
+(csrc/paged_attention.cu). They replace _paged_decode_call: the dense
+decode and verify contracts, with row j of slot b read from
 pool[page_table[b, j // page], layer, kv head, j % page]. The kernels read
 the page table themselves and stop at each slot's own position, so nothing
 gathers the pool and table entries past a slot's rows are never followed.
-The wrappers keep their own launch counters. CPU tensors take the plain
-versions, which gather the layer's pages into a dense view; CUDA tensors
-launch or raise. On the GPU the page size must be a multiple of 32 rows.
+head_dim is 64 or 128. The wrappers keep their own launch counters. CPU
+tensors take the plain versions, which gather the layer's pages into a
+dense view; CUDA tensors launch or raise. On the GPU the page size must be
+a multiple of 32 rows.
 """
 
 from __future__ import annotations
@@ -24,9 +27,12 @@ from typing import Optional
 import torch
 
 from gabby_tpu_torch.ops import cuda as ck
-from gabby_tpu_torch.ops.cuda.attention import (check_decode_inputs,
+from gabby_tpu_torch.ops.cuda.attention import (HEAD_DIMS,
                                                 check_block_inputs,
-                                                s8_attention_core)
+                                                check_cache_form,
+                                                check_decode_inputs,
+                                                s8_attention_core,
+                                                scale_planes)
 
 
 def paged_decode_attention_plain(q, k_pool, v_pool, page_table, positions,
@@ -73,27 +79,28 @@ def paged_decode_attention_s8_plain(q, k_pool, v_pool, page_table, positions,
 
 def _check_pool(what: str, q, k_pool, v_pool, page_table, k_scale, v_scale,
                 layer: int):
-    """Shape and type checks of the pools against q [B, T, Nq, 64]. Returns
-    (Nk, layers, page, pair)."""
+    """Shape and type checks of the pools (int8 with scale pools, or bf16
+    with none) against q [B, T, Nq, H]. Returns (Nk, layers, page, pair)."""
     b, _, nq, h = q.shape
-    if k_pool.dim() != 5 or k_scale.dim() != 4 or page_table.dim() != 2:
+    if (k_pool.dim() != 5 or (k_scale is not None and k_scale.dim() != 4)
+            or page_table.dim() != 2):
         raise ValueError(f"{what}: unsupported pool {tuple(k_pool.shape)}, "
                          f"table {tuple(page_table.shape)}")
     npages, nl, heads, page, lanes = k_pool.shape
     pair = int(lanes == 2 * h)
     nk = heads * 2 if pair else heads
-    if (k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8
-            or k_scale.dtype != torch.float32
-            or v_scale.dtype != torch.float32
-            or page_table.dtype != torch.int32):
-        raise ValueError(f"{what} takes int8 pools, f32 scale pools and an "
-                         f"int32 page table")
-    if (lanes not in (h, 2 * h) or v_pool.shape != k_pool.shape
-            or k_scale.shape != (npages, nl, nk, page)
-            or v_scale.shape != k_scale.shape
+    check_cache_form(what, k_pool, v_pool, k_scale, v_scale)
+    if page_table.dtype != torch.int32:
+        raise ValueError(f"{what} takes an int32 page table")
+    if (h not in HEAD_DIMS or lanes not in (h, 2 * h)
+            or v_pool.shape != k_pool.shape
+            or (k_scale is not None
+                and (k_scale.shape != (npages, nl, nk, page)
+                     or v_scale.shape != k_scale.shape))
             or page_table.shape[0] != b or not 0 <= layer < nl):
+        scales = None if k_scale is None else tuple(k_scale.shape)
         raise ValueError(f"{what}: unsupported pool {tuple(k_pool.shape)}, "
-                         f"scales {tuple(k_scale.shape)}, table "
+                         f"scales {scales}, table "
                          f"{tuple(page_table.shape)}, layer {layer}")
     if page % 32:
         raise ValueError(f"{what}: the page size must be a multiple of 32 "
@@ -103,23 +110,30 @@ def _check_pool(what: str, q, k_pool, v_pool, page_table, k_scale, v_scale,
 
 def _launch(what: str, q, k_pool, v_pool, page_table, positions, k_scale,
             v_scale, layer: int, fresh_k, fresh_v, scale: Optional[float]):
-    """The bf16/f32 form through the table. Returns (out, pair)."""
+    """The bf16/f32 form through the table, over an int8 pool with scales or
+    a bf16 pool without. Returns (out, the counter's suffix)."""
     b, t, nq, h = q.shape
     nk, nl, page, pair = _check_pool(what, q, k_pool, v_pool, page_table,
                                      k_scale, v_scale, layer)
     check_block_inputs(what, q, fresh_k, fresh_v, positions,
-                       (k_pool, v_pool, k_scale, v_scale, page_table), nk)
+                       (k_pool, v_pool, *scale_planes(k_scale, v_scale),
+                        page_table), nk)
     from gabby_tpu_torch.ops.cuda import build
     lib = build.library()
     out = torch.empty_like(q)
     sm_scale = float(scale) if scale is not None else h ** -0.5
+    rest = (page_table.data_ptr(), fresh_k.data_ptr(), fresh_v.data_ptr(),
+            positions.data_ptr(), out.data_ptr(), b, t, nq, nk, nl, layer,
+            page, page_table.shape[1], h, pair, sm_scale,
+            build.stream_ptr(q.device))
+    if k_scale is None:
+        build.check(lib.gabby_paged_attention_bf16(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *rest), what)
+        return out, "_bf16_paired" if pair else "_bf16"
     build.check(lib.gabby_paged_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        k_scale.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(),
-        fresh_k.data_ptr(), fresh_v.data_ptr(), positions.data_ptr(),
-        out.data_ptr(), b, t, nq, nk, nl, layer, page, page_table.shape[1],
-        h, pair, sm_scale, build.stream_ptr(q.device)), what)
-    return out, pair
+        k_scale.data_ptr(), v_scale.data_ptr(), *rest), what)
+    return out, "_paired" if pair else ""
 
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -128,9 +142,10 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_scale: torch.Tensor, *, layer: int,
                            fresh_k: torch.Tensor, fresh_v: torch.Tensor,
                            scale: Optional[float] = None) -> torch.Tensor:
-    """The bf16/f32 form. q [B, 1, Nq, H] bf16; k/v_pool
-    [P, L, Nk, page, H] int8 (K10) or paired [P, L, Nk/2, page, 2H] (K17);
-    k/v_scale [P, L, Nk, page] f32; page_table [B, max_pages] int32;
+    """The bf16/f32 form. q [B, 1, Nq, H] bf16, H 64 or 128; k/v_pool
+    [P, L, Nk, page, H] int8 (K10) or paired [P, L, Nk/2, page, 2H] (K17)
+    with k/v_scale [P, L, Nk, page] f32, or bf16 pools of either layout
+    with k/v_scale None (K28, K29); page_table [B, max_pages] int32;
     positions [B] int32 (the read bound; parked lanes are given 1);
     fresh_k/v [B, Nk, H] bf16. Returns [B, 1, Nq, H]."""
     if not q.is_cuda:
@@ -140,11 +155,10 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if q.shape[1] != 1 or fresh_k.dim() != 3:
         raise ValueError(f"paged decode attention is single-position, got "
                          f"q {tuple(q.shape)}")
-    out, pair = _launch("paged decode attention", q, k_pool, v_pool,
+    out, form = _launch("paged decode attention", q, k_pool, v_pool,
                         page_table, positions, k_scale, v_scale, layer,
                         fresh_k[:, :, None], fresh_v[:, :, None], scale)
-    ck.launch_counts["paged_decode_attention_paired" if pair
-                     else "paged_decode_attention"] += 1
+    ck.launch_counts["paged_decode_attention" + form] += 1
     return out
 
 
@@ -162,6 +176,8 @@ def paged_decode_attention_s8(q: torch.Tensor, k_pool: torch.Tensor,
             layer=layer, fresh_k=fresh_k, fresh_v=fresh_v, scale=scale)
     what = "paged s8 decode attention"
     b, t, nq, h = q.shape
+    if k_scale is None:
+        raise ValueError(f"{what} takes int8 pools with f32 scale pools")
     nk, nl, page, pair = _check_pool(what, q, k_pool, v_pool, page_table,
                                      k_scale, v_scale, layer)
     check_decode_inputs(what, q, fresh_k, fresh_v, positions,
@@ -189,16 +205,15 @@ def paged_verify_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            fresh_k: torch.Tensor, fresh_v: torch.Tensor,
                            scale: Optional[float] = None) -> torch.Tensor:
     """q [B, T, Nq, H] bf16, 2 <= T <= 32 candidate positions per slot;
-    pools (unpaired K11, paired K18), table and positions as
-    `paged_decode_attention`; fresh_k/v [B, Nk, T, H] bf16, head-major in
-    both layouts. Returns [B, T, Nq, H]."""
+    pools (int8: unpaired K11, paired K18; bf16: K30, K31), table and
+    positions as `paged_decode_attention`; fresh_k/v [B, Nk, T, H] bf16,
+    head-major in both layouts. Returns [B, T, Nq, H]."""
     if not q.is_cuda:
         return paged_verify_attention_plain(
             q, k_pool, v_pool, page_table, positions, k_scale, v_scale,
             layer=layer, fresh_k=fresh_k, fresh_v=fresh_v, scale=scale)
-    out, pair = _launch("paged verify attention", q, k_pool, v_pool,
+    out, form = _launch("paged verify attention", q, k_pool, v_pool,
                         page_table, positions, k_scale, v_scale, layer,
                         fresh_k, fresh_v, scale)
-    ck.launch_counts["paged_verify_attention_paired" if pair
-                     else "paged_verify_attention"] += 1
+    ck.launch_counts["paged_verify_attention" + form] += 1
     return out

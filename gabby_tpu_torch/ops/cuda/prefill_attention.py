@@ -1,15 +1,16 @@
-"""Single-slot flash prefill attention over the int8 KV cache (K4, and K21
-over the paired cache; counterpart of
+"""Single-slot flash prefill attention over the KV cache and its plain
+PyTorch version (counterpart of
 gabby_tpu/ops/pallas/prefill_attention.py:prefill_attention, unpaired and
-pair=True) and its plain PyTorch version.
+pair=True, with scales and without): K4 over an int8 cache and K21 over
+the paired one; K22 over a bf16 cache and K23 over the paired one.
 
 csrc/prefill_attention.cu replaces _prefill_call/_kernel: the chunk's T
 queries attend the slot's cache rows j < offset of one layer (pointer
-offsets into the stacked cache, no copy) with the int8 scales folded in,
-then the chunk's own unquantized k/v causally. The paired cache
-[L, B, Nk/2, S, 2H] is detected by its lane width; the fresh block stays
-head-major [Nk, T, H]. CPU tensors take the plain version; CUDA tensors
-launch or raise.
+offsets into the stacked cache, no copy), with the int8 scales folded in
+when the cache has them, then the chunk's own unquantized k/v causally.
+The paired cache [L, B, Nk/2, S, 2H] is detected by its lane width; the
+fresh block stays head-major [Nk, T, H]. head_dim is 64 or 128. CPU
+tensors take the plain version; CUDA tensors launch or raise.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Optional
 import torch
 
 from gabby_tpu_torch.ops import cuda as ck
+from gabby_tpu_torch.ops.cuda.attention import HEAD_DIMS, check_cache_form
 
 
 def prefill_attention_plain(q, k_cache, v_cache, k_scale, v_scale,
@@ -36,59 +38,66 @@ def prefill_attention(q: torch.Tensor, k_cache: torch.Tensor,
                       layer: int, fresh_k: torch.Tensor,
                       fresh_v: torch.Tensor,
                       scale: Optional[float] = None) -> torch.Tensor:
-    """q [1, T, Nq, H] bf16; k/v_cache [L, B, Nk, S, H] int8 (K4) or paired
-    [L, B, Nk/2, S, 2H] (K21), S a multiple of 4; k/v_scale [L, B, Nk, S]
-    f32; fresh_k/v [Nk, T, H] bf16. Returns [1, T, Nq, H]."""
+    """q [1, T, Nq, H] bf16, H 64 or 128; k/v_cache [L, B, Nk, S, H] int8
+    (K4) or paired [L, B, Nk/2, S, 2H] (K21), S a multiple of 4, with
+    k/v_scale [L, B, Nk, S] f32; or a bf16 cache of either layout with
+    k/v_scale None (K22, K23); fresh_k/v [Nk, T, H] bf16. Returns
+    [1, T, Nq, H]."""
     if not q.is_cuda:
         return prefill_attention_plain(q, k_cache, v_cache, k_scale, v_scale,
                                        slot, offset, layer=layer,
                                        fresh_k=fresh_k, fresh_v=fresh_v,
                                        scale=scale)
+    what = "prefill attention"
     one, t, nq, h = q.shape
     nl, nb, heads, s, lanes = k_cache.shape
     pair = int(lanes == 2 * h)
     nk = heads * 2 if pair else heads
-    tensors = (q, k_cache, v_cache, k_scale, v_scale, fresh_k, fresh_v)
+    quant = k_scale is not None
+    tensors = (q, k_cache, v_cache, fresh_k, fresh_v,
+               *((k_scale, v_scale) if quant else ()))
     if not all(x.is_cuda and x.is_contiguous() for x in tensors):
-        raise ValueError("prefill attention: tensors must be contiguous on "
-                         "the GPU")
-    if (q.dtype != torch.bfloat16 or k_cache.dtype != torch.int8
-            or v_cache.dtype != torch.int8 or k_scale.dtype != torch.float32
-            or v_scale.dtype != torch.float32
-            or fresh_k.dtype != torch.bfloat16
+        raise ValueError(f"{what}: tensors must be contiguous on the GPU")
+    check_cache_form(what, k_cache, v_cache, k_scale, v_scale)
+    if (q.dtype != torch.bfloat16 or fresh_k.dtype != torch.bfloat16
             or fresh_v.dtype != torch.bfloat16):
-        raise ValueError("prefill attention takes bf16 q/fresh, int8 cache "
-                         "and f32 scales")
-    if (one != 1 or h != 64 or lanes not in (h, 2 * h) or nq % nk
+        raise ValueError(f"{what} takes bf16 q/fresh")
+    if (one != 1 or h not in HEAD_DIMS or lanes not in (h, 2 * h) or nq % nk
             or fresh_k.shape != (nk, t, h) or fresh_v.shape != (nk, t, h)
             or v_cache.shape != k_cache.shape
-            or k_scale.shape != (nl, nb, nk, s)
-            or v_scale.shape != k_scale.shape or not 0 <= layer < nl
-            or s % 4
+            or (quant and (k_scale.shape != (nl, nb, nk, s)
+                           or v_scale.shape != k_scale.shape or s % 4))
+            or not 0 <= layer < nl
             or not 0 <= slot < nb or not 0 <= offset <= s):
-        raise ValueError(f"prefill attention: unsupported shapes q "
+        raise ValueError(f"{what}: unsupported shapes q "
                          f"{tuple(q.shape)}, cache {tuple(k_cache.shape)}, "
                          f"layer {layer}, slot {slot}, offset {offset}")
     from gabby_tpu_torch.ops.cuda import build
     lib = build.library()
     out = torch.empty_like(q)
     row = layer * nb + slot
-    kv_off = row * nk * s * h   # int8 bytes
+    kv_off = row * nk * s * h * k_cache.element_size()  # bytes
     sc_off = row * nk * s * 4   # f32 bytes
     sm_scale = float(scale) if scale is not None else h ** -0.5
     # a short chunk over a long past splits its key range across blocks;
-    # the partial results (68 floats a row: 64 outputs, the max, the sum,
+    # the partial results (H + 4 floats a row: H outputs, the max, the sum,
     # padding; kPart in the source) are merged in a fixed order
     n_split = lib.gabby_prefill_attention_splits(t, nq, nk, offset)
-    part = (torch.empty((n_split, t * nq, 68), dtype=torch.float32,
+    part = (torch.empty((n_split, t * nq, h + 4), dtype=torch.float32,
                         device=q.device) if n_split > 1 else None)
-    build.check(lib.gabby_prefill_attention(
-        q.data_ptr(), k_cache.data_ptr() + kv_off,
-        v_cache.data_ptr() + kv_off, k_scale.data_ptr() + sc_off,
-        v_scale.data_ptr() + sc_off, fresh_k.data_ptr(), fresh_v.data_ptr(),
-        out.data_ptr(), 0 if part is None else part.data_ptr(), t, nq, nk, s,
-        h, offset, pair, n_split, sm_scale, build.stream_ptr(q.device)),
-        "prefill attention")
-    ck.launch_counts["prefill_attention_paired" if pair
-                     else "prefill_attention"] += 1
+    rows = (q.data_ptr(), k_cache.data_ptr() + kv_off,
+            v_cache.data_ptr() + kv_off)
+    rest = (fresh_k.data_ptr(), fresh_v.data_ptr(), out.data_ptr(),
+            0 if part is None else part.data_ptr(), t, nq, nk, s, h, offset,
+            pair, n_split, sm_scale, build.stream_ptr(q.device))
+    if quant:
+        build.check(lib.gabby_prefill_attention(
+            *rows, k_scale.data_ptr() + sc_off, v_scale.data_ptr() + sc_off,
+            *rest), what)
+        ck.launch_counts["prefill_attention_paired" if pair
+                         else "prefill_attention"] += 1
+    else:
+        build.check(lib.gabby_prefill_attention_bf16(*rows, *rest), what)
+        ck.launch_counts["prefill_attention_bf16_paired" if pair
+                         else "prefill_attention_bf16"] += 1
     return out

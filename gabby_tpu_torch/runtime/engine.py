@@ -206,7 +206,7 @@ class Engine:
             if econfig.max_seq % ps:
                 raise ValueError(f"max_seq must be a multiple of "
                                  f"page_size={ps} in paged mode")
-            if dev.type == "cuda" and econfig.kv_quantized and ps % 32:
+            if dev.type == "cuda" and ps % 32:
                 raise ValueError(f"page_size={ps}: the paged attention "
                                  f"kernels take pages of a multiple of 32 "
                                  f"rows")

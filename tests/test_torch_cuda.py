@@ -750,3 +750,270 @@ def test_new_wrappers_refuse_what_their_kernels_do_not_take(dev):
         cpaged.paged_decode_attention_s8(
             torch.cat([q, q], dim=1).contiguous(), pk_, pv_, table, pos, pks,
             pvs, **kw)
+
+
+# ---- the bf16-cache forms (K22-K32) and head_dim 128 -----------------------
+
+# (head_dim, group size): the 1B model's (64, 4), Llama-3.2-3B's (128, 3),
+# Llama-3-8B's (128, 4), and the other groups the kernels are built for
+HEAD_GROUPS = [(64, 4), (128, 3), (128, 4), (64, 3), (64, 1), (128, 8)]
+
+
+def _bf16(dev, g, *shape):
+    return torch.randn(shape, generator=g, device=dev).bfloat16()
+
+
+def _bf16_pool(dev, g, nl, b, nk, page, max_pages, h):
+    """bf16 pools of b * max_pages + 1 pages (page 0 the scratch page, all
+    100s so a stray read shows) and a shuffled table."""
+    npages = b * max_pages + 1
+    kp = _bf16(dev, g, npages, nl, nk, page, h)
+    vp = _bf16(dev, g, npages, nl, nk, page, h)
+    kp[0] = vp[0] = 100.0
+    perm = torch.randperm(npages - 1, generator=g, device=dev) + 1
+    return kp, vp, perm.reshape(b, max_pages).to(torch.int32).contiguous()
+
+
+@pytest.mark.parametrize("h,group", HEAD_GROUPS)
+def test_bf16_decode_attention(dev, h, group):
+    """K24 and K25 against the plain contract, the paired one equal to the
+    unpaired one bit for bit, and a window bounding the read."""
+    g = _gen(dev, 40)
+    nl, b, nk, s = 2, 8, 8, 2048
+    kc, vc = _bf16(dev, g, nl, b, nk, s, h), _bf16(dev, g, nl, b, nk, s, h)
+    q, fk, fv = _decode_inputs(dev, g, b, nk * group, nk, h)
+    pos = torch.tensor(LONG, device=dev, dtype=torch.int32)
+    kw = dict(layer=1, fresh_k=fk, fresh_v=fv)
+    out = _counted("decode_attention_bf16", cattn.decode_attention, q, kc,
+                   vc, None, None, pos, **kw)
+    ref = cattn.decode_attention_plain(q, kc, vc, None, None, pos, **kw)
+    _close(out, ref, ATTN_TOL)
+    kp, vp = pair_heads(kc), pair_heads(vc)
+    paired = _counted("decode_attention_bf16_paired", cattn.decode_attention,
+                      q, kp, vp, None, None, pos, **kw)
+    assert torch.equal(paired, out)
+    win = cattn.decode_attention(q, kc, vc, None, None, pos, window=512, **kw)
+    ref = cattn.decode_attention_plain(q, kc, vc, None, None,
+                                       torch.clamp(pos, max=512), **kw)
+    _close(win, ref, ATTN_TOL)
+
+
+@pytest.mark.parametrize("t", [2, 8, 32])
+@pytest.mark.parametrize("h,group", HEAD_GROUPS[:3])
+def test_bf16_verify_attention(dev, t, h, group):
+    """K26 and K27: a block of t candidate rows, paired equal to unpaired."""
+    g = _gen(dev, 41)
+    nl, b, nk, s = 2, 8, 8, 2048
+    kc, vc = _bf16(dev, g, nl, b, nk, s, h), _bf16(dev, g, nl, b, nk, s, h)
+    q, fk, fv = _block(dev, g, b, t, nk * group, nk, h)
+    pos = torch.tensor(LONG, device=dev, dtype=torch.int32)
+    kw = dict(layer=1, fresh_k=fk, fresh_v=fv)
+    out = _counted("verify_attention_bf16", cattn.verify_attention, q, kc,
+                   vc, None, None, pos, **kw)
+    ref = cattn.verify_attention_plain(q, kc, vc, None, None, pos, **kw)
+    _close(out, ref, ATTN_TOL)
+    paired = _counted("verify_attention_bf16_paired", cattn.verify_attention,
+                      q, pair_heads(kc), pair_heads(vc), None, None, pos,
+                      **kw)
+    assert torch.equal(paired, out)
+    # row 0 of the block is the decode kernel's (the same body at T = 1)
+    dec = cattn.decode_attention(q[:, :1].contiguous(), kc, vc, None, None,
+                                 pos, layer=1,
+                                 fresh_k=fk[:, :, 0].contiguous(),
+                                 fresh_v=fv[:, :, 0].contiguous())
+    assert torch.equal(out[:, :1], dec)
+
+
+@pytest.mark.parametrize("t,offset", PREFILL_CASES)
+@pytest.mark.parametrize("h,group", HEAD_GROUPS[:3])
+def test_bf16_prefill_attention(dev, t, offset, h, group):
+    """K22 and K23 at every bucket, over a long past (a split key range)
+    and at offset 0; the paired kernel equal to the unpaired one."""
+    g = _gen(dev, 42)
+    nl, b, nk, s, slot = 2, 4, 8, 2048, 3
+    kc, vc = _bf16(dev, g, nl, b, nk, s, h), _bf16(dev, g, nl, b, nk, s, h)
+    q = _bf16(dev, g, 1, t, nk * group, h)
+    kw = dict(layer=1, fresh_k=_bf16(dev, g, nk, t, h),
+              fresh_v=_bf16(dev, g, nk, t, h))
+    out = _counted("prefill_attention_bf16", cpfa.prefill_attention, q, kc,
+                   vc, None, None, slot, offset, **kw)
+    ref = cpfa.prefill_attention_plain(q, kc, vc, None, None, slot, offset,
+                                       **kw)
+    _close(out, ref, ATTN_TOL)
+    paired = _counted("prefill_attention_bf16_paired", cpfa.prefill_attention,
+                      q, pair_heads(kc), pair_heads(vc), None, None, slot,
+                      offset, **kw)
+    assert torch.equal(paired, out)
+    assert torch.equal(out, cpfa.prefill_attention(q, kc, vc, None, None, slot,
+                                                   offset, **kw))
+
+
+@pytest.mark.parametrize("page", [128, 512])
+@pytest.mark.parametrize("t", [1, 8])
+@pytest.mark.parametrize("h,group", HEAD_GROUPS[:3])
+def test_bf16_paged_attention(dev, page, t, h, group):
+    """K28-K31 through a shuffled table whose stale entries point at the
+    scratch page; paired equal to unpaired, and the pool's rows gathered
+    into a dense cache give the dense kernels' result bit for bit."""
+    from gabby_tpu_torch.ops.attention import gather_pages
+    g = _gen(dev, 43)
+    nl, b, nk, s = 2, 8, 8, 2048
+    kp, vp, table = _bf16_pool(dev, g, nl, b, nk, page, s // page, h)
+    pos = torch.tensor(LONG, device=dev, dtype=torch.int32)
+    table = _unallocate_past(table, pos, page)
+    nq = nk * group
+    if t == 1:
+        q, fk, fv = _decode_inputs(dev, g, b, nq, nk, h)
+        fn, plain, dense_fn = (cpaged.paged_decode_attention,
+                               cpaged.paged_decode_attention_plain,
+                               cattn.decode_attention)
+        name = "paged_decode_attention_bf16"
+    else:
+        q, fk, fv = _block(dev, g, b, t, nq, nk, h)
+        fn, plain, dense_fn = (cpaged.paged_verify_attention,
+                               cpaged.paged_verify_attention_plain,
+                               cattn.verify_attention)
+        name = "paged_verify_attention_bf16"
+    kw = dict(layer=1, fresh_k=fk, fresh_v=fv)
+    out = _counted(name, fn, q, kp, vp, table, pos, None, None, **kw)
+    _close(out, plain(q, kp, vp, table, pos, None, None, **kw), ATTN_TOL)
+    paired = _counted(name + "_paired", fn, q, pair_heads(kp), pair_heads(vp),
+                      table, pos, None, None, **kw)
+    assert torch.equal(paired, out)
+    dense = [torch.stack([gather_pages(p, table, i) for i in range(nl)])
+             for p in (kp, vp)]
+    assert torch.equal(out, dense_fn(q, *dense, None, None, pos, **kw))
+
+
+@pytest.mark.parametrize("b,sb,h", [(8, 4, 64), (6, 2, 64), (8, 2, 128),
+                                    (2, 2, 128)])
+@pytest.mark.parametrize("group", [1, 3, 4, 8])
+def test_bf16_slot_batched_decode_attention(dev, b, sb, h, group):
+    """K32 against the plain contract, and K16 at head_dim 128 against K3
+    bit for bit (the same per-slot body, more slots in a block)."""
+    g = _gen(dev, 44)
+    nl, nk, s = 2, 8, 2048
+    assert cattn.pick_slot_block(b, h) == sb
+    kc, vc = _bf16(dev, g, nl, b, nk, s, h), _bf16(dev, g, nl, b, nk, s, h)
+    q, fk, fv = _decode_inputs(dev, g, b, nk * group, nk, h)
+    pos = torch.tensor(LONG[:b], device=dev, dtype=torch.int32)
+    kw = dict(layer=1, fresh_k=fk, fresh_v=fv)
+    out = _counted("decode_attention_multi_bf16",
+                   cattn.decode_attention_multi, q, kc, vc, None, None, pos,
+                   **kw)
+    ref = cattn.decode_attention_plain(q, kc, vc, None, None, pos, **kw)
+    _close(out, ref, ATTN_TOL)
+    kq, vq, ks, vs = _cache(dev, g, nl, b, nk, s, h)
+    multi = _counted("decode_attention_multi", cattn.decode_attention_multi,
+                     q, kq, vq, ks, vs, pos, **kw)
+    assert torch.equal(multi, cattn.decode_attention(q, kq, vq, ks, vs, pos,
+                                                     **kw))
+
+
+# the head shapes of the larger models the reference serves: (Nq, Nk, H)
+LLAMA_HEADS = {"3b": (24, 8, 128), "8b": (32, 8, 128)}
+INT8_KERNELS = ["decode", "decode_paired", "decode_s8", "decode_s8_paired",
+                "decode_multi", "verify", "verify_paired", "paged_decode",
+                "paged_decode_paired", "paged_verify", "paged_verify_paired",
+                "paged_decode_s8", "paged_decode_s8_paired", "prefill",
+                "prefill_paired"]
+
+
+@pytest.mark.parametrize("kernel", INT8_KERNELS)
+@pytest.mark.parametrize("model", list(LLAMA_HEADS))
+def test_int8_attention_at_larger_head_shapes(dev, kernel, model):
+    """Every attention entry point over an int8 cache (K3, K4, K9-K21) at
+    the head shapes of Llama-3.2-3B (G = 3, H = 128) and Llama-3-8B
+    (G = 4, H = 128) against its plain version; the paired kernels equal
+    to the unpaired ones where the body is the same."""
+    g = _gen(dev, 45)
+    nq, nk, h = LLAMA_HEADS[model]
+    nl, b, s, page = 2, 8, 2048, 512
+    pos = torch.tensor(LONG, device=dev, dtype=torch.int32)
+    paired = kernel.endswith("_paired")
+    base = kernel[:-len("_paired")] if paired else kernel
+    s8 = base.endswith("_s8")
+    tol = S8_TOL if s8 else ATTN_TOL
+    counter = {"decode": "decode_attention",
+               "decode_s8": "decode_attention_s8",
+               "decode_multi": "decode_attention_multi",
+               "verify": "verify_attention",
+               "paged_decode": "paged_decode_attention",
+               "paged_verify": "paged_verify_attention",
+               "paged_decode_s8": "paged_decode_attention_s8",
+               "prefill": "prefill_attention"}[base]
+    counter += "_paired" if paired else ""
+    lay = pair_heads if paired else (lambda x: x)
+    if base.startswith("paged"):
+        kp, vp, ks, vs, table = _pool(dev, g, nl, b, nk, page, s // page, h)
+        table = _unallocate_past(table, pos, page)
+        if base == "paged_verify":
+            q, fk, fv = _block(dev, g, b, 8, nq, nk, h)
+            fn, plain = (cpaged.paged_verify_attention,
+                         cpaged.paged_verify_attention_plain)
+        else:
+            q, fk, fv = _decode_inputs(dev, g, b, nq, nk, h)
+            fn, plain = ((cpaged.paged_decode_attention_s8,
+                          cpaged.paged_decode_attention_s8_plain) if s8 else
+                         (cpaged.paged_decode_attention,
+                          cpaged.paged_decode_attention_plain))
+        args = (q, lay(kp), lay(vp), table, pos, ks, vs)
+        unpaired_args = (q, kp, vp, table, pos, ks, vs)
+    elif base == "prefill":
+        kc, vc, ks, vs = _cache(dev, g, nl, 4, nk, s, h)
+        q = _bf16(dev, g, 1, 512, nq, h)
+        fk, fv = _bf16(dev, g, nk, 512, h), _bf16(dev, g, nk, 512, h)
+        fn, plain = cpfa.prefill_attention, cpfa.prefill_attention_plain
+        args = (q, lay(kc), lay(vc), ks, vs, 3, 512)
+        unpaired_args = (q, kc, vc, ks, vs, 3, 512)
+    else:
+        kc, vc, ks, vs = _cache(dev, g, nl, b, nk, s, h)
+        if base == "verify":
+            q, fk, fv = _block(dev, g, b, 8, nq, nk, h)
+            fn, plain = cattn.verify_attention, cattn.verify_attention_plain
+        else:
+            q, fk, fv = _decode_inputs(dev, g, b, nq, nk, h)
+            fn, plain = {
+                "decode": (cattn.decode_attention,
+                           cattn.decode_attention_plain),
+                "decode_s8": (cattn.decode_attention_s8,
+                              cattn.decode_attention_s8_plain),
+                "decode_multi": (cattn.decode_attention_multi,
+                                 cattn.decode_attention_plain)}[base]
+        args = (q, lay(kc), lay(vc), ks, vs, pos)
+        unpaired_args = (q, kc, vc, ks, vs, pos)
+    kw = dict(layer=1, fresh_k=fk, fresh_v=fv)
+    out = _counted(counter, fn, *args, **kw)
+    _close(out, plain(*args, **kw), tol)
+    if paired and base != "decode":  # K12 sums in another order than K3
+        assert torch.equal(out, fn(*unpaired_args, **kw))
+
+
+def test_bf16_wrappers_refuse_what_their_kernels_do_not_take(dev):
+    """No silent fallback: a cache of another type without scales, a head
+    width the kernels are not built for, the s8 form without scales and a
+    bf16 pool of pages that are no multiple of 32 rows all raise."""
+    g = _gen(dev, 46)
+    nl, b, nk, nq, s = 1, 2, 2, 8, 64
+    kc, vc = _bf16(dev, g, nl, b, nk, s, 64), _bf16(dev, g, nl, b, nk, s, 64)
+    q, fk, fv = _decode_inputs(dev, g, b, nq, nk)
+    pos = torch.ones(b, device=dev, dtype=torch.int32)
+    kw = dict(layer=0, fresh_k=fk, fresh_v=fv)
+    with pytest.raises(ValueError, match="bf16 cache"):
+        cattn.decode_attention(q, kc.float(), vc.float(), None, None, pos,
+                               **kw)
+    with pytest.raises(ValueError, match="int8 cache"):
+        cattn.decode_attention_s8(q, kc, vc, None, None, pos, **kw)
+    with pytest.raises(ValueError, match="bf16 cache"):
+        cpfa.prefill_attention(q[:1].contiguous(), kc.half(), vc.half(),
+                               None, None, 0, 0, layer=0,
+                               fresh_k=fk[0, :, None].contiguous(),
+                               fresh_v=fv[0, :, None].contiguous())
+    q96, fk96, fv96 = _decode_inputs(dev, g, b, nq, nk, 96)
+    k96, v96 = _bf16(dev, g, nl, b, nk, s, 96), _bf16(dev, g, nl, b, nk, s, 96)
+    with pytest.raises(ValueError, match="shapes"):
+        cattn.decode_attention(q96, k96, v96, None, None, pos, layer=0,
+                               fresh_k=fk96, fresh_v=fv96)
+    kp, vp, table = _bf16_pool(dev, g, nl, b, nk, 48, 2, 64)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        cpaged.paged_decode_attention(q, kp, vp, table, pos, None, None, **kw)
