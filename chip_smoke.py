@@ -8,12 +8,14 @@ a non-zero exit:
   1. card        the GPU's name and power limit (nvidia-smi);
   2. build       nvcc builds gabby_tpu_torch/csrc/*.cu (one process per
                  source, all started together);
-  3. kernels     each kernel (K1-K32) at the serving path's shapes for
+  3. kernels     each kernel (K1-K33) at the serving path's shapes for
                  Llama-3.2-1B (8 slots, context 1024 in a 2048-row cache,
                  int8 for K3-K21, bf16 for K22-K32; prefill at T=512,
                  offset 512; K7 at one 512-token chunk; the verify kernels
                  at a block of 8; the paged ones through a shuffled table
-                 of 512-row pages) against its
+                 of 512-row pages; K2 also at M = 64, the verify-sized
+                 unembed, and twice on the same inputs, bit for bit)
+                 against its
                  plain PyTorch version on the same inputs (the attention
                  kernels within 2e-2 relative plus a share of the plain
                  row's RMS, 5e-2 for the bf16/f32 forms and 1e-2 for the
@@ -24,7 +26,7 @@ a non-zero exit:
                  against the dequantized contract at 6e-2, and further
                  than its own tolerance from the bf16/f32 kernel and from
                  the s8 form at half the chunk size, so that the tolerance
-                 tells those apart; the
+                 tells those apart; K33 also against K1 at 4e-2; the
                  slot-batched kernel against K3 by equality), timed with
                  CUDA events, eagerly and replayed from a CUDA graph (the
                  device's share of the eager time), beside the plain
@@ -47,7 +49,8 @@ a non-zero exit:
                  the paged cache, and the paged `decode_step` against the
                  dense one; the same four on the paired caches against the
                  unpaired ones, and the paired decode paths with the s8
-                 form on against off;
+                 form on against off; and the int4 tree with the
+                 raw-byte-dot switch on (K33 in place of K1);
   5. engine      Engine(batch_slots=8, max_seq=2048, int8 KV) serving 10
                  concurrent chat requests whose prompts hit every prefill
                  bucket and three multi-chunk ones, 32 new tokens each,
@@ -55,7 +58,10 @@ a non-zero exit:
                  all launch during this run. Then the reference server's
                  default configuration (`pair_kv_heads=True`, s8 on) on
                  the same ten requests, dense (K15, K21) and with
-                 `paged_pages=33, page_size=512` (K20), and eleven runs of
+                 `paged_pages=33, page_size=512` (K20), the dense one
+                 again with `set_int4_rawdot(True)` on three requests
+                 (K33 and K2 must launch, K1 must not; every other int4
+                 run must not launch K33), and eleven runs of
                  three requests (a 64 bucket, a 256 bucket, 512 + 256) that
                  give every other attention kernel a path of its own:
                  unpaired with `speculate_tokens=7` dense (K9), paged
@@ -102,7 +108,8 @@ a non-zero exit:
                  33`, one chat completion each through the
                  C++ front-end, then SIGTERM, where cmake exists to build
                  it (else a skip line saying why);
-  9. summary     the kernels line (thirty-two kernels), then
+  9. summary     the kernels line (thirty-three kernels; K2 on two
+                 rows, M = 8 and 64), then
                  {"ok": true, "device": {...}} last.
 
 Weights are random (Llama-3.2-1B at full width and depth, seed 0). The
@@ -275,7 +282,7 @@ def attn_case_into(results, nl, name, shapes, source, replaces, kernel, plain,
 
 
 def kernel_phase(cfg, dev):
-    """K1-K32 at the 1B serving shapes against their plain versions."""
+    """K1-K33 at the 1B serving shapes against their plain versions."""
     from gabby_tpu_torch.ops import cuda as ck
     from gabby_tpu_torch.ops import quant
     from gabby_tpu_torch.ops.attention import gather_layer
@@ -301,7 +308,7 @@ def kernel_phase(cfg, dev):
 
     def stacked_case(name, source, replaces, kernel, plain, *, bits, m,
                      what, iters=10, exact=None, peak=BF16_FLOP_PER_S,
-                     default=None):
+                     default=None, close=None):
         """One call set of a stacked-weight kernel: 4 projections x 16
         layers at M = m, against its plain version, timed, with the
         dequantized bf16 `torch.matmul` as the library yardstick. `exact`
@@ -309,7 +316,9 @@ def kernel_phase(cfg, dev):
         integer tensor that must be equal. `default`: the port's own path
         for the same products when the kernel is switched off, timed as
         `default_path_ms`; the kernel's and the library's graph times are
-        then also given by projection."""
+        then also given by projection. `close`: (what, kernel, tol), another
+        kernel that must agree with this one within tol on the same
+        inputs."""
         rows = 2 if bits == 4 else 1  # weight rows per packed byte row
         mats = []
         for k, n in projs:
@@ -333,11 +342,15 @@ def kernel_phase(cfg, dev):
             outs = [kernel(*c) for c in calls]
             refs = [plain(*c) for c in calls]
         err = check(name, outs, refs)
+        extra = {}
+        if close is not None:
+            other, fn, tol = close
+            extra[f"max_abs_err_vs_{other}"] = check(
+                f"{name} vs {other}", outs, [fn(*c) for c in calls], tol)
         del outs, refs
         dense = [(q if bits == 8 else torch.stack(
             [unpack_int4(q[i]) for i in range(nl)])).bfloat16()
             * sc[:, None, :].bfloat16() for q, sc, _ in mats]
-        extra = {}
         if default is not None:
             extra["default_path_ms"] = time_ms(
                 lambda: [default(*c) for c in calls], iters)
@@ -377,6 +390,17 @@ def kernel_phase(cfg, dev):
                  "gabby_tpu_torch/csrc/quant_matmul.cu", qm + ":424",
                  cqm.qmatmul_int4_stacked, cqm.int4_stacked_plain, bits=4,
                  m=b, what="one decode step")
+    # K33: K1's call set through the raw-byte-dot form, also against K1 on
+    # the same inputs within the two forms' distance (one bf16 rounding of
+    # x_even - x_odd / 16; tests/test_pallas_kernels.py:371 holds the TPU
+    # kernels to 4e-2)
+    stacked_case("int4_matmul_stacked_rawdot",
+                 "gabby_tpu_torch/csrc/quant_matmul.cu", qm + ":455",
+                 cqm.qmatmul_int4_stacked_rawdot,
+                 cqm.int4_stacked_rawdot_plain, bits=4, m=b,
+                 what="one decode step",
+                 close=("int4_matmul_stacked", cqm.qmatmul_int4_stacked,
+                        dict(rtol=4e-2, atol=4e-2)))
     # K5: the same call set on int8 stacks
     stacked_case("int8_matmul_stacked",
                  "gabby_tpu_torch/csrc/quant_matmul.cu", qm + ":504",
@@ -418,31 +442,41 @@ def kernel_phase(cfg, dev):
                  what="one decode step", exact="return_acc",
                  peak=INT8_OP_PER_S)
 
-    # K2: the int4 unembed, one launch per decode step, M = 8
+    # K2: the int4 unembed, one launch per decode step (M = 8) and per
+    # speculative verify step of 8 slots x 8 rows (M = 64); then the same
+    # call twice, bit for bit (one fixed order of sums, no atomics)
     kp, vpad, group = d // 2, 129024, 256
     up = rand_bytes(kp, vpad)
     us = torch.rand((d // group, vpad), generator=g, device=dev) * 0.02
-    ux = torch.randn((b, d), generator=g, device=dev).bfloat16()
-    err = check("int4_matmul_grouped",
-                [cqm.qmatmul_int4_grouped(ux, up, us, group)],
-                [cqm.int4_grouped_plain(ux, up, us, group)])
     uw = (unpack_int4(up).float()
           * torch.repeat_interleave(us, group, dim=0)).bfloat16()
-    nbytes = up.numel() + us.numel() * 4 + ux.numel() * 2 + b * vpad * 2
-    results.append(dict(
-        name="int4_matmul_grouped", shapes="unembed [2048 -> 129024], "
-        "group 256, M=8", route="cuda",
-        source="gabby_tpu_torch/csrc/quant_matmul.cu",
-        replaces="gabby_tpu/ops/pallas/quant_matmul.py:640",
-        max_abs_err=err,
-        ms=time_ms(lambda: cqm.qmatmul_int4_grouped(ux, up, us, group)),
-        graph_ms=graph_ms(lambda: cqm.qmatmul_int4_grouped(ux, up, us,
-                                                           group)),
-        plain_ms=time_ms(lambda: cqm.int4_grouped_plain(ux, up, us, group),
-                         3),
-        library_ms=time_ms(lambda: torch.matmul(ux, uw)),
-        **bound(nbytes, 2 * b * d * vpad)))
+    for m in (b, 64):
+        ux = torch.randn((m, d), generator=g, device=dev).bfloat16()
+        err = check("int4_matmul_grouped",
+                    [cqm.qmatmul_int4_grouped(ux, up, us, group)],
+                    [cqm.int4_grouped_plain(ux, up, us, group)])
+        if not torch.equal(cqm.qmatmul_int4_grouped(ux, up, us, group),
+                           cqm.qmatmul_int4_grouped(ux, up, us, group)):
+            raise AssertionError(f"int4_matmul_grouped: a repeat at M = {m} "
+                                 f"differs")
+        nbytes = up.numel() + us.numel() * 4 + ux.numel() * 2 + m * vpad * 2
+        results.append(dict(
+            name="int4_matmul_grouped" + ("" if m == b else f" (M={m})"),
+            counter="int4_matmul_grouped", shapes="unembed [2048 -> "
+            f"129024], group 256, M={m}", route="cuda",
+            source="gabby_tpu_torch/csrc/quant_matmul_unembed.cu",
+            replaces="gabby_tpu/ops/pallas/quant_matmul.py:640",
+            max_abs_err=err,
+            ms=time_ms(lambda: cqm.qmatmul_int4_grouped(ux, up, us, group)),
+            graph_ms=graph_ms(lambda: cqm.qmatmul_int4_grouped(ux, up, us,
+                                                               group)),
+            plain_ms=time_ms(lambda: cqm.int4_grouped_plain(ux, up, us,
+                                                            group), 3),
+            library_ms=time_ms(lambda: torch.matmul(ux, uw)),
+            library_graph_ms=graph_ms(lambda: torch.matmul(ux, uw)),
+            **bound(nbytes, 2 * m * d * vpad)))
     del up, us, uw
+    ux = torch.randn((b, d), generator=g, device=dev).bfloat16()
 
     # K6: the int8 unembed of a loaded checkpoint (vocab not padded), M = 8
     v = cfg.vocab_size
@@ -1053,14 +1087,16 @@ def head128_phase(cfg3, dev) -> list:
 
 
 def model_phase(cfg, params, dev, label: str, tol: float = 0.05, *,
-                kv_quantized: bool = True, paired: bool = False):
+                kv_quantized: bool = True, paired: bool = False,
+                rawdot: bool = False):
     """The card's forward (kernels) against the CPU's (plain versions) on
     the same weights: a 16-token prefill, then 3 greedy decode steps, on
     the unpaired int8 cache with the bf16/f32 form of decode attention (the
     paired layout and the s8 form are held against these on the card, in
     `steps_model_phase`), or on the cache `kv_quantized` and `paired` ask
-    for. `tol` bounds the largest logit difference relative to the largest
-    logit."""
+    for; with `rawdot` the stacked int4 products (prefill and decode: M <=
+    64) take the raw-byte-dot form on both sides. `tol` bounds the largest
+    logit difference relative to the largest logit."""
     from gabby_tpu_torch.models import llama
     from gabby_tpu_torch.ops import cuda as ck
     from gabby_tpu_torch.ops.quant import QTensor
@@ -1081,6 +1117,7 @@ def model_phase(cfg, params, dev, label: str, tol: float = 0.05, *,
     ids = torch.arange(16) * 7919 % 128000 + 100
     logits = {}
     ck.set_attn_s8(False)
+    ck.set_int4_rawdot(rawdot)
     try:
         for key, dv in (("card", dev), ("cpu", "cpu")):
             logits[key], _ = llama.prefill_slot(ps[key], cfg, ids.to(dv), 16,
@@ -1103,8 +1140,9 @@ def model_phase(cfg, params, dev, label: str, tol: float = 0.05, *,
                 logits[key] = logits[key][0]
     finally:
         ck.set_attn_s8(None)
+        ck.set_int4_rawdot(None)
     emit({"phase": "model", "weights": label, "steps": steps,
-          "kv_quantized": kv_quantized, "paired": paired,
+          "kv_quantized": kv_quantized, "paired": paired, "rawdot": rawdot,
           "argmax_agree": agree, "max_rel_logit_err": worst})
     # bf16 activations through 16 layers on the card vs the CPU's bf16
     # rounding in other places: a few percent of the logit range
@@ -1238,22 +1276,25 @@ NEW_TOKENS = 32
 
 def engine_phase(cfg, params, tok, dev, gpu_line: str, label: str, *,
                  prompt_lens=None, must_launch, buckets, s8: bool = False,
-                 multi: bool = False, kv_quantized: bool = True,
-                 **engine_kw):
+                 multi: bool = False, rawdot: bool = False,
+                 kv_quantized: bool = True, **engine_kw):
     """Serves one batch of concurrent requests through the engine with the
     launch counts set to 0 just before and read just after. The prompts
     are chat messages (prompt_lens None: CONTENT_SIZES) or token ids of
     the given lengths; the cache is int8 (`kv_quantized`) or bf16;
     `engine_kw` are further EngineConfig fields (`pair_kv_heads` among
     them, off unless given); `s8` and `multi` set the two
-    decode-attention switches for the run. Every attention kernel outside
-    `must_launch` must stay at 0: each has a path of its own. Returns
-    (counts, prompt lengths)."""
+    decode-attention switches for the run, `rawdot` the raw-byte-dot form
+    of the stacked int4 products. Every attention kernel outside
+    `must_launch` must stay at 0: each has a path of its own; so must the
+    stacked int4 form the run did not ask for (K1 with `rawdot`, K33
+    without). Returns (counts, prompt lengths)."""
     from gabby_tpu_torch.ops import cuda as ck
     from gabby_tpu_torch.runtime.engine import Engine, EngineConfig
 
     ck.set_attn_s8(s8)
     ck.set_attn_multi(multi)
+    ck.set_int4_rawdot(rawdot)
     eng = Engine(cfg, params, tok, EngineConfig(
         batch_slots=8, max_seq=2048, kv_quantized=kv_quantized,
         **engine_kw), device=dev)
@@ -1292,6 +1333,7 @@ def engine_phase(cfg, params, tok, dev, gpu_line: str, label: str, *,
         eng.shutdown()
         ck.set_attn_s8(None)
         ck.set_attn_multi(None)
+        ck.set_int4_rawdot(None)
     for req, fin in zip(reqs, fins):
         want = NEW_TOKENS if fin == "length" else None
         if fin not in ("length", "stop") or (
@@ -1302,8 +1344,11 @@ def engine_phase(cfg, params, tok, dev, gpu_line: str, label: str, *,
     if missing:
         raise AssertionError(f"engine ({label}): kernels never launched: "
                              f"{missing}; counts {counts}")
+    not_asked = ("int4_matmul_stacked" if rawdot
+                 else "int4_matmul_stacked_rawdot")
     stray = [k for k, n in counts.items()
-             if n and "attention" in k and k not in must_launch]
+             if n and ("attention" in k or k == not_asked)
+             and k not in must_launch]
     if stray:
         raise AssertionError(f"engine ({label}): {stray} launched on a path "
                              f"that is not their own; counts {counts}")
@@ -1636,6 +1681,18 @@ def main() -> int:
     run("paired, s8; 33 pages of 512",
         ["paged_decode_attention_s8_paired", "prefill_attention_paired"],
         size=dict(buckets=[512]), pair_kv_heads=True, s8=True, **paged)
+    # the same configuration with the raw-byte-dot form of the stacked
+    # int4 products (GABBY_INT4_RAWDOT=1): K33 in place of K1, card against
+    # CPU, then three requests
+    model_phase(cfg, params, dev, "int4, in memory; raw-byte-dot",
+                rawdot=True)
+    runs["paired, s8; raw-byte-dot"], _ = engine_phase(
+        cfg, params, byte_tok, dev, gpu_line,
+        "int4, in memory; paired, s8; raw-byte-dot",
+        must_launch=["int4_matmul_stacked_rawdot", "int4_matmul_grouped",
+                     "decode_attention_s8_paired",
+                     "prefill_attention_paired"],
+        pair_kv_heads=True, s8=True, rawdot=True, **short)
     # every remaining form on a path of its own, three requests each
     run("paired; speculate 7",
         ["verify_attention_paired", "prefill_attention_paired"], size=short,
@@ -1802,6 +1859,7 @@ def main() -> int:
     clock("http")
     # each kernel's launches come from the run of the path that is its own
     own = {"int8_matmul_stacked": counts8, "int8_matmul": counts8,
+           "int4_matmul_stacked_rawdot": runs["paired, s8; raw-byte-dot"],
            "int4_matmul": counts4, "int4_matmul_w4a8_stacked": counts4,
            "verify_attention": runs["speculate 7"],
            "paged_verify_attention": runs["33 pages of 512; speculate 7"],

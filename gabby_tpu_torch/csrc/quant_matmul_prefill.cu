@@ -57,12 +57,7 @@
 // whatever BT, so `wo`'s 64-token tiles run at 30% of the peak; `wqkv`
 // fills 96 of 132 SMs (35%).
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <mutex>
+#include "int4_wgmma.cuh"
 
 namespace {
 
@@ -82,129 +77,6 @@ template <int BT>
 constexpr size_t smem_bytes() {
   return 1024 + (size_t)kStages * stage_bytes<BT>() +
          2 * kStages * sizeof(uint64_t);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-// Waits for the phase of the given parity to complete. A phase that never
-// completes (a copy that never lands) traps after about ten seconds, so a
-// fault is an error and not a hang.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  if (done) return;
-  const long long t0 = clock64();
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (!done && clock64() - t0 > 20000000000LL) __trap();
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap& map,
-                                       int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(&map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap& map,
-                                       int c0, int c1, int c2, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(&map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Pins accumulators in place around a batch of wgmma, so that no other
-// instruction defines them while the batch is in flight (which would make
-// ptxas serialize the wgmma)
-template <int N>
-__device__ __forceinline__ void fence_operands(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// Shared-memory matrix descriptor of a K-major tile with 128-byte rows,
-// 128-byte swizzle, 8-row groups 1024 bytes apart.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-// wgmma m64nNk16, A (the weight) from registers, B (x) by descriptor,
-// f32 accumulators in d (scale-d on: d += A B)
-__device__ __forceinline__ void wgmma_n64(float (&d)[32],
-                                          const uint32_t (&a)[4],
-                                          uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
 __device__ __forceinline__ void wgmma_n128(float (&d)[64],
@@ -253,16 +125,6 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[BT / 2],
     wgmma_n64(d, a, desc);
 }
 
-// bf16 pairs of the two codes in bytes 0 and 2 of v: v - 136 after
-// 0x4300 | u made 128 + u (exact)
-__device__ __forceinline__ uint32_t minus136(uint32_t v) {
-  uint32_t r;
-  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
-      : "=r"(r)
-      : "r"(v), "r"(0x3F803F80u), "r"(0xC308C308u));
-  return r;
-}
-
 // A fragments of one stage for both halves: a[half][k16 step][4]. The
 // packed tile is [64 rows][128 channels] as TMA's 128-byte swizzle lays
 // it: 16-byte chunk c of row r at r * 128 + ((c ^ (r & 7)) << 4), so the
@@ -296,10 +158,8 @@ __device__ __forceinline__ void unpack_stage(const uint8_t* w, int chunk,
   }
 }
 
-// xmap: x [M, K] bf16 seen as [M][2][K/2] (the two halves of the pairing),
-// boxes of 64 columns x BT rows; wmap: the layer's packed [K/2, N] int8,
-// boxes of 128 channels x 64 rows. Both 128-byte swizzled, zero past the
-// edges.
+// xmap, wmap: int4_tensor_maps (int4_wgmma.cuh) of x and the layer's
+// packed plane, with boxes of BT tokens.
 template <int BT>
 __global__ void __launch_bounds__(kThreads, 1)
 int4_prefill_kernel(const __grid_constant__ CUtensorMap xmap,
@@ -449,29 +309,6 @@ int4_prefill_merge(const float* __restrict__ part,
       __floats2bfloat162_rn(sum.x * scale[ch], sum.y * scale[ch + 1]);
 }
 
-// cuTensorMapEncodeTiled, looked up through the runtime (no link against
-// libcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static std::once_flag once;
-  static EncodeTiled fn = nullptr;
-  std::call_once(once, [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  });
-  return fn;
-}
-
 template <int BT>
 int launch(const void* x, const void* packed, const void* scale, void* out,
            void* part, int M, int K, int N, int k_split, int dev,
@@ -491,33 +328,17 @@ int launch(const void* x, const void* packed, const void* scale, void* out,
       done[dev] = true;
     }
   }
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap xmap, wmap;
-  const cuuint64_t xdim[3] = {(cuuint64_t)K / 2, 2, (cuuint64_t)M};
-  const cuuint64_t xstride[2] = {(cuuint64_t)K, (cuuint64_t)K * 2};
-  const cuuint32_t xbox[3] = {64, 1, BT}, ones[3] = {1, 1, 1};
-  const cuuint64_t wdim[2] = {(cuuint64_t)N, (cuuint64_t)K / 2};
-  const cuuint64_t wstride[1] = {(cuuint64_t)N};
-  const cuuint32_t wbox[2] = {kBN, kBKP};
-  if (encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-             const_cast<void*>(x), xdim, xstride, xbox, ones,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
-      encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
-             const_cast<void*>(packed), wdim, wstride, wbox, ones,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = int4_tensor_maps(x, packed, M, K, N, BT, &xmap,
+                                           &wmap);
+  if (err != cudaSuccess) return (int)err;
   dim3 grid((N + kBN - 1) / kBN, (M + BT - 1) / BT, k_split);
   int4_prefill_kernel<BT><<<grid, kThreads, smem_bytes<BT>(), stream>>>(
       xmap, wmap, static_cast<const float*>(scale),
       static_cast<__nv_bfloat16*>(out), static_cast<float*>(part), M, K, N);
   if (k_split > 1) {
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    const cudaError_t launched = cudaGetLastError();
+    if (launched != cudaSuccess) return (int)launched;
     const size_t pairs = (size_t)M * N / 2;
     int4_prefill_merge<<<(unsigned)((pairs + 255) / 256), 256, 0, stream>>>(
         static_cast<const float*>(part), static_cast<const float*>(scale),
@@ -553,13 +374,6 @@ Plan plan(int M, int K, int N, int sms) {
       }
     }
   return best;
-}
-
-cudaError_t multiprocessors(int* dev, int* sms) {
-  cudaError_t err = cudaGetDevice(dev);
-  if (err != cudaSuccess) return err;
-  if (*dev < 0 || *dev >= 64) return cudaErrorInvalidDevice;
-  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, *dev);
 }
 
 }  // namespace

@@ -23,6 +23,7 @@ launch_counts: dict[str, int] = {
     "int8_matmul": 0,
     "int4_matmul": 0,
     "int4_matmul_w4a8_stacked": 0,
+    "int4_matmul_stacked_rawdot": 0,
     "verify_attention": 0,
     "paged_decode_attention": 0,
     "paged_verify_attention": 0,
@@ -61,6 +62,7 @@ def reset_launch_counts() -> None:
 # Each chooses between two routes that both exist; neither is a fallback:
 # when a switch is on and the kernel cannot take a call, its wrapper raises.
 _W4A8: Optional[bool] = None
+_INT4_RAWDOT: Optional[bool] = None
 _INT4_PREFILL: Optional[bool] = None
 _ATTN_S8: Optional[bool] = None
 _ATTN_MULTI: Optional[bool] = None
@@ -80,6 +82,25 @@ def set_w4a8(enabled: Optional[bool]) -> None:
     """True/False force; None restores the environment's setting."""
     global _W4A8
     _W4A8 = enabled
+
+
+def int4_rawdot() -> bool:
+    """Raw-byte-dot form of the stacked int4 product at decode M (K33):
+    x_odd / 16 contracts against the packed byte read as a signed value and
+    x_even - x_odd / 16 (one bf16 rounding) against its low nibble, so only
+    one nibble plane is unpacked. Taken after `w4a8()` and before K1, as in
+    the reference; changes numerics by one bf16 rounding of that
+    difference. Default off; opt-in with GABBY_INT4_RAWDOT=1 or
+    set_int4_rawdot(True)."""
+    if _INT4_RAWDOT is not None:
+        return _INT4_RAWDOT
+    return os.environ.get("GABBY_INT4_RAWDOT") == "1"
+
+
+def set_int4_rawdot(enabled: Optional[bool]) -> None:
+    """True/False force; None restores the environment's setting."""
+    global _INT4_RAWDOT
+    _INT4_RAWDOT = enabled
 
 
 def int4_prefill_kernel() -> bool:

@@ -113,9 +113,13 @@ _F = ctypes.c_float
 # returns the cudaError_t of its launch (0 = success)
 _SIGNATURES = {
     # x, packed (layer offset), scale (layer offset), out, workspace;
-    # M, K, N, group, n_split; stream
-    "gabby_int4_matmul": [_P] * 5 + [_I] * 5 + [_P],
-    # workspace, scale or NULL, out; M, N; stream
+    # M, K, N, n_split; stream
+    "gabby_int4_matmul": [_P] * 5 + [_I] * 4 + [_P],
+    # K33, the raw-byte-dot form: the same arguments
+    "gabby_int4_matmul_rawdot": [_P] * 5 + [_I] * 4 + [_P],
+    # K2: x, packed, scale, out; M, K, N, group; stream
+    "gabby_int4_unembed": [_P] * 4 + [_I] * 4 + [_P],
+    # workspace, scale, out; M, N; stream
     "gabby_matmul_finalize": [_P] * 3 + [_I] * 2 + [_P],
     # x, codes (layer offset), scale (layer offset), out, workspace;
     # M, K, N, n_split; stream

@@ -4,9 +4,14 @@ gabby_tpu/ops/pallas/quant_matmul.py) and their plain PyTorch versions.
 K1 `qmatmul_int4_stacked`: x [M <= 64, K] @ int4 W[layer], W stacked
    [L, K/2, N] with per-channel scales [L, N] (csrc/quant_matmul.cu,
    replacing _qmatmul_int4_stacked :524 / _int4_stacked_kernel :424).
+K33 `qmatmul_int4_stacked_rawdot`: K1's product in the raw-byte-dot form
+   that `ck.int4_rawdot()` selects (csrc/quant_matmul.cu, replacing
+   _int4_stacked_rawdot_kernel :455, which _qmatmul_int4_stacked takes
+   under GABBY_INT4_RAWDOT=1).
 K2 `qmatmul_int4_grouped`: x [M <= 64, K] @ int4 W [K/2, N] with group
-   scales [K/group, N] along K — the int4 unembed (replacing
-   _qmatmul_int4_grouped :669 / _int4_grouped_kernel :640).
+   scales [K/group, N] along K — the int4 unembed, on the tensor cores
+   (csrc/quant_matmul_unembed.cu, replacing _qmatmul_int4_grouped :669 /
+   _int4_grouped_kernel :640).
 K5 `qmatmul_int8_stacked`: x [M <= 64, K] @ int8 W[layer], W stacked
    [L, K, N], scales [L, N] (csrc/quant_matmul.cu, replacing
    _qmatmul_int8_stacked :504 / _int8_stacked_kernel :409).
@@ -55,6 +60,24 @@ def _codes_plain(x, codes, scale) -> torch.Tensor:
 def int4_stacked_plain(x, packed, scale, layer: int) -> torch.Tensor:
     """Plain version of K1."""
     return _codes_plain(x, _unpack(packed[layer]), scale[layer])
+
+
+def int4_stacked_rawdot_plain(x, packed, scale, layer: int) -> torch.Tensor:
+    """Plain version of K33, the reference's raw-byte-dot arithmetic
+    (_qmatmul_int4_stacked with GABBY_INT4_RAWDOT=1): xo16 = x_odd / 16
+    (exact), xc = x_even - xo16 rounded once to bf16, contracted against
+    the packed byte b read as a signed value and against lo8 = b & 15, the
+    +8 bias taken out by the row sums: acc = xo16 . b + xc . lo8 - 8
+    (rowsum(xc) + rowsum(xo16)) in f32, then the per-channel scale."""
+    kp = packed.shape[1]
+    xb = x.to(torch.bfloat16).float()
+    xo16 = (xb[:, kp:] * 0.0625).to(torch.bfloat16).float()
+    xc = (xb[:, :kp] - xo16).to(torch.bfloat16).float()
+    b = packed[layer].to(torch.int32)
+    acc = (torch.matmul(xo16, b.float()) + torch.matmul(xc, (b & 15).float())
+           - 8.0 * (xc.sum(dim=1, keepdim=True)
+                    + xo16.sum(dim=1, keepdim=True)))
+    return (acc * scale[layer]).to(x.dtype)
 
 
 def int4_plain(x, packed, scale, layer: Optional[int] = None) -> torch.Tensor:
@@ -156,32 +179,27 @@ def _layer_ptrs(what: str, q, scale, layer: int):
             scale.data_ptr() + layer * n * 4)
 
 
-def _launch(name: str, x, q_ptr: int, scale_ptr: int, k: int, n: int,
-            group: int, bits: int = 4) -> torch.Tensor:
-    """The decode kernel of csrc/quant_matmul.cu on int4 (K1, K2) or int8
-    (K5, K6) weights, with its split-K workspace and finalize pass."""
+def _launch(name: str, entry: str, x, q_ptr: int, scale_ptr: int, k: int,
+            n: int, rows: int) -> torch.Tensor:
+    """The decode kernel of csrc/quant_matmul.cu through its C entry point
+    `entry` (K1, K33, K5, K6; `rows` is the weight plane's row count), with
+    its split-K workspace and finalize pass."""
     from gabby_tpu_torch.ops.cuda import build
     lib = build.library()
     m = x.shape[0]
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    split = _n_split(n, k // 2 if bits == 4 else k)
+    split = _n_split(n, rows)
     ws = (torch.zeros((m, n), dtype=torch.float32, device=x.device)
           if split > 1 else None)
     ws_ptr = ws.data_ptr() if ws is not None else None
     stream = build.stream_ptr(x.device)
-    if bits == 4:
-        err = lib.gabby_int4_matmul(x.data_ptr(), q_ptr, scale_ptr,
-                                    out.data_ptr(), ws_ptr, m, k, n, group,
-                                    split, stream)
-    else:
-        err = lib.gabby_int8_matmul(x.data_ptr(), q_ptr, scale_ptr,
+    build.check(getattr(lib, entry)(x.data_ptr(), q_ptr, scale_ptr,
                                     out.data_ptr(), ws_ptr, m, k, n, split,
-                                    stream)
-    build.check(err, name)
+                                    stream), name)
     if ws is not None:
-        build.check(lib.gabby_matmul_finalize(
-            ws_ptr, None if group else scale_ptr, out.data_ptr(),
-            m, n, stream), name + " finalize")
+        build.check(lib.gabby_matmul_finalize(ws_ptr, scale_ptr,
+                                              out.data_ptr(), m, n, stream),
+                    name + " finalize")
     ck.launch_counts[name] += 1
     return out
 
@@ -194,22 +212,52 @@ def qmatmul_int4_stacked(x: torch.Tensor, packed: torch.Tensor,
     q_ptr, s_ptr = _layer_ptrs("int4 stacked matmul", packed, scale, layer)
     _, kp, n = packed.shape
     _check("int4 stacked matmul", x, packed, scale, 2 * kp, n)
-    return _launch("int4_matmul_stacked", x, q_ptr, s_ptr, 2 * kp, n, 0)
+    return _launch("int4_matmul_stacked", "gabby_int4_matmul", x, q_ptr,
+                   s_ptr, 2 * kp, n, kp)
+
+
+def qmatmul_int4_stacked_rawdot(x: torch.Tensor, packed: torch.Tensor,
+                                scale: torch.Tensor,
+                                layer: int) -> torch.Tensor:
+    """K33, K1's raw-byte-dot form (`ck.int4_rawdot()`). x [M, K]; packed
+    [L, K/2, N] int8; scale [L, N] f32 -> [M, N]."""
+    if not x.is_cuda:
+        return int4_stacked_rawdot_plain(x, packed, scale, layer)
+    what = "int4 stacked raw-byte-dot matmul"
+    q_ptr, s_ptr = _layer_ptrs(what, packed, scale, layer)
+    _, kp, n = packed.shape
+    _check(what, x, packed, scale, 2 * kp, n)
+    return _launch("int4_matmul_stacked_rawdot", "gabby_int4_matmul_rawdot",
+                   x, q_ptr, s_ptr, 2 * kp, n, kp)
 
 
 def qmatmul_int4_grouped(x: torch.Tensor, packed: torch.Tensor,
                          scale: torch.Tensor, group: int) -> torch.Tensor:
-    """K2. x [M, K]; packed [K/2, N] int8; scale [K/group, N] f32 -> [M, N]."""
+    """K2. x [M, K]; packed [K/2, N] int8; scale [K/group, N] f32 -> [M, N].
+    On the card (csrc/quant_matmul_unembed.cu): K/2 and `group` multiples
+    of 64, N a multiple of 128; the plain version takes any group that
+    divides K/2."""
     if not x.is_cuda:
         return int4_grouped_plain(x, packed, scale, group)
+    what = "int4 grouped matmul"
     kp, n = packed.shape
     k = 2 * kp
     if group <= 0 or kp % group or scale.shape != (k // group, n):
-        raise ValueError(f"int4 grouped: group {group} must divide K/2 = "
-                         f"{kp}, scale {tuple(scale.shape)}")
-    _check("int4 grouped matmul", x, packed, scale, k, n)
-    return _launch("int4_matmul_grouped", x, packed.data_ptr(),
-                   scale.data_ptr(), k, n, group)
+        raise ValueError(f"{what}: group {group} must divide K/2 = {kp}, "
+                         f"scale {tuple(scale.shape)}")
+    if group % 64:
+        raise ValueError(f"{what}: group {group} is no multiple of 64 (a "
+                         f"stage of 64 packed rows lies in one group)")
+    _check(what, x, packed, scale, k, n, k_multiple=128, n_multiple=128)
+    from gabby_tpu_torch.ops.cuda import build
+    lib = build.library()
+    m = x.shape[0]
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    build.check(lib.gabby_int4_unembed(
+        x.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(), m,
+        k, n, group, build.stream_ptr(x.device)), "int4_matmul_grouped")
+    ck.launch_counts["int4_matmul_grouped"] += 1
+    return out
 
 
 def qmatmul_int8_stacked(x: torch.Tensor, codes: torch.Tensor,
@@ -220,7 +268,8 @@ def qmatmul_int8_stacked(x: torch.Tensor, codes: torch.Tensor,
     q_ptr, s_ptr = _layer_ptrs("int8 stacked matmul", codes, scale, layer)
     _, k, n = codes.shape
     _check("int8 stacked matmul", x, codes, scale, k, n, k_multiple=1)
-    return _launch("int8_matmul_stacked", x, q_ptr, s_ptr, k, n, 0, bits=8)
+    return _launch("int8_matmul_stacked", "gabby_int8_matmul", x, q_ptr,
+                   s_ptr, k, n, k)
 
 
 def qmatmul_int8(x: torch.Tensor, codes: torch.Tensor,
@@ -233,8 +282,8 @@ def qmatmul_int8(x: torch.Tensor, codes: torch.Tensor,
         raise ValueError(f"int8 matmul: scale {tuple(scale.shape)} for "
                          f"codes {tuple(codes.shape)}")
     _check("int8 matmul", x, codes, scale, k, n, k_multiple=1)
-    return _launch("int8_matmul", x, codes.data_ptr(), scale.data_ptr(),
-                   k, n, 0, bits=8)
+    return _launch("int8_matmul", "gabby_int8_matmul", x, codes.data_ptr(),
+                   scale.data_ptr(), k, n, k)
 
 
 def qmatmul_int4(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,

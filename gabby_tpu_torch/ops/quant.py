@@ -8,10 +8,12 @@ byte-identical to the reference's, so a checkpoint quantized by either
 package serves in the other.
 
 `qlinear` dispatches like the reference (ops/quant.py:170-291 there).
-Decode-sized products (M <= 64): stacked int4 weights go to the stacked
-int4 kernel (K1), or to the W4A8 kernel (K8) when `cuda.w4a8()` is on; the
-group-scaled int4 unembed to the grouped kernel (K2); stacked int8 weights
-to K5 and a 2-D int8 weight (the int8 unembed) to K6. The reference leaves
+Decode-sized products (M <= 64): stacked int4 weights go to the W4A8
+kernel (K8) when `cuda.w4a8()` is on, else to the raw-byte-dot form (K33)
+when `cuda.int4_rawdot()` is on, else to the stacked int4 kernel (K1), the
+reference's precedence; the group-scaled int4 unembed to the grouped
+kernel (K2); stacked int8 weights to K5 and a 2-D int8 weight (the int8
+unembed) to K6. The reference leaves
 int8 to XLA's fused dequantizing dot unless GABBY_QMM_INT8 is set; eager
 PyTorch has no such fusion (a cast would write and re-read the whole
 weight as bf16 at every call), so here int8 at decode M always takes its
@@ -148,9 +150,14 @@ def qlinear(x: torch.Tensor, qt: QTensor,
     out = None
     if m <= 64:
         if qt.bits == 4 and stacked:
-            out = (cqm.qmatmul_int4_w4a8_stacked(x2, q, scale, layer)
-                   if ck.w4a8() else
-                   cqm.qmatmul_int4_stacked(x2, q, scale, layer))
+            # the reference's precedence: W4A8, then the raw-byte-dot
+            # form, then K1
+            if ck.w4a8():
+                out = cqm.qmatmul_int4_w4a8_stacked(x2, q, scale, layer)
+            elif ck.int4_rawdot():
+                out = cqm.qmatmul_int4_stacked_rawdot(x2, q, scale, layer)
+            else:
+                out = cqm.qmatmul_int4_stacked(x2, q, scale, layer)
         elif qt.bits == 8:
             out = (cqm.qmatmul_int8_stacked(x2, q, scale, layer) if stacked
                    else cqm.qmatmul_int8(x2, q, scale))

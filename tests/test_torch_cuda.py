@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K21) held against their plain PyTorch versions
+"""The port's CUDA kernels (K1-K33) held against their plain PyTorch versions
 on the card, at the serving path's shapes and at the edges (ragged
 positions, position 0, M = 1 and 64, M = 65..512 for the prefill matmul,
 multi-chunk offsets, every prefill bucket over a long past, verify blocks
@@ -78,16 +78,74 @@ def test_int4_stacked(dev, m, k, n):
     torch.testing.assert_close(out.float(), ref.float(), **TOL)
 
 
-@pytest.mark.parametrize("m", [1, 8])
-def test_int4_grouped_unembed(dev, m):
-    g = _gen(dev, 1)
-    k, n, group = 2048, 129024, 256
+@pytest.mark.parametrize("m", [1, 8, 64])
+@pytest.mark.parametrize("k,n", [(2048, 3072), (8192, 2048)])
+def test_int4_stacked_rawdot(dev, m, k, n):
+    """K33 on layer 2 of a stack against its plain version, and against
+    K1 within the two forms' distance (one bf16 rounding of x_even -
+    x_odd / 16; 4e-2, as tests/test_pallas_kernels.py:371 holds them)."""
+    g = _gen(dev, 30)
+    packed = _packed(dev, g, 3, k // 2, n)
+    scale = torch.rand((3, n), generator=g, device=dev) * 0.02
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    before = ck.launch_counts["int4_matmul_stacked_rawdot"]
+    out = cqm.qmatmul_int4_stacked_rawdot(x, packed, scale, 2)
+    torch.cuda.synchronize()
+    assert ck.launch_counts["int4_matmul_stacked_rawdot"] == before + 1
+    ref = cqm.int4_stacked_rawdot_plain(x, packed, scale, 2)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL)
+    torch.testing.assert_close(
+        out.float(), cqm.qmatmul_int4_stacked(x, packed, scale, 2).float(),
+        rtol=4e-2, atol=4e-2)
+
+
+# the int4 unembeds of Llama-3.2-1B, 3B (6 groups a nibble plane) and
+# Llama-3-8B: hidden size -> the vocabulary padded to a multiple of 2048
+UNEMBED_SHAPES = [(2048, 129024), (3072, 129024), (4096, 129024)]
+
+
+def _unembed(dev, g, m, k, n, group=256):
     packed = _packed(dev, g, k // 2, n)
     scale = torch.rand((k // group, n), generator=g, device=dev) * 0.02
     x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
-    out = cqm.qmatmul_int4_grouped(x, packed, scale, group)
-    ref = cqm.int4_grouped_plain(x, packed, scale, group)
+    return x, packed, scale
+
+
+@pytest.mark.parametrize("m", [1, 8, 13, 64])
+@pytest.mark.parametrize("k,n", UNEMBED_SHAPES)
+def test_int4_grouped_unembed(dev, m, k, n):
+    """K2 (csrc/quant_matmul_unembed.cu) at M = 1 and 8 (the m64n8 tile),
+    13 and 64 (the m64n64 tile; the speculative verify's unembed) against
+    its plain version; one launch a call."""
+    x, packed, scale = _unembed(dev, _gen(dev, 1), m, k, n)
+    before = ck.launch_counts["int4_matmul_grouped"]
+    out = cqm.qmatmul_int4_grouped(x, packed, scale, 256)
+    torch.cuda.synchronize()
+    assert ck.launch_counts["int4_matmul_grouped"] == before + 1
+    ref = cqm.int4_grouped_plain(x, packed, scale, 256)
     torch.testing.assert_close(out.float(), ref.float(), **TOL)
+
+
+@pytest.mark.parametrize("m", [8, 64])
+def test_int4_grouped_unembed_repeats_its_bits(dev, m):
+    """Each output is summed in one fixed order (no split, no atomics)."""
+    x, packed, scale = _unembed(dev, _gen(dev, 31), m, 2048, 129024)
+    assert torch.equal(cqm.qmatmul_int4_grouped(x, packed, scale, 256),
+                       cqm.qmatmul_int4_grouped(x, packed, scale, 256))
+
+
+def test_int4_grouped_unembed_refuses_what_its_kernel_does_not_take(dev):
+    x, packed, scale = _unembed(dev, _gen(dev, 32), 8, 256, 384, group=32)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        cqm.qmatmul_int4_grouped(x, packed, scale, 32)
+    x, packed, scale = _unembed(dev, _gen(dev, 33), 8, 256, 320, group=64)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        cqm.qmatmul_int4_grouped(x, packed, scale, 64)
+    x, packed, scale = _unembed(dev, _gen(dev, 34), 65, 256, 384, group=64)
+    with pytest.raises(ValueError, match="rows"):
+        cqm.qmatmul_int4_grouped(x, packed, scale, 64)
+    with pytest.raises(ValueError, match="bf16"):
+        cqm.qmatmul_int4_grouped(x[:8].float(), packed, scale, 64)
 
 
 def _cache(dev, g, nl, b, nk, s, h=64):
@@ -281,6 +339,13 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
         cqm.qmatmul_int4_stacked(
             torch.ones((65, 128), device=dev, dtype=torch.bfloat16), packed,
             scale, 0)
+    with pytest.raises(ValueError, match="bf16"):
+        cqm.qmatmul_int4_stacked_rawdot(torch.ones((2, 128), device=dev),
+                                        packed, scale, 0)
+    with pytest.raises(ValueError, match="layer"):
+        cqm.qmatmul_int4_stacked_rawdot(
+            torch.ones((2, 128), device=dev, dtype=torch.bfloat16), packed,
+            scale, 2)
 
 
 # ragged read bounds: empty slot, parked lane (1 row), chunk and page
