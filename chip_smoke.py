@@ -13,8 +13,9 @@ a non-zero exit:
                  int8 for K3-K21, bf16 for K22-K32; prefill at T=512,
                  offset 512; K7 at one 512-token chunk; the verify kernels
                  at a block of 8; the paged ones through a shuffled table
-                 of 512-row pages; K2 also at M = 64, the verify-sized
-                 unembed, and twice on the same inputs, bit for bit)
+                 of 512-row pages; K1, K33 and K2 also at M = 64, the
+                 verify-sized products, and twice on the same inputs,
+                 bit for bit; K1 and K33 also by projection)
                  against its
                  plain PyTorch version on the same inputs (the attention
                  kernels within 2e-2 relative plus a share of the plain
@@ -36,8 +37,9 @@ a non-zero exit:
                  operations at the tensor-core peak of the operand type,
                  whichever is larger); then one case per attention source
                  at Llama-3.2-3B's heads (24 q heads over 8 kv heads of
-                 128 dims, 28 layers: K3, K13, K17, K15, K21), the same
-                 way, on lines of their own;
+                 128 dims, 28 layers: K3, K13, K17, K15, K21) and K1 at
+                 its four projections x 28 layers, the same way, on lines
+                 of their own;
   4. model       the 1B model's prefill + decode on the card (kernels)
                  against the same functions on the CPU (plain versions),
                  same weights (unpaired cache, bf16/f32 decode attention):
@@ -108,8 +110,8 @@ a non-zero exit:
                  33`, one chat completion each through the
                  C++ front-end, then SIGTERM, where cmake exists to build
                  it (else a skip line saying why);
-  9. summary     the kernels line (thirty-three kernels; K2 on two
-                 rows, M = 8 and 64), then
+  9. summary     the kernels line (thirty-three kernels; K1, K33 and K2
+                 on two rows each, M = 8 and 64), then
                  {"ok": true, "device": {...}} last.
 
 Weights are random (Llama-3.2-1B at full width and depth, seed 0). The
@@ -281,6 +283,103 @@ def attn_case_into(results, nl, name, shapes, source, replaces, kernel, plain,
         **bound(nbytes, ops, peak)))
 
 
+def stacked_case_into(results, g, nl, projs, name, source, replaces, kernel,
+                      plain, *, bits, m, what, iters=10, exact=None,
+                      peak=BF16_FLOP_PER_S, default=None, close=None,
+                      by_projection=False, repeat=False, case=None):
+    """One call set of a stacked-weight kernel: the projections `projs` (K,
+    N) x `nl` layers at M = m, random codes from `g`, against its plain
+    version, timed, with the dequantized bf16 `torch.matmul` as the library
+    yardstick; the result is appended to `results`. `exact` names a keyword
+    that makes kernel and plain version also return an integer tensor that
+    must be equal. `default`: the port's own path for the same products
+    when the kernel is switched off, timed as `default_path_ms`. With
+    `by_projection` (or `default`) the kernel's and the library's graph
+    times are also given by projection. `close`: (what, kernel, tol),
+    another kernel that must agree with this one within tol on the same
+    inputs. `repeat`: every call made twice must give the same bits. `case`:
+    the name's suffix for a second call set of a kernel (its counter keeps
+    the name)."""
+    dev = g.device
+    rows = 2 if bits == 4 else 1  # weight rows per packed byte row
+
+    def rand_bytes(*shape):
+        return torch.randint(-128, 128, shape, generator=g, device=dev,
+                             dtype=torch.int32).to(torch.int8)
+
+    mats = []
+    for k, n in projs:
+        mats.append((rand_bytes(nl, k // rows, n),
+                     torch.rand((nl, n), generator=g, device=dev)
+                     * (0.02 if bits == 4 else 0.002),
+                     torch.randn((m, k), generator=g,
+                                 device=dev).bfloat16()))
+    calls = [(x, q, sc, layer) for layer in range(nl)
+             for q, sc, x in mats]
+    if exact:
+        outs, accs = zip(*[kernel(*c, **{exact: True}) for c in calls])
+        refs, ref_accs = zip(*[plain(*c, **{exact: True})
+                               for c in calls])
+        for acc, ref_acc in zip(accs, ref_accs):
+            if not torch.equal(acc, ref_acc):
+                raise AssertionError(f"{name}: integer accumulators "
+                                     f"differ")
+        del accs, ref_accs
+    else:
+        outs = [kernel(*c) for c in calls]
+        refs = [plain(*c) for c in calls]
+    err = check(name, outs, refs)
+    extra = {}
+    if repeat:
+        if not all(torch.equal(o, kernel(*c)) for o, c in zip(outs, calls)):
+            raise AssertionError(f"{name}: a repeat on the same inputs "
+                                 f"differs")
+        extra["repeat_equal"] = True
+    if close is not None:
+        other, fn, tol = close
+        extra[f"max_abs_err_vs_{other}"] = check(
+            f"{name} vs {other}", outs, [fn(*c) for c in calls], tol)
+    del outs, refs
+    from gabby_tpu_torch.ops.quant import unpack_int4
+    dense = [(q if bits == 8 else torch.stack(
+        [unpack_int4(q[i]) for i in range(nl)])).bfloat16()
+        * sc[:, None, :].bfloat16() for q, sc, _ in mats]
+    if default is not None:
+        extra["default_path_ms"] = time_ms(
+            lambda: [default(*c) for c in calls], iters)
+    if default is not None or by_projection:
+        extra["by_projection_graph_ms"] = {
+            f"{k}x{n}": [graph_ms(lambda: [kernel(x, q, sc, layer)
+                                           for layer in range(nl)],
+                                  iters),
+                         graph_ms(lambda: [torch.matmul(x, w[layer])
+                                           for layer in range(nl)],
+                                  iters)]
+            for (k, n), (q, sc, x), w in zip(projs, mats, dense)}
+    nbytes = sum(nl * (q[0].numel() + sc[0].numel() * 4 + x.numel() * 2
+                       + m * q.shape[2] * 2) for q, sc, x in mats)
+    ops = sum(nl * 2 * m * x.shape[1] * q.shape[2] for q, sc, x in mats)
+    results.append(dict(
+        name=name if case is None else f"{name} ({case})", counter=name,
+        shapes=f"{what}: wqkv, wo, w_gup, w_down x {nl} layers, M={m}",
+        route="cuda", source=source, replaces=replaces, max_abs_err=err,
+        ms=time_ms(lambda: [kernel(*c) for c in calls], iters),
+        graph_ms=graph_ms(lambda: [kernel(*c) for c in calls], iters),
+        plain_ms=time_ms(lambda: [plain(*c) for c in calls], 3),
+        library_ms=time_ms(lambda: [torch.matmul(x, w[layer])
+                                    for layer in range(nl)
+                                    for w, (_, _, x) in zip(dense, mats)],
+                           iters),
+        **extra, **bound(nbytes, ops, peak)))
+
+
+def projections(cfg) -> list:
+    """The four projections of a layer, (K, N): wqkv, wo, w_gup, w_down."""
+    d = cfg.hidden_size
+    return [(d, cfg.q_dim + 2 * cfg.kv_dim), (cfg.q_dim, d),
+            (d, 2 * cfg.intermediate_size), (cfg.intermediate_size, d)]
+
+
 def kernel_phase(cfg, dev):
     """K1-K33 at the 1B serving shapes against their plain versions."""
     from gabby_tpu_torch.ops import cuda as ck
@@ -302,82 +401,10 @@ def kernel_phase(cfg, dev):
         return torch.randint(-128, 128, shape, generator=g, device=dev,
                              dtype=torch.int32).to(torch.int8)
 
-    # the four projections of a layer: wqkv, wo, w_gup, w_down
-    projs = [(d, cfg.q_dim + 2 * cfg.kv_dim), (cfg.q_dim, d),
-             (d, 2 * cfg.intermediate_size), (cfg.intermediate_size, d)]
+    projs = projections(cfg)
 
-    def stacked_case(name, source, replaces, kernel, plain, *, bits, m,
-                     what, iters=10, exact=None, peak=BF16_FLOP_PER_S,
-                     default=None, close=None):
-        """One call set of a stacked-weight kernel: 4 projections x 16
-        layers at M = m, against its plain version, timed, with the
-        dequantized bf16 `torch.matmul` as the library yardstick. `exact`
-        names a keyword that makes kernel and plain version also return an
-        integer tensor that must be equal. `default`: the port's own path
-        for the same products when the kernel is switched off, timed as
-        `default_path_ms`; the kernel's and the library's graph times are
-        then also given by projection. `close`: (what, kernel, tol), another
-        kernel that must agree with this one within tol on the same
-        inputs."""
-        rows = 2 if bits == 4 else 1  # weight rows per packed byte row
-        mats = []
-        for k, n in projs:
-            mats.append((rand_bytes(nl, k // rows, n),
-                         torch.rand((nl, n), generator=g, device=dev)
-                         * (0.02 if bits == 4 else 0.002),
-                         torch.randn((m, k), generator=g,
-                                     device=dev).bfloat16()))
-        calls = [(x, q, sc, layer) for layer in range(nl)
-                 for q, sc, x in mats]
-        if exact:
-            outs, accs = zip(*[kernel(*c, **{exact: True}) for c in calls])
-            refs, ref_accs = zip(*[plain(*c, **{exact: True})
-                                   for c in calls])
-            for acc, ref_acc in zip(accs, ref_accs):
-                if not torch.equal(acc, ref_acc):
-                    raise AssertionError(f"{name}: integer accumulators "
-                                         f"differ")
-            del accs, ref_accs
-        else:
-            outs = [kernel(*c) for c in calls]
-            refs = [plain(*c) for c in calls]
-        err = check(name, outs, refs)
-        extra = {}
-        if close is not None:
-            other, fn, tol = close
-            extra[f"max_abs_err_vs_{other}"] = check(
-                f"{name} vs {other}", outs, [fn(*c) for c in calls], tol)
-        del outs, refs
-        dense = [(q if bits == 8 else torch.stack(
-            [unpack_int4(q[i]) for i in range(nl)])).bfloat16()
-            * sc[:, None, :].bfloat16() for q, sc, _ in mats]
-        if default is not None:
-            extra["default_path_ms"] = time_ms(
-                lambda: [default(*c) for c in calls], iters)
-            extra["by_projection_graph_ms"] = {
-                f"{k}x{n}": [graph_ms(lambda: [kernel(x, q, sc, layer)
-                                               for layer in range(nl)],
-                                      iters),
-                             graph_ms(lambda: [torch.matmul(x, w[layer])
-                                               for layer in range(nl)],
-                                      iters)]
-                for (k, n), (q, sc, x), w in zip(projs, mats, dense)}
-        nbytes = sum(nl * (q[0].numel() + sc[0].numel() * 4 + x.numel() * 2
-                           + m * q.shape[2] * 2) for q, sc, x in mats)
-        ops = sum(nl * 2 * m * x.shape[1] * q.shape[2] for q, sc, x in mats)
-        results.append(dict(
-            name=name, shapes=f"{what}: wqkv, wo, w_gup, w_down x 16 "
-            f"layers, M={m}", route="cuda", source=source,
-            replaces=replaces, max_abs_err=err,
-            ms=time_ms(lambda: [kernel(*c) for c in calls], iters),
-            graph_ms=graph_ms(lambda: [kernel(*c) for c in calls], iters),
-            plain_ms=time_ms(lambda: [plain(*c) for c in calls], 3),
-            library_ms=time_ms(lambda: [torch.matmul(x, w[layer])
-                                        for layer in range(nl)
-                                        for w, (_, _, x) in zip(dense,
-                                                                mats)],
-                               iters),
-            **extra, **bound(nbytes, ops, peak)))
+    def stacked_case(*args, **kw):
+        stacked_case_into(results, g, nl, projs, *args, **kw)
 
     def attn_case(*args, **kw):
         attn_case_into(results, nl, *args, **kw)
@@ -385,22 +412,27 @@ def kernel_phase(cfg, dev):
     pa = "gabby_tpu/ops/pallas/attention.py"
     csrc = "gabby_tpu_torch/csrc/"
     qm = "gabby_tpu/ops/pallas/quant_matmul.py"
-    # K1: one decode step's 64 launches (4 projections x 16 layers), M = 8
-    stacked_case("int4_matmul_stacked",
-                 "gabby_tpu_torch/csrc/quant_matmul.cu", qm + ":424",
-                 cqm.qmatmul_int4_stacked, cqm.int4_stacked_plain, bits=4,
-                 m=b, what="one decode step")
-    # K33: K1's call set through the raw-byte-dot form, also against K1 on
+    # K1: one decode step's 64 launches (4 projections x 16 layers), M = 8,
+    # then a verify macro-step's (8 slots x 8 rows: M = 64); each call
+    # twice, bit for bit (K split over a cluster, summed in rank order)
+    k1 = "gabby_tpu_torch/csrc/quant_matmul_stacked.cu"
+    for m, what in ((b, "one decode step"), (64, "one verify macro-step")):
+        stacked_case("int4_matmul_stacked", k1, qm + ":424",
+                     cqm.qmatmul_int4_stacked, cqm.int4_stacked_plain,
+                     bits=4, m=m, what=what, by_projection=True, repeat=True,
+                     case=None if m == b else f"M={m}")
+    # K33: K1's call sets through the raw-byte-dot form, also against K1 on
     # the same inputs within the two forms' distance (one bf16 rounding of
     # x_even - x_odd / 16; tests/test_pallas_kernels.py:371 holds the TPU
     # kernels to 4e-2)
-    stacked_case("int4_matmul_stacked_rawdot",
-                 "gabby_tpu_torch/csrc/quant_matmul.cu", qm + ":455",
-                 cqm.qmatmul_int4_stacked_rawdot,
-                 cqm.int4_stacked_rawdot_plain, bits=4, m=b,
-                 what="one decode step",
-                 close=("int4_matmul_stacked", cqm.qmatmul_int4_stacked,
-                        dict(rtol=4e-2, atol=4e-2)))
+    for m, what in ((b, "one decode step"), (64, "one verify macro-step")):
+        stacked_case("int4_matmul_stacked_rawdot", k1, qm + ":455",
+                     cqm.qmatmul_int4_stacked_rawdot,
+                     cqm.int4_stacked_rawdot_plain, bits=4, m=m, what=what,
+                     by_projection=True, repeat=True,
+                     case=None if m == b else f"M={m}",
+                     close=("int4_matmul_stacked", cqm.qmatmul_int4_stacked,
+                            dict(rtol=4e-2, atol=4e-2)))
     # K5: the same call set on int8 stacks
     stacked_case("int8_matmul_stacked",
                  "gabby_tpu_torch/csrc/quant_matmul.cu", qm + ":504",
@@ -947,8 +979,8 @@ def head128_phase(cfg3, dev) -> list:
     verify (verify_attention.cu), K17 paired paged decode
     (paged_attention.cu), K15 paired s8 decode (attention_s8.cu, the 3B
     default) and K21 paired prefill (prefill_attention.cu), each against
-    its plain version, timed as the 1B cases are. Emitted on lines of
-    their own."""
+    its plain version, timed as the 1B cases are; then K1 at the 3B's four
+    projections x 28 layers, M = 8. Emitted on lines of their own."""
     from gabby_tpu_torch.ops.cuda import attention as cattn
     from gabby_tpu_torch.ops.cuda import paged_attention as cpaged
     from gabby_tpu_torch.ops.cuda import prefill_attention as cpfa
@@ -1081,6 +1113,16 @@ def head128_phase(cfg3, dev) -> list:
                + 2 * nk * t4 * h * 2), nl * 4 * nq * h * keys4, iters=3,
          equal=lambda i: cpfa.prefill_attention(q4, kc, vc, ks, vs, 3, off4,
                                                 layer=i, **kw4))
+    del kc, vc, ks, vs, kcp, vcp, kd, vd
+    # K1 at the 3B's four projections, one decode step (28 layers, M = 8)
+    from gabby_tpu_torch.ops.cuda import quant_matmul as cqm
+    stacked_case_into(results, g, nl, projections(cfg3),
+                      "int4_matmul_stacked",
+                      csrc + "quant_matmul_stacked.cu",
+                      "gabby_tpu/ops/pallas/quant_matmul.py:424",
+                      cqm.qmatmul_int4_stacked, cqm.int4_stacked_plain,
+                      bits=4, m=b, what="one decode step", by_projection=True,
+                      repeat=True)
     for r in results:
         emit({"phase": "kernels_h128", "model": "llama32_3b", **r})
     return results
@@ -1613,7 +1655,8 @@ def main() -> int:
         build.build(verbose=True)  # with -Xptxas -v
     build.library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0})
-    for src in ("quant_matmul_prefill.cu", "prefill_attention.cu"):
+    for src in ("quant_matmul_prefill.cu", "prefill_attention.cu",
+                "quant_matmul_stacked.cu"):
         emit({"phase": "build", "ptxas": src,
               "lines": ptxas_lines(log.getvalue(), src)})
 

@@ -1,8 +1,9 @@
 // Device and host helpers of the TMA + wgmma int4 kernels (K7 in
-// quant_matmul_prefill.cu, K2 in quant_matmul_unembed.cu): mbarriers, TMA
-// tile copies, wgmma fences and the m64n64k16 product with A from
-// registers, the 128-byte-swizzle descriptor, the conversion of int4 codes
-// to bf16 pairs, and the tensor maps.
+// quant_matmul_prefill.cu, K2 in quant_matmul_unembed.cu, K1 and K33 in
+// quant_matmul_stacked.cu): mbarriers, TMA tile copies, wgmma fences and
+// the m64n8k16 / m64n64k16 products with A from registers, the
+// 128-byte-swizzle descriptor, the conversion of int4 codes to bf16 pairs
+// and the ldmatrix unpack of a stage, and the tensor maps.
 
 #pragma once
 
@@ -138,6 +139,19 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
+// wgmma m64n8k16, A (the codes) from registers, B (x) by descriptor
+__device__ __forceinline__ void wgmma_n8(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
 // bf16 pairs of the two codes in bytes 0 and 2 of v: v - 136 after
 // 0x4300 | u made 128 + u (exact)
 __device__ __forceinline__ uint32_t minus136(uint32_t v) {
@@ -146,6 +160,44 @@ __device__ __forceinline__ uint32_t minus136(uint32_t v) {
       : "=r"(r)
       : "r"(v), "r"(0x3F803F80u), "r"(0xC308C308u));
   return r;
+}
+
+// A fragments of one stage of packed codes ([64 rows][128 channels] as
+// TMA's 128-byte swizzle lays it) for both nibble planes, a[half][k16
+// step][4], for the warp's 16 channels `chunk` (fragment row g is channel
+// 2g, row g + 8 channel 2g + 1), read through ldmatrix: two .x4.trans
+// loads give a thread, for each k16 step s, r_a = rows 16s + 2t, 16s + 2t
+// + 1 and r_b = rows 16s + 8 + 2t, 16s + 9 + 2t of its channels 2g, 2g + 1
+// (bytes: row 2t ch 2g, row 2t ch 2g + 1, row 2t + 1 ch 2g, row 2t + 1 ch
+// 2g + 1), so that one channel's two codes sit in bytes 0 and 2 (ch 2g) or
+// 1 and 3 (ch 2g + 1). Rows are read through the 128-byte swizzle: 16-byte
+// chunk c of row r at r * 128 + ((c ^ (r & 7)) << 4), eight distinct
+// chunks a phase, so no bank conflicts. The lo plane gives lo - 8, the hi
+// plane the signed high nibble.
+__device__ __forceinline__ void unpack_stage_ldm(const uint8_t* w, int chunk,
+                                                 int lane,
+                                                 uint32_t (&a)[2][4][4]) {
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int r = 32 * q + lane;
+    uint32_t m[4];
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4];\n"
+        : "=r"(m[0]), "=r"(m[1]), "=r"(m[2]), "=r"(m[3])
+        : "r"(smem_addr(w + r * 128 + ((chunk ^ (r & 7)) << 4))));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int s = 2 * q + h;
+      const uint32_t ra = m[2 * h], rb = m[2 * h + 1];
+      const uint32_t v[4] = {ra, ra >> 8, rb, rb >> 8};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        a[0][s][j] = minus136((v[j] & 0x000F000Fu) | 0x43004300u);
+        a[1][s][j] = minus136(((v[j] >> 4) & 0x000F000Fu) ^ 0x43084308u);
+      }
+    }
+  }
 }
 
 // cuTensorMapEncodeTiled, looked up through the runtime (no link against
@@ -171,33 +223,64 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The two tensor maps of an int4 product: xmap, x [M, K] bf16 seen as
-// [M][2][K/2] (the two halves of the pairing), boxes of 64 columns x bt
-// rows; wmap, the packed [K/2, N] int8 plane, boxes of 128 channels x 64
-// rows. Both 128-byte swizzled, zero past the edges.
+// x [M, K] bf16 seen as [M][2][K/2] (the two halves of the pairing),
+// boxes of 64 columns x bt rows, 128-byte swizzled, zero past the edges
+// (rows past M read as 0).
+cudaError_t int4_x_map(const void* x, int M, int K, int bt,
+                       CUtensorMap* xmap) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dim[3] = {(cuuint64_t)K / 2, 2, (cuuint64_t)M};
+  const cuuint64_t stride[2] = {(cuuint64_t)K, (cuuint64_t)K * 2};
+  const cuuint32_t box[3] = {64, 1, (cuuint32_t)bt}, ones[3] = {1, 1, 1};
+  return encode(xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(x), dim, stride, box, ones,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
+// The packed stack [L, K/2, N] int8 (K1, K33), boxes of 128 channels x 64
+// rows x 1 layer, 128-byte swizzled: the layer is the copy's third
+// coordinate, so one map serves every layer.
+cudaError_t int4_stack_map(const void* packed, int layers, int K, int N,
+                           CUtensorMap* wmap) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dim[3] = {(cuuint64_t)N, (cuuint64_t)K / 2,
+                             (cuuint64_t)layers};
+  const cuuint64_t stride[2] = {(cuuint64_t)N, (cuuint64_t)N * (K / 2)};
+  const cuuint32_t box[3] = {128, 64, 1}, ones[3] = {1, 1, 1};
+  return encode(wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3,
+                const_cast<void*>(packed), dim, stride, box, ones,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
+// The two tensor maps of a product on one [K/2, N] plane (K7, K2):
+// int4_x_map with boxes of bt rows, and the packed plane, 2-D, boxes of 128
+// channels x 64 rows, 128-byte swizzled, zero past the edges.
 cudaError_t int4_tensor_maps(const void* x, const void* packed, int M,
                              int K, int N, int bt, CUtensorMap* xmap,
                              CUtensorMap* wmap) {
+  const cudaError_t err = int4_x_map(x, M, K, bt, xmap);
+  if (err != cudaSuccess) return err;
   EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t xdim[3] = {(cuuint64_t)K / 2, 2, (cuuint64_t)M};
-  const cuuint64_t xstride[2] = {(cuuint64_t)K, (cuuint64_t)K * 2};
-  const cuuint32_t xbox[3] = {64, 1, (cuuint32_t)bt}, ones[3] = {1, 1, 1};
   const cuuint64_t wdim[2] = {(cuuint64_t)N, (cuuint64_t)K / 2};
   const cuuint64_t wstride[1] = {(cuuint64_t)N};
-  const cuuint32_t wbox[2] = {128, 64};
-  if (encode(xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-             const_cast<void*>(x), xdim, xstride, xbox, ones,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
-      encode(wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
-             const_cast<void*>(packed), wdim, wstride, wbox, ones,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return cudaErrorInvalidValue;
-  return cudaSuccess;
+  const cuuint32_t wbox[2] = {128, 64}, ones[2] = {1, 1};
+  return encode(wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+                const_cast<void*>(packed), wdim, wstride, wbox, ones,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
 }
 
 cudaError_t multiprocessors(int* dev, int* sms) {

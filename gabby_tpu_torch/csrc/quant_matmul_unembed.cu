@@ -107,19 +107,6 @@ constexpr size_t smem_bytes() {
          2 * kStages * sizeof(uint64_t);
 }
 
-// wgmma m64n8k16, A (the codes) from registers, B (x) by descriptor
-__device__ __forceinline__ void wgmma_n8(float (&d)[4],
-                                         const uint32_t (&a)[4],
-                                         uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
 template <int BT>
 __device__ __forceinline__ void wgmma_tile(float (&d)[BT / 2],
                                            const uint32_t (&a)[4],
@@ -128,42 +115,6 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[BT / 2],
     wgmma_n8(d, a, desc);
   else
     wgmma_n64(d, a, desc);
-}
-
-// A fragments of one stage for both halves, a[half][k16 step][4], in the
-// layout of K7's unpack (fragment row g is channel 2g, row g + 8 channel
-// 2g + 1), read through ldmatrix: two .x4.trans loads give a thread, for
-// each k16 step s, r_a = rows 16s + 2t, 16s + 2t + 1 and r_b = rows
-// 16s + 8 + 2t, 16s + 9 + 2t of its channels 2g, 2g + 1 (bytes: row 2t
-// ch 2g, row 2t ch 2g + 1, row 2t + 1 ch 2g, row 2t + 1 ch 2g + 1), so
-// that one channel's two codes sit in bytes 0 and 2 (ch 2g) or 1 and 3
-// (ch 2g + 1). Rows are read through the 128-byte swizzle: 16-byte chunk
-// c of row r at r * 128 + ((c ^ (r & 7)) << 4), eight distinct chunks a
-// phase, so no bank conflicts.
-__device__ __forceinline__ void unpack_stage(const uint8_t* w, int chunk,
-                                             int lane,
-                                             uint32_t (&a)[2][4][4]) {
-#pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    const int r = 32 * q + lane;
-    uint32_t m[4];
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-        "[%4];\n"
-        : "=r"(m[0]), "=r"(m[1]), "=r"(m[2]), "=r"(m[3])
-        : "r"(smem_addr(w + r * 128 + ((chunk ^ (r & 7)) << 4))));
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int s = 2 * q + h;
-      const uint32_t ra = m[2 * h], rb = m[2 * h + 1];
-      const uint32_t v[4] = {ra, ra >> 8, rb, rb >> 8};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        a[0][s][j] = minus136((v[j] & 0x000F000Fu) | 0x43004300u);
-        a[1][s][j] = minus136(((v[j] >> 4) & 0x000F000Fu) ^ 0x43084308u);
-      }
-    }
-  }
 }
 
 // xmap, wmap: int4_tensor_maps (int4_wgmma.cuh) of x and the packed plane,
@@ -245,7 +196,7 @@ int4_unembed_kernel(const __grid_constant__ CUtensorMap xmap,
     return;
   }
   mbar_wait(full, 0);
-  unpack_stage(smem + 2 * BT * 128, chunk, lane, a[0]);
+  unpack_stage_ldm(smem + 2 * BT * 128, chunk, lane, a[0]);
   int strip = blockIdx.x, j = 0;  // the strip and stage of step i
   // Step i: issue stage i's products from the fragments unpacked in step
   // i - 1; while they run, wait for stage i + 1 and unpack it into the
@@ -279,8 +230,8 @@ int4_unembed_kernel(const __grid_constant__ CUtensorMap xmap,
         const int s1 = (i + 1) % kS;
         mbar_wait(full + 8 * s1, ((i + 1) / kS) & 1);
         if constexpr (K2_PROBE != 2)
-          unpack_stage(smem + s1 * kStage + 2 * BT * 128, chunk, lane,
-                       a[b ^ 1]);
+          unpack_stage_ldm(smem + s1 * kStage + 2 * BT * 128, chunk, lane,
+                           a[b ^ 1]);
       }
       wgmma_wait<0>();
       fence_operands(lo);

@@ -112,11 +112,13 @@ _F = ctypes.c_float
 # C entry points: pointers and the stream as void*, ints as int; each
 # returns the cudaError_t of its launch (0 = success)
 _SIGNATURES = {
-    # x, packed (layer offset), scale (layer offset), out, workspace;
-    # M, K, N, n_split; stream
-    "gabby_int4_matmul": [_P] * 5 + [_I] * 4 + [_P],
+    # K1: x, the stack's tensor map (host bytes), scale (layer offset),
+    # out; M, K, N, layer, bt, split (stacked_plan); stream
+    "gabby_int4_matmul": [_P] * 4 + [_I] * 6 + [_P],
     # K33, the raw-byte-dot form: the same arguments
-    "gabby_int4_matmul_rawdot": [_P] * 5 + [_I] * 4 + [_P],
+    "gabby_int4_matmul_rawdot": [_P] * 4 + [_I] * 6 + [_P],
+    # packed stack; L, K, N; the 128-byte map to fill
+    "gabby_int4_stacked_map": [_P] + [_I] * 3 + [_P],
     # K2: x, packed, scale, out; M, K, N, group; stream
     "gabby_int4_unembed": [_P] * 4 + [_I] * 4 + [_P],
     # workspace, scale, out; M, N; stream

@@ -2,12 +2,14 @@
 gabby_tpu/ops/pallas/quant_matmul.py) and their plain PyTorch versions.
 
 K1 `qmatmul_int4_stacked`: x [M <= 64, K] @ int4 W[layer], W stacked
-   [L, K/2, N] with per-channel scales [L, N] (csrc/quant_matmul.cu,
-   replacing _qmatmul_int4_stacked :524 / _int4_stacked_kernel :424).
+   [L, K/2, N] with per-channel scales [L, N], on the tensor cores with K
+   split over a cluster of blocks (`stacked_plan`), one launch a call
+   (csrc/quant_matmul_stacked.cu, replacing _qmatmul_int4_stacked :524 /
+   _int4_stacked_kernel :424).
 K33 `qmatmul_int4_stacked_rawdot`: K1's product in the raw-byte-dot form
-   that `ck.int4_rawdot()` selects (csrc/quant_matmul.cu, replacing
-   _int4_stacked_rawdot_kernel :455, which _qmatmul_int4_stacked takes
-   under GABBY_INT4_RAWDOT=1).
+   that `ck.int4_rawdot()` selects, on K1's kernel (csrc/
+   quant_matmul_stacked.cu, replacing _int4_stacked_rawdot_kernel :455,
+   which _qmatmul_int4_stacked takes under GABBY_INT4_RAWDOT=1).
 K2 `qmatmul_int4_grouped`: x [M <= 64, K] @ int4 W [K/2, N] with group
    scales [K/group, N] along K — the int4 unembed, on the tensor cores
    (csrc/quant_matmul_unembed.cu, replacing _qmatmul_int4_grouped :669 /
@@ -33,6 +35,8 @@ raise. x is bf16 on the card; the output is in x's dtype.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -42,6 +46,8 @@ from gabby_tpu_torch.ops import cuda as ck
 MAX_M = 64
 _STRIP = 128  # output columns per block (kStrip of the decode kernels)
 _TARGET_BLOCKS = 264  # two blocks per SM on a 132-SM H100
+_STAGE_ROWS = 64  # packed rows per stage of K1's kernel (kBKP)
+MAX_SPLIT = 8  # blocks a strip's K is split over: the portable cluster size
 
 
 def _unpack(packed: torch.Tensor) -> torch.Tensor:
@@ -144,6 +150,88 @@ def _n_split(n: int, rows: int, multiple: int = 1) -> int:
     return split
 
 
+def stacked_plan(m: int, kp: int, n: int, sms: int) -> tuple[int, int]:
+    """The launch of K1/K33 (csrc/quant_matmul_stacked.cu) for x [m, 2 kp]
+    against a packed [kp, n] plane on a card of `sms` multiprocessors:
+    (bt, split). bt is the token tile: 8 for m <= 8 (wgmma n8, two blocks a
+    multiprocessor), 64 above (one). split is the number of blocks in the
+    cluster that shares one 128-channel strip's kp / 64 stages: the largest
+    power of two that divides the stages, stays within `split_cap(bt)` and
+    keeps the grid (strips x split) within one wave of blocks; at least 1.
+    (The cross-block reduction of a [64, 128] f32 partial costs more than
+    the idle multiprocessors it saves beyond 4 blocks, so the M = 64 form
+    leaves some idle at the 1B shapes.)"""
+    if not 1 <= m <= MAX_M:
+        raise ValueError(f"int4 stacked matmul takes 1..{MAX_M} rows, got "
+                         f"{m}")
+    if kp <= 0 or kp % _STAGE_ROWS or n <= 0 or n % _STRIP:
+        raise ValueError(f"int4 stacked matmul takes K/2 a multiple of "
+                         f"{_STAGE_ROWS} and N a multiple of {_STRIP}, got "
+                         f"K/2 {kp}, N {n}")
+    bt = 8 if m <= 8 else 64
+    stages, strips = kp // _STAGE_ROWS, n // _STRIP
+    slots = sms * (2 if bt == 8 else 1)
+    split = 1
+    while (2 * split <= split_cap(bt) and stages % (2 * split) == 0
+           and strips * 2 * split <= slots):
+        split *= 2
+    return bt, split
+
+
+def split_cap(bt: int) -> int:
+    """The most blocks stacked_plan splits a strip's K over at token tile
+    bt: the portable cluster size at bt = 8, half of it at bt = 64."""
+    return MAX_SPLIT if bt == 8 else MAX_SPLIT // 2
+
+
+@functools.lru_cache(maxsize=None)
+def _multiprocessors(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# the tensor maps of the stacks K1/K33 have seen, by (data_ptr, shape,
+# strides): a map depends on nothing else, so a call encodes only x's
+_STACK_MAPS: dict = {}
+
+
+def _stack_map(packed: torch.Tensor):
+    key = (packed.data_ptr(), tuple(packed.shape), packed.stride())
+    wmap = _STACK_MAPS.get(key)
+    if wmap is None:
+        from gabby_tpu_torch.ops.cuda import build
+        nl, kp, n = packed.shape
+        wmap = ctypes.create_string_buffer(128)  # sizeof(CUtensorMap)
+        build.check(build.library().gabby_int4_stacked_map(
+            packed.data_ptr(), nl, 2 * kp, n, ctypes.addressof(wmap)),
+            "int4 stacked matmul: the weight's tensor map")
+        if len(_STACK_MAPS) >= 64:
+            _STACK_MAPS.clear()
+        _STACK_MAPS[key] = wmap
+    return wmap
+
+
+def _launch_stacked(name: str, entry: str, what: str, x, packed, scale,
+                    layer: int) -> torch.Tensor:
+    """K1 or K33 through its C entry point `entry`: one launch, no
+    workspace."""
+    _, s_ptr = _layer_ptrs(what, packed, scale, layer)
+    _, kp, n = packed.shape
+    # K/2 a multiple of 64 (the kernel's stages), N of 128 (its strips)
+    _check(what, x, packed, scale, 2 * kp, n, k_multiple=128,
+           n_multiple=128)
+    m = x.shape[0]
+    bt, split = stacked_plan(m, kp, n, _multiprocessors(x.device.index))
+    from gabby_tpu_torch.ops.cuda import build
+    lib = build.library()
+    wmap = _stack_map(packed)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    build.check(getattr(lib, entry)(
+        x.data_ptr(), ctypes.addressof(wmap), s_ptr, out.data_ptr(), m,
+        2 * kp, n, layer, bt, split, build.stream_ptr(x.device)), name)
+    ck.launch_counts[name] += 1
+    return out
+
+
 def _check(what: str, x, q, scale, k: int, n: int, *,
            max_m: Optional[int] = MAX_M, k_multiple: int = 2,
            n_multiple: int = 16) -> None:
@@ -181,8 +269,8 @@ def _layer_ptrs(what: str, q, scale, layer: int):
 
 def _launch(name: str, entry: str, x, q_ptr: int, scale_ptr: int, k: int,
             n: int, rows: int) -> torch.Tensor:
-    """The decode kernel of csrc/quant_matmul.cu through its C entry point
-    `entry` (K1, K33, K5, K6; `rows` is the weight plane's row count), with
+    """The int8 decode kernel of csrc/quant_matmul.cu through its C entry
+    point `entry` (K5, K6; `rows` is the weight plane's row count), with
     its split-K workspace and finalize pass."""
     from gabby_tpu_torch.ops.cuda import build
     lib = build.library()
@@ -206,29 +294,27 @@ def _launch(name: str, entry: str, x, q_ptr: int, scale_ptr: int, k: int,
 
 def qmatmul_int4_stacked(x: torch.Tensor, packed: torch.Tensor,
                          scale: torch.Tensor, layer: int) -> torch.Tensor:
-    """K1. x [M, K]; packed [L, K/2, N] int8; scale [L, N] f32 -> [M, N]."""
+    """K1. x [M, K]; packed [L, K/2, N] int8; scale [L, N] f32 -> [M, N].
+    On the card K/2 must be a multiple of 64 and N of 128; the plain
+    version takes any even K."""
     if not x.is_cuda:
         return int4_stacked_plain(x, packed, scale, layer)
-    q_ptr, s_ptr = _layer_ptrs("int4 stacked matmul", packed, scale, layer)
-    _, kp, n = packed.shape
-    _check("int4 stacked matmul", x, packed, scale, 2 * kp, n)
-    return _launch("int4_matmul_stacked", "gabby_int4_matmul", x, q_ptr,
-                   s_ptr, 2 * kp, n, kp)
+    return _launch_stacked("int4_matmul_stacked", "gabby_int4_matmul",
+                           "int4 stacked matmul", x, packed, scale, layer)
 
 
 def qmatmul_int4_stacked_rawdot(x: torch.Tensor, packed: torch.Tensor,
                                 scale: torch.Tensor,
                                 layer: int) -> torch.Tensor:
-    """K33, K1's raw-byte-dot form (`ck.int4_rawdot()`). x [M, K]; packed
-    [L, K/2, N] int8; scale [L, N] f32 -> [M, N]."""
+    """K33, K1's raw-byte-dot form (`ck.int4_rawdot()`), on K1's kernel and
+    shape rules. x [M, K]; packed [L, K/2, N] int8; scale [L, N] f32 ->
+    [M, N]."""
     if not x.is_cuda:
         return int4_stacked_rawdot_plain(x, packed, scale, layer)
-    what = "int4 stacked raw-byte-dot matmul"
-    q_ptr, s_ptr = _layer_ptrs(what, packed, scale, layer)
-    _, kp, n = packed.shape
-    _check(what, x, packed, scale, 2 * kp, n)
-    return _launch("int4_matmul_stacked_rawdot", "gabby_int4_matmul_rawdot",
-                   x, q_ptr, s_ptr, 2 * kp, n, kp)
+    return _launch_stacked("int4_matmul_stacked_rawdot",
+                           "gabby_int4_matmul_rawdot",
+                           "int4 stacked raw-byte-dot matmul", x, packed,
+                           scale, layer)
 
 
 def qmatmul_int4_grouped(x: torch.Tensor, packed: torch.Tensor,

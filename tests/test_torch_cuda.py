@@ -62,14 +62,24 @@ def _packed(dev, g, *shape):
                          dtype=torch.int32).to(torch.int8)
 
 
-@pytest.mark.parametrize("m", [1, 8, 64])
-@pytest.mark.parametrize("k,n", [(2048, 3072), (2048, 2048), (8192, 2048),
-                                 (2048, 16384)])
-def test_int4_stacked(dev, m, k, n):
-    g = _gen(dev, 0)
+# the four projections (wqkv, wo, w_gup, w_down: K -> N) of Llama-3.2-1B,
+# Llama-3.2-3B and Llama-3-8B
+PROJECTIONS = [(2048, 3072), (2048, 2048), (2048, 16384), (8192, 2048),
+               (3072, 5120), (3072, 3072), (3072, 16384), (8192, 3072),
+               (4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096)]
+
+
+def _stack(dev, g, m, k, n):
     packed = _packed(dev, g, 3, k // 2, n)
     scale = torch.rand((3, n), generator=g, device=dev) * 0.02
     x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    return x, packed, scale
+
+
+@pytest.mark.parametrize("m", [1, 8, 13, 64])
+@pytest.mark.parametrize("k,n", PROJECTIONS)
+def test_int4_stacked(dev, m, k, n):
+    x, packed, scale = _stack(dev, _gen(dev, 0), m, k, n)
     before = ck.launch_counts["int4_matmul_stacked"]
     out = cqm.qmatmul_int4_stacked(x, packed, scale, 2)
     torch.cuda.synchronize()
@@ -78,16 +88,13 @@ def test_int4_stacked(dev, m, k, n):
     torch.testing.assert_close(out.float(), ref.float(), **TOL)
 
 
-@pytest.mark.parametrize("m", [1, 8, 64])
-@pytest.mark.parametrize("k,n", [(2048, 3072), (8192, 2048)])
+@pytest.mark.parametrize("m", [1, 8, 13, 64])
+@pytest.mark.parametrize("k,n", PROJECTIONS)
 def test_int4_stacked_rawdot(dev, m, k, n):
     """K33 on layer 2 of a stack against its plain version, and against
     K1 within the two forms' distance (one bf16 rounding of x_even -
     x_odd / 16; 4e-2, as tests/test_pallas_kernels.py:371 holds them)."""
-    g = _gen(dev, 30)
-    packed = _packed(dev, g, 3, k // 2, n)
-    scale = torch.rand((3, n), generator=g, device=dev) * 0.02
-    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    x, packed, scale = _stack(dev, _gen(dev, 30), m, k, n)
     before = ck.launch_counts["int4_matmul_stacked_rawdot"]
     out = cqm.qmatmul_int4_stacked_rawdot(x, packed, scale, 2)
     torch.cuda.synchronize()
@@ -97,6 +104,38 @@ def test_int4_stacked_rawdot(dev, m, k, n):
     torch.testing.assert_close(
         out.float(), cqm.qmatmul_int4_stacked(x, packed, scale, 2).float(),
         rtol=4e-2, atol=4e-2)
+
+
+STACKED_KERNELS = {"int4_matmul_stacked": cqm.qmatmul_int4_stacked,
+                   "int4_matmul_stacked_rawdot":
+                       cqm.qmatmul_int4_stacked_rawdot}
+
+
+@pytest.mark.parametrize("name", sorted(STACKED_KERNELS))
+@pytest.mark.parametrize("m,k,n", [(8, 2048, 2048), (8, 8192, 2048),
+                                   (64, 2048, 16384), (13, 3072, 5120)])
+def test_int4_stacked_repeats_its_bits(dev, name, m, k, n):
+    """K split over a cluster is summed in one fixed order (rank order, no
+    atomics): a repeat on the same inputs gives the same bits."""
+    x, packed, scale = _stack(dev, _gen(dev, 31), m, k, n)
+    fn = STACKED_KERNELS[name]
+    assert torch.equal(fn(x, packed, scale, 1), fn(x, packed, scale, 1))
+
+
+@pytest.mark.parametrize("name", sorted(STACKED_KERNELS))
+def test_int4_stacked_is_one_kernel_a_call(dev, name):
+    """No workspace memset and no finalize pass: one CUDA kernel a call."""
+    x, packed, scale = _stack(dev, _gen(dev, 32), 8, 8192, 2048)
+    fn = STACKED_KERNELS[name]
+    fn(x, packed, scale, 0)
+    torch.cuda.synchronize()
+    cuda = torch.profiler.ProfilerActivity.CUDA
+    with torch.profiler.profile(activities=[cuda]) as prof:
+        fn(x, packed, scale, 0)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1, kernels
 
 
 # the int4 unembeds of Llama-3.2-1B, 3B (6 groups a nibble plane) and
@@ -346,6 +385,17 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
         cqm.qmatmul_int4_stacked_rawdot(
             torch.ones((2, 128), device=dev, dtype=torch.bfloat16), packed,
             scale, 2)
+    # the tensor-core kernel's tiles: N a multiple of 128, K/2 of 64
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    for fn in STACKED_KERNELS.values():
+        with pytest.raises(ValueError, match="multiple of 128"):
+            fn(torch.ones((2, 128), **bf), _packed(dev, g, 2, 64, 192),
+               torch.ones((2, 192), device=dev), 0)
+        with pytest.raises(ValueError, match="multiple of 128"):
+            fn(torch.ones((2, 192), **bf), _packed(dev, g, 2, 96, 128),
+               scale, 0)
+        with pytest.raises(ValueError, match="rows"):
+            fn(torch.ones((65, 128), **bf), packed, scale, 0)
 
 
 # ragged read bounds: empty slot, parked lane (1 row), chunk and page
