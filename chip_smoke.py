@@ -28,16 +28,20 @@ a non-zero exit:
                  than its own tolerance from the bf16/f32 kernel and from
                  the s8 form at half the chunk size, so that the tolerance
                  tells those apart; K33 also against K1 at 4e-2; the
-                 slot-batched kernel against K3 by equality), timed with
+                 slot-batched kernel against K3 by equality; K3, K16 and
+                 K32 twice on the same inputs, bit for bit; K3 also at
+                 unequal positions, 16 to 2000 rows), timed with
                  CUDA events, eagerly and replayed from a CUDA graph (the
                  device's share of the eager time), beside the plain
                  version, one PyTorch library
-                 call computing the same function (yardstick only), and the
+                 call computing the same function (yardstick only; the
+                 attention rows time it eagerly and from a graph), and the
                  least time the card could take (bytes at 3.35 TB/s or
                  operations at the tensor-core peak of the operand type,
                  whichever is larger); then one case per attention source
                  at Llama-3.2-3B's heads (24 q heads over 8 kv heads of
-                 128 dims, 28 layers: K3, K13, K17, K15, K21) and K1 at
+                 128 dims, 28 layers: K3, K16, K32, K13, K17, K15, K21)
+                 and K1 at
                  its four projections x 28 layers, the same way, on lines
                  of their own;
   4. model       the 1B model's prefill + decode on the card (kernels)
@@ -239,24 +243,42 @@ def bound(nbytes: float, ops: float,
             else dict(bound_ms=t_ops, bound_by="operations"))
 
 
+def library_graph(library, nl: int, iters: int) -> dict:
+    """The library call's `nl` launches replayed from a CUDA graph, so that
+    a kernel's graph time has a graph time beside it; where the call
+    cannot be captured, None and the reason."""
+    try:
+        return dict(library_graph_ms=graph_ms(
+            lambda: [library(i) for i in range(nl)], iters))
+    except RuntimeError as e:  # a capture the library call refuses
+        torch.cuda.synchronize()
+        return dict(library_graph_ms=None,
+                    library_graph_error=str(e).splitlines()[0])
+
+
 def attn_case_into(results, nl, name, shapes, source, replaces, kernel, plain,
                    library, nbytes, ops, *, iters=10, peak=BF16_FLOP_PER_S,
                    equal=None, close=None, contract=None, tol=ATTN_TOL,
-                   apart=(), case=None):
+                   apart=(), case=None, repeat=False):
     """One attention kernel's `nl` launches (one per layer; kernel, plain
     and library take the layer) against its plain version, timed
     beside it and beside the library call, eagerly (`ms`, what the
     engine pays today) and replayed from a CUDA graph (`graph_ms`, the
-    device's share); the result is appended to `results`. `equal`: another
+    device's share; the library call's as `library_graph_ms`); the result
+    is appended to `results`. `equal`: another
     kernel whose outputs must be the same bit for bit (the same body on
     the same rows re-laid); `close`: one held to `tol`; `contract`: the
     dequantized form, held to S8_CONTRACT_TOL; `apart`: (what, function)
     pairs of other forms of the same attention, from each of which the
     kernel must lie further than `tol` in every layer; `case`: a second
     timing of a kernel at other shapes, listed under its name with the
-    case beside it."""
+    case beside it; `repeat`: every layer's call made again must give the
+    same bits."""
     outs = [kernel(i) for i in range(nl)]
     err = check(name, outs, [plain(i) for i in range(nl)], tol)
+    if repeat and not all(torch.equal(o, kernel(i))
+                          for i, o in enumerate(outs)):
+        raise AssertionError(f"{name}: a repeat on the same inputs differs")
     far = {what: check_apart(f"{name} and {what}", outs,
                              [other(i) for i in range(nl)], tol)
            for what, other in apart}
@@ -280,7 +302,7 @@ def attn_case_into(results, nl, name, shapes, source, replaces, kernel, plain,
         plain_ms=time_ms(lambda: [plain(i) for i in range(nl)], 3),
         library_ms=time_ms(lambda: [library(i) for i in range(nl)],
                            iters),
-        **bound(nbytes, ops, peak)))
+        **library_graph(library, nl, iters), **bound(nbytes, ops, peak)))
 
 
 def stacked_case_into(results, g, nl, projs, name, source, replaces, kernel,
@@ -590,7 +612,8 @@ def kernel_phase(cfg, dev):
 
     decode_case("decode_attention", cattn.decode_attention,
                 cattn.decode_attention_plain, kc, vc, "",
-                source=csrc + "decode_attention.cu", replaces=pa + ":256")
+                source=csrc + "decode_attention.cu", replaces=pa + ":256",
+                repeat=True)
     # K12: K3's work on the paired cache (the shared row body at T = 1)
     decode_case("decode_attention_paired", cattn.decode_attention,
                 cattn.decode_attention_plain, kcp, vcp, ", paired",
@@ -606,13 +629,40 @@ def kernel_phase(cfg, dev):
                 ", paired, s8 dots", **s8_dense,
                 equal=lambda i: cattn.decode_attention_s8(
                     q, kc, vc, ks, vs, pos, layer=i, window=ctx + 1, **kw))
-    # K16: K3's work, 4 slots of a kv head in a block
+    # K16: K3's work through the slot-batched entry point (the same launch
+    # plan, so the same bits)
     decode_case("decode_attention_multi", cattn.decode_attention_multi,
-                cattn.decode_attention_plain, kc, vc,
-                f", {cattn.pick_slot_block(b)} slots a block",
+                cattn.decode_attention_plain, kc, vc, ", slot-batched",
                 source=csrc + "decode_attention.cu", replaces=pa + ":460",
-                equal=k3)
+                equal=k3, repeat=True)
     del kd, vd
+    # K3 at unequal positions, 16 to 2000 rows (window: the whole cache);
+    # the library call is given the rows below the longest slot and a mask
+    spread = torch.tensor([2000, 16, 1024, 300, 1700, 64, 1300, 700],
+                          dtype=torch.int32, device=dev)
+    top = int(spread.max())
+    smask = torch.cat([torch.arange(top, device=dev)[None, :]
+                       < spread[:, None],
+                       torch.ones((b, 1), dtype=torch.bool, device=dev)],
+                      dim=1)[:, None, None, :]
+    kd = [torch.cat([(kc[i, :, :, :top].float() * ks[i, :, :, :top, None])
+                     .bfloat16(), fk[:, :, None]], dim=2) for i in range(nl)]
+    vd = [torch.cat([(vc[i, :, :, :top].float() * vs[i, :, :, :top, None])
+                     .bfloat16(), fv[:, :, None]], dim=2) for i in range(nl)]
+    live = int(spread.sum())
+    attn_case(
+        "decode_attention", "16 layers x [8 slots at 16-2000 rows, 32 q "
+        "heads, 8 kv heads, head 64], int8 cache of 2048 rows",
+        csrc + "decode_attention.cu", pa + ":256",
+        lambda i: cattn.decode_attention(q, kc, vc, ks, vs, spread, layer=i,
+                                         window=s, **kw),
+        lambda i: cattn.decode_attention_plain(q, kc, vc, ks, vs, spread,
+                                               layer=i, **kw),
+        lambda i: sdpa(qt, kd[i], vd[i], attn_mask=smask, enable_gqa=True),
+        nl * (2 * nk * live * (h + 4) + 2 * b * nq * h * 2
+              + 2 * b * nk * h * 2),
+        nl * 4 * nq * h * (live + b), case="spread positions", repeat=True)
+    del kd, vd, smask
 
     def prefill_inputs(t, off):
         """One slot's chunk of t tokens at offset off (slot 3), and what
@@ -859,9 +909,8 @@ def kernel_phase(cfg, dev):
                      pa + ":256", equal=k24)
     # K32: the slot-batched launch over the unpaired bf16 cache
     bf16_decode_case("decode_attention_multi_bf16",
-                     cattn.decode_attention_multi, kb, vb,
-                     f", {cattn.pick_slot_block(b, h)} slots a block",
-                     csrc + "decode_attention.cu", pa + ":460")
+                     cattn.decode_attention_multi, kb, vb, ", slot-batched",
+                     csrc + "decode_attention.cu", pa + ":460", repeat=True)
     # K26, K27: verify, a block of 8
     kd = [torch.cat([kb[i, :, :, :ctx], fkv], dim=2) for i in range(nl)]
     vd = [torch.cat([vb[i, :, :, :ctx], fvv], dim=2) for i in range(nl)]
@@ -975,7 +1024,8 @@ def kernel_phase(cfg, dev):
 def head128_phase(cfg3, dev) -> list:
     """One case per attention source at Llama-3.2-3B's heads (24 q heads
     over 8 kv heads of 128 dims: G = 3) and depth (28 launches), over the
-    int8 cache of the 3B engine run: K3 (decode_attention.cu), K13 paired
+    int8 cache of the 3B engine run: K3, K16 and K32 (decode_attention.cu;
+    K32 over a bf16 cache of the same shape), K13 paired
     verify (verify_attention.cu), K17 paired paged decode
     (paged_attention.cu), K15 paired s8 decode (attention_s8.cu, the 3B
     default) and K21 paired prefill (prefill_attention.cu), each against
@@ -1023,13 +1073,42 @@ def head128_phase(cfg3, dev) -> list:
     kd = [deq(kc[i], ks[i], fk[:, :, None]) for i in range(nl)]
     vd = [deq(vc[i], vs[i], fv[:, :, None]) for i in range(nl)]
     lib = (lambda i: sdpa(q.transpose(1, 2), kd[i], vd[i], enable_gqa=True))
+
+    def k3(i):
+        return cattn.decode_attention(q, kc, vc, ks, vs, pos, layer=i,
+                                      window=ctx + 1, **kw)
+
     case("decode_attention", heads + ", context 1024, int8 cache",
-         csrc + "decode_attention.cu", pa + ":256",
-         lambda i: cattn.decode_attention(q, kc, vc, ks, vs, pos, layer=i,
-                                          window=ctx + 1, **kw),
+         csrc + "decode_attention.cu", pa + ":256", k3,
          lambda i: cattn.decode_attention_plain(q, kc, vc, ks, vs, pos,
                                                 layer=i, **kw),
-         lib, dbytes, dflops)
+         lib, dbytes, dflops, repeat=True)
+    # K16: the same through the slot-batched entry point, bit for bit
+    case("decode_attention_multi", heads + ", context 1024, int8 cache, "
+         "slot-batched", csrc + "decode_attention.cu", pa + ":460",
+         lambda i: cattn.decode_attention_multi(q, kc, vc, ks, vs, pos,
+                                                layer=i, window=ctx + 1,
+                                                **kw),
+         lambda i: cattn.decode_attention_plain(q, kc, vc, ks, vs, pos,
+                                                layer=i, **kw),
+         lib, dbytes, dflops, equal=k3, repeat=True)
+    # K32: the slot-batched launch over a bf16 cache of the same shape
+    kb, vb = rand(nl, b, nk, s, h).bfloat16(), rand(nl, b, nk, s, h).bfloat16()
+    kdb = [torch.cat([kb[i, :, :, :ctx], fk[:, :, None]], dim=2)
+           for i in range(nl)]
+    vdb = [torch.cat([vb[i, :, :, :ctx], fv[:, :, None]], dim=2)
+           for i in range(nl)]
+    case("decode_attention_multi_bf16", heads + ", context 1024, bf16 cache, "
+         "slot-batched", csrc + "decode_attention.cu", pa + ":460",
+         lambda i: cattn.decode_attention_multi(q, kb, vb, None, None, pos,
+                                                layer=i, window=ctx + 1,
+                                                **kw),
+         lambda i: cattn.decode_attention_plain(q, kb, vb, None, None, pos,
+                                                layer=i, **kw),
+         lambda i: sdpa(q.transpose(1, 2), kdb[i], vdb[i], enable_gqa=True),
+         nl * (2 * b * nk * ctx * h * 2 + 2 * b * nq * h * 2
+               + 2 * b * nk * h * 2), dflops, repeat=True)
+    del kb, vb, kdb, vdb
     case("decode_attention_s8_paired", heads + ", context 1024, paired int8 "
          "cache, s8 dots", csrc + "attention_s8.cu", pa + ":256",
          lambda i: cattn.decode_attention_s8(q, kcp, vcp, ks, vs, pos,

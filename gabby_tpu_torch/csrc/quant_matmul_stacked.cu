@@ -72,6 +72,7 @@
 
 #include <string.h>
 
+#include "cluster.cuh"
 #include "int4_wgmma.cuh"
 #include "smem_leave.cuh"
 
@@ -152,24 +153,6 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
 }
 
-// The cluster's barrier, arrive (relaxed: it orders nothing but the
-// mbarrier inits, which their fence releases) and wait
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait;\n" ::: "memory");
-}
-
-// The address in the cluster's block `rank` of a shared address of ours
-__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, int rank) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(remote)
-               : "r"(addr), "r"(rank));
-  return remote;
-}
-
 __device__ __forceinline__ void st_cluster_f2(uint32_t addr, float x,
                                               float y) {
   asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr),
@@ -184,25 +167,6 @@ __device__ __forceinline__ void arrive_remote(uint32_t bar) {
       "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
           bar)
       : "memory");
-}
-
-// mbar_wait with acquire at cluster scope: the arrivals come from the
-// cluster's other blocks. Traps after about ten seconds, as mbar_wait.
-__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar,
-                                                  uint32_t parity) {
-  const long long t0 = clock64();
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
-        "%2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (!done && clock64() - t0 > 20000000000LL) __trap();
-  } while (!done);
 }
 
 // Programmatic dependent launch: the grid before this one on the stream

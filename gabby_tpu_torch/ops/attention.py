@@ -128,7 +128,7 @@ def cache_attention_quantized(q: torch.Tensor, k_codes: torch.Tensor,
         # the reference's order: on the unpaired cache the slot-batched
         # launch (bf16/f32 form) comes before the s8 switch is looked at
         if (ck.attn_multi() and k_codes.shape[-1] == q.shape[-1]
-                and cattn.pick_slot_block(q.shape[0], q.shape[-1]) > 1):
+                and cattn.pick_slot_block(q.shape[0]) > 1):
             return cattn.decode_attention_multi(*args, **kw)
         if ck.attn_s8():
             return cattn.decode_attention_s8(*args, **kw)
@@ -160,7 +160,7 @@ def cache_attention_bf16(q: torch.Tensor, k_cache: torch.Tensor,
               window=window)
     args = (q, k_cache, v_cache, None, None, positions)
     if (ck.attn_multi() and k_cache.shape[-1] == q.shape[-1]
-            and cattn.pick_slot_block(q.shape[0], q.shape[-1]) > 1):
+            and cattn.pick_slot_block(q.shape[0]) > 1):
         return cattn.decode_attention_multi(*args, **kw)
     return cattn.decode_attention(*args, **kw)
 

@@ -7,7 +7,7 @@ Over an int8 cache with f32 scales, unpaired [L, B, Nk, S, H]:
   K3   decode, bf16/f32 form (csrc/decode_attention.cu, _decode_call tq = 1);
   K9   verify, T > 1 (csrc/verify_attention.cu, _decode_call tq > 1);
   K14  decode, s8 form (csrc/attention_s8.cu, _decode_call use_s8=True);
-  K16  decode, bf16/f32 form, several slots per block
+  K16  decode, bf16/f32 form, the slot-batched launch
        (csrc/decode_attention.cu, _decode_call_multi).
 Over the paired int8 cache [L, B, Nk/2, S, 2H] (adjacent kv heads side by
 side on the last axis, scales per head; detected by the lane width):
@@ -17,8 +17,10 @@ side on the last axis, scales per head; detected by the lane width):
 Over a bf16 cache (no scales: the reference's k_scale=None form):
   K24  decode, K26 verify, unpaired; K25 decode, K27 verify, paired
        (csrc/verify_attention.cu, _decode_call with k_scale=None);
-  K32  decode, several slots per block, unpaired
+  K32  decode, the slot-batched launch, unpaired
        (csrc/decode_attention.cu, _decode_call_multi with k_scale=None).
+K3, K16 and K32 share one kernel whose launch (slots a block, the cluster
+that splits a slot's rows, rows a warp's tile) comes from `decode_plan`.
 Every kernel takes head_dim 64 or 128 and any group size (the s8 form and
 K3/K16/K32: 1, 2, 3, 4 or 8), reads rows j < min(positions[b], window) of
 one layer of the stacked cache (a pointer offset, no copy) and folds the
@@ -41,6 +43,53 @@ from gabby_tpu_torch.runtime.kv_cache import dequantize_kv, unpaired
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)      # head_dim the kernels are built for
 GROUPS = (1, 2, 3, 4, 8)   # group sizes of K3, K16, K32 and the s8 form
+DECODE_WARPS = 4           # warps a block of K3/K16/K32: parts a rank
+MAX_SPLIT = 8              # the portable cluster size
+ROWS_PER_WARP = 64         # rows a warp of K3/K16/K32 takes at the least
+BLOCKS_PER_SM = 4          # blocks of K3/K16/K32 a multiprocessor holds
+
+
+def decode_plan(b: int, nk: int, h: int, g: int, limit: int, sms: int, *,
+                quant: bool = True) -> tuple[int, int, int]:
+    """The launch of K3/K16/K32 (csrc/decode_attention.cu) for B slots of
+    Nk kv heads of head_dim h and group g, read bound `limit` (min(window,
+    S)), over an int8 (`quant`) or bf16 cache, on a card of `sms`
+    multiprocessors: (sb, split, tile). The grid is (split, nk, b // sb),
+    blocks of sb x 128 threads in clusters of `split`.
+
+    sb, slots a block, is 1 (a block is a (slot, kv head, rank); the
+    library's kernel is built for one). tile is the rows of a warp's step:
+    32, or 16 over a bf16 cache at h = 128, where a step's rows fill a
+    lane's registers sooner. split, the blocks a (slot, kv head)'s rows are
+    cut over, is the largest of 1, 2, 4, 8 that leaves every warp at least
+    ROWS_PER_WARP rows at the full `limit` (a warp's fixed cost, its share
+    of the merge, outweighs fewer rows) and the grid within BLOCKS_PER_SM
+    blocks a multiprocessor. It depends on the shapes alone, never on the
+    positions (the kernel divides a slot's live rows among its warps
+    itself), so a launch replays from a CUDA graph."""
+    if h not in HEAD_DIMS or g not in GROUPS:
+        raise ValueError(f"decode attention takes head_dim in {HEAD_DIMS} "
+                         f"and a group in {GROUPS}, got {h}, {g}")
+    if b < 1 or nk < 1 or limit < 0 or sms < 1:
+        raise ValueError(f"decode_plan: B {b}, Nk {nk}, limit {limit}, "
+                         f"{sms} multiprocessors")
+    tile = 16 if h == 128 and not quant else 32
+    split = 1
+    while (2 * split <= MAX_SPLIT
+           and DECODE_WARPS * 2 * split * ROWS_PER_WARP <= limit
+           and b * nk * 2 * split <= BLOCKS_PER_SM * sms):
+        split *= 2
+    return 1, split, tile
+
+
+def decode_rows(n: int, split: int, tile: int) -> list[tuple[int, int]]:
+    """The rows [lo, hi) each warp of a (slot, kv head) reads in K3/K16/K32
+    for n live rows, part p = rank x DECODE_WARPS + warp: the kernel's
+    division of ceil(n / tile) tiles into split x DECODE_WARPS parts, as
+    even as can be (a plain mirror of csrc/decode_attention.cu)."""
+    tiles, parts = -(-n // tile), split * DECODE_WARPS
+    return [(min(n, p * tiles // parts * tile),
+             min(n, (p + 1) * tiles // parts * tile)) for p in range(parts)]
 
 
 def decode_attention_plain(q, k_cache, v_cache, k_scale, v_scale, positions,
@@ -242,22 +291,37 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             sm_scale, build.stream_ptr(q.device)), what)
         ck.launch_counts["decode_attention_paired"] += 1
     else:
-        build.check(lib.gabby_decode_attention(
-            q.data_ptr(), *cache, b, nq, nk, s, h, _limit(s, window),
-            sm_scale, build.stream_ptr(q.device)), what)
+        _decode_launch(lib, q, cache, True, b, nq, nk, s, h,
+                       _limit(s, window), sm_scale, what)
         ck.launch_counts["decode_attention"] += 1
     return out
 
 
-def pick_slot_block(b: int, head_dim: int = 64) -> int:
-    """Slots per block of the slot-batched decode kernels: the largest of 4
-    and 2 (at head_dim 128: 2) that divides B, else 1 (then the plain
-    launch serves). A block holds sb x 128 threads and sb x 10.3 KB of
-    shared memory at G = 8 and head_dim 64 (20.6 KB at 128), so 4 slots (2)
-    are the most that stay inside the 48 KB static shared-memory limit.
-    (The reference picks 8, 4 or 2 under the TPU compiler's memory
-    budget.)"""
-    for sb in ((4, 2) if head_dim <= 64 else (2,)):
+def _decode_launch(lib, q, cache: tuple, quant: bool, b: int, nq: int,
+                   nk: int, s: int, h: int, limit: int, sm_scale: float,
+                   what: str) -> None:
+    """One launch of csrc/decode_attention.cu at `decode_plan`'s launch:
+    `cache` holds the pointers of k, v (and their scales over an int8
+    cache, `quant`), fresh_k, fresh_v, positions and out."""
+    from gabby_tpu_torch.ops.cuda import build
+    from gabby_tpu_torch.ops.cuda.quant_matmul import multiprocessors
+    plan = decode_plan(b, nk, h, nq // nk, limit,
+                       multiprocessors(q.device.index), quant=quant)
+    fn = (lib.gabby_decode_attention if quant
+          else lib.gabby_decode_attention_bf16)
+    build.check(fn(q.data_ptr(), *cache, b, nq, nk, s, h, limit, *plan,
+                   sm_scale, build.stream_ptr(q.device)), what)
+
+
+def pick_slot_block(b: int) -> int:
+    """The slot block of the slot-batched decode launch's dispatch, the
+    reference's `_pick_slot_block` without its TPU memory budget: the
+    largest of 8, 4 and 2 that divides B, else 1 (then the plain launch
+    serves). The dispatch takes the slot-batched launch where it is more
+    than 1, the reference's condition that a slot block divides B. The
+    kernel itself takes `decode_plan`'s slots a block, so K16 and K3 are
+    one launch on the same rows."""
+    for sb in (8, 4, 2):
         if b % sb == 0:
             return sb
     return 1
@@ -270,10 +334,10 @@ def decode_attention_multi(q: torch.Tensor, k_cache: torch.Tensor,
                            fresh_v: torch.Tensor,
                            scale: Optional[float] = None,
                            window: Optional[int] = None) -> torch.Tensor:
-    """`decode_attention` over the unpaired cache with
-    `pick_slot_block(B, H)` slots of a kv head per thread block: K16 over
-    an int8 cache, K32 over a bf16 one (k/v_scale None). Same inputs, same
-    result."""
+    """`decode_attention` over the unpaired cache where a slot block
+    (`pick_slot_block(B)`) divides B: K16 over an int8 cache, K32 over a
+    bf16 one (k/v_scale None), both at `decode_plan`'s launch. Same inputs,
+    same result; over an int8 cache the same bits as K3."""
     if not q.is_cuda:
         return decode_attention_plain(q, k_cache, v_cache, k_scale, v_scale,
                                       positions, layer=layer,
@@ -283,8 +347,7 @@ def decode_attention_multi(q: torch.Tensor, k_cache: torch.Tensor,
     b, _, nq, h = q.shape
     nk, s, pair, kv_off, sc_off = _dense_cache(what, q, k_cache, v_cache,
                                                k_scale, v_scale, layer)
-    sb = pick_slot_block(b, h)
-    if pair or sb < 2:
+    if pair or pick_slot_block(b) < 2:
         raise ValueError(f"{what} takes the unpaired cache and a slot count "
                          f"that 2 divides, got cache {tuple(k_cache.shape)}")
     check_decode_inputs(what, q, fresh_k, fresh_v, positions,
@@ -294,19 +357,15 @@ def decode_attention_multi(q: torch.Tensor, k_cache: torch.Tensor,
     lib = build.library()
     out = torch.empty_like(q)
     sm_scale = float(scale) if scale is not None else h ** -0.5
-    rows = (q.data_ptr(), k_cache.data_ptr() + kv_off,
-            v_cache.data_ptr() + kv_off)
-    rest = (fresh_k.data_ptr(), fresh_v.data_ptr(), positions.data_ptr(),
-            out.data_ptr(), b, nq, nk, s, h, _limit(s, window), sb, sm_scale,
-            build.stream_ptr(q.device))
-    if k_scale is None:
-        build.check(lib.gabby_decode_attention_multi_bf16(*rows, *rest), what)
-        ck.launch_counts["decode_attention_multi_bf16"] += 1
-        return out
-    build.check(lib.gabby_decode_attention_multi(
-        *rows, k_scale.data_ptr() + sc_off, v_scale.data_ptr() + sc_off,
-        *rest), what)
-    ck.launch_counts["decode_attention_multi"] += 1
+    quant = k_scale is not None
+    rows = (k_cache.data_ptr() + kv_off, v_cache.data_ptr() + kv_off)
+    if quant:
+        rows += (k_scale.data_ptr() + sc_off, v_scale.data_ptr() + sc_off)
+    _decode_launch(lib, q, (*rows, fresh_k.data_ptr(), fresh_v.data_ptr(),
+                            positions.data_ptr(), out.data_ptr()), quant,
+                   b, nq, nk, s, h, _limit(s, window), sm_scale, what)
+    ck.launch_counts["decode_attention_multi" if quant
+                     else "decode_attention_multi_bf16"] += 1
     return out
 
 

@@ -135,11 +135,12 @@ _SIGNATURES = {
     "gabby_w4a8_matmul": [_P] * 3 + [_I] * 4 + [_P],
     # int32 workspace, xs, scale (layer offset), out; M, N; stream
     "gabby_w4a8_finalize": [_P] * 4 + [_I] * 2 + [_P],
-    # q, k, v, k_scale, v_scale (layer offset), fresh_k, fresh_v,
-    # positions, out; B, Nq, Nk, S, H, limit; sm_scale; stream
-    "gabby_decode_attention": [_P] * 9 + [_I] * 6 + [_F, _P],
-    # the same, with sb (slots per block) after limit
-    "gabby_decode_attention_multi": [_P] * 9 + [_I] * 7 + [_F, _P],
+    # K3, K16: q, k, v, k_scale, v_scale (layer offset), fresh_k, fresh_v,
+    # positions, out; B, Nq, Nk, S, H, limit, sb, split, tile
+    # (decode_plan); sm_scale; stream
+    "gabby_decode_attention": [_P] * 9 + [_I] * 9 + [_F, _P],
+    # K32: the same without the scales
+    "gabby_decode_attention_bf16": [_P] * 7 + [_I] * 9 + [_F, _P],
     # q, k, v, k_scale, v_scale (layer + slot offset), fresh_k, fresh_v,
     # out, part (the split's workspace or NULL); T, Nq, Nk, S, H, offset,
     # pair, n_split; sm_scale; stream
@@ -158,7 +159,6 @@ _SIGNATURES = {
     # layers, layer, rows, max_pages, H, limit, chunk, pair; sm_scale; stream
     "gabby_attention_s8": [_P] * 10 + [_I] * 11 + [_F, _P],
     # the bf16-cache forms: the int8 forms' arguments without the scales
-    "gabby_decode_attention_multi_bf16": [_P] * 7 + [_I] * 7 + [_F, _P],
     "gabby_prefill_attention_bf16": [_P] * 7 + [_I] * 8 + [_F, _P],
     "gabby_verify_attention_bf16": [_P] * 7 + [_I] * 8 + [_F, _P],
     "gabby_paged_attention_bf16": [_P] * 8 + [_I] * 10 + [_F, _P],

@@ -185,7 +185,8 @@ def split_cap(bt: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _multiprocessors(index: int) -> int:
+def multiprocessors(index: int) -> int:
+    """The multiprocessor count of CUDA device `index` (cached)."""
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
@@ -220,7 +221,7 @@ def _launch_stacked(name: str, entry: str, what: str, x, packed, scale,
     _check(what, x, packed, scale, 2 * kp, n, k_multiple=128,
            n_multiple=128)
     m = x.shape[0]
-    bt, split = stacked_plan(m, kp, n, _multiprocessors(x.device.index))
+    bt, split = stacked_plan(m, kp, n, multiprocessors(x.device.index))
     from gabby_tpu_torch.ops.cuda import build
     lib = build.library()
     wmap = _stack_map(packed)

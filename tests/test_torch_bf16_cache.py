@@ -228,7 +228,7 @@ def test_bf16_slot_batched_decode_attention(monkeypatch, h, g):
         layer=jnp.int32(1), fresh_k=_jb(fk), fresh_v=_jb(fv))
     kw = dict(layer=1, fresh_k=_t(fk, TBF), fresh_v=_t(fv, TBF))
     kk, vv = _t(kc, TBF), _t(vc, TBF)
-    assert ck.attn_multi() and cattn.pick_slot_block(4, h) > 1
+    assert ck.attn_multi() and cattn.pick_slot_block(4) > 1
     out = tattn.cache_attention_bf16(_t(q, TBF), kk, vv, _t(pos), **kw)
     _close(out, ref)
     assert torch.equal(out, cattn.decode_attention_multi(

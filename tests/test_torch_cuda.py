@@ -803,11 +803,11 @@ def test_s8_paged_decode_attention(dev, paired, page, group):
             q, kp, vp, table, pos, ks, vs, **kw))
 
 
-@pytest.mark.parametrize("b,sb", [(8, 4), (6, 2), (4, 4), (2, 2)])
+@pytest.mark.parametrize("b,sb", [(8, 8), (6, 2), (4, 4), (2, 2)])
 @pytest.mark.parametrize("group", [1, 4, 8])
 def test_slot_batched_decode_attention(dev, b, sb, group):
-    """K16 equals K3 bit for bit: the same per-slot arithmetic, only more
-    slots in a block."""
+    """K16 equals K3 bit for bit: the slot-batched entry point takes K3's
+    launch where a slot block divides B."""
     g = _gen(dev, 27)
     nl, nk, s = 2, 8, 2048
     assert cattn.pick_slot_block(b) == sb
@@ -1000,15 +1000,15 @@ def test_bf16_paged_attention(dev, page, t, h, group):
     assert torch.equal(out, dense_fn(q, *dense, None, None, pos, **kw))
 
 
-@pytest.mark.parametrize("b,sb,h", [(8, 4, 64), (6, 2, 64), (8, 2, 128),
+@pytest.mark.parametrize("b,sb,h", [(8, 8, 64), (6, 2, 64), (8, 8, 128),
                                     (2, 2, 128)])
 @pytest.mark.parametrize("group", [1, 3, 4, 8])
 def test_bf16_slot_batched_decode_attention(dev, b, sb, h, group):
     """K32 against the plain contract, and K16 at head_dim 128 against K3
-    bit for bit (the same per-slot body, more slots in a block)."""
+    bit for bit (the same launch)."""
     g = _gen(dev, 44)
     nl, nk, s = 2, 8, 2048
-    assert cattn.pick_slot_block(b, h) == sb
+    assert cattn.pick_slot_block(b) == sb
     kc, vc = _bf16(dev, g, nl, b, nk, s, h), _bf16(dev, g, nl, b, nk, s, h)
     q, fk, fv = _decode_inputs(dev, g, b, nk * group, nk, h)
     pos = torch.tensor(LONG[:b], device=dev, dtype=torch.int32)
@@ -1023,6 +1023,75 @@ def test_bf16_slot_batched_decode_attention(dev, b, sb, h, group):
                      q, kq, vq, ks, vs, pos, **kw)
     assert torch.equal(multi, cattn.decode_attention(q, kq, vq, ks, vs, pos,
                                                      **kw))
+
+
+# ---- the dense flash-decode kernel (K3, K16, K32) at every head shape -------
+
+# 8 unequal slots: empty, a parked lane, a tile's edge (32 rows) + 1, the
+# edge where every warp of a cluster of 8 holds one tile (1024 rows) - 1
+# and + 1, a 1500-row window's last row, the cache's last row and a slot
+# past the window
+DENSE_POS = [0, 1, 33, 1023, 1025, 1499, 2047, 1700]
+
+
+def _dense_case(dev, seed, h, group, quant):
+    g = _gen(dev, seed)
+    nl, b, nk, s = 2, 8, 8, 2048
+    if quant:
+        kc, vc, ks, vs = _cache(dev, g, nl, b, nk, s, h)
+    else:
+        kc, vc = _bf16(dev, g, nl, b, nk, s, h), _bf16(dev, g, nl, b, nk, s, h)
+        ks = vs = None
+    q, fk, fv = _decode_inputs(dev, g, b, nk * group, nk, h)
+    pos = torch.tensor(DENSE_POS, device=dev, dtype=torch.int32)
+    return (q, kc, vc, ks, vs, pos), dict(layer=1, fresh_k=fk, fresh_v=fv)
+
+
+@pytest.mark.parametrize("window", [None, 1500], ids=["limit=S", "limit<S"])
+@pytest.mark.parametrize("group", cattn.GROUPS)
+@pytest.mark.parametrize("h", cattn.HEAD_DIMS)
+def test_dense_decode_kernel(dev, h, group, window):
+    """K3 and K16 (int8) and K32 (bf16) against the plain contract on
+    unequal positions around the tile and split edges, with the read bound
+    at the cache's end and inside it; K16 equal to K3 bit for bit, and a
+    repeat of each giving the same bits."""
+    for quant in (True, False):
+        args, kw = _dense_case(dev, 60 + h + group, h, group, quant)
+        q, kc, vc, ks, vs, pos = args
+        seen = torch.clamp(pos, max=window) if window else pos
+        ref = cattn.decode_attention_plain(q, kc, vc, ks, vs, seen, **kw)
+        multi = _counted("decode_attention_multi" if quant
+                         else "decode_attention_multi_bf16",
+                         cattn.decode_attention_multi, *args, window=window,
+                         **kw)
+        _close(multi, ref, ATTN_TOL)
+        assert torch.equal(multi, cattn.decode_attention_multi(
+            *args, window=window, **kw))
+        if quant:
+            k3 = _counted("decode_attention", cattn.decode_attention, *args,
+                          window=window, **kw)
+            assert torch.equal(k3, multi)
+            assert torch.equal(k3, cattn.decode_attention(
+                *args, window=window, **kw))
+
+
+@pytest.mark.parametrize("kernel", ["decode_attention",
+                                    "decode_attention_multi",
+                                    "decode_attention_multi_bf16"])
+def test_dense_decode_is_one_kernel_a_call(dev, kernel):
+    """The cluster's merge runs inside the launch: no workspace memset, no
+    second kernel."""
+    args, kw = _dense_case(dev, 70, 64, 4, not kernel.endswith("_bf16"))
+    fn = (cattn.decode_attention if kernel == "decode_attention"
+          else cattn.decode_attention_multi)
+    fn(*args, **kw)
+    torch.cuda.synchronize()
+    cuda = torch.profiler.ProfilerActivity.CUDA
+    with torch.profiler.profile(activities=[cuda]) as prof:
+        _counted(kernel, fn, *args, **kw)
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1, kernels
 
 
 # the head shapes of the larger models the reference serves: (Nq, Nk, H)

@@ -150,7 +150,7 @@ def test_switches_have_the_reference_defaults(monkeypatch):
     ck.set_attn_s8(None)
     assert ck.attn_s8() is False
     assert [cattn.pick_slot_block(b) for b in (1, 2, 3, 4, 6, 8)] == [
-        1, 2, 1, 4, 2, 4]
+        1, 2, 1, 4, 2, 8]
 
 
 # ---- attention: the bf16/f32 form on the paired layout --------------------
