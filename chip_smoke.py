@@ -28,9 +28,12 @@ a non-zero exit:
                  than its own tolerance from the bf16/f32 kernel and from
                  the s8 form at half the chunk size, so that the tolerance
                  tells those apart; K33 also against K1 at 4e-2; the
-                 slot-batched kernel against K3 by equality; K3, K16 and
-                 K32 twice on the same inputs, bit for bit; K3 also at
-                 unequal positions, 16 to 2000 rows), timed with
+                 single-position kernels of decode_attention.cu by
+                 equality against their unpaired dense forms (K12 and
+                 K16 against K3, K24 against K32, K25 against K24, K17
+                 against K10, K29 against K28) and twice on the same
+                 inputs, bit for bit; K3 also at unequal positions, 16 to
+                 2000 rows), timed with
                  CUDA events, eagerly and replayed from a CUDA graph (the
                  device's share of the eager time), beside the plain
                  version, one PyTorch library
@@ -38,9 +41,11 @@ a non-zero exit:
                  attention rows time it eagerly and from a graph), and the
                  least time the card could take (bytes at 3.35 TB/s or
                  operations at the tensor-core peak of the operand type,
-                 whichever is larger); then one case per attention source
+                 whichever is larger; every library call also from a
+                 graph); then one case per attention source
                  at Llama-3.2-3B's heads (24 q heads over 8 kv heads of
-                 128 dims, 28 layers: K3, K16, K32, K13, K17, K15, K21)
+                 128 dims, 28 layers: K3, K16, K32, K13, K17, K15, K21;
+                 K17 by equality against K12 on the same rows)
                  and K1 at
                  its four projections x 28 layers, the same way, on lines
                  of their own;
@@ -267,7 +272,8 @@ def attn_case_into(results, nl, name, shapes, source, replaces, kernel, plain,
     device's share; the library call's as `library_graph_ms`); the result
     is appended to `results`. `equal`: another
     kernel whose outputs must be the same bit for bit (the same body on
-    the same rows re-laid); `close`: one held to `tol`; `contract`: the
+    the same rows, re-laid or read through a table, under the same launch
+    plan); `close`: one held to `tol`; `contract`: the
     dequantized form, held to S8_CONTRACT_TOL; `apart`: (what, function)
     pairs of other forms of the same attention, from each of which the
     kernel must lie further than `tol` in every layer; `case`: a second
@@ -285,7 +291,7 @@ def attn_case_into(results, nl, name, shapes, source, replaces, kernel, plain,
     if equal is not None and not all(
             torch.equal(o, equal(i)) for i, o in enumerate(outs)):
         raise AssertionError(f"{name}: differs from the same kernel on "
-                             f"the unpaired rows")
+                             f"the same rows")
     if close is not None:
         check(name + " vs the unpaired kernel", outs,
               [close(i) for i in range(nl)], tol)
@@ -381,6 +387,11 @@ def stacked_case_into(results, g, nl, projs, name, source, replaces, kernel,
     nbytes = sum(nl * (q[0].numel() + sc[0].numel() * 4 + x.numel() * 2
                        + m * q.shape[2] * 2) for q, sc, x in mats)
     ops = sum(nl * 2 * m * x.shape[1] * q.shape[2] for q, sc, x in mats)
+
+    def library():
+        return [torch.matmul(x, w[layer]) for layer in range(nl)
+                for w, (_, _, x) in zip(dense, mats)]
+
     results.append(dict(
         name=name if case is None else f"{name} ({case})", counter=name,
         shapes=f"{what}: wqkv, wo, w_gup, w_down x {nl} layers, M={m}",
@@ -388,10 +399,8 @@ def stacked_case_into(results, g, nl, projs, name, source, replaces, kernel,
         ms=time_ms(lambda: [kernel(*c) for c in calls], iters),
         graph_ms=graph_ms(lambda: [kernel(*c) for c in calls], iters),
         plain_ms=time_ms(lambda: [plain(*c) for c in calls], 3),
-        library_ms=time_ms(lambda: [torch.matmul(x, w[layer])
-                                    for layer in range(nl)
-                                    for w, (_, _, x) in zip(dense, mats)],
-                           iters),
+        library_ms=time_ms(library, iters),
+        library_graph_ms=graph_ms(library, iters),
         **extra, **bound(nbytes, ops, peak)))
 
 
@@ -548,6 +557,7 @@ def kernel_phase(cfg, dev):
         graph_ms=graph_ms(lambda: cqm.qmatmul_int8(ux, uc, us)),
         plain_ms=time_ms(lambda: cqm.int8_plain(ux, uc, us), 3),
         library_ms=time_ms(lambda: torch.matmul(ux, uw)),
+        library_graph_ms=graph_ms(lambda: torch.matmul(ux, uw)),
         **bound(nbytes, 2 * b * d * v)))
     del uc, us, uw
 
@@ -614,11 +624,11 @@ def kernel_phase(cfg, dev):
                 cattn.decode_attention_plain, kc, vc, "",
                 source=csrc + "decode_attention.cu", replaces=pa + ":256",
                 repeat=True)
-    # K12: K3's work on the paired cache (the shared row body at T = 1)
+    # K12: K3's work on the paired cache, K3's kernel and plan: K3's bits
     decode_case("decode_attention_paired", cattn.decode_attention,
                 cattn.decode_attention_plain, kcp, vcp, ", paired",
-                source=csrc + "verify_attention.cu", replaces=pa + ":256",
-                close=k3)
+                source=csrc + "decode_attention.cu", replaces=pa + ":256",
+                equal=k3, repeat=True)
     # K14, K15: the s8 form, one 1024-row quantization chunk a slot; the
     # operations are integer ones, so the int8 peak bounds them
     decode_case("decode_attention_s8", cattn.decode_attention_s8,
@@ -826,17 +836,17 @@ def kernel_phase(cfg, dev):
                     apart=[("the bf16/f32 kernel", k10),
                            ("the s8 form in chunks of 256", s8_half_pages)])
 
-    # K10: K3's work read through the table
+    # K10: K3's work read through the table (K3's kernel, paged)
     paged_case("paged_decode_attention", cpaged.paged_decode_attention,
                cpaged.paged_decode_attention_plain, pool, "", pa + ":800",
-               source=csrc + "paged_attention.cu")
-    # K17: K10's work on the paired pool
+               source=csrc + "decode_attention.cu", repeat=True)
+    # K17: K10's work on the paired pool: K10's bits
     paged_case("paged_decode_attention_paired",
                cpaged.paged_decode_attention,
                cpaged.paged_decode_attention_plain, pool_p, ", paired",
-               pa + ":800", source=csrc + "paged_attention.cu",
+               pa + ":800", source=csrc + "decode_attention.cu",
                equal=lambda i: cpaged.paged_decode_attention(
-                   q, *pool, layer=i, **kw))
+                   q, *pool, layer=i, **kw), repeat=True)
     # K19, K20: the s8 form through the table, one chunk a page
     paged_case("paged_decode_attention_s8", cpaged.paged_decode_attention_s8,
                cpaged.paged_decode_attention_s8_plain, pool, ", s8 dots",
@@ -901,12 +911,18 @@ def kernel_phase(cfg, dev):
         return cattn.decode_attention(q, kb, vb, None, None, pos, layer=i,
                                       window=ctx + 1, **kw)
 
-    # K24, K25: dense decode on the shared row body at T = 1
+    def k32(i):
+        return cattn.decode_attention_multi(q, kb, vb, None, None, pos,
+                                            layer=i, window=ctx + 1, **kw)
+
+    # K24, K25: dense decode over the bf16 cache, K32's kernel and plan:
+    # K24 gives K32's bits, K25 (paired) K24's
     bf16_decode_case("decode_attention_bf16", cattn.decode_attention, kb, vb,
-                     "", csrc + "verify_attention.cu", pa + ":256")
+                     "", csrc + "decode_attention.cu", pa + ":256",
+                     equal=k32, repeat=True)
     bf16_decode_case("decode_attention_bf16_paired", cattn.decode_attention,
-                     kbp, vbp, ", paired", csrc + "verify_attention.cu",
-                     pa + ":256", equal=k24)
+                     kbp, vbp, ", paired", csrc + "decode_attention.cu",
+                     pa + ":256", equal=k24, repeat=True)
     # K32: the slot-batched launch over the unpaired bf16 cache
     bf16_decode_case("decode_attention_multi_bf16",
                      cattn.decode_attention_multi, kb, vb, ", slot-batched",
@@ -999,6 +1015,10 @@ def kernel_phase(cfg, dev):
         name = ("paged_decode_attention_bf16" if tq == 1
                 else "paged_verify_attention_bf16")
         work = ((bbytes, flops) if tq == 1 else (vbbytes, vflops))
+        # K28, K29 (tq = 1) on decode_attention.cu, each call repeated
+        # bit for bit; K30, K31 (verify) on paged_attention.cu
+        src, again = ((csrc + "decode_attention.cu", True) if tq == 1
+                      else (csrc + "paged_attention.cu", False))
         for suffix, pl, extra in (
                 ("", pool_b, {}),
                 ("_paired", pool_bp, dict(equal=lambda i, fn=fn, qq=qq,
@@ -1006,8 +1026,7 @@ def kernel_phase(cfg, dev):
                                                       **kwq)))):
             attn_case(
                 name + suffix, bf16_pool + (", paired" if suffix else "")
-                + ("" if tq == 1 else ", block of 8"),
-                csrc + "paged_attention.cu", replaces,
+                + ("" if tq == 1 else ", block of 8"), src, replaces,
                 lambda i, fn=fn, pl=pl, qq=qq, kwq=kwq: fn(qq, *pl, layer=i,
                                                            **kwq),
                 lambda i, plain=plain, pl=pl, qq=qq, kwq=kwq: plain(
@@ -1015,7 +1034,7 @@ def kernel_phase(cfg, dev):
                 lambda i, qqt=qqt, kd=kd, vd=vd, tq=tq: sdpa(
                     qqt, kd[i], vd[i], attn_mask=None if tq == 1 else vmask,
                     enable_gqa=True),
-                work[0] + tbytes, work[1], **extra)
+                work[0] + tbytes, work[1], repeat=again, **extra)
     for r in results:
         emit({"phase": "kernels", "tol": TOL, **r})
     return results
@@ -1024,13 +1043,13 @@ def kernel_phase(cfg, dev):
 def head128_phase(cfg3, dev) -> list:
     """One case per attention source at Llama-3.2-3B's heads (24 q heads
     over 8 kv heads of 128 dims: G = 3) and depth (28 launches), over the
-    int8 cache of the 3B engine run: K3, K16 and K32 (decode_attention.cu;
-    K32 over a bf16 cache of the same shape), K13 paired
-    verify (verify_attention.cu), K17 paired paged decode
-    (paged_attention.cu), K15 paired s8 decode (attention_s8.cu, the 3B
-    default) and K21 paired prefill (prefill_attention.cu), each against
-    its plain version, timed as the 1B cases are; then K1 at the 3B's four
-    projections x 28 layers, M = 8. Emitted on lines of their own."""
+    int8 cache of the 3B engine run: K3, K16, K32 (over a bf16 cache of
+    the same shape) and K17 paired paged decode (decode_attention.cu),
+    K13 paired verify (verify_attention.cu), K15 paired s8 decode
+    (attention_s8.cu, the 3B default) and K21 paired prefill
+    (prefill_attention.cu), each against its plain version, timed as the
+    1B cases are; then K1 at the 3B's four projections x 28 layers, M = 8.
+    Emitted on lines of their own."""
     from gabby_tpu_torch.ops.cuda import attention as cattn
     from gabby_tpu_torch.ops.cuda import paged_attention as cpaged
     from gabby_tpu_torch.ops.cuda import prefill_attention as cpfa
@@ -1134,17 +1153,18 @@ def head128_phase(cfg3, dev) -> list:
         return pool
 
     pool = (paged(kcp), paged(vcp), table, pos, paged(ks), paged(vs))
+    # K17 gives K12's bits on the same rows: one kernel, and the pool's
+    # read bound (4 pages of 512) is the dense cache's (2048 rows)
     case("paged_decode_attention_paired", heads + ", context 1024, paired "
          "int8 pool of 33 pages of 512, shuffled table",
-         csrc + "paged_attention.cu", pa + ":800",
+         csrc + "decode_attention.cu", pa + ":800",
          lambda i: cpaged.paged_decode_attention(q, *pool, layer=i, **kw),
          lambda i: cpaged.paged_decode_attention_plain(q, *pool, layer=i,
                                                        **kw),
          lib, dbytes + nl * b * (s // page) * 4, dflops,
-         equal=lambda i: cattn.verify_attention(
-             q, kcp, vcp, ks, vs, pos, layer=i, window=2048,
-             fresh_k=fk[:, :, None].contiguous(),
-             fresh_v=fv[:, :, None].contiguous()))
+         equal=lambda i: cattn.decode_attention(
+             q, kcp, vcp, ks, vs, pos, layer=i, window=2048, **kw),
+         repeat=True)
     del pool
     kd = [deq(kc[i], ks[i], fkv) for i in range(nl)]
     vd = [deq(vc[i], vs[i], fvv) for i in range(nl)]
@@ -1366,12 +1386,11 @@ def steps_model_phase(cfg, params, dev, tol: float = 0.05):
     sequential ones; the kernels reassociate sums and the verify matmuls
     run at M = 16 instead of M = 2, hence `tol`. Paired, bf16/f32 form
     (K12, K17, K13, K18, K21), fed the same tokens: each of the four
-    against its unpaired counterpart, same `tol` (K13, K17, K18 and K21
-    are their unpaired kernels' bodies; K12 sums in another order than
-    K3). Paired with the s8 form on (K15, K20): the two decode paths
-    against the paired bf16/f32 ones at 2 * tol, since s8 rounds q and the
-    probabilities to 1/127 of their row's range in every layer, as W4A8
-    rounds activations."""
+    against its unpaired counterpart, same `tol` (each paired kernel is
+    its unpaired kernel's body). Paired with the s8 form on (K15, K20):
+    the two decode paths against the paired bf16/f32 ones at 2 * tol,
+    since s8 rounds q and the probabilities to 1/127 of their row's range
+    in every layer, as W4A8 rounds activations."""
     base, fed = card_steps(cfg, params, dev, paired=False, s8=False)
     want = base["dense decode_step"]
     for name in ("paged decode_step", "dense verify_step",

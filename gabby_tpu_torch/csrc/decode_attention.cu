@@ -1,22 +1,35 @@
-// GQA flash-decode attention over the unpaired dense KV cache, Hopper
-// (sm_90a): K3 over an int8 cache, and the slot-batched launch K16 (int8)
-// and K32 (bf16).
+// GQA flash-decode attention over the KV cache at one query position,
+// Hopper (sm_90a): every single-position form of the bf16/f32 decode.
+//   dense int8 cache: K3 (unpaired), K12 (paired) and the slot-batched
+//     launch K16;
+//   dense bf16 cache: K24 (unpaired), K25 (paired) and the slot-batched
+//     launch K32;
+//   paged int8 pool: K10 (unpaired) and K17 (paired);
+//   paged bf16 pool: K28 (unpaired) and K29 (paired).
 //
 // Replaces gabby_tpu/ops/pallas/attention.py:_decode_call (its
-// _flash_step body, reached from decode_attention) in the form the
-// serving path uses: unpaired cache, one query position (tq = 1), int8
-// codes with per-(token, kv-head) f32 scales, and the current token's
-// unquantized k/v folded in last as an always-attended extra row. It reads
-// cache rows j < min(pos[b], limit) of one layer. The slot-batched launch
-// replaces _decode_call_multi of the same file (the same function, chosen
-// by GABBY_ATTN_MULTI=1), over an int8 cache (K16) and in its
-// k_scale=None form over a bf16 cache (K32).
+// _flash_step body, reached from decode_attention) and _paged_decode_call
+// (reached from paged_decode_attention) at tq = 1, unpaired and pair=True,
+// with scales and in their k_scale=None form, and _decode_call_multi of the
+// same file (the same function, chosen by GABBY_ATTN_MULTI=1): one query
+// position of G query heads per kv head attends cache rows j < min(pos[b],
+// limit) of one layer, and then the current token's unquantized k/v,
+// folded in last as an always-attended extra row. Over the paged pool row
+// j of slot b lives at pool[table[b, j / page], layer, kh, j % page]; the
+// table is read here, nothing gathers the pool, and entries past a slot's
+// rows are never read (the loop ends at the slot's own position). The
+// paired layout stores kv heads 2p and 2p + 1 side by side, a line of 2H
+// elements, the scales still per head. The multi-position (verify) forms
+// are flash_rows.cuh's; the s8 forms attention_s8.cu's.
 //
 // The arithmetic is the reference's: scores are bf16 q times bf16 k (int8
 // codes are exact in bf16) summed in f32 on the tensor cores, times
 // k_scale[j] * sm_scale (int8) or sm_scale (bf16); p = exp(s - m) in f32,
 // summed unrounded; the value product takes bf16(p * v_scale[j]) (int8) or
-// bf16(p) (bf16) against bf16 v, summed in f32; the fresh row in f32.
+// bf16(p) (bf16) against bf16 v, summed in f32; the fresh row in f32. The
+// four layouts only change where a row is read, so a form equals its
+// unpaired dense form bit for bit on the same rows under the same launch
+// plan: K12 = K3, K25 = K24 = K32, K17 = K10, K29 = K28, K10 = K3.
 //
 // What bounds it on the H100: bytes. A (slot, kv head) streams 2 n H code
 // bytes and 2 n 4 scale bytes (int8), or 2 n 2H bytes (bf16), for n live
@@ -31,19 +44,27 @@
 //     the `split` ranks of a (slot, kv head) form a thread-block cluster.
 //     split comes from the wrapper's decode_plan (1, 2, 4 or 8, from the
 //     read bound `limit` and the card's size alone, so a launch can be
-//     captured in a CUDA graph). The slot's live rows n = min(pos[b],
-//     limit, S) are cut on the device into tiles of kTile rows (32; 16 over
-//     a bf16 cache at H = 128), and the tiles into split * 4 parts as even
-//     as can be, part p = rank * 4 + warp taking tiles [p T / P, (p + 1) T /
-//     P): a short slot spreads over every warp, and a warp with no tile
-//     keeps the empty partial (m = -1e30, l = 0).
+//     captured in a CUDA graph; page * max_pages is the paged read bound).
+//     The slot's live rows n = min(pos[b], limit, capacity) are cut on the
+//     device into tiles of kTile rows (32; 16 over a bf16 cache at H =
+//     128), and the tiles into split * 4 parts as even as can be, part p =
+//     rank * 4 + warp taking tiles [p T / P, (p + 1) T / P): a short slot
+//     spreads over every warp, and a warp with no tile keeps the empty
+//     partial (m = -1e30, l = 0).
+//   * Rows: a tile's rows follow one another from its first row's line at
+//     a stride of one line (H or 2H elements, 2H or 4H paired), the block's
+//     kv head at its half of a paired line. Paged, a page holds a multiple
+//     of the tile, so a tile never straddles a page: a warp reads the table
+//     entry of its first tile's page, and another only when a tile enters
+//     the next page (its tiles are contiguous, so each page's entry once).
 //   * Everything that does not depend on the position (q, the fresh k and
 //     v) is requested with it, and the fresh row's score is taken in
 //     registers, so a block waits on device memory twice: for the position,
-//     then for its rows. With programmatic dependent launch a block's set-up
-//     (its barrier, the cluster's arrival) overlaps the kernel before it,
-//     and the next kernel's overlaps this one's tail; every read waits for
-//     the kernel before (griddepcontrol.wait).
+//     then for its rows (paged, once more between them: for the page
+//     entry). With programmatic dependent launch a block's set-up (its
+//     barrier, the cluster's arrival) overlaps the kernel before it, and
+//     the next kernel's overlaps this one's tail; every read, the page
+//     table's too, waits for the kernel before (griddepcontrol.wait).
 //   * A warp's tile: its lanes read the key and value rows straight from
 //     device memory into registers as 16-byte vectors, a quad of lanes a
 //     row (lane t the chunks t, t + 4, ...: 64 contiguous bytes an
@@ -74,10 +95,10 @@
 //     SB slots a block (SB groups of 4 warps); the library builds SB =
 //     DECODE_SLOTS, 1 unless a timing build sets it.
 // head_dim H is 64 or 128, G any of 1, 2, 3, 4, 8 (one instantiation
-// each). A build flag of tools/bench_decode_attention.py --probe
-// (DECODE_PROBE, 0 in the library) removes parts of the kernel to split its
-// time: 1 the copies alone, 2 the body without the cross-block merge, 3
-// the whole kernel without programmatic dependent launch.
+// each, dense and paged, unpaired and paired). A build flag of tools/bench_decode_attention.py
+// --probe (DECODE_PROBE, 0 in the library) removes parts of the kernel to
+// split its time: 1 the copies alone, 2 the body without the cross-block
+// merge, 3 the whole kernel without programmatic dependent launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -109,6 +130,25 @@ constexpr float kNegInf = -1e30f;
 template <int H, bool kQuant>
 __host__ __device__ constexpr int tile_blocks() {
   return (H == 128 && !kQuant) ? 1 : 2;
+}
+
+// Blocks of one slot that __launch_bounds__ asks a multiprocessor to hold,
+// which caps an instantiation's registers at 65,536 / (128 x this). Left to
+// itself ptxas picked the occupancy by layout, and badly for some: 168-188
+// registers over int8 at head_dim 128 (2 or 3 blocks), 80 with 20-24 bytes
+// spilled over bf16 at head_dim 64 (6 blocks, 20% slower than 110). So: 3
+// over int8 at head_dim 128; 4 over bf16 at head_dim 64, and for the paged
+// int8 forms there (unbounded, the paired one ran 5-15% slower); no bound
+// (1) for the dense int8 forms at head_dim 64, 2-5% faster without it, and
+// over bf16 at head_dim 128, where a bound of 4 made ptxas spill and
+// unbounded it takes 144 registers (3 blocks), 15% faster than 126.
+// (-Xptxas -v and tools/bench_decode_attention.py on the H100.) A timing
+// build of two slots a block (DECODE_SLOTS = 2) asks for half as many,
+// rounded down, and at least 1.
+template <int H, bool kQuant, bool kPaged>
+__host__ __device__ constexpr int slot_blocks() {
+  if (H == 128) return kQuant ? 3 : 1;
+  return kQuant && !kPaged ? 1 : 4;
 }
 
 // floats of one partial: acc[G][H], then m[G], then l[G]
@@ -209,19 +249,41 @@ __device__ __forceinline__ int quarter_dim(int t, int k) {
   return (t + 4 * (k / kE)) * kE + k % kE;
 }
 
-// A lane's quarter of cache row `row` (base: the plane's first row, plus
-// the lane's first chunk), zeros at and past n (a masked row stays finite
-// in the value product)
+// A lane's quarter of row `row` of the rows at `base` (their first row's
+// first byte of this kv head, plus the lane's first chunk; `stride` bytes a
+// row), zeros where the row is not live (a masked row stays finite in the
+// value product)
 template <int N>
 __device__ __forceinline__ void load_quarter(uint4 (&v)[N],
                                              const uint8_t* base, int row,
-                                             int n, int row_bytes) {
+                                             int stride, bool live) {
   const uint4* src =
-      reinterpret_cast<const uint4*>(base + (size_t)row * row_bytes);
+      reinterpret_cast<const uint4*>(base + (size_t)row * stride);
 #pragma unroll
   for (int i = 0; i < N; ++i)
-    v[i] = row < n ? __ldg(src + 4 * i) : make_uint4(0u, 0u, 0u, 0u);
+    v[i] = live ? __ldg(src + 4 * i) : make_uint4(0u, 0u, 0u, 0u);
 }
+
+// Where one layer's cache rows live. Row r of slot b is line j of lead
+// `lead`: dense, (lead, j) = (b, r), k/v/ks/vs point at the layer's
+// [B, Nk, S, H] rows and [B, Nk, S] scales and rows = S; paged, (lead, j)
+// = (table[b, r / page] * layers + layer, r % page), they point at the
+// whole pools [P, L, Nk, page, H] and [P, L, Nk, page], rows = page and
+// table is [B, max_pages]. pair = 1: the rows are [.., Nk / 2, rows, 2H],
+// kv head kh in half kh & 1 of a line; the scales keep Nk planes. A bf16
+// cache has no scales (ks = vs = NULL).
+struct KvRows {
+  const uint8_t* k;
+  const uint8_t* v;
+  const float* ks;
+  const float* vs;
+  const int* table;
+  int rows;
+  int max_pages;
+  int layers;
+  int layer;
+  int pair;
+};
 
 // One warp's tile of rows r0 .. r0 + 16 kKB - 1 in registers: the quarter
 // a lane reads of key and value rows r0 + 16 kb + 8 hf + g (the rows of
@@ -236,22 +298,30 @@ struct Tile {
   float vs[kQuant ? kKB : 1][2];
 };
 
-// q [B, Nq, H] bf16; kc/vc [B, Nk, S, H] int8 (kQuant, with ks/vs [B, Nk,
-// S] f32) or bf16 of one layer; fk/fv [B, Nk, H] bf16; positions [B];
-// out [B, Nq, H] bf16. Grid (split, Nk, B / SB) in clusters of (split, 1,
-// 1); SB * 128 threads, 128 a slot.
-template <int G, int H, bool kQuant, int SB>
-__global__ void __launch_bounds__(kSlotThreads * SB)
+// q [B, Nq, H] bf16; src: the cache rows (int8 with f32 scales, kQuant, or
+// bf16), dense or paged (kPaged), unpaired or paired (kPair = src.pair: a
+// line's stride a constant, so a tile's rows lie at immediate offsets from
+// one address), whose pointers kc/vc/ks/vs are also passed as __restrict__
+// parameters (ptxas schedules their loads more freely: 1-2% on K3); fk/fv
+// [B, Nk, H] bf16; positions [B]; out [B, Nq, H] bf16. Grid (split, Nk, B /
+// SB) in clusters of (split, 1, 1); SB * 128 threads, 128 a slot.
+template <int G, int H, bool kQuant, bool kPaged, bool kPair, int SB>
+__global__ void __launch_bounds__(
+    kSlotThreads * SB,
+    slot_blocks<H, kQuant, kPaged>() / SB > 1
+        ? slot_blocks<H, kQuant, kPaged>() / SB
+        : 1)
 decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
                         const uint8_t* __restrict__ kc,
                         const uint8_t* __restrict__ vc,
                         const float* __restrict__ ks,
                         const float* __restrict__ vs,
+                        const KvRows src,
                         const __nv_bfloat16* __restrict__ fk,
                         const __nv_bfloat16* __restrict__ fv,
                         const int* __restrict__ positions,
                         __nv_bfloat16* __restrict__ out, int Nq, int Nk,
-                        int S, int limit, float sm_scale) {
+                        int limit, float sm_scale) {
   using T = Tile<H, kQuant>;
   constexpr int kKB = T::kKB;
   constexpr int kTile = 16 * kKB;
@@ -293,8 +363,8 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
   }
   // Programmatic dependent launch: the next kernel on the stream may start
   // its prologue now; nothing a kernel before this one may write (the
-  // positions, q, the fresh rows, the cache, the output) is touched until
-  // that kernel is done
+  // positions, q, the fresh rows, the cache, the page table, the output)
+  // is touched until that kernel is done
   if constexpr (kPdl) {
     asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
     asm volatile("griddepcontrol.wait;\n" ::: "memory");
@@ -334,11 +404,14 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
                                  : 0.f;
   }
 
-  const int n = max(0, min(min(pos, limit), S));
-  const uint8_t* kbase = kc + plane * S * kRowBytes + 16 * t;
-  const uint8_t* vbase = vc + plane * S * kRowBytes + 16 * t;
-  const float* ksp = kQuant ? ks + plane * S : nullptr;
-  const float* vsp = kQuant ? vs + plane * S : nullptr;
+  const int capacity = kPaged ? src.rows * src.max_pages : src.rows;
+  const int n = max(0, min(min(pos, limit), capacity));
+  // a line's bytes (one row of one kv head, of two paired), this kv head's
+  // line plane and its place in the line, plus the lane's first chunk
+  constexpr int kStride = kPair ? 2 * kRowBytes : kRowBytes;
+  const size_t line_planes = (size_t)(kPair ? Nk / 2 : Nk);
+  const int line_plane = kPair ? kh / 2 : kh;
+  const int at = (kPair ? (kh % 2) * kRowBytes : 0) + 16 * t;
 
   // The output transposed, dims as M and queries as N: o[u] holds query
   // columns 2t, 2t + 1 of dim rows g (e = 0, 1) and g + 8 (e = 2, 3) of
@@ -357,19 +430,51 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const int tiles = (n + kTile - 1) / kTile;
   const int nparts = split * kWarps, part = rank * kWarps + warp;
   const int tile_end = (part + 1) * tiles / nparts;
+  // Row 0 of the rows being read (dense: the plane's; paged: the current
+  // page's): its first byte of this kv head plus the lane's first chunk,
+  // and its scales. Paged, `page` is the page they belong to (none yet)
+  // and `page_row` that page's first row; dense, the row is the line.
+  const uint8_t* kbase = nullptr;
+  const uint8_t* vbase = nullptr;
+  const float* ksbase = nullptr;
+  const float* vsbase = nullptr;
+  [[maybe_unused]] int page = -1;
+  int page_row = 0;
+  auto rows_of = [&](size_t lead) {
+    const size_t line = (lead * line_planes + line_plane) * src.rows;
+    kbase = kc + line * kStride + at;
+    vbase = vc + line * kStride + at;
+    if constexpr (kQuant) {
+      ksbase = ks + (lead * Nk + kh) * src.rows;
+      vsbase = vs + (lead * Nk + kh) * src.rows;
+    }
+  };
+  if constexpr (!kPaged) rows_of(b);
   for (int tile = part * tiles / nparts; tile < tile_end; ++tile) {
     const int r0 = tile * kTile;
+    if constexpr (kPaged) {
+      const int pg = r0 / src.rows;
+      if (pg != page) {
+        page = pg;
+        page_row = pg * src.rows;
+        rows_of((size_t)__ldg(src.table + (size_t)b * src.max_pages + pg) *
+                    src.layers +
+                src.layer);
+      }
+    }
+    const int j0 = r0 - page_row;  // the tile's first row in those rows
     T x;
 #pragma unroll
     for (int kb = 0; kb < kKB; ++kb)
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
-        const int row = r0 + 16 * kb + 8 * hf + g;
-        load_quarter(x.k[kb][hf], kbase, row, n, kRowBytes);
-        load_quarter(x.v[kb][hf], vbase, row, n, kRowBytes);
+        const int r = 16 * kb + 8 * hf + g;  // the row's place in the tile
+        const bool live = r0 + r < n;
+        load_quarter(x.k[kb][hf], kbase, j0 + r, kStride, live);
+        load_quarter(x.v[kb][hf], vbase, j0 + r, kStride, live);
         if constexpr (kQuant) {
-          x.ks[kb][hf] = row < n ? ksp[row] * sm_scale : 0.f;
-          x.vs[kb][hf] = row < n ? vsp[row] : 0.f;
+          x.ks[kb][hf] = live ? __ldg(ksbase + j0 + r) * sm_scale : 0.f;
+          x.vs[kb][hf] = live ? __ldg(vsbase + j0 + r) : 0.f;
         }
       }
     if constexpr (kCopiesOnly) {
@@ -586,13 +691,12 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int G, int H, bool kQuant>
-int launch(const void* q, const void* k, const void* v, const void* ks,
-           const void* vs, const void* fk, const void* fv, const void* pos,
-           void* out, int B, int Nq, int Nk, int S, int limit, float sm_scale,
-           int split, cudaStream_t stream) {
+template <int G, int H, bool kQuant, bool kPaged, bool kPair>
+int launch(const void* q, const KvRows& src, const void* fk, const void* fv,
+           const void* pos, void* out, int B, int Nq, int Nk, int limit,
+           float sm_scale, int split, cudaStream_t stream) {
   constexpr int SB = DECODE_SLOTS;
-  auto kernel = decode_attention_kernel<G, H, kQuant, SB>;
+  auto kernel = decode_attention_kernel<G, H, kQuant, kPaged, kPair, SB>;
   const int smem = smem_bytes<G, H>(SB, split);
   if (smem > 48 * 1024) {
     static gabby_smem::SmemLeave leave;
@@ -600,16 +704,17 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
     if (err != cudaSuccess) return (int)err;
   }
   const __nv_bfloat16* qp = static_cast<const __nv_bfloat16*>(q);
-  const uint8_t* kp = static_cast<const uint8_t*>(k);
-  const uint8_t* vp = static_cast<const uint8_t*>(v);
-  const float* ksp = static_cast<const float*>(ks);
-  const float* vsp = static_cast<const float*>(vs);
   const __nv_bfloat16* fkp = static_cast<const __nv_bfloat16*>(fk);
   const __nv_bfloat16* fvp = static_cast<const __nv_bfloat16*>(fv);
   const int* pp = static_cast<const int*>(pos);
   __nv_bfloat16* op = static_cast<__nv_bfloat16*>(out);
-  void* args[] = {&qp, &kp, &vp, &ksp, &vsp, &fkp, &fvp, &pp, &op,
-                  &Nq, &Nk, &S, &limit, &sm_scale};
+  const uint8_t* kp = src.k;
+  const uint8_t* vp = src.v;
+  const float* ksp = src.ks;
+  const float* vsp = src.vs;
+  KvRows rows = src;
+  void* args[] = {&qp, &kp, &vp, &ksp, &vsp, &rows, &fkp, &fvp, &pp, &op,
+                  &Nq, &Nk, &limit, &sm_scale};
   cudaLaunchAttribute attr[2];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = split;
@@ -629,89 +734,178 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-template <int H, bool kQuant>
-int by_group(const void* q, const void* k, const void* v, const void* ks,
-             const void* vs, const void* fk, const void* fv, const void* pos,
-             void* out, int B, int Nq, int Nk, int S, int limit,
-             float sm_scale, int split, cudaStream_t s) {
+template <int H, bool kQuant, bool kPaged, bool kPair>
+int by_group(const void* q, const KvRows& src, const void* fk,
+             const void* fv, const void* pos, void* out, int B, int Nq,
+             int Nk, int limit, float sm_scale, int split, cudaStream_t s) {
   switch (Nq / Nk) {
-    case 1: return launch<1, H, kQuant>(q, k, v, ks, vs, fk, fv, pos, out, B,
-                                        Nq, Nk, S, limit, sm_scale, split, s);
-    case 2: return launch<2, H, kQuant>(q, k, v, ks, vs, fk, fv, pos, out, B,
-                                        Nq, Nk, S, limit, sm_scale, split, s);
-    case 3: return launch<3, H, kQuant>(q, k, v, ks, vs, fk, fv, pos, out, B,
-                                        Nq, Nk, S, limit, sm_scale, split, s);
-    case 4: return launch<4, H, kQuant>(q, k, v, ks, vs, fk, fv, pos, out, B,
-                                        Nq, Nk, S, limit, sm_scale, split, s);
-    case 8: return launch<8, H, kQuant>(q, k, v, ks, vs, fk, fv, pos, out, B,
-                                        Nq, Nk, S, limit, sm_scale, split, s);
+    case 1: return launch<1, H, kQuant, kPaged, kPair>(
+        q, src, fk, fv, pos, out, B, Nq, Nk, limit, sm_scale, split, s);
+    case 2: return launch<2, H, kQuant, kPaged, kPair>(
+        q, src, fk, fv, pos, out, B, Nq, Nk, limit, sm_scale, split, s);
+    case 3: return launch<3, H, kQuant, kPaged, kPair>(
+        q, src, fk, fv, pos, out, B, Nq, Nk, limit, sm_scale, split, s);
+    case 4: return launch<4, H, kQuant, kPaged, kPair>(
+        q, src, fk, fv, pos, out, B, Nq, Nk, limit, sm_scale, split, s);
+    case 8: return launch<8, H, kQuant, kPaged, kPair>(
+        q, src, fk, fv, pos, out, B, Nq, Nk, limit, sm_scale, split, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <bool kQuant>
-int dispatch(const void* q, const void* k, const void* v, const void* ks,
-             const void* vs, const void* fk, const void* fv, const void* pos,
-             void* out, int B, int Nq, int Nk, int S, int H, int limit,
-             int sb, int split, int tile, float sm_scale, void* stream) {
+// The instantiation of the cache's head_dim, element and line layout
+template <bool kPaged, bool kPair>
+int by_form(const void* q, const KvRows& src, const void* fk, const void* fv,
+            const void* pos, void* out, int B, int Nq, int Nk, int H,
+            int limit, float sm_scale, int split, cudaStream_t s) {
+  const bool quant = src.ks != nullptr;
+  if (H == 64)
+    return quant ? by_group<64, true, kPaged, kPair>(
+                       q, src, fk, fv, pos, out, B, Nq, Nk, limit, sm_scale,
+                       split, s)
+                 : by_group<64, false, kPaged, kPair>(
+                       q, src, fk, fv, pos, out, B, Nq, Nk, limit, sm_scale,
+                       split, s);
+  if (H == 128)
+    return quant ? by_group<128, true, kPaged, kPair>(
+                       q, src, fk, fv, pos, out, B, Nq, Nk, limit, sm_scale,
+                       split, s)
+                 : by_group<128, false, kPaged, kPair>(
+                       q, src, fk, fv, pos, out, B, Nq, Nk, limit, sm_scale,
+                       split, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Checks what the kernel takes (the plan's slots a block, cluster and tile
+// among them; paged: a page the tile divides) and launches
+template <bool kPaged>
+int dispatch(const void* q, const KvRows& src, const void* fk,
+             const void* fv, const void* pos, void* out, int B, int Nq,
+             int Nk, int H, int limit, int sb, int split, int tile,
+             float sm_scale, void* stream) {
+  const bool quant = src.ks != nullptr;
   const int want_tile =
-      16 * (H == 128 ? tile_blocks<128, kQuant>() : tile_blocks<64, kQuant>());
+      quant ? 16 * tile_blocks<64, true>()
+            : 16 * (H == 128 ? tile_blocks<128, false>()
+                             : tile_blocks<64, false>());
   const bool aligned =
       reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
-      reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
-      reinterpret_cast<uintptr_t>(v) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(src.k) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(src.v) % 16 == 0 &&
       reinterpret_cast<uintptr_t>(fk) % 2 == 0 &&
       reinterpret_cast<uintptr_t>(fv) % 2 == 0;
-  if (B < 1 || Nk < 1 || Nq % Nk != 0 || S < 1 || limit < 0 ||
+  if (B < 1 || Nk < 1 || Nq % Nk != 0 || src.rows < 1 || limit < 0 ||
+      (src.pair != 0 && src.pair != 1) || (src.pair && Nk % 2 != 0) ||
       sb != DECODE_SLOTS || B % sb != 0 ||
       (split != 1 && split != 2 && split != 4 && split != kMaxSplit) ||
-      tile != want_tile || !aligned ||
-      (kQuant && (ks == nullptr || vs == nullptr)))
+      tile != want_tile || !aligned || (quant && src.vs == nullptr) ||
+      (kPaged && (src.table == nullptr || src.rows % tile != 0 ||
+                  src.max_pages < 1 || src.layer < 0 ||
+                  src.layer >= src.layers)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (H == 64)
-    return by_group<64, kQuant>(q, k, v, ks, vs, fk, fv, pos, out, B, Nq, Nk,
-                                S, limit, sm_scale, split, s);
-  if (H == 128)
-    return by_group<128, kQuant>(q, k, v, ks, vs, fk, fv, pos, out, B, Nq,
-                                 Nk, S, limit, sm_scale, split, s);
-  return (int)cudaErrorInvalidValue;
+  return src.pair ? by_form<kPaged, true>(q, src, fk, fv, pos, out, B, Nq,
+                                          Nk, H, limit, sm_scale, split, s)
+                  : by_form<kPaged, false>(q, src, fk, fv, pos, out, B, Nq,
+                                           Nk, H, limit, sm_scale, split, s);
+}
+
+KvRows kv_rows(const void* k, const void* v, const void* k_scale,
+               const void* v_scale, const void* table, int rows,
+               int max_pages, int layers, int layer, int pair) {
+  KvRows src;
+  src.k = static_cast<const uint8_t*>(k);
+  src.v = static_cast<const uint8_t*>(v);
+  src.ks = static_cast<const float*>(k_scale);
+  src.vs = static_cast<const float*>(v_scale);
+  src.table = static_cast<const int*>(table);
+  src.rows = rows;
+  src.max_pages = max_pages;
+  src.layers = layers;
+  src.layer = layer;
+  src.pair = pair;
+  return src;
 }
 
 }  // namespace
 
 extern "C" {
 
-// K3 and K16. q [B, Nq, H] bf16 (H 64 or 128, Nq / Nk in 1, 2, 3, 4, 8);
-// k/v [B, Nk, S, H] int8 and k/v_scale [B, Nk, S] f32 of one layer (the
-// caller offsets the pointers); fresh_k/v [B, Nk, H] bf16; positions [B]
-// int32; out [B, Nq, H] bf16. Reads rows j < min(positions[b], limit).
-// (sb, split, tile): the wrapper's decode_plan: slots a block (the build's
+// K3, K12 and K16. q [B, Nq, H] bf16 (H 64 or 128, Nq / Nk in 1, 2, 3,
+// 4, 8); k/v [B, Nk, S, H] int8 (pair = 1: [B, Nk/2, S, 2H]) and
+// k/v_scale [B, Nk, S] f32 of one layer (the caller offsets the
+// pointers); fresh_k/v [B, Nk, H] bf16; positions [B] int32; out
+// [B, Nq, H] bf16. Reads rows j < min(positions[b], limit). (sb, split,
+// tile): the wrapper's decode_plan: slots a block (the build's
 // DECODE_SLOTS, 1), blocks a cluster (1, 2, 4 or 8) and rows a warp's tile
 // (32; 16 over a bf16 cache at H = 128).
 int gabby_decode_attention(const void* q, const void* k, const void* v,
                            const void* k_scale, const void* v_scale,
                            const void* fresh_k, const void* fresh_v,
                            const void* positions, void* out, int B, int Nq,
-                           int Nk, int S, int H, int limit, int sb,
+                           int Nk, int S, int H, int limit, int pair, int sb,
                            int split, int tile, float sm_scale,
                            void* stream) {
-  return dispatch<true>(q, k, v, k_scale, v_scale, fresh_k, fresh_v,
-                        positions, out, B, Nq, Nk, S, H, limit, sb, split,
-                        tile, sm_scale, stream);
+  if (k_scale == nullptr || v_scale == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return dispatch<false>(
+      q, kv_rows(k, v, k_scale, v_scale, nullptr, S, 1, 1, 0, pair), fresh_k,
+      fresh_v, positions, out, B, Nq, Nk, H, limit, sb, split, tile,
+      sm_scale, stream);
 }
 
-// K32: the same over a bf16 cache, k/v [B, Nk, S, H] bf16 of one layer,
-// no scales.
+// K24, K25 and K32: the same over a bf16 cache, k/v [B, Nk, S, H] bf16
+// (pair = 1: [B, Nk/2, S, 2H]) of one layer, no scales.
 int gabby_decode_attention_bf16(const void* q, const void* k, const void* v,
                                 const void* fresh_k, const void* fresh_v,
                                 const void* positions, void* out, int B,
                                 int Nq, int Nk, int S, int H, int limit,
-                                int sb, int split, int tile, float sm_scale,
-                                void* stream) {
-  return dispatch<false>(q, k, v, nullptr, nullptr, fresh_k, fresh_v,
-                         positions, out, B, Nq, Nk, S, H, limit, sb, split,
-                         tile, sm_scale, stream);
+                                int pair, int sb, int split, int tile,
+                                float sm_scale, void* stream) {
+  return dispatch<false>(
+      q, kv_rows(k, v, nullptr, nullptr, nullptr, S, 1, 1, 0, pair),
+      fresh_k, fresh_v, positions, out, B, Nq, Nk, H, limit, sb, split, tile,
+      sm_scale, stream);
+}
+
+// K10 and K17: the same through the page table. k/v pools
+// [P, L, Nk, page, H] int8 (pair = 1: [P, L, Nk/2, page, 2H]) and scale
+// pools [P, L, Nk, page] f32 (whole, not offset); table [B, max_pages]
+// int32. Reads rows j < min(positions[b], page * max_pages); the tile must
+// divide the page.
+int gabby_paged_decode_attention(const void* q, const void* k, const void* v,
+                                 const void* k_scale, const void* v_scale,
+                                 const void* table, const void* fresh_k,
+                                 const void* fresh_v, const void* positions,
+                                 void* out, int B, int Nq, int Nk, int L,
+                                 int layer, int page, int max_pages, int H,
+                                 int pair, int sb, int split, int tile,
+                                 float sm_scale, void* stream) {
+  if (k_scale == nullptr || v_scale == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return dispatch<true>(
+      q, kv_rows(k, v, k_scale, v_scale, table, page, max_pages, L, layer,
+                 pair),
+      fresh_k, fresh_v, positions, out, B, Nq, Nk, H, page * max_pages, sb,
+      split, tile, sm_scale, stream);
+}
+
+// K28 and K29: the same over bf16 pools [P, L, Nk, page, H] (pair = 1:
+// [P, L, Nk/2, page, 2H]), no scales.
+int gabby_paged_decode_attention_bf16(const void* q, const void* k,
+                                      const void* v, const void* table,
+                                      const void* fresh_k,
+                                      const void* fresh_v,
+                                      const void* positions, void* out, int B,
+                                      int Nq, int Nk, int L, int layer,
+                                      int page, int max_pages, int H,
+                                      int pair, int sb, int split, int tile,
+                                      float sm_scale, void* stream) {
+  return dispatch<true>(
+      q, kv_rows(k, v, nullptr, nullptr, table, page, max_pages, L, layer,
+                 pair),
+      fresh_k, fresh_v, positions, out, B, Nq, Nk, H, page * max_pages, sb,
+      split, tile, sm_scale, stream);
 }
 
 }  // extern "C"

@@ -1,18 +1,20 @@
-// Flash attention of a small block of query rows over the KV cache, dense
-// or paged, unpaired or paired, int8 codes with scales or bf16 rows,
+// Flash attention of a small block of query positions over the KV cache,
+// dense or paged, unpaired or paired, int8 codes with scales or bf16 rows,
 // head_dim 64 or 128, Hopper (sm_90a). Shared body of verify_attention.cu
-// (K9, K12, K13 over int8; K24-K27 over bf16) and paged_attention.cu (K10,
-// K11, K17, K18 over int8; K28-K31 over bf16); attention_s8.cu shares its
-// row addressing.
+// (K9, K13 over int8; K26, K27 over bf16) and paged_attention.cu (K11, K18
+// over int8; K30, K31 over bf16): the multi-position (speculative verify)
+// forms. The single-position (decode) forms are decode_attention.cu's, on
+// the tensor cores with the same row addressing; attention_s8.cu shares
+// this file's.
 //
 // Replaces gabby_tpu/ops/pallas/attention.py:_decode_call and
-// _paged_decode_call (their _flash_step body) in every form but use_s8:
-// T query positions x G query heads of one kv head (row = t * G + g) attend
-// cache rows j < min(pos[b], limit) of one layer, and then the block's own
-// T unquantized k/v rows causally (row (t, g) sees fresh keys t' <= t).
-// T = 1 is the decode contract: one always-attended fresh row. In the paged
-// form row j of slot b lives at pool[table[b, j / page], layer, kh,
-// j % page]; the table is read here, nothing gathers the pool.
+// _paged_decode_call (their _flash_step body) at tq > 1 in every form but
+// use_s8: T query positions x G query heads of one kv head (row = t * G +
+// g) attend cache rows j < min(pos[b], limit) of one layer, and then the
+// block's own T unquantized k/v rows causally (row (t, g) sees fresh keys
+// t' <= t). 2 <= T <= 32; the entries refuse T = 1. In the paged form row
+// j of slot b lives at pool[table[b, j / page], layer, kh, j % page]; the
+// table is read here, nothing gathers the pool.
 //
 // The two cache forms are the reference's `quant = k_scale is not None`:
 //   int8 (kQuant): codes with per-(token, kv-head) f32 scales, folded into
@@ -444,17 +446,14 @@ int launch_rows(const void* q, const KvSource& src, const void* fk,
   return (int)cudaGetLastError();
 }
 
-// Picks the row tile: T * G rows when that is 1, 2 or 4 (or 3, in a tile
-// of 4), else tiles of 8.
+// Picks the row tile: T * G rows when that is 2 or 4 (or 3, in a tile of
+// 4), else tiles of 8 (T >= 2, so T * G >= 2).
 template <bool kPaged, int H, bool kQuant>
 int launch_tiles(const void* q, const KvSource& src, const void* fk,
                  const void* fv, const void* pos, void* out, int B, int T,
                  int Nq, int Nk, int limit, float sm_scale,
                  cudaStream_t stream) {
   const int total = T * (Nq / Nk);
-  if (total == 1)
-    return launch_rows<1, kPaged, H, kQuant>(q, src, fk, fv, pos, out, B, T,
-                                             Nq, Nk, limit, sm_scale, stream);
   if (total == 2)
     return launch_rows<2, kPaged, H, kQuant>(q, src, fk, fv, pos, out, B, T,
                                              Nq, Nk, limit, sm_scale, stream);
@@ -465,15 +464,15 @@ int launch_tiles(const void* q, const KvSource& src, const void* fk,
                                            Nq, Nk, limit, sm_scale, stream);
 }
 
-// q [B, T, Nq, H] bf16; fresh_k/v [B, Nk, T, H] bf16; positions [B]
-// int32; out [B, T, Nq, H] bf16; H 64 or 128; the cache int8 with scales
-// (kQuant) or bf16 without.
+// q [B, T, Nq, H] bf16, 2 <= T <= 32; fresh_k/v [B, Nk, T, H] bf16;
+// positions [B] int32; out [B, T, Nq, H] bf16; H 64 or 128; the cache int8
+// with scales (kQuant) or bf16 without.
 template <bool kPaged, bool kQuant>
 int launch_flash_rows(const void* q, const KvSource& src, const void* fk,
                       const void* fv, const void* pos, void* out, int B, int T,
                       int Nq, int Nk, int H, int limit, float sm_scale,
                       cudaStream_t stream) {
-  if (Nk < 1 || Nq % Nk != 0 || T < 1 || T > kMaxT || B < 1 ||
+  if (Nk < 1 || Nq % Nk != 0 || T < 2 || T > kMaxT || B < 1 ||
       (src.pair != 0 && src.pair != 1) || (src.pair && Nk % 2) ||
       (kQuant != (src.ks != nullptr && src.vs != nullptr)))
     return (int)cudaErrorInvalidValue;

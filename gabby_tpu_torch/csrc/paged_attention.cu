@@ -1,18 +1,17 @@
-// Decode and speculative-verify attention over the paged KV pool, Hopper
-// (sm_90a), on the shared row body of flash_rows.cuh (head_dim 64 or 128):
-//   int8 pool: K10 (T = 1) and K11 (T > 1), paired K17 (T = 1, bf16/f32
-//     form) and K18 (T > 1);
-//   bf16 pool: K28 (T = 1) and K30 (T > 1), paired K29 and K31.
+// Speculative-verify attention over the paged KV pool, Hopper (sm_90a), on
+// the shared row body of flash_rows.cuh (head_dim 64 or 128):
+//   int8 pool: K11 (unpaired) and K18 (paired);
+//   bf16 pool: K30 (unpaired) and K31 (paired).
 //
-// Replaces gabby_tpu/ops/pallas/attention.py:_paged_decode_call (reached
-// from paged_decode_attention with tq = 1 and from paged_verify_attention
-// with tq > 1), unpaired and pair=True, with scales and in its
-// k_scale=None form: the decode and verify contracts of the dense kernels,
-// with row j of slot b read from pool[table[b, j / page], layer, kh,
-// j % page]. The page table is read inside the kernel, so nothing gathers
-// the pool; the loop ends at the slot's own position, so table entries past
-// its rows are never followed. The body, what bounds it and its design are
-// in flash_rows.cuh.
+// Replaces gabby_tpu/ops/pallas/attention.py:_paged_decode_call at tq > 1
+// (reached from paged_verify_attention), unpaired and pair=True, with
+// scales and in its k_scale=None form: the dense verify contract, with row
+// j of slot b read from pool[table[b, j / page], layer, kh, j % page]. The
+// page table is read inside the kernel, so nothing gathers the pool; the
+// loop ends at the slot's own position, so table entries past its rows are
+// never read. T = 1 (paged_decode_attention) is refused:
+// decode_attention.cu serves it. The body, what bounds it and its design
+// are in flash_rows.cuh.
 
 #include "flash_rows.cuh"
 
@@ -50,11 +49,11 @@ int paged(const void* q, const void* k, const void* v, const void* k_scale,
 
 extern "C" {
 
-// q [B, T, Nq, H] bf16; k/v pools [P, L, Nk, page, H] int8 (pair = 1:
-// [P, L, Nk/2, page, 2H]) and scale pools [P, L, Nk, page] f32 (whole, not
-// offset); table [B, max_pages] int32; fresh_k/v [B, Nk, T, H] bf16;
-// positions [B] int32; out [B, T, Nq, H] bf16. page must be a multiple of
-// 32; H 64 or 128.
+// q [B, T, Nq, H] bf16, 2 <= T <= 32; k/v pools [P, L, Nk, page, H] int8
+// (pair = 1: [P, L, Nk/2, page, 2H]) and scale pools [P, L, Nk, page] f32
+// (whole, not offset); table [B, max_pages] int32; fresh_k/v [B, Nk, T, H]
+// bf16; positions [B] int32; out [B, T, Nq, H] bf16. page must be a
+// multiple of 32; H 64 or 128.
 int gabby_paged_attention(const void* q, const void* k, const void* v,
                           const void* k_scale, const void* v_scale,
                           const void* table, const void* fresh_k,

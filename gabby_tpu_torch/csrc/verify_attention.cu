@@ -1,18 +1,15 @@
-// Decode and speculative-verify attention over the dense KV cache, Hopper
-// (sm_90a), on the shared row body of flash_rows.cuh (head_dim 64 or 128):
-//   int8 cache: K9 (unpaired, T > 1), K12 (paired, T = 1, the paired
-//     decode in its bf16/f32 form) and K13 (paired, T > 1);
-//   bf16 cache: K24 (unpaired, T = 1), K25 (paired, T = 1), K26
-//     (unpaired, T > 1) and K27 (paired, T > 1).
+// Speculative-verify attention over the dense KV cache, Hopper (sm_90a), on
+// the shared row body of flash_rows.cuh (head_dim 64 or 128):
+//   int8 cache: K9 (unpaired) and K13 (paired);
+//   bf16 cache: K26 (unpaired) and K27 (paired).
 //
-// Replaces gabby_tpu/ops/pallas/attention.py:_decode_call without s8 dots:
-// its tq > 1 form (reached from verify_attention), its pair=True form (tq
-// = 1 from decode_attention, tq > 1 from verify_attention) and its
-// k_scale=None form over a bf16 cache (all of those): the T candidate
-// positions of every slot attend that slot's cache rows j < min(pos[b],
-// limit) of one layer plus the block's own T unquantized k/v rows
-// causally. The body, the paired addressing, what bounds it and its design
-// are in flash_rows.cuh.
+// Replaces gabby_tpu/ops/pallas/attention.py:_decode_call without s8 dots
+// at tq > 1 (reached from verify_attention), unpaired, pair=True and in its
+// k_scale=None form over a bf16 cache: the T candidate positions of every
+// slot attend that slot's cache rows j < min(pos[b], limit) of one layer
+// plus the block's own T unquantized k/v rows causally. T = 1, the decode
+// contract, is refused: decode_attention.cu serves it. The body, the
+// paired addressing, what bounds it and its design are in flash_rows.cuh.
 
 #include "flash_rows.cuh"
 
@@ -39,7 +36,7 @@ gabby_flash::KvSource dense_source(const void* k, const void* v,
 
 extern "C" {
 
-// q [B, T, Nq, H] bf16; k/v [B, Nk, S, H] int8 (pair = 1:
+// q [B, T, Nq, H] bf16, 2 <= T <= 32; k/v [B, Nk, S, H] int8 (pair = 1:
 // [B, Nk/2, S, 2H]) and k/v_scale [B, Nk, S] f32 of one layer (the caller
 // offsets the pointers); fresh_k/v [B, Nk, T, H] bf16; positions [B]
 // int32; out [B, T, Nq, H] bf16; H 64 or 128.

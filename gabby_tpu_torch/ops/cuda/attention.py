@@ -11,24 +11,27 @@ Over an int8 cache with f32 scales, unpaired [L, B, Nk, S, H]:
        (csrc/decode_attention.cu, _decode_call_multi).
 Over the paired int8 cache [L, B, Nk/2, S, 2H] (adjacent kv heads side by
 side on the last axis, scales per head; detected by the lane width):
-  K12  decode, bf16/f32 form; K13 verify (csrc/verify_attention.cu,
-       _decode_call pair=True);
+  K12  decode, bf16/f32 form (csrc/decode_attention.cu); K13 verify
+       (csrc/verify_attention.cu, _decode_call pair=True);
   K15  decode, s8 form (csrc/attention_s8.cu, pair=True and use_s8=True).
 Over a bf16 cache (no scales: the reference's k_scale=None form):
-  K24  decode, K26 verify, unpaired; K25 decode, K27 verify, paired
-       (csrc/verify_attention.cu, _decode_call with k_scale=None);
+  K24  decode, unpaired, K25 decode, paired (csrc/decode_attention.cu);
+  K26  verify, unpaired, K27 verify, paired (csrc/verify_attention.cu),
+       all _decode_call with k_scale=None;
   K32  decode, the slot-batched launch, unpaired
        (csrc/decode_attention.cu, _decode_call_multi with k_scale=None).
-K3, K16 and K32 share one kernel whose launch (slots a block, the cluster
-that splits a slot's rows, rows a warp's tile) comes from `decode_plan`.
-Every kernel takes head_dim 64 or 128 and any group size (the s8 form and
-K3/K16/K32: 1, 2, 3, 4 or 8), reads rows j < min(positions[b], window) of
-one layer of the stacked cache (a pointer offset, no copy) and folds the
-block's own unquantized k/v in last. A paired kernel's block owns one kv
-head and reads its half of each row, so the paired results equal the
-unpaired ones on the same rows re-laid. The cache form is chosen by the
-scales: given, the cache must be int8; None, it must be bf16. CPU tensors
-take the plain versions; CUDA tensors launch or raise.
+Every single-position form but s8 (K3, K12, K16, K24, K25, K32, and the
+paged K10, K17, K28, K29 of paged_attention.py) is one kernel whose launch
+(slots a block, the cluster that splits a slot's rows, rows a warp's tile)
+comes from `decode_plan`; it takes group sizes 1, 2, 3, 4 and 8, as the s8
+form does, and the verify kernels any. Every kernel takes head_dim 64 or
+128, reads rows j < min(positions[b], window) of one layer of the stacked
+cache (a pointer offset, no copy) and folds the block's own unquantized k/v
+in last. A paired kernel's block owns one kv head and reads its half of
+each row, so the paired results equal the unpaired ones on the same rows
+re-laid. The cache form is chosen by the scales: given, the cache must be
+int8; None, it must be bf16. CPU tensors take the plain versions; CUDA
+tensors launch or raise.
 """
 
 from __future__ import annotations
@@ -42,20 +45,26 @@ from gabby_tpu_torch.runtime.kv_cache import dequantize_kv, unpaired
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)      # head_dim the kernels are built for
-GROUPS = (1, 2, 3, 4, 8)   # group sizes of K3, K16, K32 and the s8 form
-DECODE_WARPS = 4           # warps a block of K3/K16/K32: parts a rank
+GROUPS = (1, 2, 3, 4, 8)   # group sizes of csrc/decode_attention.cu and s8
+DECODE_WARPS = 4           # warps a block of decode_attention.cu: parts a rank
 MAX_SPLIT = 8              # the portable cluster size
-ROWS_PER_WARP = 64         # rows a warp of K3/K16/K32 takes at the least
-BLOCKS_PER_SM = 4          # blocks of K3/K16/K32 a multiprocessor holds
+ROWS_PER_WARP = 64         # rows a warp of decode_attention.cu takes at least
+BLOCKS_PER_SM = 4          # blocks of decode_attention.cu a multiprocessor holds
 
 
 def decode_plan(b: int, nk: int, h: int, g: int, limit: int, sms: int, *,
-                quant: bool = True) -> tuple[int, int, int]:
-    """The launch of K3/K16/K32 (csrc/decode_attention.cu) for B slots of
-    Nk kv heads of head_dim h and group g, read bound `limit` (min(window,
-    S)), over an int8 (`quant`) or bf16 cache, on a card of `sms`
-    multiprocessors: (sb, split, tile). The grid is (split, nk, b // sb),
-    blocks of sb x 128 threads in clusters of `split`.
+                quant: bool = True,
+                page: Optional[int] = None) -> tuple[int, int, int]:
+    """The launch of csrc/decode_attention.cu (K3, K12, K16, K24, K25, K32
+    dense; K10, K17, K28, K29 paged) for B slots of Nk kv heads of
+    head_dim h and group g, read bound `limit` (dense: min(window, S);
+    paged: page x max_pages), over an int8 (`quant`) or bf16 cache, on a
+    card of `sms` multiprocessors: (sb, split, tile). The grid is (split,
+    nk, b // sb), blocks of sb x 128 threads in clusters of `split`. The
+    paired layout takes its unpaired plan (nk counts kv heads, not lines),
+    and so does a pool whose read bound is a dense cache's: the forms then
+    give the same bits on the same rows. `page` (paged): the pool's page,
+    which the tile must divide, so that no tile straddles a page.
 
     sb, slots a block, is 1 (a block is a (slot, kv head, rank); the
     library's kernel is built for one). tile is the rows of a warp's step:
@@ -74,6 +83,10 @@ def decode_plan(b: int, nk: int, h: int, g: int, limit: int, sms: int, *,
         raise ValueError(f"decode_plan: B {b}, Nk {nk}, limit {limit}, "
                          f"{sms} multiprocessors")
     tile = 16 if h == 128 and not quant else 32
+    if page is not None and (page < 1 or page % tile):
+        raise ValueError(f"paged decode attention reads whole tiles of "
+                         f"{tile} rows, which a page of {page} rows does "
+                         f"not hold")
     split = 1
     while (2 * split <= MAX_SPLIT
            and DECODE_WARPS * 2 * split * ROWS_PER_WARP <= limit
@@ -83,13 +96,30 @@ def decode_plan(b: int, nk: int, h: int, g: int, limit: int, sms: int, *,
 
 
 def decode_rows(n: int, split: int, tile: int) -> list[tuple[int, int]]:
-    """The rows [lo, hi) each warp of a (slot, kv head) reads in K3/K16/K32
-    for n live rows, part p = rank x DECODE_WARPS + warp: the kernel's
-    division of ceil(n / tile) tiles into split x DECODE_WARPS parts, as
-    even as can be (a plain mirror of csrc/decode_attention.cu)."""
+    """The rows [lo, hi) each warp of a (slot, kv head) reads in
+    csrc/decode_attention.cu for n live rows, part p = rank x DECODE_WARPS
+    + warp: the kernel's division of ceil(n / tile) tiles into split x
+    DECODE_WARPS parts, as even as can be (a plain mirror of the kernel)."""
     tiles, parts = -(-n // tile), split * DECODE_WARPS
     return [(min(n, p * tiles // parts * tile),
              min(n, (p + 1) * tiles // parts * tile)) for p in range(parts)]
+
+
+def decode_pages(n: int, split: int, tile: int, page: int) -> list[list[int]]:
+    """The page-table entries (logical pages) each warp of a (slot, kv
+    head) reads in the paged form of csrc/decode_attention.cu for n live
+    rows, in the order it reads them: its tiles' pages, an entry read when
+    a tile lies in another page than the tile before it (a plain mirror of
+    the kernel's page walk)."""
+    tiles, parts = -(-n // tile), split * DECODE_WARPS
+    walks = []
+    for p in range(parts):
+        reads = []
+        for t in range(p * tiles // parts, (p + 1) * tiles // parts):
+            if not reads or reads[-1] != t * tile // page:
+                reads.append(t * tile // page)
+        walks.append(reads)
+    return walks
 
 
 def decode_attention_plain(q, k_cache, v_cache, k_scale, v_scale, positions,
@@ -225,13 +255,14 @@ def scale_planes(k_scale, v_scale) -> tuple:
 
 
 def check_decode_inputs(what: str, q, fresh_k, fresh_v, positions, tensors,
-                         nk: int, groups=GROUPS) -> None:
+                        nk: int) -> None:
     """`check_block_inputs` for single-position decode: q [B, 1, Nq, H],
-    fresh_k/v [B, Nk, H], and a group size the kernel is built for."""
+    fresh_k/v [B, Nk, H], and a group size the kernels are built for."""
     if (q.shape[1] != 1 or fresh_k.dim() != 3 or fresh_v.dim() != 3
-            or (groups and q.shape[2] // nk not in groups)):
+            or q.shape[2] // nk not in GROUPS):
         raise ValueError(f"{what}: unsupported shapes q {tuple(q.shape)}, "
-                         f"fresh {tuple(fresh_k.shape)}, {nk} kv heads")
+                         f"fresh {tuple(fresh_k.shape)}, {nk} kv heads "
+                         f"(groups {GROUPS})")
     check_block_inputs(what, q, fresh_k[:, :, None], fresh_v[:, :, None],
                        positions, tensors, nk)
 
@@ -240,77 +271,82 @@ def _limit(s: int, window: Optional[int]) -> int:
     return s if window is None else min(window, s)
 
 
+def decode_launch(fn, q, args: tuple, quant: bool, nk: int, limit: int,
+                  scale: Optional[float], what: str,
+                  page: Optional[int] = None) -> None:
+    """One launch of csrc/decode_attention.cu through its entry `fn` at
+    `decode_plan`'s launch: `args` are the entry's arguments before the
+    plan (pointers, then shapes)."""
+    from gabby_tpu_torch.ops.cuda import build
+    from gabby_tpu_torch.ops.cuda.quant_matmul import multiprocessors
+    _, _, nq, h = q.shape
+    plan = decode_plan(q.shape[0], nk, h, nq // nk, limit,
+                       multiprocessors(q.device.index), quant=quant,
+                       page=page)
+    sm_scale = float(scale) if scale is not None else h ** -0.5
+    build.check(fn(*args, *plan, sm_scale, build.stream_ptr(q.device)), what)
+
+
+def _dense_decode(what: str, q, k_cache, v_cache, k_scale, v_scale,
+                  positions, layer: int, fresh_k, fresh_v,
+                  scale: Optional[float], window: Optional[int], *,
+                  multi: bool = False):
+    """The dense forms' launch (checks, output, one call of the entry for
+    the cache form). `multi`: the slot-batched entry point's conditions,
+    the unpaired cache and a slot block that divides B. Returns (out,
+    pair)."""
+    b, _, nq, h = q.shape
+    nk, s, pair, kv_off, sc_off = _dense_cache(what, q, k_cache, v_cache,
+                                               k_scale, v_scale, layer)
+    if multi and (pair or pick_slot_block(b) < 2):
+        raise ValueError(f"{what} takes the unpaired cache and a slot count "
+                         f"that 2 divides, got cache {tuple(k_cache.shape)}")
+    quant = k_scale is not None
+    check_decode_inputs(what, q, fresh_k, fresh_v, positions,
+                        (k_cache, v_cache, *scale_planes(k_scale, v_scale)),
+                        nk)
+    from gabby_tpu_torch.ops.cuda import build
+    lib = build.library()
+    out = torch.empty_like(q)
+    rows = (k_cache.data_ptr() + kv_off, v_cache.data_ptr() + kv_off)
+    if quant:
+        rows += (k_scale.data_ptr() + sc_off, v_scale.data_ptr() + sc_off)
+    limit = _limit(s, window)
+    decode_launch(lib.gabby_decode_attention if quant
+                  else lib.gabby_decode_attention_bf16, q,
+                  (q.data_ptr(), *rows, fresh_k.data_ptr(),
+                   fresh_v.data_ptr(), positions.data_ptr(), out.data_ptr(),
+                   b, nq, nk, s, h, limit, pair), quant, nk, limit, scale,
+                  what)
+    return out, pair
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, k_scale: torch.Tensor,
                      v_scale: torch.Tensor, positions: torch.Tensor, *,
                      layer: int, fresh_k: torch.Tensor,
                      fresh_v: torch.Tensor, scale: Optional[float] = None,
                      window: Optional[int] = None) -> torch.Tensor:
-    """The bf16/f32 form. q [B, 1, Nq, H] bf16, H 64 or 128; k/v_cache
-    [L, B, Nk, S, H] int8 (K3) or paired [L, B, Nk/2, S, 2H] (K12) with
-    k/v_scale [L, B, Nk, S] f32, or a bf16 cache of either layout with
-    k/v_scale None (K24, K25); positions [B] int32; fresh_k/v [B, Nk, H]
-    bf16. Returns [B, 1, Nq, H]. `window` (when given) bounds every slot's
-    read, which the caller guarantees covers positions[b]."""
+    """The bf16/f32 form. q [B, 1, Nq, H] bf16, H 64 or 128, Nq / Nk in
+    GROUPS; k/v_cache [L, B, Nk, S, H] int8 (K3) or paired
+    [L, B, Nk/2, S, 2H] (K12) with k/v_scale [L, B, Nk, S] f32, or a bf16
+    cache of either layout with k/v_scale None (K24, K25); positions [B]
+    int32; fresh_k/v [B, Nk, H] bf16. Returns [B, 1, Nq, H]. `window` (when
+    given) bounds every slot's read, which the caller guarantees covers
+    positions[b]. One kernel (csrc/decode_attention.cu) for every form: on
+    the same rows the paired result equals the unpaired one bit for bit."""
     if not q.is_cuda:
         return decode_attention_plain(q, k_cache, v_cache, k_scale, v_scale,
                                       positions, layer=layer,
                                       fresh_k=fresh_k, fresh_v=fresh_v,
                                       scale=scale)
-    what = "decode attention"
-    b, _, nq, h = q.shape
-    nk, s, pair, kv_off, sc_off = _dense_cache(what, q, k_cache, v_cache,
-                                               k_scale, v_scale, layer)
-    quant = k_scale is not None
-    check_decode_inputs(what, q, fresh_k, fresh_v, positions,
-                         (k_cache, v_cache,
-                          *scale_planes(k_scale, v_scale)), nk,
-                         groups=GROUPS if quant and not pair else None)
-    from gabby_tpu_torch.ops.cuda import build
-    lib = build.library()
-    out = torch.empty_like(q)
-    sm_scale = float(scale) if scale is not None else h ** -0.5
-    rows = (k_cache.data_ptr() + kv_off, v_cache.data_ptr() + kv_off)
-    fresh = (fresh_k.data_ptr(), fresh_v.data_ptr(), positions.data_ptr(),
-             out.data_ptr())
-    if not quant:
-        # the shared row body at T = 1 (fresh [B, Nk, 1, H] is [B, Nk, H])
-        build.check(lib.gabby_verify_attention_bf16(
-            q.data_ptr(), *rows, *fresh, b, 1, nq, nk, s, h,
-            _limit(s, window), pair, sm_scale, build.stream_ptr(q.device)),
-            what)
-        ck.launch_counts["decode_attention_bf16_paired" if pair
-                         else "decode_attention_bf16"] += 1
-        return out
-    cache = (*rows, k_scale.data_ptr() + sc_off, v_scale.data_ptr() + sc_off,
-             *fresh)
-    if pair:
-        # the shared row body at T = 1 (fresh [B, Nk, 1, H] is [B, Nk, H])
-        build.check(lib.gabby_verify_attention(
-            q.data_ptr(), *cache, b, 1, nq, nk, s, h, _limit(s, window), 1,
-            sm_scale, build.stream_ptr(q.device)), what)
-        ck.launch_counts["decode_attention_paired"] += 1
-    else:
-        _decode_launch(lib, q, cache, True, b, nq, nk, s, h,
-                       _limit(s, window), sm_scale, what)
-        ck.launch_counts["decode_attention"] += 1
+    out, pair = _dense_decode("decode attention", q, k_cache, v_cache,
+                              k_scale, v_scale, positions, layer, fresh_k,
+                              fresh_v, scale, window)
+    ck.launch_counts["decode_attention"
+                     + ("" if k_scale is not None else "_bf16")
+                     + ("_paired" if pair else "")] += 1
     return out
-
-
-def _decode_launch(lib, q, cache: tuple, quant: bool, b: int, nq: int,
-                   nk: int, s: int, h: int, limit: int, sm_scale: float,
-                   what: str) -> None:
-    """One launch of csrc/decode_attention.cu at `decode_plan`'s launch:
-    `cache` holds the pointers of k, v (and their scales over an int8
-    cache, `quant`), fresh_k, fresh_v, positions and out."""
-    from gabby_tpu_torch.ops.cuda import build
-    from gabby_tpu_torch.ops.cuda.quant_matmul import multiprocessors
-    plan = decode_plan(b, nk, h, nq // nk, limit,
-                       multiprocessors(q.device.index), quant=quant)
-    fn = (lib.gabby_decode_attention if quant
-          else lib.gabby_decode_attention_bf16)
-    build.check(fn(q.data_ptr(), *cache, b, nq, nk, s, h, limit, *plan,
-                   sm_scale, build.stream_ptr(q.device)), what)
 
 
 def pick_slot_block(b: int) -> int:
@@ -337,34 +373,16 @@ def decode_attention_multi(q: torch.Tensor, k_cache: torch.Tensor,
     """`decode_attention` over the unpaired cache where a slot block
     (`pick_slot_block(B)`) divides B: K16 over an int8 cache, K32 over a
     bf16 one (k/v_scale None), both at `decode_plan`'s launch. Same inputs,
-    same result; over an int8 cache the same bits as K3."""
+    same result; the same bits as K3 (int8) and K24 (bf16)."""
     if not q.is_cuda:
         return decode_attention_plain(q, k_cache, v_cache, k_scale, v_scale,
                                       positions, layer=layer,
                                       fresh_k=fresh_k, fresh_v=fresh_v,
                                       scale=scale)
-    what = "slot-batched decode attention"
-    b, _, nq, h = q.shape
-    nk, s, pair, kv_off, sc_off = _dense_cache(what, q, k_cache, v_cache,
-                                               k_scale, v_scale, layer)
-    if pair or pick_slot_block(b) < 2:
-        raise ValueError(f"{what} takes the unpaired cache and a slot count "
-                         f"that 2 divides, got cache {tuple(k_cache.shape)}")
-    check_decode_inputs(what, q, fresh_k, fresh_v, positions,
-                         (k_cache, v_cache,
-                          *scale_planes(k_scale, v_scale)), nk)
-    from gabby_tpu_torch.ops.cuda import build
-    lib = build.library()
-    out = torch.empty_like(q)
-    sm_scale = float(scale) if scale is not None else h ** -0.5
-    quant = k_scale is not None
-    rows = (k_cache.data_ptr() + kv_off, v_cache.data_ptr() + kv_off)
-    if quant:
-        rows += (k_scale.data_ptr() + sc_off, v_scale.data_ptr() + sc_off)
-    _decode_launch(lib, q, (*rows, fresh_k.data_ptr(), fresh_v.data_ptr(),
-                            positions.data_ptr(), out.data_ptr()), quant,
-                   b, nq, nk, s, h, _limit(s, window), sm_scale, what)
-    ck.launch_counts["decode_attention_multi" if quant
+    out, _ = _dense_decode("slot-batched decode attention", q, k_cache,
+                           v_cache, k_scale, v_scale, positions, layer,
+                           fresh_k, fresh_v, scale, window, multi=True)
+    ck.launch_counts["decode_attention_multi" if k_scale is not None
                      else "decode_attention_multi_bf16"] += 1
     return out
 
@@ -424,9 +442,10 @@ def verify_attention_plain(q, k_cache, v_cache, k_scale, v_scale, positions,
 
 def check_block_inputs(what: str, q, fresh_k, fresh_v, positions, tensors,
                        nk: int) -> None:
-    """Checks shared by the kernels of csrc/flash_rows.cuh: q [B, T, Nq, H]
-    (H 64 or 128) and fresh_k/v [B, Nk, T, H] bf16, positions [B] int32,
-    everything contiguous on the GPU and 16-byte aligned."""
+    """Checks shared by the kernels of csrc/decode_attention.cu (T = 1) and
+    csrc/flash_rows.cuh (T > 1): q [B, T, Nq, H] (H 64 or 128) and
+    fresh_k/v [B, Nk, T, H] bf16, positions [B] int32, everything
+    contiguous on the GPU and 16-byte aligned."""
     b, t, nq, h = q.shape
     tensors = (q, fresh_k, fresh_v, positions, *tensors)
     if not all(x.is_cuda and x.is_contiguous() and x.data_ptr() % 16 == 0
@@ -442,6 +461,15 @@ def check_block_inputs(what: str, q, fresh_k, fresh_v, positions, tensors,
             or positions.shape != (b,)):
         raise ValueError(f"{what}: unsupported shapes q {tuple(q.shape)}, "
                          f"fresh {tuple(fresh_k.shape)}, {nk} kv heads")
+
+
+def check_verify_block(what: str, q) -> None:
+    """The verify kernels (csrc/flash_rows.cuh) take 2 <= T <= 32
+    positions: a single position is the decode kernels'."""
+    if q.shape[1] < 2:
+        raise ValueError(f"{what} takes 2 to 32 positions a slot, got q "
+                         f"{tuple(q.shape)}: one position is decode "
+                         f"attention's")
 
 
 def verify_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -464,6 +492,7 @@ def verify_attention(q: torch.Tensor, k_cache: torch.Tensor,
                                       fresh_k=fresh_k, fresh_v=fresh_v,
                                       scale=scale)
     what = "verify attention"
+    check_verify_block(what, q)
     b, t, nq, h = q.shape
     nk, s, pair, kv_off, sc_off = _dense_cache(what, q, k_cache, v_cache,
                                                k_scale, v_scale, layer)

@@ -135,20 +135,27 @@ _SIGNATURES = {
     "gabby_w4a8_matmul": [_P] * 3 + [_I] * 4 + [_P],
     # int32 workspace, xs, scale (layer offset), out; M, N; stream
     "gabby_w4a8_finalize": [_P] * 4 + [_I] * 2 + [_P],
-    # K3, K16: q, k, v, k_scale, v_scale (layer offset), fresh_k, fresh_v,
-    # positions, out; B, Nq, Nk, S, H, limit, sb, split, tile
-    # (decode_plan); sm_scale; stream
-    "gabby_decode_attention": [_P] * 9 + [_I] * 9 + [_F, _P],
-    # K32: the same without the scales
-    "gabby_decode_attention_bf16": [_P] * 7 + [_I] * 9 + [_F, _P],
+    # K3, K12, K16: q, k, v, k_scale, v_scale (layer offset), fresh_k,
+    # fresh_v, positions, out; B, Nq, Nk, S, H, limit, pair, sb, split,
+    # tile (decode_plan); sm_scale; stream
+    "gabby_decode_attention": [_P] * 9 + [_I] * 10 + [_F, _P],
+    # K24, K25, K32: the same without the scales
+    "gabby_decode_attention_bf16": [_P] * 7 + [_I] * 10 + [_F, _P],
+    # K10, K17: q, k, v, k_scale, v_scale (whole pools), page table,
+    # fresh_k, fresh_v, positions, out; B, Nq, Nk, L, layer, page,
+    # max_pages, H, pair, sb, split, tile (decode_plan); sm_scale; stream
+    "gabby_paged_decode_attention": [_P] * 10 + [_I] * 12 + [_F, _P],
+    # K28, K29: the same without the scales
+    "gabby_paged_decode_attention_bf16": [_P] * 8 + [_I] * 12 + [_F, _P],
     # q, k, v, k_scale, v_scale (layer + slot offset), fresh_k, fresh_v,
     # out, part (the split's workspace or NULL); T, Nq, Nk, S, H, offset,
     # pair, n_split; sm_scale; stream
     "gabby_prefill_attention": [_P] * 9 + [_I] * 8 + [_F, _P],
     # T, Nq, Nk, offset -> n_split
     "gabby_prefill_attention_splits": [_I] * 4,
-    # q, k, v, k_scale, v_scale (layer offset), fresh_k, fresh_v,
-    # positions, out; B, T, Nq, Nk, S, H, limit, pair; sm_scale; stream
+    # verify (T > 1): q, k, v, k_scale, v_scale (layer offset), fresh_k,
+    # fresh_v, positions, out; B, T, Nq, Nk, S, H, limit, pair; sm_scale;
+    # stream
     "gabby_verify_attention": [_P] * 9 + [_I] * 8 + [_F, _P],
     # q, k, v, k_scale, v_scale (whole pools), page table, fresh_k,
     # fresh_v, positions, out; B, T, Nq, Nk, L, layer, page, max_pages, H,

@@ -3,17 +3,21 @@ PyTorch versions (counterparts of
 gabby_tpu/ops/pallas/attention.py:paged_decode_attention and
 paged_verify_attention in all their forms).
 
-Over the unpaired int8 pool [P, L, Nk, page, H]: K10 decode and K11 verify
-in the bf16/f32 form (csrc/paged_attention.cu), K19 decode in the s8 form
-(csrc/attention_s8.cu). Over the paired int8 pool [P, L, Nk/2, page, 2H]
-(detected by the lane width; scale pools per head either way): K17, K18
-and K20. Over a bf16 pool (no scale pools, the reference's k_scale=None
-form): K28 decode and K30 verify, paired K29 and K31
-(csrc/paged_attention.cu). They replace _paged_decode_call: the dense
-decode and verify contracts, with row j of slot b read from
+Over the unpaired int8 pool [P, L, Nk, page, H]: K10 decode
+(csrc/decode_attention.cu) and K11 verify (csrc/paged_attention.cu) in the
+bf16/f32 form, K19 decode in the s8 form (csrc/attention_s8.cu). Over the
+paired int8 pool [P, L, Nk/2, page, 2H] (detected by the lane width; scale
+pools per head either way): K17, K18 and K20. Over a bf16 pool (no scale
+pools, the reference's k_scale=None form): K28 decode and K30 verify,
+paired K29 and K31. They replace _paged_decode_call: the dense decode and
+verify contracts, with row j of slot b read from
 pool[page_table[b, j // page], layer, kv head, j % page]. The kernels read
 the page table themselves and stop at each slot's own position, so nothing
-gathers the pool and table entries past a slot's rows are never followed.
+gathers the pool and table entries past a slot's rows are never read. The
+decode kernels are the dense ones' (csrc/decode_attention.cu at
+`decode_plan`'s launch for the read bound page x max_pages), so on the
+same rows under the same plan they give the dense kernels' bits; they take
+the dense kernels' groups (1, 2, 3, 4, 8), the verify kernels any.
 head_dim is 64 or 128. The wrappers keep their own launch counters. CPU
 tensors take the plain versions, which gather the layer's pages into a
 dense view; CUDA tensors launch or raise. On the GPU the page size must be
@@ -31,6 +35,8 @@ from gabby_tpu_torch.ops.cuda.attention import (HEAD_DIMS,
                                                 check_block_inputs,
                                                 check_cache_form,
                                                 check_decode_inputs,
+                                                check_verify_block,
+                                                decode_launch,
                                                 s8_attention_core,
                                                 scale_planes)
 
@@ -108,57 +114,50 @@ def _check_pool(what: str, q, k_pool, v_pool, page_table, k_scale, v_scale,
     return nk, nl, page, pair
 
 
-def _launch(what: str, q, k_pool, v_pool, page_table, positions, k_scale,
-            v_scale, layer: int, fresh_k, fresh_v, scale: Optional[float]):
-    """The bf16/f32 form through the table, over an int8 pool with scales or
-    a bf16 pool without. Returns (out, the counter's suffix)."""
-    b, t, nq, h = q.shape
-    nk, nl, page, pair = _check_pool(what, q, k_pool, v_pool, page_table,
-                                     k_scale, v_scale, layer)
-    check_block_inputs(what, q, fresh_k, fresh_v, positions,
-                       (k_pool, v_pool, *scale_planes(k_scale, v_scale),
-                        page_table), nk)
-    from gabby_tpu_torch.ops.cuda import build
-    lib = build.library()
-    out = torch.empty_like(q)
-    sm_scale = float(scale) if scale is not None else h ** -0.5
-    rest = (page_table.data_ptr(), fresh_k.data_ptr(), fresh_v.data_ptr(),
-            positions.data_ptr(), out.data_ptr(), b, t, nq, nk, nl, layer,
-            page, page_table.shape[1], h, pair, sm_scale,
-            build.stream_ptr(q.device))
-    if k_scale is None:
-        build.check(lib.gabby_paged_attention_bf16(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *rest), what)
-        return out, "_bf16_paired" if pair else "_bf16"
-    build.check(lib.gabby_paged_attention(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        k_scale.data_ptr(), v_scale.data_ptr(), *rest), what)
-    return out, "_paired" if pair else ""
-
-
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, page_table: torch.Tensor,
                            positions: torch.Tensor, k_scale: torch.Tensor,
                            v_scale: torch.Tensor, *, layer: int,
                            fresh_k: torch.Tensor, fresh_v: torch.Tensor,
                            scale: Optional[float] = None) -> torch.Tensor:
-    """The bf16/f32 form. q [B, 1, Nq, H] bf16, H 64 or 128; k/v_pool
-    [P, L, Nk, page, H] int8 (K10) or paired [P, L, Nk/2, page, 2H] (K17)
-    with k/v_scale [P, L, Nk, page] f32, or bf16 pools of either layout
-    with k/v_scale None (K28, K29); page_table [B, max_pages] int32;
-    positions [B] int32 (the read bound; parked lanes are given 1);
-    fresh_k/v [B, Nk, H] bf16. Returns [B, 1, Nq, H]."""
+    """The bf16/f32 form. q [B, 1, Nq, H] bf16, H 64 or 128, Nq / Nk in
+    1, 2, 3, 4, 8; k/v_pool [P, L, Nk, page, H] int8 (K10) or paired
+    [P, L, Nk/2, page, 2H] (K17) with k/v_scale [P, L, Nk, page] f32, or
+    bf16 pools of either layout with k/v_scale None (K28, K29); page_table
+    [B, max_pages] int32; positions [B] int32 (the read bound; parked lanes
+    are given 1); fresh_k/v [B, Nk, H] bf16. Returns [B, 1, Nq, H]."""
     if not q.is_cuda:
         return paged_decode_attention_plain(
             q, k_pool, v_pool, page_table, positions, k_scale, v_scale,
             layer=layer, fresh_k=fresh_k, fresh_v=fresh_v, scale=scale)
+    what = "paged decode attention"
     if q.shape[1] != 1 or fresh_k.dim() != 3:
-        raise ValueError(f"paged decode attention is single-position, got "
-                         f"q {tuple(q.shape)}")
-    out, form = _launch("paged decode attention", q, k_pool, v_pool,
-                        page_table, positions, k_scale, v_scale, layer,
-                        fresh_k[:, :, None], fresh_v[:, :, None], scale)
-    ck.launch_counts["paged_decode_attention" + form] += 1
+        raise ValueError(f"{what} is single-position, got q "
+                         f"{tuple(q.shape)}")
+    b, _, nq, h = q.shape
+    nk, nl, page, pair = _check_pool(what, q, k_pool, v_pool, page_table,
+                                     k_scale, v_scale, layer)
+    quant = k_scale is not None
+    check_decode_inputs(what, q, fresh_k, fresh_v, positions,
+                        (k_pool, v_pool, *scale_planes(k_scale, v_scale),
+                         page_table), nk)
+    from gabby_tpu_torch.ops.cuda import build
+    lib = build.library()
+    out = torch.empty_like(q)
+    max_pages = page_table.shape[1]
+    pools = (k_pool.data_ptr(), v_pool.data_ptr())
+    if quant:
+        pools += (k_scale.data_ptr(), v_scale.data_ptr())
+    decode_launch(lib.gabby_paged_decode_attention if quant
+                  else lib.gabby_paged_decode_attention_bf16, q,
+                  (q.data_ptr(), *pools, page_table.data_ptr(),
+                   fresh_k.data_ptr(), fresh_v.data_ptr(),
+                   positions.data_ptr(), out.data_ptr(), b, nq, nk, nl,
+                   layer, page, max_pages, h, pair), quant, nk,
+                  page * max_pages, scale, what, page=page)
+    ck.launch_counts["paged_decode_attention"
+                     + ("" if quant else "_bf16")
+                     + ("_paired" if pair else "")] += 1
     return out
 
 
@@ -212,8 +211,31 @@ def paged_verify_attention(q: torch.Tensor, k_pool: torch.Tensor,
         return paged_verify_attention_plain(
             q, k_pool, v_pool, page_table, positions, k_scale, v_scale,
             layer=layer, fresh_k=fresh_k, fresh_v=fresh_v, scale=scale)
-    out, form = _launch("paged verify attention", q, k_pool, v_pool,
-                        page_table, positions, k_scale, v_scale, layer,
-                        fresh_k, fresh_v, scale)
-    ck.launch_counts["paged_verify_attention" + form] += 1
+    what = "paged verify attention"
+    check_verify_block(what, q)
+    b, t, nq, h = q.shape
+    nk, nl, page, pair = _check_pool(what, q, k_pool, v_pool, page_table,
+                                     k_scale, v_scale, layer)
+    check_block_inputs(what, q, fresh_k, fresh_v, positions,
+                       (k_pool, v_pool, *scale_planes(k_scale, v_scale),
+                        page_table), nk)
+    from gabby_tpu_torch.ops.cuda import build
+    lib = build.library()
+    out = torch.empty_like(q)
+    sm_scale = float(scale) if scale is not None else h ** -0.5
+    rest = (page_table.data_ptr(), fresh_k.data_ptr(), fresh_v.data_ptr(),
+            positions.data_ptr(), out.data_ptr(), b, t, nq, nk, nl, layer,
+            page, page_table.shape[1], h, pair, sm_scale,
+            build.stream_ptr(q.device))
+    if k_scale is None:
+        build.check(lib.gabby_paged_attention_bf16(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *rest), what)
+        form = "_bf16"
+    else:
+        build.check(lib.gabby_paged_attention(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            k_scale.data_ptr(), v_scale.data_ptr(), *rest), what)
+        form = ""
+    ck.launch_counts["paged_verify_attention" + form
+                     + ("_paired" if pair else "")] += 1
     return out

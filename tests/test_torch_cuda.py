@@ -4,8 +4,10 @@ positions, position 0, M = 1 and 64, M = 65..512 for the prefill matmul,
 multi-chunk offsets, every prefill bucket over a long past, verify blocks
 of 2..32 rows, page sizes 128..512 through a shuffled table, parked lanes,
 a window, group sizes 1..8), the paired kernels also against the unpaired
-ones on the same rows re-laid, by equality. Marked `cuda`: each test skips
-without a GPU. Run on the card with
+ones on the same rows re-laid, by equality, and every single-position form
+of csrc/decode_attention.cu also against its unpaired dense form on the
+same rows under the same launch plan, by equality. Marked `cuda`: each
+test skips without a GPU. Run on the card with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
@@ -546,7 +548,9 @@ def test_paged_kernels_equal_the_dense_ones_on_the_same_rows(dev):
                                         layer=1, fresh_k=fk1, fresh_v=fv1)
     ref = cattn.decode_attention(q1, dense[0], dense[1], dense[2], dense[3],
                                  pos, layer=1, fresh_k=fk1, fresh_v=fv1)
-    torch.testing.assert_close(out.float(), ref.float(), **TOL)
+    # one kernel, and the pool's read bound (4 pages of 256) is the dense
+    # cache's (1024 rows): the same plan, the same bits
+    assert torch.equal(out, ref)
 
 
 def test_block_wrappers_refuse_what_their_kernels_do_not_take(dev):
@@ -645,13 +649,9 @@ def test_paired_decode_attention(dev, group):
                    vp, ks, vs, pos, **kw)
     ref = cattn.decode_attention_plain(q, kp, vp, ks, vs, pos, **kw)
     _close(out, ref, ATTN_TOL)
-    # the same body on the unpaired rows: T = 1 of the verify entry point
-    same = cattn.verify_attention(q, kc, vc, ks, vs, pos, layer=1,
-                                  fresh_k=fk[:, :, None].contiguous(),
-                                  fresh_v=fv[:, :, None].contiguous())
-    assert torch.equal(out, same)
+    # K12 is K3's kernel on the same rows re-laid, at K3's plan
     k3 = cattn.decode_attention(q, kc, vc, ks, vs, pos, **kw)
-    _close(out, k3, ATTN_TOL)
+    assert torch.equal(out, k3)
     win = cattn.decode_attention(q, kp, vp, ks, vs, pos, window=512, **kw)
     ref = cattn.decode_attention_plain(q, kp, vp, ks, vs,
                                        torch.clamp(pos, max=512), **kw)
@@ -931,12 +931,13 @@ def test_bf16_verify_attention(dev, t, h, group):
                       q, pair_heads(kc), pair_heads(vc), None, None, pos,
                       **kw)
     assert torch.equal(paired, out)
-    # row 0 of the block is the decode kernel's (the same body at T = 1)
+    # row 0 of the block is the decode contract (the decode kernel, on the
+    # tensor cores, sums in another order)
     dec = cattn.decode_attention(q[:, :1].contiguous(), kc, vc, None, None,
                                  pos, layer=1,
                                  fresh_k=fk[:, :, 0].contiguous(),
                                  fresh_v=fv[:, :, 0].contiguous())
-    assert torch.equal(out[:, :1], dec)
+    _close(out[:, :1], dec, ATTN_TOL)
 
 
 @pytest.mark.parametrize("t,offset", PREFILL_CASES)
@@ -1169,7 +1170,7 @@ def test_int8_attention_at_larger_head_shapes(dev, kernel, model):
     kw = dict(layer=1, fresh_k=fk, fresh_v=fv)
     out = _counted(counter, fn, *args, **kw)
     _close(out, plain(*args, **kw), tol)
-    if paired and base != "decode":  # K12 sums in another order than K3
+    if paired:
         assert torch.equal(out, fn(*unpaired_args, **kw))
 
 
@@ -1201,3 +1202,139 @@ def test_bf16_wrappers_refuse_what_their_kernels_do_not_take(dev):
     kp, vp, table = _bf16_pool(dev, g, nl, b, nk, 48, 2, 64)
     with pytest.raises(ValueError, match="multiple of 32"):
         cpaged.paged_decode_attention(q, kp, vp, table, pos, None, None, **kw)
+
+
+# ---- every single-position form on csrc/decode_attention.cu ----------------
+
+SINGLE_PAGES = [32, 64, 128, 256, 512]
+
+
+@pytest.mark.parametrize("group", cattn.GROUPS)
+@pytest.mark.parametrize("h", cattn.HEAD_DIMS)
+def test_single_position_dense_forms(dev, h, group):
+    """K3, K12 (int8) and K24, K25 (bf16) against the plain contract at
+    ragged positions, a repeat of each giving the same bits; the paired
+    forms equal the unpaired ones (K12 = K3, K25 = K24) and K24 equals the
+    slot-batched K32 (one kernel, one plan)."""
+    g = _gen(dev, 80 + h + group)
+    nl, b, nk, s = 2, 8, 8, 2048
+    pos = torch.tensor(LONG, device=dev, dtype=torch.int32)
+    q, fk, fv = _decode_inputs(dev, g, b, nk * group, nk, h)
+    kw = dict(layer=1, fresh_k=fk, fresh_v=fv)
+    for quant in (True, False):
+        if quant:
+            kc, vc, ks, vs = _cache(dev, g, nl, b, nk, s, h)
+        else:
+            kc, vc = _bf16(dev, g, nl, b, nk, s, h), _bf16(dev, g, nl, b, nk,
+                                                          s, h)
+            ks = vs = None
+        base = "decode_attention" + ("" if quant else "_bf16")
+        ref = cattn.decode_attention_plain(q, kc, vc, ks, vs, pos, **kw)
+        outs = []
+        for kk, vv, name in ((kc, vc, base),
+                             (pair_heads(kc), pair_heads(vc),
+                              base + "_paired")):
+            out = _counted(name, cattn.decode_attention, q, kk, vv, ks, vs,
+                           pos, **kw)
+            _close(out, ref, ATTN_TOL)
+            assert torch.equal(out, cattn.decode_attention(q, kk, vv, ks, vs,
+                                                           pos, **kw))
+            outs.append(out)
+        assert torch.equal(outs[1], outs[0])
+        if not quant:
+            assert torch.equal(outs[0], cattn.decode_attention_multi(
+                q, kc, vc, None, None, pos, **kw))
+
+
+@pytest.mark.parametrize("page", SINGLE_PAGES)
+@pytest.mark.parametrize("group", cattn.GROUPS)
+@pytest.mark.parametrize("h", cattn.HEAD_DIMS)
+def test_single_position_paged_forms(dev, h, group, page):
+    """K10, K17 (int8) and K28, K29 (bf16) through a shuffled table whose
+    entries past each slot's rows point at the scratch page, against the
+    plain contract at ragged positions; a repeat of each gives the same
+    bits, the paired forms equal the unpaired ones (K17 = K10, K29 = K28),
+    and the unpaired ones equal the dense kernels (K10 = K3, K28 = K24) on
+    the pool's rows gathered into a dense cache as long as the pool's read
+    bound, where both take the same plan."""
+    from gabby_tpu_torch.ops.attention import gather_pages
+    g = _gen(dev, 90 + h + group + page)
+    nl, b, nk, s = 2, 8, 8, 2048
+    pos = torch.tensor(LONG, device=dev, dtype=torch.int32)
+    q, fk, fv = _decode_inputs(dev, g, b, nk * group, nk, h)
+    kw = dict(layer=1, fresh_k=fk, fresh_v=fv)
+    for quant in (True, False):
+        if quant:
+            kp, vp, ks, vs, table = _pool(dev, g, nl, b, nk, page, s // page,
+                                          h)
+        else:
+            kp, vp, table = _bf16_pool(dev, g, nl, b, nk, page, s // page, h)
+            ks = vs = None
+        table = _unallocate_past(table, pos, page)
+        base = "paged_decode_attention" + ("" if quant else "_bf16")
+        ref = cpaged.paged_decode_attention_plain(q, kp, vp, table, pos, ks,
+                                                  vs, **kw)
+        outs = []
+        for kk, vv, name in ((kp, vp, base),
+                             (pair_heads(kp), pair_heads(vp),
+                              base + "_paired")):
+            out = _counted(name, cpaged.paged_decode_attention, q, kk, vv,
+                           table, pos, ks, vs, **kw)
+            _close(out, ref, ATTN_TOL)
+            assert torch.equal(out, cpaged.paged_decode_attention(
+                q, kk, vv, table, pos, ks, vs, **kw))
+            outs.append(out)
+        assert torch.equal(outs[1], outs[0])
+        dense = [None if x is None else torch.stack(
+            [gather_pages(x, table, i) for i in range(nl)])
+            for x in (kp, vp, ks, vs)]
+        assert torch.equal(outs[0], cattn.decode_attention(q, *dense, pos,
+                                                           **kw))
+
+
+def test_verify_entries_refuse_a_single_position(dev):
+    """csrc/flash_rows.cuh serves T > 1 only: the verify wrappers raise on
+    one position a slot, and the four C entries return an error for T = 1
+    where they launch for T = 2."""
+    from gabby_tpu_torch.ops.cuda import build
+    g = _gen(dev, 48)
+    nl, b, nk, nq, s, page = 1, 2, 2, 8, 64, 32
+    kc, vc, ks, vs = _cache(dev, g, nl, b, nk, s)
+    kb, vb = _bf16(dev, g, nl, b, nk, s, 64), _bf16(dev, g, nl, b, nk, s, 64)
+    kp, vp, kps, vps, table = _pool(dev, g, nl, b, nk, page, s // page)
+    kpb, vpb, _ = _bf16_pool(dev, g, nl, b, nk, page, s // page, 64)
+    pos = torch.full((b,), 40, device=dev, dtype=torch.int32)
+    q, fk, fv = _block(dev, g, b, 1, nq, nk)
+    kw = dict(layer=0, fresh_k=fk, fresh_v=fv)
+    for call in (
+            lambda: cattn.verify_attention(q, kc, vc, ks, vs, pos, **kw),
+            lambda: cattn.verify_attention(q, kb, vb, None, None, pos, **kw),
+            lambda: cpaged.paged_verify_attention(q, kp, vp, table, pos, kps,
+                                                  vps, **kw),
+            lambda: cpaged.paged_verify_attention(q, kpb, vpb, table, pos,
+                                                  None, None, **kw)):
+        with pytest.raises(ValueError, match="positions a slot"):
+            call()
+    lib = build.library()
+    stream = build.stream_ptr(dev)
+    for t in (1, 2):
+        q, fk, fv = _block(dev, g, b, t, nq, nk)
+        out = torch.empty_like(q)
+        fresh = (fk.data_ptr(), fv.data_ptr(), pos.data_ptr(), out.data_ptr())
+        dense = (b, t, nq, nk, s, 64, s, 0, 0.125, stream)
+        paged = (b, t, nq, nk, nl, 0, page, s // page, 64, 0, 0.125, stream)
+        errs = [
+            lib.gabby_verify_attention(q.data_ptr(), kc.data_ptr(),
+                                       vc.data_ptr(), ks.data_ptr(),
+                                       vs.data_ptr(), *fresh, *dense),
+            lib.gabby_verify_attention_bf16(q.data_ptr(), kb.data_ptr(),
+                                            vb.data_ptr(), *fresh, *dense),
+            lib.gabby_paged_attention(q.data_ptr(), kp.data_ptr(),
+                                      vp.data_ptr(), kps.data_ptr(),
+                                      vps.data_ptr(), table.data_ptr(),
+                                      *fresh, *paged),
+            lib.gabby_paged_attention_bf16(q.data_ptr(), kpb.data_ptr(),
+                                           vpb.data_ptr(), table.data_ptr(),
+                                           *fresh, *paged)]
+        torch.cuda.synchronize()
+        assert all(e != 0 for e in errs) if t == 1 else errs == [0] * 4, errs
