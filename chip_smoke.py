@@ -28,12 +28,14 @@ a non-zero exit:
                  than its own tolerance from the bf16/f32 kernel and from
                  the s8 form at half the chunk size, so that the tolerance
                  tells those apart; K33 also against K1 at 4e-2; the
-                 single-position kernels of decode_attention.cu by
+                 single-position kernels of decode_attention.cuh by
                  equality against their unpaired dense forms (K12 and
                  K16 against K3, K24 against K32, K25 against K24, K17
-                 against K10, K29 against K28) and twice on the same
-                 inputs, bit for bit; K3 also at unequal positions, 16 to
-                 2000 rows), timed with
+                 against K10, K29 against K28; the s8 forms K15 against
+                 K14, K20 against K19, and K19 against K14 on the same
+                 rows at a quantization chunk a page) and twice on the
+                 same inputs, bit for bit; K3 also at unequal positions,
+                 16 to 2000 rows), timed with
                  CUDA events, eagerly and replayed from a CUDA graph (the
                  device's share of the eager time), beside the plain
                  version, one PyTorch library
@@ -44,8 +46,9 @@ a non-zero exit:
                  whichever is larger; every library call also from a
                  graph); then one case per attention source
                  at Llama-3.2-3B's heads (24 q heads over 8 kv heads of
-                 128 dims, 28 layers: K3, K16, K32, K13, K17, K15, K21;
-                 K17 by equality against K12 on the same rows)
+                 128 dims, 28 layers: K3, K16, K32, K13, K17, K15, K20,
+                 K21; K17 by equality against K12 on the same rows, K20
+                 against K15 at a chunk a page)
                  and K1 at
                  its four projections x 28 layers, the same way, on lines
                  of their own;
@@ -248,6 +251,20 @@ def bound(nbytes: float, ops: float,
             else dict(bound_ms=t_ops, bound_by="operations"))
 
 
+@contextlib.contextmanager
+def attn_chunk(rows: int):
+    """GABBY_ATTN_CHUNK set to `rows` for the calls made inside."""
+    old = os.environ.get("GABBY_ATTN_CHUNK")
+    os.environ["GABBY_ATTN_CHUNK"] = str(rows)
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["GABBY_ATTN_CHUNK"]
+        else:
+            os.environ["GABBY_ATTN_CHUNK"] = old
+
+
 def library_graph(library, nl: int, iters: int) -> dict:
     """The library call's `nl` launches replayed from a CUDA graph, so that
     a kernel's graph time has a graph time beside it; where the call
@@ -415,7 +432,7 @@ def kernel_phase(cfg, dev):
     """K1-K33 at the 1B serving shapes against their plain versions."""
     from gabby_tpu_torch.ops import cuda as ck
     from gabby_tpu_torch.ops import quant
-    from gabby_tpu_torch.ops.attention import gather_layer
+    from gabby_tpu_torch.ops.attention import gather_layer, gather_pages
     from gabby_tpu_torch.ops.cuda import attention as cattn
     from gabby_tpu_torch.ops.cuda import paged_attention as cpaged
     from gabby_tpu_torch.ops.cuda import prefill_attention as cpfa
@@ -618,7 +635,8 @@ def kernel_phase(cfg, dev):
     s8_dense = dict(tol=S8_TOL, peak=INT8_OP_PER_S, contract=contract,
                     source=csrc + "attention_s8.cu", replaces=pa + ":256",
                     apart=[("the bf16/f32 kernel", k3),
-                           ("the s8 form in chunks of 512", s8_half_chunks)])
+                           ("the s8 form in chunks of 512", s8_half_chunks)],
+                    repeat=True)
 
     decode_case("decode_attention", cattn.decode_attention,
                 cattn.decode_attention_plain, kc, vc, "",
@@ -630,7 +648,8 @@ def kernel_phase(cfg, dev):
                 source=csrc + "decode_attention.cu", replaces=pa + ":256",
                 equal=k3, repeat=True)
     # K14, K15: the s8 form, one 1024-row quantization chunk a slot; the
-    # operations are integer ones, so the int8 peak bounds them
+    # operations are integer ones, so the int8 peak bounds them. K15 is
+    # K14's kernel on the same rows re-laid, at K14's plan: K14's bits
     decode_case("decode_attention_s8", cattn.decode_attention_s8,
                 cattn.decode_attention_s8_plain, kc, vc, ", s8 dots",
                 **s8_dense)
@@ -834,7 +853,20 @@ def kernel_phase(cfg, dev):
     s8_paged = dict(tol=S8_TOL, peak=INT8_OP_PER_S, contract=paged_contract,
                     source=csrc + "attention_s8.cu",
                     apart=[("the bf16/f32 kernel", k10),
-                           ("the s8 form in chunks of 256", s8_half_pages)])
+                           ("the s8 form in chunks of 256", s8_half_pages)],
+                    repeat=True)
+    # the pool's rows gathered into a dense cache as long as its read bound
+    # (4 pages of 512 a slot)
+    dense_pool = [torch.stack([gather_pages(x, table, i) for i in range(nl)])
+                  for x in (kp, vp, kps, vps)]
+
+    def k14_at_page_chunks(i):
+        """K14 on the gathered rows, a quantization chunk a page: K19's
+        plan, tiles and chunk maxima, so K19's bits."""
+        with attn_chunk(page):
+            return cattn.decode_attention_s8(q, *dense_pool[:2],
+                                             *dense_pool[2:], pos, layer=i,
+                                             **kw)
 
     # K10: K3's work read through the table (K3's kernel, paged)
     paged_case("paged_decode_attention", cpaged.paged_decode_attention,
@@ -847,10 +879,12 @@ def kernel_phase(cfg, dev):
                pa + ":800", source=csrc + "decode_attention.cu",
                equal=lambda i: cpaged.paged_decode_attention(
                    q, *pool, layer=i, **kw), repeat=True)
-    # K19, K20: the s8 form through the table, one chunk a page
+    # K19, K20: the s8 form through the table, one chunk a page; K19 gives
+    # K14's bits on the same rows at a chunk a page, K20 K19's
     paged_case("paged_decode_attention_s8", cpaged.paged_decode_attention_s8,
                cpaged.paged_decode_attention_s8_plain, pool, ", s8 dots",
-               pa + ":800", **s8_paged)
+               pa + ":800", **s8_paged, equal=k14_at_page_chunks)
+    del dense_pool
     paged_case("paged_decode_attention_s8_paired",
                cpaged.paged_decode_attention_s8,
                cpaged.paged_decode_attention_s8_plain, pool_p,
@@ -1046,7 +1080,8 @@ def head128_phase(cfg3, dev) -> list:
     int8 cache of the 3B engine run: K3, K16, K32 (over a bf16 cache of
     the same shape) and K17 paired paged decode (decode_attention.cu),
     K13 paired verify (verify_attention.cu), K15 paired s8 decode
-    (attention_s8.cu, the 3B default) and K21 paired prefill
+    (attention_s8.cu, the 3B default) and K20 its paged form, and K21
+    paired prefill
     (prefill_attention.cu), each against its plain version, timed as the
     1B cases are; then K1 at the 3B's four projections x 28 layers, M = 8.
     Emitted on lines of their own."""
@@ -1136,7 +1171,8 @@ def head128_phase(cfg3, dev) -> list:
                                                    layer=i, **kw),
          lib, dbytes, dflops, tol=S8_TOL, peak=INT8_OP_PER_S,
          equal=lambda i: cattn.decode_attention_s8(
-             q, kc, vc, ks, vs, pos, layer=i, window=ctx + 1, **kw))
+             q, kc, vc, ks, vs, pos, layer=i, window=ctx + 1, **kw),
+         repeat=True)
     # the same rows through a shuffled table of 512-row pages, paired
     npages = b * s // page + 1
     table = (torch.randperm(npages - 1, generator=g, device=dev) + 1
@@ -1165,6 +1201,23 @@ def head128_phase(cfg3, dev) -> list:
          equal=lambda i: cattn.decode_attention(
              q, kcp, vcp, ks, vs, pos, layer=i, window=2048, **kw),
          repeat=True)
+
+    def k15_at_page_chunks(i):
+        """K15 on the same rows, window 2048, a quantization chunk a page:
+        K20's plan, tiles and chunk maxima, so K20's bits."""
+        with attn_chunk(page):
+            return cattn.decode_attention_s8(q, kcp, vcp, ks, vs, pos,
+                                             layer=i, window=2048, **kw)
+
+    # K20, the paged default, gives K15's bits at a chunk a page
+    case("paged_decode_attention_s8_paired", heads + ", context 1024, "
+         "paired int8 pool of 33 pages of 512, shuffled table, s8 dots",
+         csrc + "attention_s8.cu", pa + ":800",
+         lambda i: cpaged.paged_decode_attention_s8(q, *pool, layer=i, **kw),
+         lambda i: cpaged.paged_decode_attention_s8_plain(q, *pool, layer=i,
+                                                          **kw),
+         lib, dbytes + nl * b * (s // page) * 4, dflops, tol=S8_TOL,
+         peak=INT8_OP_PER_S, equal=k15_at_page_chunks, repeat=True)
     del pool
     kd = [deq(kc[i], ks[i], fkv) for i in range(nl)]
     vd = [deq(vc[i], vs[i], fvv) for i in range(nl)]
@@ -1754,7 +1807,8 @@ def main() -> int:
     build.library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0})
     for src in ("quant_matmul_prefill.cu", "prefill_attention.cu",
-                "quant_matmul_stacked.cu"):
+                "quant_matmul_stacked.cu", "decode_attention.cu",
+                "attention_s8.cu"):
         emit({"phase": "build", "ptxas": src,
               "lines": ptxas_lines(log.getvalue(), src)})
 

@@ -6,7 +6,8 @@ all their forms).
 Over an int8 cache with f32 scales, unpaired [L, B, Nk, S, H]:
   K3   decode, bf16/f32 form (csrc/decode_attention.cu, _decode_call tq = 1);
   K9   verify, T > 1 (csrc/verify_attention.cu, _decode_call tq > 1);
-  K14  decode, s8 form (csrc/attention_s8.cu, _decode_call use_s8=True);
+  K14  decode, s8 form (csrc/attention_s8.cu, _decode_call use_s8=True;
+       the kernel of csrc/decode_attention.cuh in its s8 form);
   K16  decode, bf16/f32 form, the slot-batched launch
        (csrc/decode_attention.cu, _decode_call_multi).
 Over the paired int8 cache [L, B, Nk/2, S, 2H] (adjacent kv heads side by
@@ -20,11 +21,12 @@ Over a bf16 cache (no scales: the reference's k_scale=None form):
        all _decode_call with k_scale=None;
   K32  decode, the slot-batched launch, unpaired
        (csrc/decode_attention.cu, _decode_call_multi with k_scale=None).
-Every single-position form but s8 (K3, K12, K16, K24, K25, K32, and the
-paged K10, K17, K28, K29 of paged_attention.py) is one kernel whose launch
-(slots a block, the cluster that splits a slot's rows, rows a warp's tile)
-comes from `decode_plan`; it takes group sizes 1, 2, 3, 4 and 8, as the s8
-form does, and the verify kernels any. Every kernel takes head_dim 64 or
+Every single-position form (K3, K12, K14, K15, K16, K24, K25, K32, and the
+paged K10, K17, K19, K20, K28, K29 of paged_attention.py) is one kernel
+(csrc/decode_attention.cuh) whose launch (slots a block, the cluster that
+splits a slot's rows, rows a warp's tile) comes from `decode_plan`, and
+for the s8 form from `s8_plan`; it takes group sizes 1, 2, 3, 4 and 8, the
+verify kernels any. Every kernel takes head_dim 64 or
 128, reads rows j < min(positions[b], window) of one layer of the stacked
 cache (a pointer offset, no copy) and folds the block's own unquantized k/v
 in last. A paired kernel's block owns one kv head and reads its half of
@@ -50,6 +52,13 @@ DECODE_WARPS = 4           # warps a block of decode_attention.cu: parts a rank
 MAX_SPLIT = 8              # the portable cluster size
 ROWS_PER_WARP = 64         # rows a warp of decode_attention.cu takes at least
 BLOCKS_PER_SM = 4          # blocks of decode_attention.cu a multiprocessor holds
+S8_TILE = 32               # rows of a warp's tile in the s8 form
+S8_MAX_SPLIT = 4           # the s8 form's largest cluster (see s8_plan)
+S8_PARK = 12 * 32          # floats a warp parks for each of its s8 tiles
+S8_PARK_TILES = 4          # a part's tiles of an s8 group, chunks allowing
+S8_GROUP_CHUNKS = 32       # chunks of a group of the s8 form at most
+MAX_SMEM = 232448          # a block's shared memory on the H100, bytes
+SM_SMEM = 233472           # a multiprocessor's, 1024 of it kept a block
 
 
 def decode_plan(b: int, nk: int, h: int, g: int, limit: int, sms: int, *,
@@ -95,6 +104,19 @@ def decode_plan(b: int, nk: int, h: int, g: int, limit: int, sms: int, *,
     return 1, split, tile
 
 
+def chunk_tiles(n: int, tile: int,
+                chunk: Optional[int] = None) -> list[tuple[int, int]]:
+    """The tiles [lo, hi) csrc/decode_attention.cuh cuts n live rows into,
+    in order: tiles of `tile` rows from row 0, the last one short; with a
+    quantization chunk (the s8 form), each chunk of `chunk` rows from row
+    0 starts a tile, so a chunk's last tile may be short and no tile
+    straddles two chunks."""
+    if chunk is None:
+        return [(r, min(r + tile, n)) for r in range(0, n, tile)]
+    return [(r, min(r + tile, c + chunk, n)) for c in range(0, n, chunk)
+            for r in range(c, min(c + chunk, n), tile)]
+
+
 def decode_rows(n: int, split: int, tile: int) -> list[tuple[int, int]]:
     """The rows [lo, hi) each warp of a (slot, kv head) reads in
     csrc/decode_attention.cu for n live rows, part p = rank x DECODE_WARPS
@@ -103,6 +125,104 @@ def decode_rows(n: int, split: int, tile: int) -> list[tuple[int, int]]:
     tiles, parts = -(-n // tile), split * DECODE_WARPS
     return [(min(n, p * tiles // parts * tile),
              min(n, (p + 1) * tiles // parts * tile)) for p in range(parts)]
+
+
+def s8_sizes(split: int, limit: int, chunk: int) -> tuple[int, int, int]:
+    """The s8 form's groups (csrc/decode_attention.cuh s8_sizes): (group,
+    chunks, park). A slot's live chunks are read `group` at a time, as many
+    whole chunks as split x DECODE_WARPS parts of S8_PARK_TILES tiles hold
+    (at least 1, at most S8_GROUP_CHUNKS); `chunks` of a group fit the read
+    bound `limit`; `park` is the tiles of a part of such a group, which a
+    warp parks (S8_PARK_TILES or fewer, unless one chunk holds more)."""
+    per, parts = -(-chunk // S8_TILE), split * DECODE_WARPS
+    group = max(1, min(S8_GROUP_CHUNKS, S8_PARK_TILES * parts // per))
+    nc = -(-limit // chunk) if limit > 0 else 0
+    chunks = min(group, nc)
+    tiles = len(chunk_tiles(limit, S8_TILE, chunk)) if chunks == nc \
+        else chunks * per
+    return group, chunks, -(-tiles // parts)
+
+
+def s8_rows(n: int, split: int, chunk: int,
+            limit: int) -> list[list[tuple[int, int]]]:
+    """The rows [lo, hi) each warp reads in each group of the s8 form for n
+    live rows (a plain mirror of the kernel): a list per group of
+    `s8_sizes` chunks, each the group's `chunk_tiles` cut into split x
+    DECODE_WARPS parts in order."""
+    group = s8_sizes(split, limit, chunk)[0]
+    tiles, parts = chunk_tiles(n, S8_TILE, chunk), split * DECODE_WARPS
+    nc = -(-n // chunk) if n > 0 else 0
+    out = []
+    for c0 in range(0, nc, group):
+        mine = [tl for tl in tiles if c0 <= tl[0] // chunk < c0 + group]
+        end = mine[-1][1]
+
+        def start(i: int) -> int:
+            return mine[i][0] if i < len(mine) else end
+        out.append([(start(p * len(mine) // parts),
+                     start((p + 1) * len(mine) // parts))
+                    for p in range(parts)])
+    return out
+
+
+def s8_smem_bytes(h: int, g: int, split: int, limit: int, chunk: int) -> int:
+    """The shared memory of a block of the s8 form in bytes, as
+    csrc/decode_attention.cuh lays it out: the merge's mbarrier and the
+    slot (its warps' partials, the other ranks' and the fresh row's
+    scores), then the s8 scratch: two mbarriers; per round the warps', the
+    ranks' and the folded maxima of a group's chunks and queries; each
+    warp's parked tiles (a score, then p x v_scale, and a v_scale for each
+    of 8 elements and 4 rows a lane) and, where the read bound holds more
+    than one group, room for its output between groups. It grows with the
+    chunk, not the read bound."""
+    slot = ((DECODE_WARPS + split - 1) * g * (h + 2) * 4 + g * 4 + 15) & ~15
+    _, chunks, park = s8_sizes(split, limit, chunk)
+    more = chunks < (-(-limit // chunk) if limit > 0 else 0)
+    stash = -(-(h // 16 * 4 * 32) // S8_PARK) if more else 0
+    return (16 + slot + 16 + 4 * chunks * g * 2 * (DECODE_WARPS + split + 1)
+            + 4 * DECODE_WARPS * (park + stash) * S8_PARK)
+
+
+def s8_plan(b: int, nk: int, h: int, g: int, limit: int, sms: int,
+            chunk: int, *, page: Optional[int] = None
+            ) -> tuple[int, int, int]:
+    """The launch of the s8 form of csrc/decode_attention.cuh (K14, K15
+    dense; K19, K20 paged, where the chunk is the page): `decode_plan`'s
+    over an int8 cache with the split at most S8_MAX_SPLIT, so it leaves
+    every warp at least ROWS_PER_WARP rows at the full read bound whatever
+    the chunk (the ranks trade their chunk maxima, so they may cut one
+    chunk's rows), and a paged read bound plans as a dense cache of as many
+    rows. Every rank waits for the slowest in each of the form's two
+    exchanges, and at split 8 the 8 slots x 8 kv heads' 512 blocks fill the
+    H100's register file, so that one call's blocks cannot start under the
+    last one's: on an H100 split 4 took 11-18 us a call where 8 took
+    16-24 at 1024 live rows of 1025 or 2048, and 14-22 against 14-23 at
+    16-2000 rows but for the 1B paged forms (15.9-16.4 against 14.9-15.1;
+    tools/bench_decode_attention.py --splits, PERF.md). The block's shared
+    memory (`s8_smem_bytes`) does not grow with the read bound, only with a
+    chunk of more tiles than the parts park four at a time: the split then
+    doubles (up to MAX_SPLIT, more blocks than a wave) while a block takes
+    more than half a multiprocessor's. Refused (ValueError): a chunk below
+    1, a paged chunk that is not the page, and a chunk whose tiles a block
+    cannot park even at MAX_SPLIT (past about 32768 rows). Shapes and the
+    chunk alone decide it, never the positions, so a launch replays from a
+    CUDA graph."""
+    if chunk < 1 or (page is not None and chunk != page):
+        raise ValueError(f"s8 decode attention takes a chunk of at least "
+                         f"one row (paged: the page), got {chunk}")
+    sb, split, tile = decode_plan(b, nk, h, g, limit, sms, quant=True,
+                                  page=page)
+    split = min(split, S8_MAX_SPLIT)
+    share = SM_SMEM // 2 - 1024
+    while split < MAX_SPLIT and s8_smem_bytes(h, g, split, limit,
+                                              chunk) > share:
+        split *= 2
+    need = s8_smem_bytes(h, g, split, limit, chunk)
+    if need > MAX_SMEM:
+        raise ValueError(f"s8 decode attention in chunks of {chunk} rows "
+                         f"needs {need} bytes of shared memory a block, "
+                         f"more than the {MAX_SMEM} a block has")
+    return sb, split, tile
 
 
 def decode_pages(n: int, split: int, tile: int, page: int) -> list[list[int]]:
@@ -394,8 +514,9 @@ def decode_attention_s8(q: torch.Tensor, k_cache: torch.Tensor,
                         fresh_v: torch.Tensor, scale: Optional[float] = None,
                         window: Optional[int] = None) -> torch.Tensor:
     """The s8 form (`s8_attention_core`), inputs as `decode_attention`:
-    unpaired cache K14, paired cache K15. The quantization chunk is
-    min(attn_chunk(), S) rows."""
+    unpaired cache K14, paired cache K15, at `s8_plan`'s launch. The
+    quantization chunk is min(attn_chunk(), S) rows. On the same rows
+    under the same plan K15 equals K14 bit for bit."""
     if not q.is_cuda:
         return decode_attention_s8_plain(
             q, k_cache, v_cache, k_scale, v_scale, positions, layer=layer,
@@ -409,6 +530,10 @@ def decode_attention_s8(q: torch.Tensor, k_cache: torch.Tensor,
     check_decode_inputs(what, q, fresh_k, fresh_v, positions,
                          (k_cache, v_cache, k_scale, v_scale), nk)
     from gabby_tpu_torch.ops.cuda import build
+    from gabby_tpu_torch.ops.cuda.quant_matmul import multiprocessors
+    limit, chunk = _limit(s, window), min(ck.attn_chunk(), s)
+    plan = s8_plan(b, nk, h, nq // nk, limit,
+                   multiprocessors(q.device.index), chunk)
     lib = build.library()
     out = torch.empty_like(q)
     sm_scale = float(scale) if scale is not None else h ** -0.5
@@ -417,8 +542,8 @@ def decode_attention_s8(q: torch.Tensor, k_cache: torch.Tensor,
         v_cache.data_ptr() + kv_off, k_scale.data_ptr() + sc_off,
         v_scale.data_ptr() + sc_off, None, fresh_k.data_ptr(),
         fresh_v.data_ptr(), positions.data_ptr(), out.data_ptr(), b, nq, nk,
-        1, 0, s, 1, h, _limit(s, window), min(ck.attn_chunk(), s), pair,
-        sm_scale, build.stream_ptr(q.device)), what)
+        1, 0, s, 1, h, limit, chunk, pair, *plan, sm_scale,
+        build.stream_ptr(q.device)), what)
     ck.launch_counts["decode_attention_s8_paired" if pair
                      else "decode_attention_s8"] += 1
     return out

@@ -161,10 +161,11 @@ _SIGNATURES = {
     # fresh_v, positions, out; B, T, Nq, Nk, L, layer, page, max_pages, H,
     # pair; sm_scale; stream
     "gabby_paged_attention": [_P] * 10 + [_I] * 10 + [_F, _P],
-    # q, k, v, k_scale, v_scale (dense: layer offset; paged: whole pools),
-    # page table or NULL, fresh_k, fresh_v, positions, out; B, Nq, Nk,
-    # layers, layer, rows, max_pages, H, limit, chunk, pair; sm_scale; stream
-    "gabby_attention_s8": [_P] * 10 + [_I] * 11 + [_F, _P],
+    # K14, K15, K19, K20: q, k, v, k_scale, v_scale (dense: layer offset;
+    # paged: whole pools), page table or NULL, fresh_k, fresh_v, positions,
+    # out; B, Nq, Nk, layers, layer, rows, max_pages, H, limit, chunk, pair,
+    # sb, split, tile (s8_plan); sm_scale; stream
+    "gabby_attention_s8": [_P] * 10 + [_I] * 14 + [_F, _P],
     # the bf16-cache forms: the int8 forms' arguments without the scales
     "gabby_prefill_attention_bf16": [_P] * 7 + [_I] * 8 + [_F, _P],
     "gabby_verify_attention_bf16": [_P] * 7 + [_I] * 8 + [_F, _P],

@@ -5,7 +5,8 @@ paged_verify_attention in all their forms).
 
 Over the unpaired int8 pool [P, L, Nk, page, H]: K10 decode
 (csrc/decode_attention.cu) and K11 verify (csrc/paged_attention.cu) in the
-bf16/f32 form, K19 decode in the s8 form (csrc/attention_s8.cu). Over the
+bf16/f32 form, K19 decode in the s8 form (csrc/attention_s8.cu, the same
+kernel in its s8 form at `s8_plan`'s launch). Over the
 paired int8 pool [P, L, Nk/2, page, 2H] (detected by the lane width; scale
 pools per head either way): K17, K18 and K20. Over a bf16 pool (no scale
 pools, the reference's k_scale=None form): K28 decode and K30 verify,
@@ -37,7 +38,7 @@ from gabby_tpu_torch.ops.cuda.attention import (HEAD_DIMS,
                                                 check_decode_inputs,
                                                 check_verify_block,
                                                 decode_launch,
-                                                s8_attention_core,
+                                                s8_attention_core, s8_plan,
                                                 scale_planes)
 
 
@@ -168,7 +169,11 @@ def paged_decode_attention_s8(q: torch.Tensor, k_pool: torch.Tensor,
                               fresh_k: torch.Tensor, fresh_v: torch.Tensor,
                               scale: Optional[float] = None) -> torch.Tensor:
     """The s8 form (`s8_attention_core`, one quantization chunk per page),
-    inputs as `paged_decode_attention`: unpaired pool K19, paired K20."""
+    inputs as `paged_decode_attention`: unpaired pool K19, paired K20, at
+    `s8_plan`'s launch for the read bound page x max_pages. On the same
+    rows K20 equals K19 bit for bit, and K19 equals the dense K14 where
+    the dense chunk is the page and the dense read bound page x
+    max_pages."""
     if not q.is_cuda:
         return paged_decode_attention_s8_plain(
             q, k_pool, v_pool, page_table, positions, k_scale, v_scale,
@@ -182,6 +187,10 @@ def paged_decode_attention_s8(q: torch.Tensor, k_pool: torch.Tensor,
     check_decode_inputs(what, q, fresh_k, fresh_v, positions,
                          (k_pool, v_pool, k_scale, v_scale, page_table), nk)
     from gabby_tpu_torch.ops.cuda import build
+    from gabby_tpu_torch.ops.cuda.quant_matmul import multiprocessors
+    max_pages = page_table.shape[1]
+    plan = s8_plan(b, nk, h, nq // nk, page * max_pages,
+                   multiprocessors(q.device.index), page, page=page)
     lib = build.library()
     out = torch.empty_like(q)
     sm_scale = float(scale) if scale is not None else h ** -0.5
@@ -189,8 +198,8 @@ def paged_decode_attention_s8(q: torch.Tensor, k_pool: torch.Tensor,
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(),
         fresh_k.data_ptr(), fresh_v.data_ptr(), positions.data_ptr(),
-        out.data_ptr(), b, nq, nk, nl, layer, page, page_table.shape[1], h,
-        page * page_table.shape[1], page, pair, sm_scale,
+        out.data_ptr(), b, nq, nk, nl, layer, page, max_pages, h,
+        page * max_pages, page, pair, *plan, sm_scale,
         build.stream_ptr(q.device)), what)
     ck.launch_counts["paged_decode_attention_s8_paired" if pair
                      else "paged_decode_attention_s8"] += 1

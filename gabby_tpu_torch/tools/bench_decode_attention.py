@@ -1,11 +1,14 @@
-"""Times the single-position flash-decode kernel (csrc/decode_attention.cu)
+"""Times the single-position flash-decode kernel (csrc/decode_attention.cuh)
 on the card in every form it serves: over an int8 cache K3, the
 slot-batched K16 and the paired K12, through the page table K10 and the
 paired K17; over a bf16 cache the slot-batched K32, K24 and the paired K25,
-through the page table K28 and the paired K29.
+through the page table K28 and the paired K29 (csrc/decode_attention.cu);
+in the s8 form over an int8 cache K14, the paired K15, through the page
+table K19 and the paired K20 (csrc/attention_s8.cu; the dense chunk is
+min(attn_chunk(), S), the paged one a page).
 
     python -m gabby_tpu_torch.tools.bench_decode_attention [--roots DIR ...]
-        [--probe] [--splits]
+        [--probe] [--splits] [--long]
 
 At the heads of Llama-3.2-1B (32 q over 8 kv heads of 64 dims, 16 layers)
 and Llama-3.2-3B (24 over 8 of 128, 28 layers), 8 slots of a 2048-row
@@ -20,7 +23,8 @@ and from a graph) and the bound (each live cache byte read once at 3.35
 TB/s); with the largest difference from the plain version on two layers,
 whether a repeat gives the same bits, and whether each form gives the bits
 of its unpaired dense form (K16 and K12 those of K3, K24 those of K32, K25
-those of K24, K17 those of K10, K29 those of K28). `--roots` times the
+those of K24, K17 those of K10, K29 those of K28, K15 those of K14, K20
+those of K19). `--roots` times the
 kernels of each checkout given, in that order, each in a process of its
 own, through the same public wrappers (an older commit unpacked with `git
 archive` beside this one, so that two versions are compared in one run on
@@ -29,8 +33,14 @@ csrc/decode_attention.cu alone with DECODE_PROBE = 1 (the copies alone), 2
 (no cross-block merge) and 3 (no programmatic dependent launch), and with
 DECODE_SLOTS = 2 (two slots a block), and times K3's and K32's call sets
 at equal positions through each build beside the whole kernel (each build
-twice, in order and in reverse): where the time goes, and what two of the
-design's choices are worth. `--splits` times every form of this checkout
+twice, in order and in reverse); and csrc/attention_s8.cu alone with
+DECODE_PROBE = 4 (no exchange of chunk maxima between the ranks) and 5
+(the first exchange alone), timing K14's and K19's call sets the same way.
+Where the time goes, and what the design's choices are worth. `--long`
+also times the s8 forms of each checkout at the Llama-3.2-1B heads over
+8192-row caches (the presets' max_seq; the paged pool 16 pages of 512 a
+slot), at 1024 and at 8192 live rows a slot, beside SDPA. `--splits` times every
+form of this checkout
 at every split (1, 2, 4, 8 blocks a cluster), microseconds a call replayed
 from a graph, beside the split `decode_plan` picks. The probe builds'
 outputs are not the product. Prints one JSON line.
@@ -61,37 +71,42 @@ FORMS = {"K3": (True, False, False, None), "K16": (True, False, False, "K3"),
          "K24": (False, False, False, "K32"),
          "K25": (False, True, False, "K24"),
          "K28": (False, False, True, None),
-         "K29": (False, True, True, "K28")}
+         "K29": (False, True, True, "K28"),
+         "K14": (True, False, False, None), "K15": (True, True, False, "K14"),
+         "K19": (True, False, True, None), "K20": (True, True, True, "K19")}
+S8 = ("K14", "K15", "K19", "K20")  # the s8 form (csrc/attention_s8.cu)
 
 
-def _inputs(model: str, dev, gen) -> dict:
-    """One model's caches (int8 with scales, and bf16) in the dense, paired
-    and paged layouts, queries and fresh rows, and both position sets."""
+def _inputs(model: str, dev, gen, rows: int = ROWS) -> dict:
+    """One model's caches of `rows` rows a slot (int8 with scales, and
+    bf16) in the dense, paired and paged layouts, queries and fresh rows,
+    and the position sets: at ROWS equal and spread positions, else 1024
+    and `rows` live rows a slot, read bound `rows`."""
     from gabby_tpu_torch.runtime.kv_cache import pair_heads, quantize_kv
     nl, nq, nk, h = MODELS[model]
 
     def rand(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
-    npages = SLOTS * ROWS // PAGE + 1
+    npages = SLOTS * rows // PAGE + 1
     table = (torch.randperm(npages - 1, generator=gen, device=dev) + 1
-             ).reshape(SLOTS, ROWS // PAGE).to(torch.int32).contiguous()
+             ).reshape(SLOTS, rows // PAGE).to(torch.int32).contiguous()
 
     def paged(x):
         """[L, B, N, S, *] as a pool [P, L, N, page, *] behind `table`
         (page 0 the unused scratch page)."""
         pool = torch.zeros((npages, nl, x.shape[2], PAGE, *x.shape[4:]),
                            dtype=x.dtype, device=dev)
-        split = x.reshape(nl, SLOTS, x.shape[2], ROWS // PAGE, PAGE,
+        split = x.reshape(nl, SLOTS, x.shape[2], rows // PAGE, PAGE,
                           *x.shape[4:])
         pool[table.long()] = split.permute(1, 3, 0, 2, 4,
                                            *range(5, split.dim()))
         return pool
 
-    kc, ks = quantize_kv(rand(nl, SLOTS, nk, ROWS, h))
-    vc, vs = quantize_kv(rand(nl, SLOTS, nk, ROWS, h))
-    kb = rand(nl, SLOTS, nk, ROWS, h).bfloat16()
-    vb = rand(nl, SLOTS, nk, ROWS, h).bfloat16()
+    kc, ks = quantize_kv(rand(nl, SLOTS, nk, rows, h))
+    vc, vs = quantize_kv(rand(nl, SLOTS, nk, rows, h))
+    kb = rand(nl, SLOTS, nk, rows, h).bfloat16()
+    vb = rand(nl, SLOTS, nk, rows, h).bfloat16()
     caches = {}
     for quant, k_, v_, ks_, vs_ in ((True, kc, vc, ks, vs),
                                     (False, kb, vb, None, None)):
@@ -106,10 +121,14 @@ def _inputs(model: str, dev, gen) -> dict:
         nl=nl, nq=nq, nk=nk, h=h, caches=caches, table=table,
         q=rand(SLOTS, 1, nq, h).bfloat16(), fk=rand(SLOTS, nk, h).bfloat16(),
         fv=rand(SLOTS, nk, h).bfloat16(),
-        pos={"equal": (torch.full((SLOTS,), CTX, dtype=torch.int32,
-                                  device=dev), CTX + 1),
-             "spread": (torch.tensor(SPREAD, dtype=torch.int32, device=dev),
-                        ROWS)})
+        rows=rows, pos={
+            "equal": (torch.full((SLOTS,), CTX, dtype=torch.int32,
+                                 device=dev), CTX + 1),
+            "spread": (torch.tensor(SPREAD, dtype=torch.int32, device=dev),
+                       rows)} if rows == ROWS else {
+            f"{n} of {rows}": (torch.full((SLOTS,), n, dtype=torch.int32,
+                                          device=dev), rows)
+            for n in (CTX, rows)})
 
 
 def _bound_ms(x: dict, pos, quant: bool, paged: bool) -> float:
@@ -118,7 +137,7 @@ def _bound_ms(x: dict, pos, quant: bool, paged: bool) -> float:
     nl, nq, nk, h = x["nl"], x["nq"], x["nk"], x["h"]
     row = h + 4 if quant else 2 * h
     live = int(pos.sum())
-    table = SLOTS * ROWS // PAGE * 4 if paged else 0
+    table = SLOTS * x["rows"] // PAGE * 4 if paged else 0
     return nl * (2 * nk * live * row + 2 * SLOTS * nq * h * 2
                  + 2 * SLOTS * nk * h * 2 + table) / HBM_BYTES_PER_S * 1e3
 
@@ -131,6 +150,24 @@ def _caller(x: dict, form: str, pos, window: int):
     quant, pair, paged, _ = FORMS[form]
     k_, v_, ks_, vs_ = x["caches"][quant][(pair, paged)]
     kw = dict(fresh_k=x["fk"], fresh_v=x["fv"])
+    if form in S8 and paged:
+        def call(i):
+            return cpaged.paged_decode_attention_s8(
+                x["q"], k_, v_, x["table"], pos, ks_, vs_, layer=i, **kw)
+
+        def plain(i):
+            return cpaged.paged_decode_attention_s8_plain(
+                x["q"], k_, v_, x["table"], pos, ks_, vs_, layer=i, **kw)
+        return call, plain
+    if form in S8:
+        def call(i):
+            return cattn.decode_attention_s8(x["q"], k_, v_, ks_, vs_, pos,
+                                             layer=i, window=window, **kw)
+
+        def plain(i):
+            return cattn.decode_attention_s8_plain(x["q"], k_, v_, ks_, vs_,
+                                                   pos, layer=i, **kw)
+        return call, plain
     if paged:
         def call(i):
             return cpaged.paged_decode_attention(
@@ -153,19 +190,22 @@ def _caller(x: dict, form: str, pos, window: int):
     return call, plain
 
 
-def _time_this_tree() -> dict:
+def _time_this_tree(rows: int = ROWS) -> dict:
     """Every form of the gabby_tpu_torch on sys.path, and the library call,
-    at every model and position set."""
+    at every model and position set; at another cache length than ROWS,
+    the s8 forms at the Llama-3.2-1B heads alone."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {}
-    for model in MODELS:
-        x = _inputs(model, dev, gen)
+    for model in MODELS if rows == ROWS else ["llama32_1b"]:
+        x = _inputs(model, dev, gen, rows)
         nl = x["nl"]
         for label, (pos, window) in x["pos"].items():
             row, outs = {}, {}
             for form, (quant, _, paged, same) in FORMS.items():
+                if rows != ROWS and form not in S8:
+                    continue
                 call, plain = _caller(x, form, pos, window)
                 err = max((call(i).float() - plain(i).float()).abs().max()
                           .item() for i in range(2))
@@ -214,15 +254,22 @@ def _time_this_tree() -> dict:
     return out
 
 
-def _declare(lib):
-    """The four entries of csrc/decode_attention.cu in `lib`, typed."""
+ENTRIES = ("gabby_decode_attention", "gabby_decode_attention_bf16",
+           "gabby_paged_decode_attention",
+           "gabby_paged_decode_attention_bf16", "gabby_attention_s8")
+
+
+def _declare(lib, names=ENTRIES):
+    """The entries `names` of the kernel in `lib`, typed."""
     from gabby_tpu_torch.ops.cuda import build
-    names = ("gabby_decode_attention", "gabby_decode_attention_bf16",
-             "gabby_paged_decode_attention",
-             "gabby_paged_decode_attention_bf16")
     for name in names:
         getattr(lib, name).argtypes = build._SIGNATURES[name]
     return {name: getattr(lib, name) for name in names}
+
+
+def _s8_chunk(paged: bool) -> int:
+    from gabby_tpu_torch.ops import cuda as ck
+    return PAGE if paged else min(ck.attn_chunk(), ROWS)
 
 
 def _launcher(entries: dict, x: dict, form: str, pos, window: int, plan):
@@ -236,7 +283,8 @@ def _launcher(entries: dict, x: dict, form: str, pos, window: int, plan):
              o.data_ptr())
     lay = 0 if paged else k_[0].numel() * k_.element_size()
     slay = 0 if paged or not quant else ks_[0].numel() * 4
-    entry = entries["gabby_" + ("paged_" if paged else "")
+    entry = entries["gabby_attention_s8" if form in S8 else
+                    "gabby_" + ("paged_" if paged else "")
                     + "decode_attention" + ("" if quant else "_bf16")]
 
     def call():
@@ -246,7 +294,13 @@ def _launcher(entries: dict, x: dict, form: str, pos, window: int, plan):
             if quant:
                 rows += (ks_.data_ptr() + i * slay,
                          vs_.data_ptr() + i * slay)
-            if paged:
+            if form in S8:
+                table = x["table"].data_ptr() if paged else None
+                shape = ((nl, i, PAGE, ROWS // PAGE, h, ROWS) if paged
+                         else (1, 0, ROWS, 1, h, window))
+                args = (*rows, table, *fresh, SLOTS, nq, nk, *shape,
+                        _s8_chunk(paged), int(pair))
+            elif paged:
                 args = (*rows, x["table"].data_ptr(), *fresh, SLOTS, nq, nk,
                         nl, i, PAGE, ROWS // PAGE, h, int(pair))
             else:
@@ -261,47 +315,72 @@ def _launcher(entries: dict, x: dict, form: str, pos, window: int, plan):
 def _plan(x: dict, form: str, window: int, sms: int) -> tuple:
     from gabby_tpu_torch.ops.cuda import attention as cattn
     quant, _, paged, _ = FORMS[form]
+    limit, page = (ROWS, PAGE) if paged else (window, None)
+    if form in S8:
+        return cattn.s8_plan(SLOTS, x["nk"], x["h"], x["nq"] // x["nk"],
+                             limit, sms, _s8_chunk(paged), page=page)
     return cattn.decode_plan(SLOTS, x["nk"], x["h"], x["nq"] // x["nk"],
-                             ROWS if paged else window, sms, quant=quant,
-                             page=PAGE if paged else None)
+                             limit, sms, quant=quant, page=page)
+
+
+# the probe builds: (source, label, flags, the forms timed through it)
+PROBES = [
+    ("decode_attention.cu", "whole kernel", [], ("K3", "K32")),
+    ("decode_attention.cu", "copies alone", ["-DDECODE_PROBE=1"],
+     ("K3", "K32")),
+    ("decode_attention.cu", "no cross-block merge", ["-DDECODE_PROBE=2"],
+     ("K3", "K32")),
+    ("decode_attention.cu", "without programmatic dependent launch",
+     ["-DDECODE_PROBE=3"], ("K3", "K32")),
+    ("decode_attention.cu", "two slots a block", ["-DDECODE_SLOTS=2"],
+     ("K3", "K32")),
+    ("attention_s8.cu", "s8 whole kernel", [], ("K14", "K19")),
+    ("attention_s8.cu", "s8 without the exchanges", ["-DDECODE_PROBE=4"],
+     ("K14", "K19")),
+    ("attention_s8.cu", "s8 with the first exchange alone",
+     ["-DDECODE_PROBE=5"], ("K14", "K19")),
+]
 
 
 def _probe() -> dict:
     """K3's and K32's call sets at equal positions through builds of
-    csrc/decode_attention.cu alone: the whole kernel, the copies alone, no
-    cross-block merge, two slots a block."""
+    csrc/decode_attention.cu alone (the whole kernel, the copies alone, no
+    cross-block merge, no programmatic dependent launch, two slots a
+    block), K14's and K19's through builds of csrc/attention_s8.cu alone
+    (the whole kernel, no exchange of chunk maxima, the first exchange
+    alone)."""
     from gabby_tpu_torch.ops.cuda import build
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    src = os.path.join(build.CSRC, "decode_attention.cu")
-    builds = {"whole kernel": [], "copies alone": ["-DDECODE_PROBE=1"],
-              "no cross-block merge": ["-DDECODE_PROBE=2"],
-              "without programmatic dependent launch": ["-DDECODE_PROBE=3"],
-              "two slots a block": ["-DDECODE_SLOTS=2"]}
     res = {}
     with tempfile.TemporaryDirectory() as tmp:
-        libs = {label: os.path.join(tmp, f"probe{i}.so")
-                for i, label in enumerate(builds)}
+        libs = [os.path.join(tmp, f"probe{i}.so") for i in range(len(PROBES))]
         procs = [subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, *flags,
-                                   "-shared", "-o", libs[label], src])
-                 for label, flags in builds.items()]
+                                   "-shared", "-o", lib,
+                                   os.path.join(build.CSRC, src)])
+                 for (src, _, flags, _), lib in zip(PROBES, libs)]
         if any(p.wait() for p in procs):
             raise RuntimeError("a probe build failed")
-        entries = {label: _declare(ctypes.CDLL(path))
-                   for label, path in libs.items()}
+        cdlls = [ctypes.CDLL(lib) for lib in libs]
+        entries = [_declare(cdll, [
+            name for name in ENTRIES if (name == "gabby_attention_s8")
+            == (src == "attention_s8.cu")])
+            for (src, _, _, _), cdll in zip(PROBES, cdlls)]
+        order = list(range(len(PROBES)))
         for model in MODELS:
             x = _inputs(model, dev, gen)
             pos, window = x["pos"]["equal"]
             # each build twice, in order and in reverse: a build's place in
             # the sequence moves its time by up to a tenth
-            for label in list(builds) + list(reversed(builds)):
-                for form in ("K3", "K32"):
+            for k in order + order[::-1]:
+                _, label, _, forms = PROBES[k]
+                for form in forms:
                     plan = list(_plan(x, form, window, sms))
                     if label == "two slots a block":
                         plan[0] = 2
                     res.setdefault(f"{model} {form}, {label}", []).append(
-                        _graph_ms(_launcher(entries[label], x, form, pos,
+                        _graph_ms(_launcher(entries[k], x, form, pos,
                                             window, plan)))
             del x
             torch.cuda.empty_cache()
@@ -345,13 +424,16 @@ def main(argv=None) -> int:
     p.add_argument("--splits", action="store_true",
                    help="also time every form of this checkout at every "
                    "split")
-    p.add_argument("--single", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--long", action="store_true",
+                   help="also time the s8 forms of each checkout over "
+                   "8192-row caches")
+    p.add_argument("--single", type=int, default=0, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_decode_attention: no CUDA device", file=sys.stderr)
         return 2
-    if args.single:  # one tree, in a process of its own
-        print(json.dumps(_time_this_tree()), flush=True)
+    if args.single:  # one tree at one cache length, in a process of its own
+        print(json.dumps(_time_this_tree(args.single)), flush=True)
         return 0
     here = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
@@ -362,12 +444,14 @@ def main(argv=None) -> int:
     runs = []
     for root in args.roots or [here]:
         root = os.path.abspath(root)
-        done = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--single"],
-            env={**os.environ, "PYTHONPATH": root}, cwd=root, check=True,
-            capture_output=True, text=True)
-        runs.append({"root": root, **json.loads(
-            done.stdout.strip().splitlines()[-1])})
+        run = {"root": root}
+        for rows in [ROWS] + ([8192] if args.long else []):
+            done = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--single",
+                 str(rows)], env={**os.environ, "PYTHONPATH": root},
+                cwd=root, check=True, capture_output=True, text=True)
+            run.update(json.loads(done.stdout.strip().splitlines()[-1]))
+        runs.append(run)
     result = {"card": card, "runs": runs}
     if args.probe:
         result["probe_graph_ms"] = _probe()

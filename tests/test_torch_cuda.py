@@ -5,8 +5,9 @@ multi-chunk offsets, every prefill bucket over a long past, verify blocks
 of 2..32 rows, page sizes 128..512 through a shuffled table, parked lanes,
 a window, group sizes 1..8), the paired kernels also against the unpaired
 ones on the same rows re-laid, by equality, and every single-position form
-of csrc/decode_attention.cu also against its unpaired dense form on the
-same rows under the same launch plan, by equality. Marked `cuda`: each
+of csrc/decode_attention.cuh (the s8 forms too) also against its unpaired
+dense form on the same rows under the same launch plan, by equality.
+Marked `cuda`: each
 test skips without a GPU. Run on the card with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -1338,3 +1339,124 @@ def test_verify_entries_refuse_a_single_position(dev):
                                            *fresh, *paged)]
         torch.cuda.synchronize()
         assert all(e != 0 for e in errs) if t == 1 else errs == [0] * 4, errs
+
+
+# ---- the s8 forms on csrc/decode_attention.cuh -----------------------------
+
+
+def _s8_forms_agree(dev, g, h, group, page, b, nk, s, pos):
+    """K14, K15, K19 and K20 at the chunk `page` (GABBY_ATTN_CHUNK set by
+    the caller) against their plain versions, each repeated for the same
+    bits; K15 = K14, K20 = K19, and K19 = K14 on the pool's rows gathered
+    into a dense cache as long as the pool's read bound."""
+    from gabby_tpu_torch.ops.attention import gather_pages
+    nl = 2
+    q, fk, fv = _decode_inputs(dev, g, b, nk * group, nk, h)
+    kw = dict(layer=1, fresh_k=fk, fresh_v=fv)
+    kp, vp, ks, vs, table = _pool(dev, g, nl, b, nk, page, s // page, h)
+    table = _unallocate_past(table, pos, page)
+    kc, vc, kcs, vcs = [torch.stack([gather_pages(x, table, i)
+                                     for i in range(nl)])
+                        for x in (kp, vp, ks, vs)]
+    ref = cattn.decode_attention_s8_plain(q, kc, vc, kcs, vcs, pos, **kw)
+    outs = {}
+    for form, name, call in (
+            ("K14", "decode_attention_s8", lambda kk, vv: (
+                cattn.decode_attention_s8(q, kk, vv, kcs, vcs, pos, **kw))),
+            ("K19", "paged_decode_attention_s8", lambda kk, vv: (
+                cpaged.paged_decode_attention_s8(q, kk, vv, table, pos, ks,
+                                                 vs, **kw)))):
+        rows = (kc, vc) if form == "K14" else (kp, vp)
+        for paired in (False, True):
+            kk, vv = ((pair_heads(rows[0]), pair_heads(rows[1])) if paired
+                      else rows)
+            out = _counted(name + ("_paired" if paired else ""), call, kk,
+                           vv)
+            _close(out, ref, S8_TOL)
+            assert torch.equal(out, call(kk, vv)), (form, paired)
+            outs[form, paired] = out
+    assert torch.equal(outs["K14", True], outs["K14", False])  # K15 = K14
+    assert torch.equal(outs["K19", True], outs["K19", False])  # K20 = K19
+    assert torch.equal(outs["K19", False], outs["K14", False])  # K19 = K14
+
+
+@pytest.mark.parametrize("page", [128, 512])
+@pytest.mark.parametrize("h,group", [(64, 4), (128, 3), (128, 8), (64, 1)])
+def test_s8_forms_repeat_and_agree(dev, monkeypatch, h, group, page):
+    """K14, K15, K19 and K20 against their plain versions at ragged
+    positions (head_dim 128 at group 3 among them), a repeat of each giving
+    the same bits; the paired forms equal the unpaired ones (K15 = K14,
+    K20 = K19), and K19 equals K14 bit for bit on the pool's rows gathered
+    into a dense cache as long as the pool's read bound, with the dense
+    chunk the page: the same plan, the same tiles, the same chunk
+    maxima."""
+    monkeypatch.setenv("GABBY_ATTN_CHUNK", str(page))
+    g = _gen(dev, 110 + h + group + page)
+    pos = torch.tensor(LONG, device=dev, dtype=torch.int32)
+    _s8_forms_agree(dev, g, h, group, page, 8, 8, 2048, pos)
+
+
+@pytest.mark.parametrize("h,group,page,b,s", [
+    (128, 8, 32, 1, 8192),    # 8 groups of 32 chunks at 8000 rows
+    (64, 1, 32, 8, 4096),     # 4 groups at split 4
+    (64, 4, 1024, 64, 8192),  # split 1: 8 tiles a part
+])
+def test_s8_forms_at_long_read_bounds(dev, monkeypatch, h, group, page, b,
+                                      s):
+    """The s8 forms at read bounds up to 8192 (the presets' max_seq) and
+    64 slots, as the previous test holds them: a slot's chunks read in
+    several groups (chunks of 32 rows), and one chunk a group at split 1
+    (64 slots, chunks of 1024); positions from 0 to the read bound."""
+    monkeypatch.setenv("GABBY_ATTN_CHUNK", str(page))
+    g = _gen(dev, 130 + h + group + b)
+    pos = [(i * 2741 + 7) % (s + 1) for i in range(b)]
+    pos[0] = s - 192
+    if b > 1:
+        pos[1] = 0
+    pos = torch.tensor(pos, device=dev, dtype=torch.int32)
+    _s8_forms_agree(dev, g, h, group, page, b, 2 if b == 1 else 8, s, pos)
+
+
+def test_s8_forms_refuse_what_their_kernel_does_not_take(dev, monkeypatch):
+    """A group the kernel is not built for (6), and a chunk whose tiles a
+    block cannot park (32768 rows at group 8, head_dim 128), raise
+    ValueError before a launch, dense and paged; the C entry refuses a
+    plan that is not s8_plan's."""
+    from gabby_tpu_torch.ops.cuda import build
+    g = _gen(dev, 120)
+    b, nk = 2, 2
+    kc, vc, ks, vs = _cache(dev, g, 1, b, nk, 64)
+    pos = torch.full((b,), 40, device=dev, dtype=torch.int32)
+    q, fk, fv = _decode_inputs(dev, g, b, 6 * nk, nk)
+    kw = dict(layer=0, fresh_k=fk, fresh_v=fv)
+    with pytest.raises(ValueError, match="groups"):
+        cattn.decode_attention_s8(q, kc, vc, ks, vs, pos, **kw)
+    kp, vp, kps, vps, table = _pool(dev, g, 1, b, nk, 32, 2)
+    with pytest.raises(ValueError, match="groups"):
+        cpaged.paged_decode_attention_s8(q, kp, vp, table, pos, kps, vps,
+                                         **kw)
+    monkeypatch.setenv("GABBY_ATTN_CHUNK", "32768")
+    kc, vc, ks, vs = _cache(dev, g, 1, 1, nk, 32768, 128)
+    q, fk, fv = _decode_inputs(dev, g, 1, 8 * nk, nk, 128)
+    pos1 = torch.full((1,), 8000, device=dev, dtype=torch.int32)
+    with pytest.raises(ValueError, match="shared memory"):
+        cattn.decode_attention_s8(q, kc, vc, ks, vs, pos1, layer=0,
+                                  fresh_k=fk, fresh_v=fv)
+    kp, vp, kps, vps, table = _pool(dev, g, 1, 1, nk, 32768, 1, 128)
+    with pytest.raises(ValueError, match="shared memory"):
+        cpaged.paged_decode_attention_s8(q, kp, vp, table, pos1, kps, vps,
+                                         layer=0, fresh_k=fk, fresh_v=fv)
+    kp, vp, kps, vps, table = _pool(dev, g, 1, 1, nk, 32, 256, 128)
+    # at the C entry: a split that is not 1, 2, 4 or 8, a tile other than
+    # 32, and a paged chunk other than the page
+    lib = build.library()
+    out = torch.empty_like(q)
+    args = (q.data_ptr(), kp.data_ptr(), vp.data_ptr(), kps.data_ptr(),
+            vps.data_ptr(), table.data_ptr(), fk.data_ptr(), fv.data_ptr(),
+            pos1.data_ptr(), out.data_ptr(), 1, 8 * nk, nk, 1, 0, 32, 4, 128,
+            128)
+    for chunk, plan in ((32, (1, 3, 32)), (32, (1, 2, 16)), (64, (1, 2, 32))):
+        err = lib.gabby_attention_s8(*args, chunk, 0, *plan, 0.1,
+                                     build.stream_ptr(dev))
+        assert err != 0, (chunk, plan)
+    torch.cuda.synchronize()
