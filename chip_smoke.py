@@ -13,15 +13,16 @@ a non-zero exit:
                  int8 for K3-K21, bf16 for K22-K32; prefill at T=512,
                  offset 512; K7 at one 512-token chunk; the verify kernels
                  at a block of 8; the paged ones through a shuffled table
-                 of 512-row pages; K1, K33 and K2 also at M = 64, the
-                 verify-sized products, and twice on the same inputs,
-                 bit for bit; K1 and K33 also by projection)
+                 of 512-row pages; K1, K33, K5, K8 and K2 also at M =
+                 64, the verify-sized products, and twice on the same
+                 inputs, bit for bit; K1, K33, K5 and K8 also by
+                 projection)
                  against its
                  plain PyTorch version on the same inputs (the attention
                  kernels within 2e-2 relative plus a share of the plain
                  row's RMS, 5e-2 for the bf16/f32 forms and 1e-2 for the
-                 s8 forms; K8 also on its
-                 int32 accumulator, by equality; a paired kernel also
+                 s8 forms; K8 by equality, on its output and its
+                 int32 accumulator; a paired kernel also
                  against the unpaired one on the same rows re-laid, by
                  equality where the body is the same; an s8 kernel also
                  against the dequantized contract at 6e-2, and further
@@ -122,8 +123,8 @@ a non-zero exit:
                  33`, one chat completion each through the
                  C++ front-end, then SIGTERM, where cmake exists to build
                  it (else a skip line saying why);
-  9. summary     the kernels line (thirty-three kernels; K1, K33 and K2
-                 on two rows each, M = 8 and 64), then
+  9. summary     the kernels line (thirty-three kernels; K1, K33, K5,
+                 K8 and K2 on two rows each, M = 8 and 64), then
                  {"ok": true, "device": {...}} last.
 
 Weights are random (Llama-3.2-1B at full width and depth, seed 0). The
@@ -331,7 +332,8 @@ def attn_case_into(results, nl, name, shapes, source, replaces, kernel, plain,
 def stacked_case_into(results, g, nl, projs, name, source, replaces, kernel,
                       plain, *, bits, m, what, iters=10, exact=None,
                       peak=BF16_FLOP_PER_S, default=None, close=None,
-                      by_projection=False, repeat=False, case=None):
+                      by_projection=False, repeat=False, case=None,
+                      equal=False):
     """One call set of a stacked-weight kernel: the projections `projs` (K,
     N) x `nl` layers at M = m, random codes from `g`, against its plain
     version, timed, with the dequantized bf16 `torch.matmul` as the library
@@ -344,7 +346,8 @@ def stacked_case_into(results, g, nl, projs, name, source, replaces, kernel,
     another kernel that must agree with this one within tol on the same
     inputs. `repeat`: every call made twice must give the same bits. `case`:
     the name's suffix for a second call set of a kernel (its counter keeps
-    the name)."""
+    the name). `equal`: the outputs must equal the plain version's bit for
+    bit."""
     dev = g.device
     rows = 2 if bits == 4 else 1  # weight rows per packed byte row
 
@@ -375,6 +378,11 @@ def stacked_case_into(results, g, nl, projs, name, source, replaces, kernel,
         refs = [plain(*c) for c in calls]
     err = check(name, outs, refs)
     extra = {}
+    if equal:
+        if not all(torch.equal(o, r) for o, r in zip(outs, refs)):
+            raise AssertionError(f"{name}: outputs differ from the plain "
+                                 f"version's bits")
+        extra["plain_equal"] = True
     if repeat:
         if not all(torch.equal(o, kernel(*c)) for o, c in zip(outs, calls)):
             raise AssertionError(f"{name}: a repeat on the same inputs "
@@ -481,11 +489,16 @@ def kernel_phase(cfg, dev):
                      case=None if m == b else f"M={m}",
                      close=("int4_matmul_stacked", cqm.qmatmul_int4_stacked,
                             dict(rtol=4e-2, atol=4e-2)))
-    # K5: the same call set on int8 stacks
-    stacked_case("int8_matmul_stacked",
-                 "gabby_tpu_torch/csrc/quant_matmul.cu", qm + ":504",
-                 cqm.qmatmul_int8_stacked, cqm.int8_stacked_plain, bits=8,
-                 m=b, what="one decode step")
+    # K5: the same call sets on int8 stacks (M = 64: the int8 directory's
+    # 64-token prefill bucket), each call twice, bit for bit (K split over
+    # a cluster, summed in rank order)
+    for m, what in ((b, "one decode step"), (64, "a 64-token prefill "
+                                                "chunk")):
+        stacked_case("int8_matmul_stacked",
+                     csrc + "quant_matmul_int8_stacked.cu", qm + ":504",
+                     cqm.qmatmul_int8_stacked, cqm.int8_stacked_plain,
+                     bits=8, m=m, what=what, by_projection=True,
+                     repeat=True, case=None if m == b else f"M={m}")
     # K7: one 512-token prefill chunk's 64 launches; beside it the port's
     # default for the same products (`qlinear` with the switch off: unpack
     # the layer, then torch.matmul)
@@ -513,14 +526,19 @@ def kernel_phase(cfg, dev):
         raise AssertionError("int4_matmul: a repeat or the 2-D launch "
                              "differs from the stacked one")
     del x7, w7, s7
-    # K8: K1's call set with int8 activations and integer dots; the int8
-    # tensor-core rate is the operations peak of its operand type
-    stacked_case("int4_matmul_w4a8_stacked",
-                 "gabby_tpu_torch/csrc/quant_matmul_w4a8.cu", qm + ":766",
-                 cqm.qmatmul_int4_w4a8_stacked,
-                 cqm.int4_w4a8_stacked_plain, bits=4, m=b,
-                 what="one decode step", exact="return_acc",
-                 peak=INT8_OP_PER_S)
+    # K8: K1's call sets with x quantized to int8 inside the launch and
+    # integer products (M = 64: a W4A8 verify macro-step); the int32
+    # accumulator and the output equal the plain version's bit for bit,
+    # and a repeat's; the int8 tensor-core rate is the operations peak of
+    # its operand type
+    for m, what in ((b, "one decode step"), (64, "one verify macro-step")):
+        stacked_case("int4_matmul_w4a8_stacked",
+                     csrc + "quant_matmul_w4a8.cu", qm + ":766",
+                     cqm.qmatmul_int4_w4a8_stacked,
+                     cqm.int4_w4a8_stacked_plain, bits=4, m=m, what=what,
+                     exact="return_acc", equal=True, repeat=True,
+                     by_projection=True, peak=INT8_OP_PER_S,
+                     case=None if m == b else f"M={m}")
 
     # K2: the int4 unembed, one launch per decode step (M = 8) and per
     # speculative verify step of 8 slots x 8 rows (M = 64); then the same
@@ -1764,13 +1782,14 @@ def http_phase(label: str, weights_args: list, env=None):
 
 def ptxas_lines(log: str, src: str) -> list:
     """The registers, shared memory and spills `-Xptxas -v` reported for
-    the kernels of one source, from the verbose build's output."""
+    the kernels of one source, from the verbose build's output, and any
+    wgmma serialization ptxas injected."""
     keep, on = [], False
     for line in log.splitlines():
         if line.startswith("[nvcc "):
             on = line == f"[nvcc {src}]"
         elif on and any(w in line for w in ("Compiling entry", "Used",
-                                            "spill")):
+                                            "spill", "injected")):
             keep.append(" ".join(line.split()))
     return keep
 
@@ -1807,7 +1826,8 @@ def main() -> int:
     build.library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0})
     for src in ("quant_matmul_prefill.cu", "prefill_attention.cu",
-                "quant_matmul_stacked.cu", "decode_attention.cu",
+                "quant_matmul_stacked.cu", "quant_matmul_int8_stacked.cu",
+                "quant_matmul_w4a8.cu", "decode_attention.cu",
                 "attention_s8.cu"):
         emit({"phase": "build", "ptxas": src,
               "lines": ptxas_lines(log.getvalue(), src)})

@@ -1,9 +1,10 @@
-// Device and host helpers of the TMA + wgmma int4 kernels (K7 in
-// quant_matmul_prefill.cu, K2 in quant_matmul_unembed.cu, K1 and K33 in
-// quant_matmul_stacked.cu): mbarriers, TMA tile copies, wgmma fences and
-// the m64n8k16 / m64n64k16 products with A from registers, the
-// 128-byte-swizzle descriptor, the conversion of int4 codes to bf16 pairs
-// and the ldmatrix unpack of a stage, and the tensor maps.
+// Device and host helpers of the TMA + wgmma kernels (K7 in
+// quant_matmul_prefill.cu, K2 in quant_matmul_unembed.cu, the stacked
+// forms K1, K33, K5 and K8 of quant_matmul_stacked.cuh): mbarriers, TMA
+// tile copies, wgmma fences and the m64n8k16 / m64n64k16 products with A
+// from registers, the 128-byte-swizzle descriptor, the conversion of int4
+// codes to bf16 pairs and the ldmatrix unpack of a stage, and the tensor
+// maps.
 
 #pragma once
 
@@ -104,6 +105,11 @@ template <int N>
 __device__ __forceinline__ void fence_operands(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_operands(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // Shared-memory matrix descriptor of a K-major tile with 128-byte rows,
@@ -242,19 +248,38 @@ cudaError_t int4_x_map(const void* x, int M, int K, int bt,
              : cudaErrorInvalidValue;
 }
 
-// The packed stack [L, K/2, N] int8 (K1, K33), boxes of 128 channels x 64
-// rows x 1 layer, 128-byte swizzled: the layer is the copy's third
-// coordinate, so one map serves every layer.
-cudaError_t int4_stack_map(const void* packed, int layers, int K, int N,
-                           CUtensorMap* wmap) {
+// x [M, K] bf16 as it is (K5: one K row a weight byte), boxes of 64
+// columns x bt rows, 128-byte swizzled, zero past the edges.
+cudaError_t x_rows_map(const void* x, int M, int K, int bt,
+                       CUtensorMap* xmap) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dim[3] = {(cuuint64_t)N, (cuuint64_t)K / 2,
+  const cuuint64_t dim[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  const cuuint64_t stride[1] = {(cuuint64_t)K * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)bt}, ones[2] = {1, 1};
+  return encode(xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(x), dim, stride, box, ones,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
+// A stack of byte planes [L, rows, N] int8 (K1, K33, K8: packed int4
+// codes, rows = K/2; K5: int8 codes, rows = K), boxes of 128 channels x
+// 64 rows x 1 layer, 128-byte swizzled: the layer is the copy's third
+// coordinate, so one map serves every layer.
+cudaError_t stack_map(const void* planes, int layers, int rows, int N,
+                      CUtensorMap* wmap) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dim[3] = {(cuuint64_t)N, (cuuint64_t)rows,
                              (cuuint64_t)layers};
-  const cuuint64_t stride[2] = {(cuuint64_t)N, (cuuint64_t)N * (K / 2)};
+  const cuuint64_t stride[2] = {(cuuint64_t)N, (cuuint64_t)N * rows};
   const cuuint32_t box[3] = {128, 64, 1}, ones[3] = {1, 1, 1};
   return encode(wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3,
-                const_cast<void*>(packed), dim, stride, box, ones,
+                const_cast<void*>(planes), dim, stride, box, ones,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS

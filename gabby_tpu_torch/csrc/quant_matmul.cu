@@ -1,36 +1,31 @@
-// Weight-only int8 matmuls for decode-sized M (M <= 64), Hopper (sm_90a).
+// The weight-only int8 matmul of the int8 unembed for decode-sized M
+// (M <= 64), Hopper (sm_90a).
 //
-// Replaces two Pallas TPU kernels of gabby_tpu/ops/pallas/quant_matmul.py:
-//   K5  _qmatmul_int8_stacked -> _int8_stacked_kernel: x @ int8 W[layer],
-//       W stacked [L, K, N], per-output-channel scales;
-//   K6  _qmatmul_int8 -> _int8_kernel: the same on a 2-D [K, N] weight
-//       (the int8 unembed). K5 and K6 are one entry point: the layer of a
-//       stack is a pointer offset made by the caller.
-// The int4 forms have tensor-core kernels of their own: the stacked matmul
-// (K1) and its raw-byte-dot form (K33) in quant_matmul_stacked.cu, the
-// grouped unembed (K2) in quant_matmul_unembed.cu.
+// Replaces the Pallas TPU kernel of gabby_tpu/ops/pallas/quant_matmul.py
+//   K6  _qmatmul_int8 -> _int8_kernel: x @ int8 W, a 2-D [K, N] weight
+//       with per-output-channel scales.
+// The stacked forms have tensor-core kernels of their own, one launch a
+// call (quant_matmul_stacked.cuh): K1, K33 (quant_matmul_stacked.cu), K5
+// (quant_matmul_int8_stacked.cu) and K8 (quant_matmul_w4a8.cu); the
+// grouped int4 unembed (K2) is quant_matmul_unembed.cu.
 //
 // Int8 is one code per byte: row r of the [K, N] plane pairs with x[:, r]
-// (973 MB per Llama-3.2-1B decode step, 263 MB for the [2048, 128256]
-// unembed: ~290 us + ~80 us at 3.35 TB/s).
+// (263 MB for Llama-3.2-1B's [2048, 128256] unembed: ~80 us at 3.35
+// TB/s).
 //
 // What bounds it on the H100: bytes. At M = 8 every weight byte feeds 8
 // FMAs. This form does its FMAs on the CUDA cores in f32 and splits K
-// across blocks through an f32 workspace and a finalize pass: the decode
-// projections have N = 2048..16384, too few 128-column strips to fill 132
-// SMs. Int8 codes do not fit the int4 kernels' 7-bit 0x4300 | u
-// conversion, so moving K5/K6 onto those machines needs another unpack.
+// across blocks through an f32 workspace and a finalize pass when the
+// strips of N are too few for 132 SMs (the unembed's 1002 strips are not).
 //
 // Design: a block owns a 128-column strip of N and one slice of the
-// weight's rows (the wrapper splits K so that even N = 2048 puts >= 256
-// blocks on the 132 SMs). A warp is 8 column lanes x 4 row lanes; each
-// thread reads its 16 bytes (16 columns) of a row as one 16-byte vector,
-// and accumulates an 8-row tile of M in f32 against x, which is staged in
+// weight's rows. A warp is 8 column lanes x 4 row lanes; each thread reads
+// its 16 bytes (16 columns) of a row as one 16-byte vector, and
+// accumulates an 8-row tile of M in f32 against x, which is staged in
 // shared memory as f32 per slice. Row lanes and warps are reduced through
 // shuffles and shared memory; with one K slice the block writes the output
 // (scale applied once per channel), with several it adds into an f32
-// workspace that a second pass scales and converts. The layer of a stacked
-// weight is a pointer offset made by the caller: nothing is copied.
+// workspace that a second pass scales and converts.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -161,9 +156,8 @@ __global__ void finalize_kernel(const float* __restrict__ ws,
 
 extern "C" {
 
-// x [M, K] bf16; codes [K, N] int8 (one layer of a stack by pointer
-// offset, or a 2-D weight); scale [N] f32; out [M, N] bf16; ws [M, N] f32
-// zeroed when n_split > 1, else NULL.
+// x [M, K] bf16; codes [K, N] int8; scale [N] f32; out [M, N] bf16; ws
+// [M, N] f32 zeroed when n_split > 1, else NULL.
 int gabby_int8_matmul(const void* x, const void* codes, const void* scale,
                       void* out, void* ws, int M, int K, int N, int n_split,
                       void* stream) {

@@ -115,26 +115,26 @@ _SIGNATURES = {
     # K1: x, the stack's tensor map (host bytes), scale (layer offset),
     # out; M, K, N, layer, bt, split (stacked_plan); stream
     "gabby_int4_matmul": [_P] * 4 + [_I] * 6 + [_P],
-    # K33, the raw-byte-dot form: the same arguments
+    # K33, the raw-byte-dot form, and K5 (the map of an int8 stack): the
+    # same arguments
     "gabby_int4_matmul_rawdot": [_P] * 4 + [_I] * 6 + [_P],
-    # packed stack; L, K, N; the 128-byte map to fill
+    "gabby_int8_matmul_stacked": [_P] * 4 + [_I] * 6 + [_P],
+    # K8: x, the map, scale, out, the int32 accumulator or NULL; M, K, N,
+    # layer, bt, split; stream
+    "gabby_w4a8_matmul": [_P] * 5 + [_I] * 6 + [_P],
+    # stack of byte planes; L, K (2 x the rows), N; the 128-byte map
     "gabby_int4_stacked_map": [_P] + [_I] * 3 + [_P],
     # K2: x, packed, scale, out; M, K, N, group; stream
     "gabby_int4_unembed": [_P] * 4 + [_I] * 4 + [_P],
     # workspace, scale, out; M, N; stream
     "gabby_matmul_finalize": [_P] * 3 + [_I] * 2 + [_P],
-    # x, codes (layer offset), scale (layer offset), out, workspace;
-    # M, K, N, n_split; stream
+    # K6: x, codes, scale, out, workspace; M, K, N, n_split; stream
     "gabby_int8_matmul": [_P] * 5 + [_I] * 4 + [_P],
     # x, packed (layer offset), scale (layer offset), out, part (the split
     # K's workspace or NULL); M, K, N, k_split; stream
     "gabby_int4_matmul_prefill": [_P] * 5 + [_I] * 4 + [_P],
     # M, K, N -> k_split
     "gabby_int4_matmul_prefill_splits": [_I] * 3,
-    # xq, packed (layer offset), int32 workspace; M, K, N, n_split; stream
-    "gabby_w4a8_matmul": [_P] * 3 + [_I] * 4 + [_P],
-    # int32 workspace, xs, scale (layer offset), out; M, N; stream
-    "gabby_w4a8_finalize": [_P] * 4 + [_I] * 2 + [_P],
     # K3, K12, K16: q, k, v, k_scale, v_scale (layer offset), fresh_k,
     # fresh_v, positions, out; B, Nq, Nk, S, H, limit, pair, sb, split,
     # tile (decode_plan); sm_scale; stream

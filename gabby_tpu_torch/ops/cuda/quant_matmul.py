@@ -15,19 +15,27 @@ K2 `qmatmul_int4_grouped`: x [M <= 64, K] @ int4 W [K/2, N] with group
    (csrc/quant_matmul_unembed.cu, replacing _qmatmul_int4_grouped :669 /
    _int4_grouped_kernel :640).
 K5 `qmatmul_int8_stacked`: x [M <= 64, K] @ int8 W[layer], W stacked
-   [L, K, N], scales [L, N] (csrc/quant_matmul.cu, replacing
+   [L, K, N], scales [L, N], on K1's kernel in an int8 form (each code
+   converted to bf16 exactly through f32, bf16 products on the tensor
+   cores), one launch a call (csrc/quant_matmul_int8_stacked.cu, replacing
    _qmatmul_int8_stacked :504 / _int8_stacked_kernel :409).
 K6 `qmatmul_int8`: the same on a 2-D [K, N] weight — the int8 unembed
-   (replacing _qmatmul_int8 :287 / _int8_kernel :237). K5 and K6 launch
-   one kernel (a layer is a pointer offset) and count separately.
+   (csrc/quant_matmul.cu, replacing _qmatmul_int8 :287 / _int8_kernel
+   :237), with a split-K workspace and finalize pass where N is narrow.
 K7 `qmatmul_int4`: x [any M, K] @ per-channel int4 W [K/2, N] (2-D, or
    one layer of a stack) on the tensor cores — prefill-sized M
    (csrc/quant_matmul_prefill.cu, replacing _qmatmul_int4 :321 /
    _int4_kernel :252).
-K8 `qmatmul_int4_w4a8_stacked`: x quantized per row to int8 here, then
-   int8 x int4 W[layer] with integer dots and an int32 accumulator
+K8 `qmatmul_int4_w4a8_stacked`: x quantized per row to int8 inside the
+   launch, then int8 x int4 W[layer] on the int8 tensor cores with an
+   int32 accumulator, on K1's kernel in an s8 form, one launch a call
    (csrc/quant_matmul_w4a8.cu, replacing _qmatmul_int4_w4a8_stacked :766 /
-   _int4_w4a8_stacked_kernel :734).
+   _int4_w4a8_stacked_kernel :734); the plain version's bits.
+
+The stacked forms (K1, K33, K5, K8: csrc/quant_matmul_stacked.cuh) take on
+the card a weight plane of a multiple of 64 rows (K/2 for the packed int4
+stacks, K for int8), N a multiple of 128 and 1 <= M <= 64, and raise
+ValueError otherwise (`stacked_launch`).
 
 CPU tensors take the plain version; CUDA tensors launch the kernel or
 raise. x is bf16 on the card; the output is in x's dtype.
@@ -46,8 +54,12 @@ from gabby_tpu_torch.ops import cuda as ck
 MAX_M = 64
 _STRIP = 128  # output columns per block (kStrip of the decode kernels)
 _TARGET_BLOCKS = 264  # two blocks per SM on a 132-SM H100
-_STAGE_ROWS = 64  # packed rows per stage of K1's kernel (kBKP)
+_STAGE_ROWS = 64  # weight rows per stage of the stacked kernel (kBKP)
 MAX_SPLIT = 8  # blocks a strip's K is split over: the portable cluster size
+# codes a weight byte holds, by the stacked kernels' counters: a packed int4
+# byte two (its plane has K/2 rows), an int8 byte one (K rows)
+CODES_A_BYTE = {"int4_matmul_stacked": 2, "int4_matmul_stacked_rawdot": 2,
+                "int4_matmul_w4a8_stacked": 2, "int8_matmul_stacked": 1}
 
 
 def _unpack(packed: torch.Tensor) -> torch.Tensor:
@@ -119,9 +131,13 @@ def int4_grouped_plain(x, packed, scale, group: int) -> torch.Tensor:
 def quantize_activations(x: torch.Tensor):
     """Per-row symmetric int8 quantization of x [M, K], rounding as the
     reference does (half to even, clip +-127, scale max(absmax/127, 1e-8)).
-    Returns (xq int8 [M, K], xs f32 [M, 1])."""
+    Both quotients are correctly rounded f32 divisions on every device (a
+    tensor divisor: PyTorch's CUDA division by a Python number multiplies
+    by its reciprocal instead), as K8's kernel computes them. Returns (xq
+    int8 [M, K], xs f32 [M, 1])."""
     xf = x.float()
-    xs = torch.clamp(xf.abs().amax(dim=1, keepdim=True) / 127.0, min=1e-8)
+    absmax = xf.abs().amax(dim=1, keepdim=True)
+    xs = torch.clamp(absmax / torch.full_like(absmax, 127.0), min=1e-8)
     xq = torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8)
     return xq, xs
 
@@ -137,23 +153,23 @@ def int4_w4a8_stacked_plain(x, packed, scale, layer: int,
     return (out, acc.to(torch.int32)) if return_acc else out
 
 
-def _n_split(n: int, rows: int, multiple: int = 1) -> int:
-    """K slices per column strip: enough blocks to cover the SMs twice,
-    while every slice keeps at least 16 of the weight plane's `rows` (one
-    per row lane of a block) and a multiple of `multiple`."""
+def _n_split(n: int, rows: int) -> int:
+    """K6's K slices per column strip: enough blocks to cover the SMs
+    twice, while every slice keeps at least 16 of the weight plane's `rows`
+    (one per row lane of a block)."""
     strips = -(-n // _STRIP)
     split = 1
-    while (strips * split < _TARGET_BLOCKS
-           and rows % (2 * split * multiple) == 0
+    while (strips * split < _TARGET_BLOCKS and rows % (2 * split) == 0
            and rows // (2 * split) >= 16):
         split *= 2
     return split
 
 
 def stacked_plan(m: int, kp: int, n: int, sms: int) -> tuple[int, int]:
-    """The launch of K1/K33 (csrc/quant_matmul_stacked.cu) for x [m, 2 kp]
-    against a packed [kp, n] plane on a card of `sms` multiprocessors:
-    (bt, split). bt is the token tile: 8 for m <= 8 (wgmma n8, two blocks a
+    """The launch of a stacked kernel (csrc/quant_matmul_stacked.cuh: K1,
+    K33, K8 on a packed [kp = K/2, n] plane; K5 on an int8 [kp = K, n]
+    one) for x [m, K] on a card of `sms` multiprocessors: (bt, split). bt
+    is the token tile: 8 for m <= 8 (wgmma n8, two blocks a
     multiprocessor), 64 above (one). split is the number of blocks in the
     cluster that shares one 128-channel strip's kp / 64 stages: the largest
     power of two that divides the stages, stays within `split_cap(bt)` and
@@ -162,12 +178,11 @@ def stacked_plan(m: int, kp: int, n: int, sms: int) -> tuple[int, int]:
     the idle multiprocessors it saves beyond 4 blocks, so the M = 64 form
     leaves some idle at the 1B shapes.)"""
     if not 1 <= m <= MAX_M:
-        raise ValueError(f"int4 stacked matmul takes 1..{MAX_M} rows, got "
-                         f"{m}")
+        raise ValueError(f"stacked matmul takes 1..{MAX_M} rows, got {m}")
     if kp <= 0 or kp % _STAGE_ROWS or n <= 0 or n % _STRIP:
-        raise ValueError(f"int4 stacked matmul takes K/2 a multiple of "
-                         f"{_STAGE_ROWS} and N a multiple of {_STRIP}, got "
-                         f"K/2 {kp}, N {n}")
+        raise ValueError(f"stacked matmul takes a weight plane of a "
+                         f"multiple of {_STAGE_ROWS} rows and N a multiple "
+                         f"of {_STRIP}, got {kp} rows, N {n}")
     bt = 8 if m <= 8 else 64
     stages, strips = kp // _STAGE_ROWS, n // _STRIP
     slots = sms * (2 if bt == 8 else 1)
@@ -184,53 +199,75 @@ def split_cap(bt: int) -> int:
     return MAX_SPLIT if bt == 8 else MAX_SPLIT // 2
 
 
+def stacked_launch(name: str, m: int, k: int, n: int,
+                   sms: int) -> tuple[int, int]:
+    """stacked_plan for the stacked kernel counted as `name` (a key of
+    CODES_A_BYTE) at x [m, k] and n channels: its weight plane has k /
+    CODES_A_BYTE[name] rows, so K must be a multiple of 64 (K5) or 128
+    (K1, K33, K8); raises ValueError otherwise."""
+    per = CODES_A_BYTE[name]
+    if k <= 0 or k % (per * _STAGE_ROWS):
+        raise ValueError(f"{name} takes K a multiple of "
+                         f"{per * _STAGE_ROWS}, got {k}")
+    return stacked_plan(m, k // per, n, sms)
+
+
 @functools.lru_cache(maxsize=None)
 def multiprocessors(index: int) -> int:
     """The multiprocessor count of CUDA device `index` (cached)."""
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-# the tensor maps of the stacks K1/K33 have seen, by (data_ptr, shape,
-# strides): a map depends on nothing else, so a call encodes only x's
+# the tensor maps of the stacks the stacked kernels have seen, by
+# (data_ptr, shape, strides): a map of a stack of byte planes depends on
+# nothing else, so a call encodes only x's
 _STACK_MAPS: dict = {}
 
 
-def _stack_map(packed: torch.Tensor):
-    key = (packed.data_ptr(), tuple(packed.shape), packed.stride())
+def _stack_map(planes: torch.Tensor):
+    key = (planes.data_ptr(), tuple(planes.shape), planes.stride())
     wmap = _STACK_MAPS.get(key)
     if wmap is None:
         from gabby_tpu_torch.ops.cuda import build
-        nl, kp, n = packed.shape
+        nl, rows, n = planes.shape
         wmap = ctypes.create_string_buffer(128)  # sizeof(CUtensorMap)
         build.check(build.library().gabby_int4_stacked_map(
-            packed.data_ptr(), nl, 2 * kp, n, ctypes.addressof(wmap)),
-            "int4 stacked matmul: the weight's tensor map")
+            planes.data_ptr(), nl, 2 * rows, n, ctypes.addressof(wmap)),
+            "stacked matmul: the weight's tensor map")
         if len(_STACK_MAPS) >= 64:
             _STACK_MAPS.clear()
         _STACK_MAPS[key] = wmap
     return wmap
 
 
-def _launch_stacked(name: str, entry: str, what: str, x, packed, scale,
-                    layer: int) -> torch.Tensor:
-    """K1 or K33 through its C entry point `entry`: one launch, no
-    workspace."""
-    _, s_ptr = _layer_ptrs(what, packed, scale, layer)
-    _, kp, n = packed.shape
-    # K/2 a multiple of 64 (the kernel's stages), N of 128 (its strips)
-    _check(what, x, packed, scale, 2 * kp, n, k_multiple=128,
-           n_multiple=128)
+def _launch_stacked(name: str, entry: str, what: str, x, planes, scale,
+                    layer: int, with_acc: bool = False):
+    """A stacked kernel (K1, K33, K5, K8; `name` its counter) through its C
+    entry point `entry`: one launch, no workspace. planes: the stack [L,
+    rows, N] of packed int4 (rows K/2) or int8 (rows K) codes. Returns
+    (out, K8's int32 accumulator or None); with_acc: K8 also writes it."""
+    _, s_ptr = _layer_ptrs(what, planes, scale, layer)
+    _, rows, n = planes.shape
+    k = CODES_A_BYTE[name] * rows
+    # 64 weight rows a stage, 128 channels a strip
+    _check(what, x, planes, scale, k, n,
+           k_multiple=CODES_A_BYTE[name] * _STAGE_ROWS, n_multiple=_STRIP)
     m = x.shape[0]
-    bt, split = stacked_plan(m, kp, n, multiprocessors(x.device.index))
+    bt, split = stacked_launch(name, m, k, n,
+                               multiprocessors(x.device.index))
     from gabby_tpu_torch.ops.cuda import build
     lib = build.library()
-    wmap = _stack_map(packed)
+    wmap = _stack_map(planes)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    acc = (torch.empty((m, n), dtype=torch.int32, device=x.device)
+           if with_acc else None)
+    head = [x.data_ptr(), ctypes.addressof(wmap), s_ptr, out.data_ptr()]
+    if name == "int4_matmul_w4a8_stacked":
+        head.append(None if acc is None else acc.data_ptr())
     build.check(getattr(lib, entry)(
-        x.data_ptr(), ctypes.addressof(wmap), s_ptr, out.data_ptr(), m,
-        2 * kp, n, layer, bt, split, build.stream_ptr(x.device)), name)
+        *head, m, k, n, layer, bt, split, build.stream_ptr(x.device)), name)
     ck.launch_counts[name] += 1
-    return out
+    return out, acc
 
 
 def _check(what: str, x, q, scale, k: int, n: int, *,
@@ -268,31 +305,6 @@ def _layer_ptrs(what: str, q, scale, layer: int):
             scale.data_ptr() + layer * n * 4)
 
 
-def _launch(name: str, entry: str, x, q_ptr: int, scale_ptr: int, k: int,
-            n: int, rows: int) -> torch.Tensor:
-    """The int8 decode kernel of csrc/quant_matmul.cu through its C entry
-    point `entry` (K5, K6; `rows` is the weight plane's row count), with
-    its split-K workspace and finalize pass."""
-    from gabby_tpu_torch.ops.cuda import build
-    lib = build.library()
-    m = x.shape[0]
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    split = _n_split(n, rows)
-    ws = (torch.zeros((m, n), dtype=torch.float32, device=x.device)
-          if split > 1 else None)
-    ws_ptr = ws.data_ptr() if ws is not None else None
-    stream = build.stream_ptr(x.device)
-    build.check(getattr(lib, entry)(x.data_ptr(), q_ptr, scale_ptr,
-                                    out.data_ptr(), ws_ptr, m, k, n, split,
-                                    stream), name)
-    if ws is not None:
-        build.check(lib.gabby_matmul_finalize(ws_ptr, scale_ptr,
-                                              out.data_ptr(), m, n, stream),
-                    name + " finalize")
-    ck.launch_counts[name] += 1
-    return out
-
-
 def qmatmul_int4_stacked(x: torch.Tensor, packed: torch.Tensor,
                          scale: torch.Tensor, layer: int) -> torch.Tensor:
     """K1. x [M, K]; packed [L, K/2, N] int8; scale [L, N] f32 -> [M, N].
@@ -301,7 +313,8 @@ def qmatmul_int4_stacked(x: torch.Tensor, packed: torch.Tensor,
     if not x.is_cuda:
         return int4_stacked_plain(x, packed, scale, layer)
     return _launch_stacked("int4_matmul_stacked", "gabby_int4_matmul",
-                           "int4 stacked matmul", x, packed, scale, layer)
+                           "int4 stacked matmul", x, packed, scale,
+                           layer)[0]
 
 
 def qmatmul_int4_stacked_rawdot(x: torch.Tensor, packed: torch.Tensor,
@@ -315,7 +328,7 @@ def qmatmul_int4_stacked_rawdot(x: torch.Tensor, packed: torch.Tensor,
     return _launch_stacked("int4_matmul_stacked_rawdot",
                            "gabby_int4_matmul_rawdot",
                            "int4 stacked raw-byte-dot matmul", x, packed,
-                           scale, layer)
+                           scale, layer)[0]
 
 
 def qmatmul_int4_grouped(x: torch.Tensor, packed: torch.Tensor,
@@ -349,14 +362,14 @@ def qmatmul_int4_grouped(x: torch.Tensor, packed: torch.Tensor,
 
 def qmatmul_int8_stacked(x: torch.Tensor, codes: torch.Tensor,
                          scale: torch.Tensor, layer: int) -> torch.Tensor:
-    """K5. x [M, K]; codes [L, K, N] int8; scale [L, N] f32 -> [M, N]."""
+    """K5. x [M, K]; codes [L, K, N] int8; scale [L, N] f32 -> [M, N].
+    On the card K must be a multiple of 64 and N of 128; the plain version
+    takes any shape."""
     if not x.is_cuda:
         return int8_stacked_plain(x, codes, scale, layer)
-    q_ptr, s_ptr = _layer_ptrs("int8 stacked matmul", codes, scale, layer)
-    _, k, n = codes.shape
-    _check("int8 stacked matmul", x, codes, scale, k, n, k_multiple=1)
-    return _launch("int8_matmul_stacked", "gabby_int8_matmul", x, q_ptr,
-                   s_ptr, k, n, k)
+    return _launch_stacked("int8_matmul_stacked",
+                           "gabby_int8_matmul_stacked",
+                           "int8 stacked matmul", x, codes, scale, layer)[0]
 
 
 def qmatmul_int8(x: torch.Tensor, codes: torch.Tensor,
@@ -369,8 +382,25 @@ def qmatmul_int8(x: torch.Tensor, codes: torch.Tensor,
         raise ValueError(f"int8 matmul: scale {tuple(scale.shape)} for "
                          f"codes {tuple(codes.shape)}")
     _check("int8 matmul", x, codes, scale, k, n, k_multiple=1)
-    return _launch("int8_matmul", "gabby_int8_matmul", x, codes.data_ptr(),
-                   scale.data_ptr(), k, n, k)
+    from gabby_tpu_torch.ops.cuda import build
+    lib = build.library()
+    m = x.shape[0]
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    # a split K goes through a zeroed f32 workspace and a finalize pass
+    split = _n_split(n, k)
+    ws = (torch.zeros((m, n), dtype=torch.float32, device=x.device)
+          if split > 1 else None)
+    ws_ptr = ws.data_ptr() if ws is not None else None
+    stream = build.stream_ptr(x.device)
+    build.check(lib.gabby_int8_matmul(
+        x.data_ptr(), codes.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        ws_ptr, m, k, n, split, stream), "int8_matmul")
+    if ws is not None:
+        build.check(lib.gabby_matmul_finalize(
+            ws_ptr, scale.data_ptr(), out.data_ptr(), m, n, stream),
+            "int8_matmul finalize")
+    ck.launch_counts["int8_matmul"] += 1
+    return out
 
 
 def qmatmul_int4(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
@@ -416,26 +446,13 @@ def qmatmul_int4_w4a8_stacked(x: torch.Tensor, packed: torch.Tensor,
                               return_acc: bool = False):
     """K8. x [M, K]; packed [L, K/2, N] int8; scale [L, N] f32 -> [M, N].
     With return_acc also the int32 accumulator [M, N] (before the scales),
-    which is exact and so comparable by equality."""
+    which is exact and so comparable by equality. On the card K/2 must be
+    a multiple of 64 and N of 128 (K1's shapes); the kernel quantizes x
+    itself and gives the plain version's bits. The plain version takes any
+    even K."""
     if not x.is_cuda:
         return int4_w4a8_stacked_plain(x, packed, scale, layer, return_acc)
-    what = "int4 w4a8 matmul"
-    q_ptr, s_ptr = _layer_ptrs(what, packed, scale, layer)
-    _, kp, n = packed.shape
-    # x words of 4 int8 in each half: K/2 a multiple of 4
-    _check(what, x, packed, scale, 2 * kp, n, k_multiple=8)
-    from gabby_tpu_torch.ops.cuda import build
-    lib = build.library()
-    m = x.shape[0]
-    xq, xs = quantize_activations(x)
-    acc = torch.zeros((m, n), dtype=torch.int32, device=x.device)
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    stream = build.stream_ptr(x.device)
-    build.check(lib.gabby_w4a8_matmul(
-        xq.data_ptr(), q_ptr, acc.data_ptr(), m, 2 * kp, n,
-        _n_split(n, kp, multiple=4), stream), "int4_matmul_w4a8_stacked")
-    build.check(lib.gabby_w4a8_finalize(
-        acc.data_ptr(), xs.data_ptr(), s_ptr, out.data_ptr(), m, n, stream),
-        "int4_matmul_w4a8_stacked finalize")
-    ck.launch_counts["int4_matmul_w4a8_stacked"] += 1
+    out, acc = _launch_stacked("int4_matmul_w4a8_stacked",
+                               "gabby_w4a8_matmul", "int4 w4a8 matmul", x,
+                               packed, scale, layer, with_acc=return_acc)
     return (out, acc) if return_acc else out

@@ -1,26 +1,36 @@
-"""Times the stacked int4 matmul (K1, `qmatmul_int4_stacked`) and its
-raw-byte-dot form (K33, `qmatmul_int4_stacked_rawdot`) on the card.
+"""Times the stacked matmuls on the card: the int4 one (K1,
+`qmatmul_int4_stacked`), its raw-byte-dot form (K33,
+`qmatmul_int4_stacked_rawdot`), the W4A8 one (K8,
+`qmatmul_int4_w4a8_stacked`) and the int8-weight one (K5,
+`qmatmul_int8_stacked`).
 
     python -m gabby_tpu_torch.tools.bench_stacked [--roots DIR ...] [--probe]
-        [--splits]
+        [--splits] [--kernels NAME ...]
 
 At the four projections (wqkv, wo, w_gup, w_down) of Llama-3.2-1B (16
 layers) and Llama-3.2-3B (28 layers), random codes and scales from a seed,
 at M = 8 (a decode step) and M = 64 (a verify macro-step): one decode
-step's call set (4 projections x every layer) eagerly and replayed from a
+step's call set (4 projections x every layer; K5 on int8 stacks [L, K, N],
+the others on packed int4 ones [L, K/2, N]) eagerly and replayed from a
 CUDA graph, each projection's layers replayed alone, beside `torch.matmul`
-on the dequantized bf16 weight, with the largest difference from the plain
-version, whether a repeat gives the same bits, and the host's microseconds a
-call (the wrapper's time to return, 500 calls without waiting for the
-card). `--roots` times the
+on the dequantized bf16 weight (`library`, `library_int8`), with the
+largest difference from the plain version, whether the output equals the
+plain version's bits, whether a repeat gives the same bits, a digest of
+the outputs of the first calls (the inputs come from one seed, so equal
+digests of two trees mean equal bits), and the host's
+microseconds a call (the wrapper's time to return, 500 calls without
+waiting for the card). `--roots` times the
 kernels of each checkout given, in that order, each in a process of its
 own (an older commit unpacked with `git archive` beside this one, so that
 two versions are compared in one run on one card: old, new, new, old).
-`--probe` also builds csrc/quant_matmul_stacked.cu with K1_PROBE = 0..4
-(the whole kernel; the copies alone; no unpack; no cross-block reduction;
-the whole kernel launched without programmatic dependent launch) and times
-K1's 1B call set through each build at M = 8 and 64: where the kernel's
-time goes. `--splits` times K1 at each projection of both models, M = 8
+`--probe` also builds each stacked form's source (K1
+csrc/quant_matmul_stacked.cu, K5 quant_matmul_int8_stacked.cu, K8
+quant_matmul_w4a8.cu) alone with K1_PROBE = 0..4 (the whole kernel; the
+copies alone; no unpack; no cross-block reduction; the whole kernel
+launched without programmatic dependent launch), K8 also with 5 (no row
+maxima and no exchange of them) and 6 (no quantization of the landed x
+tiles), and times each form's 1B call set through each build at M = 8 and
+64: where the kernel's time goes. `--splits` times K1 at each projection of both models, M = 8
 and 64, at every split of K its kernel takes (1, 2, 4, 8 blocks dividing
 the stages), microseconds a call replayed from a graph, beside the split
 `stacked_plan` picks. The probe builds' outputs are not the product. A
@@ -33,6 +43,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
 import os
 import subprocess
@@ -43,7 +54,20 @@ import time
 import torch
 
 MODELS = ("llama32_1b", "llama32_3b")
-KERNELS = ("qmatmul_int4_stacked", "qmatmul_int4_stacked_rawdot")
+# the wrappers timed, and the bits of the codes their stacks hold
+KERNELS = {"qmatmul_int4_stacked": 4, "qmatmul_int4_stacked_rawdot": 4,
+           "qmatmul_int4_w4a8_stacked": 4, "qmatmul_int8_stacked": 8}
+# --probe: each form's source, C entry and K1_PROBE builds
+PROBES = {"qmatmul_int4_stacked": ("quant_matmul_stacked.cu",
+                                   "gabby_int4_matmul", range(5)),
+          "qmatmul_int8_stacked": ("quant_matmul_int8_stacked.cu",
+                                   "gabby_int8_matmul_stacked", range(5)),
+          "qmatmul_int4_w4a8_stacked": ("quant_matmul_w4a8.cu",
+                                        "gabby_w4a8_matmul", range(7))}
+PROBE_WHAT = ("whole kernel", "copies alone", "products without the unpack",
+              "no cross-block reduction",
+              "without programmatic dependent launch", "no row maxima",
+              "no quantization of the x tiles")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 
 
@@ -90,17 +114,19 @@ def _projections(cfg):
             (d, 2 * cfg.intermediate_size), (cfg.intermediate_size, d)]
 
 
-def _stacks(model: str, dev, gen):
-    """(layers, [(k, n, packed [L, k/2, n], scale [L, n])]) of a model."""
+def _stacks(model: str, dev, gen, bits: int = 4):
+    """(layers, [(k, n, codes, scale [L, n])]) of a model: codes packed
+    int4 [L, k/2, n] (bits 4) or int8 [L, k, n] (bits 8)."""
     from gabby_tpu_torch import config as cfglib
     cfg = getattr(cfglib, model)()
     mats = []
     for k, n in _projections(cfg):
-        packed = torch.randint(-128, 128, (cfg.num_layers, k // 2, n),
+        rows = k // 2 if bits == 4 else k
+        packed = torch.randint(-128, 128, (cfg.num_layers, rows, n),
                                generator=gen, device=dev,
                                dtype=torch.int32).to(torch.int8)
         scale = torch.rand((cfg.num_layers, n), generator=gen,
-                           device=dev) * 0.02
+                           device=dev) * (0.02 if bits == 4 else 0.002)
         mats.append((k, n, packed, scale))
     return cfg.num_layers, mats
 
@@ -111,110 +137,142 @@ def _bound_ms(nl: int, mats, m: int) -> float:
                for k, n, p, _ in mats) / HBM_BYTES_PER_S * 1e3
 
 
-def _time_this_tree() -> dict:
-    """K1 and K33 of the gabby_tpu_torch on sys.path, and the library call,
-    at every model and M."""
+def _time_this_tree(kernels) -> dict:
+    """The `kernels` of the gabby_tpu_torch on sys.path, and the library
+    call, at every model and M."""
     from gabby_tpu_torch.ops.cuda import quant_matmul as cqm
     from gabby_tpu_torch.ops.quant import unpack_int4
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     out = {}
     for model in MODELS:
-        nl, mats = _stacks(model, dev, gen)
-        dense = [torch.stack([unpack_int4(p[i]) for i in range(nl)])
-                 .bfloat16() * s[:, None, :].bfloat16()
-                 for _, _, p, s in mats]
+        stacks = {}
+        for bits in sorted({KERNELS[k] for k in kernels}):
+            nl, mats = _stacks(model, dev, gen, bits)
+            dense = [(torch.stack([unpack_int4(p[i]) for i in range(nl)])
+                      if bits == 4 else p).bfloat16()
+                     * s[:, None, :].bfloat16() for _, _, p, s in mats]
+            stacks[bits] = (mats, dense)
         for m in (8, 64):
-            xs = [torch.randn((m, k), generator=gen, device=dev).bfloat16()
-                  for k, _, _, _ in mats]
-            calls = [(x, p, s, layer) for layer in range(nl)
-                     for x, (_, _, p, s) in zip(xs, mats)]
-            row = {"bound_ms": _bound_ms(nl, mats, m)}
-            for name in KERNELS:
-                fn = getattr(cqm, name)
-                plain = getattr(cqm, name.replace("qmatmul_", "") + "_plain")
-                err = max((fn(*c).float() - plain(*c).float()).abs().max()
-                          .item() for c in calls[:4])
-                row[name] = dict(
-                    max_abs_err=err,
-                    repeat_equal=all(torch.equal(fn(*c), fn(*c))
-                                     for c in calls[:4]),
-                    graph_ms=_graph_ms(lambda: [fn(*c) for c in calls]),
-                    eager_ms=_time(lambda: [fn(*c) for c in calls], 10),
-                    host_us=_host_us(lambda: fn(*calls[0])),
-                    by_projection_graph_ms={
-                        f"{k}x{n}": _graph_ms(
-                            lambda: [fn(x, p, s, layer)
-                                     for layer in range(nl)])
-                        for x, (k, n, p, s) in zip(xs, mats)})
-            lib = [(x, w[layer]) for layer in range(nl)
-                   for x, w in zip(xs, dense)]
-            row["library"] = dict(
-                graph_ms=_graph_ms(lambda: [torch.matmul(*c) for c in lib]),
-                eager_ms=_time(lambda: [torch.matmul(*c) for c in lib], 10),
-                by_projection_graph_ms={
-                    f"{k}x{n}": _graph_ms(
-                        lambda: [torch.matmul(x, w[layer])
-                                 for layer in range(nl)])
-                    for x, w, (k, n, _, _) in zip(xs, dense, mats)})
+            row = {}
+            for bits, (mats, dense) in stacks.items():
+                suffix = "" if bits == 4 else "_int8"
+                xs = [torch.randn((m, k), generator=gen,
+                                  device=dev).bfloat16()
+                      for k, _, _, _ in mats]
+                row["bound_ms" + suffix] = _bound_ms(nl, mats, m)
+                row["library" + suffix] = _library(nl, mats, dense, xs)
+                calls = [(x, p, s, layer) for layer in range(nl)
+                         for x, (_, _, p, s) in zip(xs, mats)]
+                for name in kernels:
+                    if KERNELS[name] == bits:
+                        row[name] = _time_kernel(cqm, name, nl, mats, xs,
+                                                 calls)
             out[f"{model} M={m}"] = row
-        del mats, dense
+        del stacks
         torch.cuda.empty_cache()
     return out
 
 
-def _probe() -> dict:
-    """K1's 1B call set at M = 8 and 64 through builds with K1_PROBE = 0..4."""
+def _library(nl, mats, dense, xs) -> dict:
+    """torch.matmul on the dequantized bf16 weights: the call set and each
+    projection's layers, from a graph."""
+    lib = [(x, w[layer]) for layer in range(nl) for x, w in zip(xs, dense)]
+    return dict(
+        graph_ms=_graph_ms(lambda: [torch.matmul(*c) for c in lib]),
+        eager_ms=_time(lambda: [torch.matmul(*c) for c in lib], 10),
+        by_projection_graph_ms={
+            f"{k}x{n}": _graph_ms(
+                lambda: [torch.matmul(x, w[layer]) for layer in range(nl)])
+            for x, w, (k, n, _, _) in zip(xs, dense, mats)})
+
+
+def _time_kernel(cqm, name, nl, mats, xs, calls) -> dict:
+    fn = getattr(cqm, name)
+    plain = getattr(cqm, name.replace("qmatmul_", "") + "_plain")
+    outs = [(fn(*c), plain(*c)) for c in calls[:4]]
+    digest = hashlib.sha256()
+    for o, _ in outs:
+        digest.update(o.view(torch.int16).cpu().numpy().tobytes())
+    return dict(
+        max_abs_err=max((o.float() - r.float()).abs().max().item()
+                        for o, r in outs),
+        plain_equal=all(torch.equal(o, r) for o, r in outs),
+        digest=digest.hexdigest()[:16],
+        repeat_equal=all(torch.equal(fn(*c), fn(*c)) for c in calls[:4]),
+        graph_ms=_graph_ms(lambda: [fn(*c) for c in calls]),
+        eager_ms=_time(lambda: [fn(*c) for c in calls], 10),
+        host_us=_host_us(lambda: fn(*calls[0])),
+        by_projection_graph_ms={
+            f"{k}x{n}": _graph_ms(
+                lambda: [fn(x, p, s, layer) for layer in range(nl)])
+            for x, (k, n, p, s) in zip(xs, mats)})
+
+
+def _probe(kernels) -> dict:
+    """Each form's 1B call set at M = 8 and 64 through builds of its source
+    alone with K1_PROBE = 0.. (PROBES), each timed twice, in order and in
+    reverse."""
     from gabby_tpu_torch.ops.cuda import build
     from gabby_tpu_torch.ops.cuda import quant_matmul as cqm
-    src = os.path.join(build.CSRC, "quant_matmul_stacked.cu")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
-    nl, mats = _stacks(MODELS[0], dev, gen)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    what = ("whole kernel", "copies alone", "products without the unpack",
-            "no cross-block reduction",
-            "without programmatic dependent launch")
+    todo = [(name, p) for name in kernels if name in PROBES
+            for p in PROBES[name][2]]
     res = {}
     with tempfile.TemporaryDirectory() as tmp:
-        libs = [os.path.join(tmp, f"probe{p}.so") for p in range(len(what))]
+        libs = {job: os.path.join(tmp, f"{job[0]}_{job[1]}.so")
+                for job in todo}
         procs = [subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, f"-DK1_PROBE={p}", "-shared",
-             "-o", lib, src]) for p, lib in enumerate(libs)]
+             "-o", libs[(name, p)],
+             os.path.join(build.CSRC, PROBES[name][0])])
+            for name, p in todo]
         if any(p.wait() for p in procs):
             raise RuntimeError("a probe build failed")
-        for lib_path, label in zip(libs, what):
-            lib = ctypes.CDLL(lib_path)
-            mapfn, fn = lib.gabby_int4_stacked_map, lib.gabby_int4_matmul
-            mapfn.argtypes = build._SIGNATURES["gabby_int4_stacked_map"]
-            fn.argtypes = build._SIGNATURES["gabby_int4_matmul"]
-            maps = []
-            for k, n, p, _ in mats:
-                buf = ctypes.create_string_buffer(128)
-                if mapfn(p.data_ptr(), nl, k, n, ctypes.addressof(buf)):
-                    raise RuntimeError(f"probe {label}: map failed")
-                maps.append(buf)
+        calls = {}
+        for name in dict.fromkeys(name for name, _ in todo):
+            bits = KERNELS[name]
+            per = 2 if bits == 4 else 1
+            nl, mats = _stacks(MODELS[0], dev, gen, bits)
             for m in (8, 64):
                 args = []
-                for (k, n, p, s), buf in zip(mats, maps):
+                for k, n, p, s in mats:
                     x = torch.randn((m, k), generator=gen,
                                     device=dev).bfloat16()
                     o = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
-                    bt, split = cqm.stacked_plan(m, k // 2, n, sms)
-                    args.append((x, buf, s, o, k, n, bt, split))
+                    bt, split = cqm.stacked_plan(m, k // per, n, sms)
+                    # the map from the library: the probe builds hold the
+                    # entry point alone
+                    wmap = cqm._stack_map(p)
+                    args.append((x, wmap, s, o, k, n, bt, split))
+                calls[name, m] = (nl, args, mats)
+        for order in (todo, todo[::-1]):
+            for name, p in order:
+                lib = ctypes.CDLL(libs[name, p])
+                entry = PROBES[name][1]
+                fn = getattr(lib, entry)
+                fn.argtypes = build._SIGNATURES[entry]
+                for m in (8, 64):
+                    nl, args, _ = calls[name, m]
 
-                def call():
-                    stream = torch.cuda.current_stream().cuda_stream
-                    for layer in range(nl):
-                        for x, buf, s, o, k, n, bt, split in args:
-                            err = fn(x.data_ptr(), ctypes.addressof(buf),
-                                     s[layer].data_ptr(), o.data_ptr(), m, k,
-                                     n, layer, bt, split, stream)
-                            if err:
-                                raise RuntimeError(f"probe {label}: CUDA "
-                                                   f"error {err}")
+                    def call():
+                        stream = torch.cuda.current_stream().cuda_stream
+                        for layer in range(nl):
+                            for x, wmap, s, o, k, n, bt, split in args:
+                                head = [x.data_ptr(), ctypes.addressof(wmap),
+                                        s[layer].data_ptr(), o.data_ptr()]
+                                if entry == "gabby_w4a8_matmul":
+                                    head.append(None)
+                                err = fn(*head, m, k, n, layer, bt, split,
+                                         stream)
+                                if err:
+                                    raise RuntimeError(
+                                        f"probe {name} {p}: CUDA error {err}")
 
-                res[f"{label}, M={m}"] = _graph_ms(call)
+                    res.setdefault(f"{name}: {PROBE_WHAT[p]}, M={m}",
+                                   []).append(_graph_ms(call))
     return res
 
 
@@ -260,8 +318,11 @@ def _splits() -> dict:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="gabby_tpu_torch.tools.bench_stacked")
     p.add_argument("--roots", nargs="*", default=[],
-                   help="checkouts whose K1 and K33 to time, in order "
+                   help="checkouts whose stacked kernels to time, in order "
                    "(default: this one)")
+    p.add_argument("--kernels", nargs="*", default=list(KERNELS),
+                   choices=list(KERNELS), help="the wrappers to time "
+                   "(default: all)")
     p.add_argument("--probe", action="store_true",
                    help="also time the K1_PROBE builds of this checkout")
     p.add_argument("--splits", action="store_true",
@@ -272,7 +333,7 @@ def main(argv=None) -> int:
         print("bench_stacked: no CUDA device", file=sys.stderr)
         return 2
     if args.single:  # one tree, in a process of its own
-        print(json.dumps(_time_this_tree()), flush=True)
+        print(json.dumps(_time_this_tree(args.kernels)), flush=True)
         return 0
     here = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
@@ -284,14 +345,15 @@ def main(argv=None) -> int:
     for root in args.roots or [here]:
         root = os.path.abspath(root)
         done = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--single"],
+            [sys.executable, os.path.abspath(__file__), "--single",
+             "--kernels", *args.kernels],
             env={**os.environ, "PYTHONPATH": root}, cwd=root, check=True,
             capture_output=True, text=True)
         runs.append({"root": root, **json.loads(
             done.stdout.strip().splitlines()[-1])})
     result = {"card": card, "runs": runs}
     if args.probe:
-        result["probe_graph_ms"] = _probe()
+        result["probe_graph_ms"] = _probe(args.kernels)
     if args.splits:
         result["splits"] = _splits()
     print(json.dumps(result), flush=True)

@@ -240,10 +240,12 @@ def test_prefill_attention(dev, t, offset):
 
 
 STACKED_SHAPES = [(2048, 3072), (2048, 2048), (8192, 2048), (2048, 16384)]
+# Llama-3.2-3B's four projections (K = 3072 and 8192)
+STACKED_SHAPES_3B = [(3072, 5120), (3072, 3072), (3072, 16384), (8192, 3072)]
 
 
-@pytest.mark.parametrize("m", [1, 8, 64])
-@pytest.mark.parametrize("k,n", STACKED_SHAPES)
+@pytest.mark.parametrize("m", [1, 8, 13, 64])
+@pytest.mark.parametrize("k,n", STACKED_SHAPES + STACKED_SHAPES_3B)
 def test_int8_stacked(dev, m, k, n):
     g = _gen(dev, 5)
     codes = _packed(dev, g, 3, k, n)
@@ -320,8 +322,8 @@ def test_prefill_kernel_repeats_its_bits(dev, kernel):
         assert torch.equal(call(), call())
 
 
-@pytest.mark.parametrize("m", [1, 8, 64])
-@pytest.mark.parametrize("k,n", STACKED_SHAPES)
+@pytest.mark.parametrize("m", [1, 8, 13, 64])
+@pytest.mark.parametrize("k,n", STACKED_SHAPES + STACKED_SHAPES_3B)
 def test_int4_w4a8_stacked(dev, m, k, n):
     g = _gen(dev, 8)
     packed = _packed(dev, g, 3, k // 2, n)
@@ -335,7 +337,72 @@ def test_int4_w4a8_stacked(dev, m, k, n):
     ref, ref_acc = cqm.int4_w4a8_stacked_plain(x, packed, scale, 2,
                                                return_acc=True)
     assert torch.equal(acc, ref_acc)  # integer sums: exact in any order
-    torch.testing.assert_close(out.float(), ref.float(), **TOL)
+    # the kernel quantizes x and scales the sums as the plain version does
+    assert torch.equal(out, ref)
+    assert torch.equal(cqm.qmatmul_int4_w4a8_stacked(x, packed, scale, 2),
+                       out)
+
+
+def _int8_form(dev, name, g, m, k, n):
+    """The inputs of K5 (int8 stack [3, K, N]) or K8 (packed [3, K/2, N])
+    and the kernel."""
+    if name == "int8_matmul_stacked":
+        w = _packed(dev, g, 3, k, n)
+        scale = torch.rand((3, n), generator=g, device=dev) * 0.002
+        fn = cqm.qmatmul_int8_stacked
+    else:
+        w = _packed(dev, g, 3, k // 2, n)
+        scale = torch.rand((3, n), generator=g, device=dev) * 0.02
+        fn = cqm.qmatmul_int4_w4a8_stacked
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    return fn, (x, w, scale, 1)
+
+
+INT8_FORMS = ["int8_matmul_stacked", "int4_matmul_w4a8_stacked"]
+
+
+@pytest.mark.parametrize("name", INT8_FORMS)
+@pytest.mark.parametrize("m,k,n", [(8, 2048, 2048), (8, 8192, 2048),
+                                   (64, 2048, 16384), (13, 3072, 5120),
+                                   (64, 8192, 3072)])
+def test_int8_forms_repeat_their_bits(dev, name, m, k, n):
+    """K5 sums its f32 partials over the cluster in rank order (no
+    atomics), K8 its int32 ones: a repeat gives the same bits."""
+    fn, args = _int8_form(dev, name, _gen(dev, 33), m, k, n)
+    assert torch.equal(fn(*args), fn(*args))
+
+
+@pytest.mark.parametrize("name", INT8_FORMS)
+def test_int8_forms_are_one_kernel_a_call(dev, name):
+    """No workspace memset, no finalize pass and (K8) no quantization of x
+    outside the launch: one CUDA kernel a call."""
+    fn, args = _int8_form(dev, name, _gen(dev, 34), 8, 8192, 2048)
+    fn(*args)
+    torch.cuda.synchronize()
+    cuda = torch.profiler.ProfilerActivity.CUDA
+    with torch.profiler.profile(activities=[cuda]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1, kernels
+
+
+@pytest.mark.parametrize("name", INT8_FORMS)
+def test_int8_forms_refuse_what_their_kernel_does_not_take(dev, name):
+    """The tensor-core kernel's tiles: N a multiple of 128 and a weight
+    plane of a multiple of 64 rows (K5: K % 64; K8: K % 128)."""
+    g = _gen(dev, 35)
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    per = 1 if name == "int8_matmul_stacked" else 2
+    fn = (cqm.qmatmul_int8_stacked if per == 1
+          else cqm.qmatmul_int4_w4a8_stacked)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        fn(torch.ones((2, 128 * per), **bf), _packed(dev, g, 2, 128, 192),
+           torch.ones((2, 192), device=dev), 0)
+    with pytest.raises(ValueError, match=f"multiple of {64 * per}"):
+        fn(torch.ones((2, 96 * per), **bf), _packed(dev, g, 2, 96, 128),
+           torch.ones((2, 128), device=dev), 0)
 
 
 def test_new_wrappers_refuse_what_their_kernels_do_not_take(dev):
