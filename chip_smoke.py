@@ -13,8 +13,8 @@ a non-zero exit:
                  int8 for K3-K21, bf16 for K22-K32; prefill at T=512,
                  offset 512; K7 at one 512-token chunk; the verify kernels
                  at a block of 8; the paged ones through a shuffled table
-                 of 512-row pages; K1, K33, K5, K8 and K2 also at M =
-                 64, the verify-sized products, and twice on the same
+                 of 512-row pages; K1, K33, K5, K8, K2 and K6 also at M
+                 = 64, the verify-sized products, and twice on the same
                  inputs, bit for bit; K1, K33, K5 and K8 also by
                  projection)
                  against its
@@ -34,8 +34,11 @@ a non-zero exit:
                  K16 against K3, K24 against K32, K25 against K24, K17
                  against K10, K29 against K28; the s8 forms K15 against
                  K14, K20 against K19, and K19 against K14 on the same
-                 rows at a quantization chunk a page) and twice on the
-                 same inputs, bit for bit; K3 also at unequal positions,
+                 rows at a quantization chunk a page; the verify forms
+                 K13 against K9, K11 against K9 and K30 against K26 on
+                 the pool's rows gathered, K18 against K11, K27 against
+                 K26, K31 against K30) and twice on the same inputs, bit
+                 for bit; K3 also at unequal positions,
                  16 to 2000 rows), timed with
                  CUDA events, eagerly and replayed from a CUDA graph (the
                  device's share of the eager time), beside the plain
@@ -576,24 +579,34 @@ def kernel_phase(cfg, dev):
     del up, us, uw
     ux = torch.randn((b, d), generator=g, device=dev).bfloat16()
 
-    # K6: the int8 unembed of a loaded checkpoint (vocab not padded), M = 8
+    # K6: the int8 unembed of a loaded checkpoint (vocab not padded), one
+    # launch per decode step (M = 8) and per verify macro-step of 8 slots x
+    # 8 rows (M = 64); then the same call twice, bit for bit (K2's machine:
+    # one fixed order of sums, no atomics)
     v = cfg.vocab_size
     uc = rand_bytes(d, v)
     us = torch.rand((v,), generator=g, device=dev) * 0.002
-    err = check("int8_matmul", [cqm.qmatmul_int8(ux, uc, us)],
-                [cqm.int8_plain(ux, uc, us)])
     uw = uc.bfloat16() * us.bfloat16()
-    nbytes = uc.numel() + us.numel() * 4 + ux.numel() * 2 + b * v * 2
-    results.append(dict(
-        name="int8_matmul", shapes="unembed [2048 -> 128256], M=8",
-        route="cuda", source="gabby_tpu_torch/csrc/quant_matmul.cu",
-        replaces=qm + ":287", max_abs_err=err,
-        ms=time_ms(lambda: cqm.qmatmul_int8(ux, uc, us)),
-        graph_ms=graph_ms(lambda: cqm.qmatmul_int8(ux, uc, us)),
-        plain_ms=time_ms(lambda: cqm.int8_plain(ux, uc, us), 3),
-        library_ms=time_ms(lambda: torch.matmul(ux, uw)),
-        library_graph_ms=graph_ms(lambda: torch.matmul(ux, uw)),
-        **bound(nbytes, 2 * b * d * v)))
+    for m in (b, 64):
+        ux = torch.randn((m, d), generator=g, device=dev).bfloat16()
+        got = cqm.qmatmul_int8(ux, uc, us)
+        err = check("int8_matmul", [got], [cqm.int8_plain(ux, uc, us)])
+        if not torch.equal(got, cqm.qmatmul_int8(ux, uc, us)):
+            raise AssertionError("int8_matmul: a repeat on the same inputs "
+                                 "differs")
+        nbytes = uc.numel() + us.numel() * 4 + ux.numel() * 2 + m * v * 2
+        results.append(dict(
+            name="int8_matmul" + ("" if m == b else f" (M={m})"),
+            counter="int8_matmul",
+            shapes=f"unembed [2048 -> 128256], M={m}", route="cuda",
+            source="gabby_tpu_torch/csrc/quant_matmul_int8_unembed.cu",
+            replaces=qm + ":287", max_abs_err=err,
+            ms=time_ms(lambda: cqm.qmatmul_int8(ux, uc, us)),
+            graph_ms=graph_ms(lambda: cqm.qmatmul_int8(ux, uc, us)),
+            plain_ms=time_ms(lambda: cqm.int8_plain(ux, uc, us), 3),
+            library_ms=time_ms(lambda: torch.matmul(ux, uw)),
+            library_graph_ms=graph_ms(lambda: torch.matmul(ux, uw)),
+            **bound(nbytes, 2 * m * d * v)))
     del uc, us, uw
 
     # the int8 cache of one 2048-row engine: [16, 8, 8, 2048, 64]
@@ -810,11 +823,14 @@ def kernel_phase(cfg, dev):
                            enable_gqa=True),
             vbytes, vflops, **extra)
 
-    verify_case("verify_attention", kc, vc, "")
-    # K13: K9's work on the paired cache
+    # K9 (the verify form of decode_attention.cuh), each call repeated bit
+    # for bit
+    verify_case("verify_attention", kc, vc, "", repeat=True)
+    # K13: K9's work on the paired cache: K9's bits
     verify_case("verify_attention_paired", kcp, vcp, ", paired",
                 equal=lambda i: cattn.verify_attention(
-                    qv, kc, vc, ks, vs, pos, layer=i, window=2048, **kwv))
+                    qv, kc, vc, ks, vs, pos, layer=i, window=2048, **kwv),
+                repeat=True)
     del kd, vd, kc, vc, ks, vs, kcp, vcp
     torch.cuda.empty_cache()
 
@@ -902,7 +918,6 @@ def kernel_phase(cfg, dev):
     paged_case("paged_decode_attention_s8", cpaged.paged_decode_attention_s8,
                cpaged.paged_decode_attention_s8_plain, pool, ", s8 dots",
                pa + ":800", **s8_paged, equal=k14_at_page_chunks)
-    del dense_pool
     paged_case("paged_decode_attention_s8_paired",
                cpaged.paged_decode_attention_s8,
                cpaged.paged_decode_attention_s8_plain, pool_p,
@@ -927,11 +942,16 @@ def kernel_phase(cfg, dev):
                            enable_gqa=True),
             vbytes + tbytes, vflops, **extra)
 
-    paged_verify_case("paged_verify_attention", pool, "")
+    # K11 gives K9's bits on the pool's rows gathered into a dense cache as
+    # long as its read bound (the same plan), K18 K11's; each call repeated
+    paged_verify_case("paged_verify_attention", pool, "",
+                      equal=lambda i: cattn.verify_attention(
+                          qv, *dense_pool[:2], *dense_pool[2:], pos,
+                          layer=i, window=2048, **kwv), repeat=True)
     paged_verify_case("paged_verify_attention_paired", pool_p, ", paired",
                       equal=lambda i: cpaged.paged_verify_attention(
-                          qv, *pool, layer=i, **kwv))
-    del kd, vd, kp, vp, kps, vps, kpp, vpp, pool, pool_p
+                          qv, *pool, layer=i, **kwv), repeat=True)
+    del kd, vd, kp, vp, kps, vps, kpp, vpp, pool, pool_p, dense_pool
     torch.cuda.empty_cache()
 
     # K22-K32: the bf16 cache of one 2048-row engine [16, 8, 8, 2048, 64]
@@ -998,11 +1018,11 @@ def kernel_phase(cfg, dev):
                            enable_gqa=True),
             vbbytes, vflops, **extra)
 
-    bf16_verify_case("verify_attention_bf16", kb, vb, "")
+    bf16_verify_case("verify_attention_bf16", kb, vb, "", repeat=True)
     bf16_verify_case("verify_attention_bf16_paired", kbp, vbp, ", paired",
                      equal=lambda i: cattn.verify_attention(
                          qv, kb, vb, None, None, pos, layer=i, window=2048,
-                         **kwv))
+                         **kwv), repeat=True)
     # K22, K23: one 512-token prefill chunk at offset 512 of slot 3
     t4, off4 = 512, 512
     q4 = torch.randn((1, t4, nq, h), generator=g, device=dev).bfloat16()
@@ -1054,6 +1074,8 @@ def kernel_phase(cfg, dev):
     bf16_pool = ("16 layers x [8 slots, 32 q heads, 8 kv heads, context "
                  "1024, head 64], bf16 pool of 33 pages of 512 rows, "
                  "shuffled table")
+    dense_b = [torch.stack([gather_pages(x, table, i) for i in range(nl)])
+               for x in (kpb, vpb)]
     for tq, fn, plain, replaces in (
             (1, cpaged.paged_decode_attention,
              cpaged.paged_decode_attention_plain, pa + ":800"),
@@ -1069,10 +1091,16 @@ def kernel_phase(cfg, dev):
         work = ((bbytes, flops) if tq == 1 else (vbbytes, vflops))
         # K28, K29 (tq = 1) on decode_attention.cu, each call repeated
         # bit for bit; K30, K31 (verify) on paged_attention.cu
-        src, again = ((csrc + "decode_attention.cu", True) if tq == 1
-                      else (csrc + "paged_attention.cu", False))
+        # (K30 also K26's bits on the pool's rows gathered into a dense
+        # cache as long as its read bound, where both take one plan)
+        src = csrc + ("decode_attention.cu" if tq == 1
+                      else "paged_attention.cu")
+        same = {} if tq == 1 else dict(
+            equal=lambda i: cattn.verify_attention(
+                qv, *dense_b, None, None, pos, layer=i, window=2048,
+                **kwv))
         for suffix, pl, extra in (
-                ("", pool_b, {}),
+                ("", pool_b, same),
                 ("_paired", pool_bp, dict(equal=lambda i, fn=fn, qq=qq,
                                           kwq=kwq: fn(qq, *pool_b, layer=i,
                                                       **kwq)))):
@@ -1086,7 +1114,8 @@ def kernel_phase(cfg, dev):
                 lambda i, qqt=qqt, kd=kd, vd=vd, tq=tq: sdpa(
                     qqt, kd[i], vd[i], attn_mask=None if tq == 1 else vmask,
                     enable_gqa=True),
-                work[0] + tbytes, work[1], repeat=again, **extra)
+                work[0] + tbytes, work[1], repeat=True, **extra)
+    del dense_b
     for r in results:
         emit({"phase": "kernels", "tol": TOL, **r})
     return results
@@ -1254,7 +1283,8 @@ def head128_phase(cfg3, dev) -> list:
                + 2 * b * nk * tv * h * 2),
          nl * 4 * b * nq * h * (tv * ctx + tv * (tv + 1) // 2),
          equal=lambda i: cattn.verify_attention(qv, kc, vc, ks, vs, pos,
-                                                layer=i, window=2048, **kwv))
+                                                layer=i, window=2048, **kwv),
+         repeat=True)
     t4, off4 = 512, 512
     q4 = rand(1, t4, nq, h).bfloat16()
     fk4, fv4 = rand(nk, t4, h).bfloat16(), rand(nk, t4, h).bfloat16()
@@ -1827,8 +1857,10 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0})
     for src in ("quant_matmul_prefill.cu", "prefill_attention.cu",
                 "quant_matmul_stacked.cu", "quant_matmul_int8_stacked.cu",
-                "quant_matmul_w4a8.cu", "decode_attention.cu",
-                "attention_s8.cu"):
+                "quant_matmul_w4a8.cu", "quant_matmul_unembed.cu",
+                "quant_matmul_int8_unembed.cu", "decode_attention.cu",
+                "attention_s8.cu", "verify_attention.cu",
+                "paged_attention.cu"):
         emit({"phase": "build", "ptxas": src,
               "lines": ptxas_lines(log.getvalue(), src)})
 

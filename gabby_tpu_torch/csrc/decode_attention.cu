@@ -19,10 +19,11 @@
 // table is read here, nothing gathers the pool, and entries past a slot's
 // rows are never read (the loop ends at the slot's own position). The
 // paired layout stores kv heads 2p and 2p + 1 side by side, a line of 2H
-// elements, the scales still per head. The multi-position (verify) forms
-// are flash_rows.cuh's. The kernel itself lives in decode_attention.cuh,
-// whose s8 form (K14, K15, K19, K20) attention_s8.cu instantiates: this
-// unit builds the 80 instantiations of the forms above.
+// elements, the scales still per head. The kernel itself lives in
+// decode_attention.cuh, whose s8 form (K14, K15, K19, K20) attention_s8.cu
+// instantiates and whose verify form (the multi-position forms K9, K11,
+// K13, K18, K26, K27, K30, K31) verify_attention.cu and paged_attention.cu:
+// this unit builds the 80 instantiations of the forms above.
 //
 // The arithmetic is the reference's: scores are bf16 q times bf16 k (int8
 // codes are exact in bf16) summed in f32 on the tensor cores, times

@@ -1,10 +1,10 @@
 // Device and host helpers of the TMA + wgmma kernels (K7 in
-// quant_matmul_prefill.cu, K2 in quant_matmul_unembed.cu, the stacked
-// forms K1, K33, K5 and K8 of quant_matmul_stacked.cuh): mbarriers, TMA
-// tile copies, wgmma fences and the m64n8k16 / m64n64k16 products with A
-// from registers, the 128-byte-swizzle descriptor, the conversion of int4
-// codes to bf16 pairs and the ldmatrix unpack of a stage, and the tensor
-// maps.
+// quant_matmul_prefill.cu, K2 and K6 of quant_matmul_unembed.cuh, the
+// stacked forms K1, K33, K5 and K8 of quant_matmul_stacked.cuh): mbarriers,
+// TMA tile copies, wgmma fences and the m64n8k16 / m64n64k16 products with
+// A from registers, the 128-byte-swizzle descriptor, the conversion of int4
+// and int8 codes to bf16 pairs and the ldmatrix unpack of a stage, and the
+// tensor maps.
 
 #pragma once
 
@@ -206,6 +206,45 @@ __device__ __forceinline__ void unpack_stage_ldm(const uint8_t* w, int chunk,
   }
 }
 
+// The A fragments (K5, K6) of one stage of int8 codes ([64 K rows][128
+// channels]), a[k16 step][4] in unpack_stage_ldm's register order (its two
+// ldmatrix.x4.trans loads; fragment row g is channel 2g, row g + 8 channel
+// 2g + 1), each register two codes of a channel as exact bf16: with u =
+// c + 128 as the low byte of 2^23's f32 bits, that f32 less 2^23 + 128 is
+// c, and an integer of at most 8 bits is its f32's high half.
+__device__ __forceinline__ uint32_t codes_bf16x2(uint32_t v) {
+  // bytes 0 and 2 of v: codes + 128
+  const float f0 =
+      __fsub_rn(__int_as_float(__byte_perm(v, 0x4B000000u, 0x7440)),
+                8388736.f);
+  const float f2 =
+      __fsub_rn(__int_as_float(__byte_perm(v, 0x4B000000u, 0x7442)),
+                8388736.f);
+  return __byte_perm(__float_as_uint(f0), __float_as_uint(f2), 0x7632);
+}
+__device__ __forceinline__ void unpack_stage_codes8(const uint8_t* w,
+                                                    int chunk, int lane,
+                                                    uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int r = 32 * q + lane;
+    uint32_t m[4];
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4];\n"
+        : "=r"(m[0]), "=r"(m[1]), "=r"(m[2]), "=r"(m[3])
+        : "r"(smem_addr(w + r * 128 + ((chunk ^ (r & 7)) << 4))));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t ra = m[2 * h] ^ 0x80808080u;
+      const uint32_t rb = m[2 * h + 1] ^ 0x80808080u;
+      const uint32_t v[4] = {ra, ra >> 8, rb, rb >> 8};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) a[2 * q + h][j] = codes_bf16x2(v[j]);
+    }
+  }
+}
+
 // cuTensorMapEncodeTiled, looked up through the runtime (no link against
 // libcuda)
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -287,25 +326,32 @@ cudaError_t stack_map(const void* planes, int layers, int rows, int N,
              : cudaErrorInvalidValue;
 }
 
-// The two tensor maps of a product on one [K/2, N] plane (K7, K2):
-// int4_x_map with boxes of bt rows, and the packed plane, 2-D, boxes of 128
-// channels x 64 rows, 128-byte swizzled, zero past the edges.
-cudaError_t int4_tensor_maps(const void* x, const void* packed, int M,
-                             int K, int N, int bt, CUtensorMap* xmap,
-                             CUtensorMap* wmap) {
-  const cudaError_t err = int4_x_map(x, M, K, bt, xmap);
-  if (err != cudaSuccess) return err;
+// A byte plane [rows, N] (K7, K2: packed int4 codes, rows = K/2; K6: int8
+// codes, rows = K), 2-D, boxes of 128 channels x 64 rows, 128-byte
+// swizzled, zero past the edges (channels past N read as 0).
+cudaError_t plane_map(const void* plane, int rows, int N, CUtensorMap* wmap) {
   EncodeTiled encode = encode_tiled();
-  const cuuint64_t wdim[2] = {(cuuint64_t)N, (cuuint64_t)K / 2};
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t wdim[2] = {(cuuint64_t)N, (cuuint64_t)rows};
   const cuuint64_t wstride[1] = {(cuuint64_t)N};
   const cuuint32_t wbox[2] = {128, 64}, ones[2] = {1, 1};
   return encode(wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
-                const_cast<void*>(packed), wdim, wstride, wbox, ones,
+                const_cast<void*>(plane), wdim, wstride, wbox, ones,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
              ? cudaSuccess
              : cudaErrorInvalidValue;
+}
+
+// The two tensor maps of a product on one [K/2, N] plane (K7, K2):
+// int4_x_map with boxes of bt rows, and the packed plane's plane_map.
+cudaError_t int4_tensor_maps(const void* x, const void* packed, int M,
+                             int K, int N, int bt, CUtensorMap* xmap,
+                             CUtensorMap* wmap) {
+  const cudaError_t err = int4_x_map(x, M, K, bt, xmap);
+  if (err != cudaSuccess) return err;
+  return plane_map(packed, K / 2, N, wmap);
 }
 
 cudaError_t multiprocessors(int* dev, int* sms) {

@@ -373,45 +373,6 @@ __device__ __forceinline__ void unpack_stage_s8(const uint8_t* w, int chunk,
   }
 }
 
-// K5's A fragments of one stage of int8 codes ([64 K rows][128 channels]),
-// a[k16 step][4] in unpack_stage_ldm's register order (its two
-// ldmatrix.x4.trans loads; fragment row g is channel 2g, row g + 8 channel
-// 2g + 1), each register two codes of a channel as exact bf16: with u =
-// c + 128 as the low byte of 2^23's f32 bits, that f32 less 2^23 + 128 is
-// c, and an integer of at most 8 bits is its f32's high half.
-__device__ __forceinline__ uint32_t codes_bf16x2(uint32_t v) {
-  // bytes 0 and 2 of v: codes + 128
-  const float f0 =
-      __fsub_rn(__int_as_float(__byte_perm(v, 0x4B000000u, 0x7440)),
-                8388736.f);
-  const float f2 =
-      __fsub_rn(__int_as_float(__byte_perm(v, 0x4B000000u, 0x7442)),
-                8388736.f);
-  return __byte_perm(__float_as_uint(f0), __float_as_uint(f2), 0x7632);
-}
-__device__ __forceinline__ void unpack_stage_codes8(const uint8_t* w,
-                                                    int chunk, int lane,
-                                                    uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    const int r = 32 * q + lane;
-    uint32_t m[4];
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-        "[%4];\n"
-        : "=r"(m[0]), "=r"(m[1]), "=r"(m[2]), "=r"(m[3])
-        : "r"(smem_addr(w + r * 128 + ((chunk ^ (r & 7)) << 4))));
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const uint32_t ra = m[2 * h] ^ 0x80808080u;
-      const uint32_t rb = m[2 * h + 1] ^ 0x80808080u;
-      const uint32_t v[4] = {ra, ra >> 8, rb, rb >> 8};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) a[2 * q + h][j] = codes_bf16x2(v[j]);
-    }
-  }
-}
-
 // x's int8 code as the low byte of the word: the reference's round half to
 // even of the correctly rounded quotient x / s, clipped to +-127 (bits:
 // the bf16 in the word's high half; rs = __frcp_rn(s)). The quotient is the

@@ -5,7 +5,8 @@ all their forms).
 
 Over an int8 cache with f32 scales, unpaired [L, B, Nk, S, H]:
   K3   decode, bf16/f32 form (csrc/decode_attention.cu, _decode_call tq = 1);
-  K9   verify, T > 1 (csrc/verify_attention.cu, _decode_call tq > 1);
+  K9   verify, T > 1 (csrc/verify_attention.cu, _decode_call tq > 1; the
+       kernel of csrc/decode_attention.cuh in its verify form);
   K14  decode, s8 form (csrc/attention_s8.cu, _decode_call use_s8=True;
        the kernel of csrc/decode_attention.cuh in its s8 form);
   K16  decode, bf16/f32 form, the slot-batched launch
@@ -25,8 +26,11 @@ Every single-position form (K3, K12, K14, K15, K16, K24, K25, K32, and the
 paged K10, K17, K19, K20, K28, K29 of paged_attention.py) is one kernel
 (csrc/decode_attention.cuh) whose launch (slots a block, the cluster that
 splits a slot's rows, rows a warp's tile) comes from `decode_plan`, and
-for the s8 form from `s8_plan`; it takes group sizes 1, 2, 3, 4 and 8, the
-verify kernels any. Every kernel takes head_dim 64 or
+for the s8 form from `s8_plan`; it takes group sizes 1, 2, 3, 4 and 8.
+The verify forms (K9, K13, K26, K27 here, K11, K18, K30, K31 in
+paged_attention.py) are the same kernel with the T x G query columns of a
+kv head as the products' N, at `verify_plan`'s launch; they take any
+group. Every kernel takes head_dim 64 or
 128, reads rows j < min(positions[b], window) of one layer of the stacked
 cache (a pointer offset, no copy) and folds the block's own unquantized k/v
 in last. A paired kernel's block owns one kv head and reads its half of
@@ -59,6 +63,11 @@ S8_PARK_TILES = 4          # a part's tiles of an s8 group, chunks allowing
 S8_GROUP_CHUNKS = 32       # chunks of a group of the s8 form at most
 MAX_SMEM = 232448          # a block's shared memory on the H100, bytes
 SM_SMEM = 233472           # a multiprocessor's, 1024 of it kept a block
+VERIFY_MAX_T = 32          # positions a verify block at most: one tile
+VERIFY_TILE = 32           # cache rows a verify block stages at a time
+VERIFY_STAGES = 4          # the verify form's stages in flight
+VERIFY_TILES = 8           # n8 column tiles (warps) of a verify block at most
+VERIFY_BLOCKS_PER_SM = 4   # verify blocks the plan counts a multiprocessor
 
 
 def decode_plan(b: int, nk: int, h: int, g: int, limit: int, sms: int, *,
@@ -102,6 +111,116 @@ def decode_plan(b: int, nk: int, h: int, g: int, limit: int, sms: int, *,
            and b * nk * 2 * split <= BLOCKS_PER_SM * sms):
         split *= 2
     return 1, split, tile
+
+
+def verify_plan(b: int, nk: int, h: int, g: int, t: int, limit: int,
+                sms: int, *, quant: bool = True,
+                page: Optional[int] = None) -> tuple[int, int, int, int]:
+    """The launch of the verify form of csrc/decode_attention.cuh (K9, K13,
+    K26, K27 dense; K11, K18, K30, K31 paged) for B slots of Nk kv heads
+    of head_dim h and group g, t candidate positions, read bound `limit`
+    (dense: min(window, S); paged: page x max_pages), over an int8
+    (`quant`) or bf16 cache, on a card of `sms` multiprocessors: (split,
+    tile, nt, groups). The grid is (split, nk x groups, b), blocks of 32
+    nt threads in clusters of `split`.
+
+    A block's columns are the t x g (position, query head) pairs of one kv
+    head, column c = t' g + g'; its nt warps take an n8 tile of them each,
+    8 nt columns: the fewest tiles that hold all t g columns, as a power
+    of two up to VERIFY_TILES; past that the columns are cut into `groups`
+    blocks of 8 nt (nt then the power of two that shares them most
+    evenly), which re-read the rows through L2. tile is the rows the block
+    stages at a time, VERIFY_TILE, for either cache form (a page must hold
+    whole tiles). split, the blocks a (slot, kv head)'s rows are cut over,
+    is the largest of 1, 2, 4, 8 that leaves every rank at least
+    DECODE_WARPS x ROWS_PER_WARP rows at the full `limit` and the grid
+    within one wave of blocks at that split (`verify_blocks_per_sm`: rank
+    0's inbox grows with the split, and with it a block's shared memory).
+    On an H100 that took 4 at the 1B heads and 2 at the 3B heads, each the
+    fastest of 1, 2, 4 and 8 there (tools/bench_decode_attention.py
+    --splits, PERF.md). The paired layout and a pool whose read bound is a
+    dense cache's take the same plan, so those forms give the same bits on
+    the same rows. Shapes alone decide it, never the positions, so a launch
+    replays from a CUDA graph. `page` (paged): the pool's page, which the
+    tile must divide. `quant` does not change it (both cache forms stage
+    the same tiles)."""
+    if h not in HEAD_DIMS or g < 1 or not 2 <= t <= VERIFY_MAX_T:
+        raise ValueError(f"verify attention takes head_dim in {HEAD_DIMS}, "
+                         f"a group of at least 1 and 2..{VERIFY_MAX_T} "
+                         f"positions, got {h}, {g}, {t}")
+    if b < 1 or nk < 1 or limit < 0 or sms < 1:
+        raise ValueError(f"verify_plan: B {b}, Nk {nk}, limit {limit}, "
+                         f"{sms} multiprocessors")
+    tile = VERIFY_TILE
+    if page is not None and (page < 1 or page % tile):
+        raise ValueError(f"paged verify attention reads whole tiles of "
+                         f"{tile} rows, which a page of {page} rows does "
+                         f"not hold")
+    n8 = -(-t * g // 8)
+    groups = -(-n8 // VERIFY_TILES)
+    nt = 1
+    while nt * groups < n8:
+        nt *= 2
+    split = 1
+    while (2 * split <= MAX_SPLIT
+           and DECODE_WARPS * 2 * split * ROWS_PER_WARP <= limit
+           and b * nk * groups * 2 * split
+           <= verify_blocks_per_sm(h, quant, nt, 2 * split) * sms):
+        split *= 2
+    return split, tile, nt, groups
+
+
+def verify_blocks_per_sm(h: int, quant: bool, nt: int, split: int) -> int:
+    """The verify blocks a multiprocessor holds at this split, as far as
+    shared memory decides (a block also keeps 1024 bytes), at most
+    VERIFY_BLOCKS_PER_SM; 0 where a block's does not fit."""
+    need = verify_smem_bytes(h, quant, nt, split)
+    if need > MAX_SMEM:
+        return 0
+    return min(VERIFY_BLOCKS_PER_SM, SM_SMEM // (need + 1024))
+
+
+def verify_smem_bytes(h: int, quant: bool, nt: int, split: int) -> int:
+    """The shared memory of a block of the verify form in bytes
+    (csrc/decode_attention.cuh verify_smem_bytes): the inbox mbarrier; a
+    ring of VERIFY_STAGES tiles (int8 codes of k and v and their scales,
+    or bf16 rows padded by 16 bytes); over int8 the tile in bf16 rows; the
+    fresh tile's bf16 rows; the inbox of rank 0 (the other ranks'
+    partials, nt warps of 8 h + 16 f32 each), where another rank lays out
+    its own."""
+    row = 2 * h + 16
+    stage = (2 * VERIFY_TILE * h + 2 * VERIFY_TILE * 4 if quant
+             else 2 * VERIFY_TILE * row)
+    return (16 + VERIFY_STAGES * stage
+            + (4 if quant else 2) * VERIFY_TILE * row
+            + 4 * max(split - 1, 1) * nt * (8 * h + 16))
+
+
+def verify_rows(n: int, split: int) -> list[tuple[int, int, bool]]:
+    """The work each rank of a (slot, kv head) takes in the verify form for
+    n live rows (a plain mirror of the kernel): (lo, hi, fresh), its cache
+    rows [lo, hi) and whether it takes the fresh tile. The ceil(n /
+    VERIFY_TILE) tiles of the slot, then the fresh tile, are cut into
+    `split` runs in order, as even as can be, so that the last rank takes
+    the fresh tile; every warp of a rank reads all of its rows, for its own
+    columns."""
+    tiles = -(-n // VERIFY_TILE)
+    out = []
+    for r in range(split):
+        lo = r * (tiles + 1) // split
+        hi = (r + 1) * (tiles + 1) // split
+        out.append((min(n, lo * VERIFY_TILE), min(n, min(hi, tiles)
+                                                   * VERIFY_TILE),
+                    hi == tiles + 1))
+    return out
+
+
+def verify_columns(t: int, g: int, nt: int) -> list[tuple[int, int]]:
+    """The columns [lo, hi) each column group of the verify form attends
+    (a plain mirror of the kernel): groups of 8 nt columns from column 0,
+    the last one short."""
+    c = t * g
+    return [(c0, min(c0 + 8 * nt, c)) for c0 in range(0, c, 8 * nt)]
 
 
 def chunk_tiles(n: int, tile: int,
@@ -567,8 +686,8 @@ def verify_attention_plain(q, k_cache, v_cache, k_scale, v_scale, positions,
 
 def check_block_inputs(what: str, q, fresh_k, fresh_v, positions, tensors,
                        nk: int) -> None:
-    """Checks shared by the kernels of csrc/decode_attention.cu (T = 1) and
-    csrc/flash_rows.cuh (T > 1): q [B, T, Nq, H] (H 64 or 128) and
+    """Checks shared by the forms of csrc/decode_attention.cuh (decode, T =
+    1; verify, T > 1): q [B, T, Nq, H] (H 64 or 128) and
     fresh_k/v [B, Nk, T, H] bf16, positions [B] int32, everything
     contiguous on the GPU and 16-byte aligned."""
     b, t, nq, h = q.shape
@@ -589,8 +708,8 @@ def check_block_inputs(what: str, q, fresh_k, fresh_v, positions, tensors,
 
 
 def check_verify_block(what: str, q) -> None:
-    """The verify kernels (csrc/flash_rows.cuh) take 2 <= T <= 32
-    positions: a single position is the decode kernels'."""
+    """The verify form (csrc/decode_attention.cuh) takes 2 <= T <= 32
+    positions: a single position is the decode form's."""
     if q.shape[1] < 2:
         raise ValueError(f"{what} takes 2 to 32 positions a slot, got q "
                          f"{tuple(q.shape)}: one position is decode "
@@ -610,7 +729,10 @@ def verify_attention(q: torch.Tensor, k_cache: torch.Tensor,
     int32 (the read bound; parked lanes are given 1); fresh_k/v
     [B, Nk, T, H] bf16, head-major in both layouts. Returns [B, T, Nq, H].
     `window` (when given) bounds every slot's read, which the caller
-    guarantees covers positions[b]."""
+    guarantees covers positions[b]. One kernel (csrc/verify_attention.cu,
+    the verify form of csrc/decode_attention.cuh) at `verify_plan`'s
+    launch: on the same rows the paired result equals the unpaired one bit
+    for bit."""
     if not q.is_cuda:
         return verify_attention_plain(q, k_cache, v_cache, k_scale, v_scale,
                                       positions, layer=layer,
@@ -621,18 +743,26 @@ def verify_attention(q: torch.Tensor, k_cache: torch.Tensor,
     b, t, nq, h = q.shape
     nk, s, pair, kv_off, sc_off = _dense_cache(what, q, k_cache, v_cache,
                                                k_scale, v_scale, layer)
+    if s % VERIFY_TILE:
+        raise ValueError(f"{what} stages whole tiles of {VERIFY_TILE} rows: "
+                         f"the cache's {s} rows are not a multiple of it")
     check_block_inputs(what, q, fresh_k, fresh_v, positions,
                        (k_cache, v_cache, *scale_planes(k_scale, v_scale)),
                        nk)
     from gabby_tpu_torch.ops.cuda import build
+    from gabby_tpu_torch.ops.cuda.quant_matmul import multiprocessors
     lib = build.library()
     out = torch.empty_like(q)
     sm_scale = float(scale) if scale is not None else h ** -0.5
+    limit = _limit(s, window)
+    split, tile, nt, _ = verify_plan(b, nk, h, nq // nk, t, limit,
+                                     multiprocessors(q.device.index),
+                                     quant=k_scale is not None)
     rows = (q.data_ptr(), k_cache.data_ptr() + kv_off,
             v_cache.data_ptr() + kv_off)
     rest = (fresh_k.data_ptr(), fresh_v.data_ptr(), positions.data_ptr(),
-            out.data_ptr(), b, t, nq, nk, s, h, _limit(s, window), pair,
-            sm_scale, build.stream_ptr(q.device))
+            out.data_ptr(), b, t, nq, nk, s, h, limit, pair, split, tile,
+            nt, sm_scale, build.stream_ptr(q.device))
     if k_scale is None:
         build.check(lib.gabby_verify_attention_bf16(*rows, *rest), what)
         ck.launch_counts["verify_attention_bf16_paired" if pair

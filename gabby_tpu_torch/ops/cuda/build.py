@@ -126,10 +126,8 @@ _SIGNATURES = {
     "gabby_int4_stacked_map": [_P] + [_I] * 3 + [_P],
     # K2: x, packed, scale, out; M, K, N, group; stream
     "gabby_int4_unembed": [_P] * 4 + [_I] * 4 + [_P],
-    # workspace, scale, out; M, N; stream
-    "gabby_matmul_finalize": [_P] * 3 + [_I] * 2 + [_P],
-    # K6: x, codes, scale, out, workspace; M, K, N, n_split; stream
-    "gabby_int8_matmul": [_P] * 5 + [_I] * 4 + [_P],
+    # K6: x, codes, scale, out; M, K, N; stream
+    "gabby_int8_unembed": [_P] * 4 + [_I] * 3 + [_P],
     # x, packed (layer offset), scale (layer offset), out, part (the split
     # K's workspace or NULL); M, K, N, k_split; stream
     "gabby_int4_matmul_prefill": [_P] * 5 + [_I] * 4 + [_P],
@@ -153,14 +151,14 @@ _SIGNATURES = {
     "gabby_prefill_attention": [_P] * 9 + [_I] * 8 + [_F, _P],
     # T, Nq, Nk, offset -> n_split
     "gabby_prefill_attention_splits": [_I] * 4,
-    # verify (T > 1): q, k, v, k_scale, v_scale (layer offset), fresh_k,
-    # fresh_v, positions, out; B, T, Nq, Nk, S, H, limit, pair; sm_scale;
-    # stream
-    "gabby_verify_attention": [_P] * 9 + [_I] * 8 + [_F, _P],
-    # q, k, v, k_scale, v_scale (whole pools), page table, fresh_k,
-    # fresh_v, positions, out; B, T, Nq, Nk, L, layer, page, max_pages, H,
-    # pair; sm_scale; stream
-    "gabby_paged_attention": [_P] * 10 + [_I] * 10 + [_F, _P],
+    # K9, K13: q, k, v, k_scale, v_scale (layer offset), fresh_k, fresh_v,
+    # positions, out; B, T, Nq, Nk, S, H, limit, pair, split, tile, nt
+    # (verify_plan); sm_scale; stream
+    "gabby_verify_attention": [_P] * 9 + [_I] * 11 + [_F, _P],
+    # K11, K18: q, k, v, k_scale, v_scale (whole pools), page table,
+    # fresh_k, fresh_v, positions, out; B, T, Nq, Nk, L, layer, page,
+    # max_pages, H, pair, split, tile, nt (verify_plan); sm_scale; stream
+    "gabby_paged_attention": [_P] * 10 + [_I] * 13 + [_F, _P],
     # K14, K15, K19, K20: q, k, v, k_scale, v_scale (dense: layer offset;
     # paged: whole pools), page table or NULL, fresh_k, fresh_v, positions,
     # out; B, Nq, Nk, layers, layer, rows, max_pages, H, limit, chunk, pair,
@@ -168,8 +166,8 @@ _SIGNATURES = {
     "gabby_attention_s8": [_P] * 10 + [_I] * 14 + [_F, _P],
     # the bf16-cache forms: the int8 forms' arguments without the scales
     "gabby_prefill_attention_bf16": [_P] * 7 + [_I] * 8 + [_F, _P],
-    "gabby_verify_attention_bf16": [_P] * 7 + [_I] * 8 + [_F, _P],
-    "gabby_paged_attention_bf16": [_P] * 8 + [_I] * 10 + [_F, _P],
+    "gabby_verify_attention_bf16": [_P] * 7 + [_I] * 11 + [_F, _P],
+    "gabby_paged_attention_bf16": [_P] * 8 + [_I] * 13 + [_F, _P],
 }
 
 

@@ -4,8 +4,9 @@ gabby_tpu/ops/pallas/attention.py:paged_decode_attention and
 paged_verify_attention in all their forms).
 
 Over the unpaired int8 pool [P, L, Nk, page, H]: K10 decode
-(csrc/decode_attention.cu) and K11 verify (csrc/paged_attention.cu) in the
-bf16/f32 form, K19 decode in the s8 form (csrc/attention_s8.cu, the same
+(csrc/decode_attention.cu) and K11 verify (csrc/paged_attention.cu, the
+verify form of the same kernel at `verify_plan`'s launch) in the bf16/f32
+form, K19 decode in the s8 form (csrc/attention_s8.cu, the same
 kernel in its s8 form at `s8_plan`'s launch). Over the
 paired int8 pool [P, L, Nk/2, page, 2H] (detected by the lane width; scale
 pools per head either way): K17, K18 and K20. Over a bf16 pool (no scale
@@ -15,10 +16,11 @@ verify contracts, with row j of slot b read from
 pool[page_table[b, j // page], layer, kv head, j % page]. The kernels read
 the page table themselves and stop at each slot's own position, so nothing
 gathers the pool and table entries past a slot's rows are never read. The
-decode kernels are the dense ones' (csrc/decode_attention.cu at
-`decode_plan`'s launch for the read bound page x max_pages), so on the
-same rows under the same plan they give the dense kernels' bits; they take
-the dense kernels' groups (1, 2, 3, 4, 8), the verify kernels any.
+kernels are the dense ones' (csrc/decode_attention.cuh at `decode_plan`'s
+or `verify_plan`'s launch for the read bound page x max_pages), so on the
+same rows under the same plan they give the dense kernels' bits; the
+decode forms take the dense ones' groups (1, 2, 3, 4, 8), the verify
+forms any.
 head_dim is 64 or 128. The wrappers keep their own launch counters. CPU
 tensors take the plain versions, which gather the layer's pages into a
 dense view; CUDA tensors launch or raise. On the GPU the page size must be
@@ -39,7 +41,7 @@ from gabby_tpu_torch.ops.cuda.attention import (HEAD_DIMS,
                                                 check_verify_block,
                                                 decode_launch,
                                                 s8_attention_core, s8_plan,
-                                                scale_planes)
+                                                scale_planes, verify_plan)
 
 
 def paged_decode_attention_plain(q, k_pool, v_pool, page_table, positions,
@@ -215,7 +217,10 @@ def paged_verify_attention(q: torch.Tensor, k_pool: torch.Tensor,
     """q [B, T, Nq, H] bf16, 2 <= T <= 32 candidate positions per slot;
     pools (int8: unpaired K11, paired K18; bf16: K30, K31), table and
     positions as `paged_decode_attention`; fresh_k/v [B, Nk, T, H] bf16,
-    head-major in both layouts. Returns [B, T, Nq, H]."""
+    head-major in both layouts. Returns [B, T, Nq, H]. The dense verify
+    form through the table (csrc/paged_attention.cu) at `verify_plan`'s
+    launch for the read bound page x max_pages: on the same rows under the
+    same plan the dense form's bits."""
     if not q.is_cuda:
         return paged_verify_attention_plain(
             q, k_pool, v_pool, page_table, positions, k_scale, v_scale,
@@ -229,12 +234,18 @@ def paged_verify_attention(q: torch.Tensor, k_pool: torch.Tensor,
                        (k_pool, v_pool, *scale_planes(k_scale, v_scale),
                         page_table), nk)
     from gabby_tpu_torch.ops.cuda import build
+    from gabby_tpu_torch.ops.cuda.quant_matmul import multiprocessors
     lib = build.library()
     out = torch.empty_like(q)
     sm_scale = float(scale) if scale is not None else h ** -0.5
+    max_pages = page_table.shape[1]
+    split, tile, nt, _ = verify_plan(b, nk, h, nq // nk, t,
+                                     page * max_pages,
+                                     multiprocessors(q.device.index),
+                                     quant=k_scale is not None, page=page)
     rest = (page_table.data_ptr(), fresh_k.data_ptr(), fresh_v.data_ptr(),
             positions.data_ptr(), out.data_ptr(), b, t, nq, nk, nl, layer,
-            page, page_table.shape[1], h, pair, sm_scale,
+            page, max_pages, h, pair, split, tile, nt, sm_scale,
             build.stream_ptr(q.device))
     if k_scale is None:
         build.check(lib.gabby_paged_attention_bf16(

@@ -19,9 +19,12 @@ K5 `qmatmul_int8_stacked`: x [M <= 64, K] @ int8 W[layer], W stacked
    converted to bf16 exactly through f32, bf16 products on the tensor
    cores), one launch a call (csrc/quant_matmul_int8_stacked.cu, replacing
    _qmatmul_int8_stacked :504 / _int8_stacked_kernel :409).
-K6 `qmatmul_int8`: the same on a 2-D [K, N] weight — the int8 unembed
-   (csrc/quant_matmul.cu, replacing _qmatmul_int8 :287 / _int8_kernel
-   :237), with a split-K workspace and finalize pass where N is narrow.
+K6 `qmatmul_int8`: x [M <= 64, K] @ a 2-D int8 W [K, N] with scales [N]
+   — the int8 unembed, on K2's persistent kernel in an int8 form (each
+   code converted to bf16 exactly through f32), one launch a call
+   (csrc/quant_matmul_int8_unembed.cu, replacing _qmatmul_int8 :287 /
+   _int8_kernel :237); on the card K a multiple of 64, N of 16
+   (`int8_unembed_launch`).
 K7 `qmatmul_int4`: x [any M, K] @ per-channel int4 W [K/2, N] (2-D, or
    one layer of a stack) on the tensor cores — prefill-sized M
    (csrc/quant_matmul_prefill.cu, replacing _qmatmul_int4 :321 /
@@ -52,8 +55,7 @@ import torch
 from gabby_tpu_torch.ops import cuda as ck
 
 MAX_M = 64
-_STRIP = 128  # output columns per block (kStrip of the decode kernels)
-_TARGET_BLOCKS = 264  # two blocks per SM on a 132-SM H100
+_STRIP = 128  # output channels a strip of the tensor-core kernels
 _STAGE_ROWS = 64  # weight rows per stage of the stacked kernel (kBKP)
 MAX_SPLIT = 8  # blocks a strip's K is split over: the portable cluster size
 # codes a weight byte holds, by the stacked kernels' counters: a packed int4
@@ -153,16 +155,25 @@ def int4_w4a8_stacked_plain(x, packed, scale, layer: int,
     return (out, acc.to(torch.int32)) if return_acc else out
 
 
-def _n_split(n: int, rows: int) -> int:
-    """K6's K slices per column strip: enough blocks to cover the SMs
-    twice, while every slice keeps at least 16 of the weight plane's `rows`
-    (one per row lane of a block)."""
+def int8_unembed_launch(m: int, k: int, n: int,
+                        sms: int) -> tuple[int, int]:
+    """The launch of K6 (csrc/quant_matmul_int8_unembed.cu) for x [m, k]
+    against an int8 [k, n] plane on a card of `sms` multiprocessors: (bt,
+    blocks). bt is the token tile, 8 for m <= 8 (wgmma n8, two blocks a
+    multiprocessor) and 64 above (one); blocks, the persistent grid, is the
+    strips of 128 channels (the last one may pass n) or that many blocks
+    a multiprocessor, whichever is fewer. The kernel takes K a multiple of
+    64 (a stage's rows) and N a multiple of 16 (TMA's 16-byte row stride);
+    it raises ValueError otherwise."""
+    if not 1 <= m <= MAX_M:
+        raise ValueError(f"int8 unembed takes 1..{MAX_M} rows, got {m}")
+    if k <= 0 or k % _STAGE_ROWS or n <= 0 or n % 16:
+        raise ValueError(f"int8 unembed takes K a multiple of "
+                         f"{_STAGE_ROWS} and N a multiple of 16, got K {k}, "
+                         f"N {n}")
+    bt = 8 if m <= 8 else 64
     strips = -(-n // _STRIP)
-    split = 1
-    while (strips * split < _TARGET_BLOCKS and rows % (2 * split) == 0
-           and rows // (2 * split) >= 16):
-        split *= 2
-    return split
+    return bt, min(strips, sms * (2 if bt == 8 else 1))
 
 
 def stacked_plan(m: int, kp: int, n: int, sms: int) -> tuple[int, int]:
@@ -374,31 +385,25 @@ def qmatmul_int8_stacked(x: torch.Tensor, codes: torch.Tensor,
 
 def qmatmul_int8(x: torch.Tensor, codes: torch.Tensor,
                  scale: torch.Tensor) -> torch.Tensor:
-    """K6. x [M, K]; codes [K, N] int8; scale [N] f32 -> [M, N]."""
+    """K6. x [M, K]; codes [K, N] int8; scale [N] f32 -> [M, N]. On the
+    card 1 <= M <= 64, K a multiple of 64 and N of 16
+    (`int8_unembed_launch`); the plain version takes any shape."""
     if not x.is_cuda:
         return int8_plain(x, codes, scale)
+    what = "int8 unembed"
     k, n = codes.shape
     if scale.shape != (n,):
-        raise ValueError(f"int8 matmul: scale {tuple(scale.shape)} for "
-                         f"codes {tuple(codes.shape)}")
-    _check("int8 matmul", x, codes, scale, k, n, k_multiple=1)
+        raise ValueError(f"{what}: scale {tuple(scale.shape)} for codes "
+                         f"{tuple(codes.shape)}")
+    _check(what, x, codes, scale, k, n, k_multiple=1, n_multiple=1)
+    m = x.shape[0]
+    int8_unembed_launch(m, k, n, multiprocessors(x.device.index))
     from gabby_tpu_torch.ops.cuda import build
     lib = build.library()
-    m = x.shape[0]
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    # a split K goes through a zeroed f32 workspace and a finalize pass
-    split = _n_split(n, k)
-    ws = (torch.zeros((m, n), dtype=torch.float32, device=x.device)
-          if split > 1 else None)
-    ws_ptr = ws.data_ptr() if ws is not None else None
-    stream = build.stream_ptr(x.device)
-    build.check(lib.gabby_int8_matmul(
-        x.data_ptr(), codes.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        ws_ptr, m, k, n, split, stream), "int8_matmul")
-    if ws is not None:
-        build.check(lib.gabby_matmul_finalize(
-            ws_ptr, scale.data_ptr(), out.data_ptr(), m, n, stream),
-            "int8_matmul finalize")
+    build.check(lib.gabby_int8_unembed(
+        x.data_ptr(), codes.data_ptr(), scale.data_ptr(), out.data_ptr(), m,
+        k, n, build.stream_ptr(x.device)), "int8_matmul")
     ck.launch_counts["int8_matmul"] += 1
     return out
 

@@ -1,11 +1,15 @@
-"""Times the single-position flash-decode kernel (csrc/decode_attention.cuh)
-on the card in every form it serves: over an int8 cache K3, the
+"""Times the flash-decode kernel (csrc/decode_attention.cuh) on the card in
+every form it serves: over an int8 cache K3, the
 slot-batched K16 and the paired K12, through the page table K10 and the
 paired K17; over a bf16 cache the slot-batched K32, K24 and the paired K25,
 through the page table K28 and the paired K29 (csrc/decode_attention.cu);
 in the s8 form over an int8 cache K14, the paired K15, through the page
 table K19 and the paired K20 (csrc/attention_s8.cu; the dense chunk is
-min(attn_chunk(), S), the paged one a page).
+min(attn_chunk(), S), the paged one a page); in the verify form (T = 8
+positions a slot, speculate 7) K9, the paired K13, through the page table
+K11 and the paired K18 over int8, K26, K27, K30 and K31 over bf16
+(csrc/verify_attention.cu, csrc/paged_attention.cu; at the Llama-3.2-3B
+heads K13 and K27 alone).
 
     python -m gabby_tpu_torch.tools.bench_decode_attention [--roots DIR ...]
         [--probe] [--splits] [--long]
@@ -24,7 +28,10 @@ TB/s); with the largest difference from the plain version on two layers,
 whether a repeat gives the same bits, and whether each form gives the bits
 of its unpaired dense form (K16 and K12 those of K3, K24 those of K32, K25
 those of K24, K17 those of K10, K29 those of K28, K15 those of K14, K20
-those of K19). `--roots` times the
+those of K19; the verify forms at equal positions, the dense ones over
+the whole cache so that they take the paged forms' plan: K13 and K11
+those of K9, K18 those of K11, K27 and K30 those of K26, K31 those of K30;
+beside SDPA with the causal fresh block). `--roots` times the
 kernels of each checkout given, in that order, each in a process of its
 own, through the same public wrappers (an older commit unpacked with `git
 archive` beside this one, so that two versions are compared in one run on
@@ -35,14 +42,17 @@ DECODE_SLOTS = 2 (two slots a block), and times K3's and K32's call sets
 at equal positions through each build beside the whole kernel (each build
 twice, in order and in reverse); and csrc/attention_s8.cu alone with
 DECODE_PROBE = 4 (no exchange of chunk maxima between the ranks) and 5
-(the first exchange alone), timing K14's and K19's call sets the same way.
+(the first exchange alone), timing K14's and K19's call sets the same way;
+and csrc/verify_attention.cu alone with VERIFY_PROBE = 1 (the copies
+alone), 2 (no fresh block) and 3 (no cross-rank merge), timing K9's and
+K26's call sets the same way.
 Where the time goes, and what the design's choices are worth. `--long`
 also times the s8 forms of each checkout at the Llama-3.2-1B heads over
 8192-row caches (the presets' max_seq; the paged pool 16 pages of 512 a
 slot), at 1024 and at 8192 live rows a slot, beside SDPA. `--splits` times every
 form of this checkout
 at every split (1, 2, 4, 8 blocks a cluster), microseconds a call replayed
-from a graph, beside the split `decode_plan` picks. The probe builds'
+from a graph, beside the split `decode_plan` (`verify_plan`) picks. The probe builds'
 outputs are not the product. Prints one JSON line.
 """
 
@@ -75,6 +85,18 @@ FORMS = {"K3": (True, False, False, None), "K16": (True, False, False, "K3"),
          "K14": (True, False, False, None), "K15": (True, True, False, "K14"),
          "K19": (True, False, True, None), "K20": (True, True, True, "K19")}
 S8 = ("K14", "K15", "K19", "K20")  # the s8 form (csrc/attention_s8.cu)
+# the verify form (csrc/verify_attention.cu, csrc/paged_attention.cu), as
+# FORMS; at the Llama-3.2-3B heads only VERIFY_3B
+VERIFY_FORMS = {"K9": (True, False, False, None),
+                "K13": (True, True, False, "K9"),
+                "K11": (True, False, True, "K9"),
+                "K18": (True, True, True, "K11"),
+                "K26": (False, False, False, None),
+                "K27": (False, True, False, "K26"),
+                "K30": (False, False, True, "K26"),
+                "K31": (False, True, True, "K30")}
+VERIFY_3B = ("K13", "K27")
+VERIFY_T = 8  # speculate 7: a draft of 7 and the last accepted token
 
 
 def _inputs(model: str, dev, gen, rows: int = ROWS) -> dict:
@@ -190,6 +212,116 @@ def _caller(x: dict, form: str, pos, window: int):
     return call, plain
 
 
+def _verify_block(x: dict, gen, dev) -> None:
+    """The verify block of VERIFY_T positions a slot into x: q [B, T, Nq,
+    H], fresh_k/v [B, Nk, T, H]."""
+    nq, nk, h = x["nq"], x["nk"], x["h"]
+    x["vq"] = torch.randn((SLOTS, VERIFY_T, nq, h), generator=gen,
+                          device=dev).bfloat16()
+    x["vfk"] = torch.randn((SLOTS, nk, VERIFY_T, h), generator=gen,
+                           device=dev).bfloat16()
+    x["vfv"] = torch.randn((SLOTS, nk, VERIFY_T, h), generator=gen,
+                           device=dev).bfloat16()
+
+
+def _verify_caller(x: dict, form: str, pos):
+    """A call of the verify `form` through the public wrappers on layer i,
+    and its plain version; the dense forms read the whole cache (window
+    None), so that their plan is the paged forms'."""
+    from gabby_tpu_torch.ops.cuda import attention as cattn
+    from gabby_tpu_torch.ops.cuda import paged_attention as cpaged
+    quant, pair, paged, _ = VERIFY_FORMS[form]
+    k_, v_, ks_, vs_ = x["caches"][quant][(pair, paged)]
+    kw = dict(fresh_k=x["vfk"], fresh_v=x["vfv"])
+    if paged:
+        def call(i):
+            return cpaged.paged_verify_attention(
+                x["vq"], k_, v_, x["table"], pos, ks_, vs_, layer=i, **kw)
+
+        def plain(i):
+            return cpaged.paged_verify_attention_plain(
+                x["vq"], k_, v_, x["table"], pos, ks_, vs_, layer=i, **kw)
+        return call, plain
+
+    def call(i):
+        return cattn.verify_attention(x["vq"], k_, v_, ks_, vs_, pos,
+                                      layer=i, **kw)
+
+    def plain(i):
+        return cattn.verify_attention_plain(x["vq"], k_, v_, ks_, vs_, pos,
+                                            layer=i, **kw)
+    return call, plain
+
+
+def _verify_bound_ms(x: dict, pos, quant: bool, paged: bool) -> float:
+    """Live cache rows (and scales) once, q, out and the fresh rows; paged,
+    the table once."""
+    nl, nq, nk, h = x["nl"], x["nq"], x["nk"], x["h"]
+    row = h + 4 if quant else 2 * h
+    live = int(pos.sum())
+    table = SLOTS * x["rows"] // PAGE * 4 if paged else 0
+    return nl * (2 * nk * live * row + 2 * SLOTS * VERIFY_T * nq * h * 2
+                 + 2 * SLOTS * nk * VERIFY_T * h * 2
+                 + table) / HBM_BYTES_PER_S * 1e3
+
+
+def _time_verify(x: dict, model: str, dev) -> dict:
+    """The verify forms at equal positions (1024 live rows a slot), a
+    macro-step's call set each, and SDPA on the dequantized rows with the
+    fresh block and its causal mask."""
+    nl, nq, nk, h = x["nl"], x["nq"], x["nk"], x["h"]
+    pos, _ = x["pos"]["equal"]
+    row, outs = {}, {}
+    for form, (quant, _, paged, same) in VERIFY_FORMS.items():
+        if model != "llama32_1b" and form not in VERIFY_3B:
+            continue
+        call, plain = _verify_caller(x, form, pos)
+        err = max((call(i).float() - plain(i).float()).abs().max().item()
+                  for i in range(2))
+        outs[form] = [call(i) for i in range(nl)]
+        row[form] = dict(
+            max_abs_err=err,
+            repeat_equal=all(torch.equal(o, call(i))
+                             for i, o in enumerate(outs[form])),
+            digest=sum(int(o.view(torch.int16).to(torch.int64).sum())
+                       for o in outs[form]),
+            graph_ms=_graph_ms(lambda: [call(i) for i in range(nl)]),
+            eager_ms=_time(lambda: [call(i) for i in range(nl)], 10),
+            bound_ms=_verify_bound_ms(x, pos, quant, paged))
+        if same is not None and same in outs:
+            row[form][f"equals_{same}"] = all(
+                torch.equal(o, s) for o, s in zip(outs[form], outs[same]))
+    del outs
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    top = int(pos.max())
+    past = (torch.arange(top, device=dev)[None, None, :]
+            < pos[:, None, None]).expand(SLOTS, VERIFY_T, top)
+    causal = (torch.arange(VERIFY_T, device=dev)[None, :]
+              <= torch.arange(VERIFY_T, device=dev)[:, None]).expand(
+                  SLOTS, VERIFY_T, VERIFY_T)
+    mask = torch.cat([past, causal], dim=2)[:, None]
+    qt = x["vq"].transpose(1, 2)
+    for quant, label in ((True, "int8"), (False, "bf16")):
+        k_, v_, ks_, vs_ = x["caches"][quant][(False, False)]
+        kd, vd = [], []
+        for i in range(nl):
+            kk, vv = k_[i, :, :, :top], v_[i, :, :, :top]
+            if quant:
+                kk = (kk.float() * ks_[i, :, :, :top, None]).bfloat16()
+                vv = (vv.float() * vs_[i, :, :, :top, None]).bfloat16()
+            kd.append(torch.cat([kk, x["vfk"]], dim=2))
+            vd.append(torch.cat([vv, x["vfv"]], dim=2))
+
+        def lib(kd=kd, vd=vd):
+            return [sdpa(qt, kd[i], vd[i], attn_mask=mask, enable_gqa=True)
+                    for i in range(nl)]
+
+        row[f"library_{label}"] = dict(graph_ms=_graph_ms(lib),
+                                       eager_ms=_time(lib, 10))
+        del kd, vd
+    return row
+
+
 def _time_this_tree(rows: int = ROWS) -> dict:
     """Every form of the gabby_tpu_torch on sys.path, and the library call,
     at every model and position set; at another cache length than ROWS,
@@ -249,6 +381,10 @@ def _time_this_tree(rows: int = ROWS) -> dict:
                                               eager_ms=_time(lib, 10))
                 del kd, vd
             out[f"{model} {label}"] = row
+        if rows == ROWS:
+            _verify_block(x, gen, dev)
+            out[f"{model} verify T={VERIFY_T} equal"] = _time_verify(
+                x, model, dev)
         del x
         torch.cuda.empty_cache()
     return out
@@ -257,6 +393,8 @@ def _time_this_tree(rows: int = ROWS) -> dict:
 ENTRIES = ("gabby_decode_attention", "gabby_decode_attention_bf16",
            "gabby_paged_decode_attention",
            "gabby_paged_decode_attention_bf16", "gabby_attention_s8")
+VERIFY_ENTRIES = ("gabby_verify_attention", "gabby_verify_attention_bf16",
+                  "gabby_paged_attention", "gabby_paged_attention_bf16")
 
 
 def _declare(lib, names=ENTRIES):
@@ -312,6 +450,49 @@ def _launcher(entries: dict, x: dict, form: str, pos, window: int, plan):
     return call
 
 
+def _verify_launcher(entries: dict, x: dict, form: str, pos, plan):
+    """A macro-step's call set of the verify `form` through its C entry at
+    an explicit launch plan (split, tile, nt)."""
+    nl, nq, nk, h = x["nl"], x["nq"], x["nk"], x["h"]
+    quant, pair, paged, _ = VERIFY_FORMS[form]
+    k_, v_, ks_, vs_ = x["caches"][quant][(pair, paged)]
+    o = torch.empty_like(x["vq"])
+    fresh = (x["vfk"].data_ptr(), x["vfv"].data_ptr(), pos.data_ptr(),
+             o.data_ptr())
+    lay = 0 if paged else k_[0].numel() * k_.element_size()
+    slay = 0 if paged or not quant else ks_[0].numel() * 4
+    entry = entries["gabby_" + ("paged_attention" if paged
+                                else "verify_attention")
+                    + ("" if quant else "_bf16")]
+
+    def call():
+        stream = torch.cuda.current_stream().cuda_stream
+        for i in range(nl):
+            rows = (k_.data_ptr() + i * lay, v_.data_ptr() + i * lay)
+            if quant:
+                rows += (ks_.data_ptr() + i * slay,
+                         vs_.data_ptr() + i * slay)
+            if paged:
+                args = (*rows, x["table"].data_ptr(), *fresh, SLOTS,
+                        VERIFY_T, nq, nk, nl, i, PAGE, ROWS // PAGE, h,
+                        int(pair))
+            else:
+                args = (*rows, *fresh, SLOTS, VERIFY_T, nq, nk, ROWS, h,
+                        ROWS, int(pair))
+            err = entry(x["vq"].data_ptr(), *args, *plan, h ** -0.5, stream)
+            if err:
+                raise RuntimeError(f"CUDA error {err} at plan {plan}")
+    return call
+
+
+def _verify_plan(x: dict, form: str, sms: int) -> tuple:
+    from gabby_tpu_torch.ops.cuda import attention as cattn
+    quant, _, paged, _ = VERIFY_FORMS[form]
+    return cattn.verify_plan(SLOTS, x["nk"], x["h"], x["nq"] // x["nk"],
+                             VERIFY_T, ROWS, sms, quant=quant,
+                             page=PAGE if paged else None)[:3]
+
+
 def _plan(x: dict, form: str, window: int, sms: int) -> tuple:
     from gabby_tpu_torch.ops.cuda import attention as cattn
     quant, _, paged, _ = FORMS[form]
@@ -339,6 +520,13 @@ PROBES = [
      ("K14", "K19")),
     ("attention_s8.cu", "s8 with the first exchange alone",
      ["-DDECODE_PROBE=5"], ("K14", "K19")),
+    ("verify_attention.cu", "verify whole kernel", [], ("K9", "K26")),
+    ("verify_attention.cu", "verify copies alone", ["-DVERIFY_PROBE=1"],
+     ("K9", "K26")),
+    ("verify_attention.cu", "verify without the fresh block",
+     ["-DVERIFY_PROBE=2"], ("K9", "K26")),
+    ("verify_attention.cu", "verify without the cross-rank merge",
+     ["-DVERIFY_PROBE=3"], ("K9", "K26")),
 ]
 
 
@@ -363,19 +551,28 @@ def _probe() -> dict:
         if any(p.wait() for p in procs):
             raise RuntimeError("a probe build failed")
         cdlls = [ctypes.CDLL(lib) for lib in libs]
-        entries = [_declare(cdll, [
+        entries = [_declare(cdll, VERIFY_ENTRIES[:2]
+                            if src == "verify_attention.cu" else [
             name for name in ENTRIES if (name == "gabby_attention_s8")
             == (src == "attention_s8.cu")])
             for (src, _, _, _), cdll in zip(PROBES, cdlls)]
         order = list(range(len(PROBES)))
         for model in MODELS:
             x = _inputs(model, dev, gen)
+            _verify_block(x, gen, dev)
             pos, window = x["pos"]["equal"]
             # each build twice, in order and in reverse: a build's place in
             # the sequence moves its time by up to a tenth
             for k in order + order[::-1]:
                 _, label, _, forms = PROBES[k]
                 for form in forms:
+                    if form in VERIFY_FORMS:
+                        res.setdefault(f"{model} {form}, {label}",
+                                       []).append(_graph_ms(
+                                           _verify_launcher(
+                                               entries[k], x, form, pos,
+                                               _verify_plan(x, form, sms))))
+                        continue
                     plan = list(_plan(x, form, window, sms))
                     if label == "two slots a block":
                         plan[0] = 2
@@ -395,6 +592,7 @@ def _splits() -> dict:
     gen = torch.Generator(device=dev).manual_seed(1)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     entries = _declare(build.library())
+    ventries = _declare(build.library(), VERIFY_ENTRIES)
     res = {}
     for model in MODELS:
         x = _inputs(model, dev, gen)
@@ -408,6 +606,17 @@ def _splits() -> dict:
                         entries, x, form, pos, window, (sb, s, tile)))
                         / x["nl"] * 1e3 for s in (1, 2, 4, 8)},
                     "plan": split}
+        _verify_block(x, gen, dev)
+        pos, _ = x["pos"]["equal"]
+        for form in VERIFY_FORMS:
+            if model != "llama32_1b" and form not in VERIFY_3B:
+                continue
+            split, tile, nt = _verify_plan(x, form, sms)
+            res[f"{model} verify equal {form}"] = {
+                "us_a_call": {s: _graph_ms(_verify_launcher(
+                    ventries, x, form, pos, (s, tile, nt)))
+                    / x["nl"] * 1e3 for s in (1, 2, 4, 8)},
+                "plan": split}
         del x
         torch.cuda.empty_cache()
     return res

@@ -1,19 +1,23 @@
-"""Times the int4 unembed (K2, `qmatmul_int4_grouped`) on the card.
+"""Times the unembeds on the card: the int4 one (K2,
+`qmatmul_int4_grouped`) and the int8 one (K6, `qmatmul_int8`).
 
     python -m gabby_tpu_torch.tools.bench_unembed [--roots DIR ...] [--probe]
 
-At the unembeds of Llama-3.2-1B and 3B (hidden 2048 and 3072 -> the
-vocabulary padded to 129024, group 256) and M = 8 and 64: each call
-replayed from a CUDA graph, beside `torch.matmul` on the dequantized table,
-with the largest difference from the plain version. `--roots` times the K2
-of each checkout given, in that order, each in a process of its own (an
-older commit unpacked with `git archive` beside this one, so that two
-versions are compared in one run on one card: old, new, new, old).
-`--probe` also builds csrc/quant_matmul_unembed.cu twice more with parts
-of its consumers removed (K2_PROBE=1: every stage released unread, the
-copies alone; K2_PROBE=2: the products without the unpack) and times those
-builds at the 1B shape at M = 8: where the kernel's time goes. Their
-outputs are not the product. Prints one JSON line.
+At the unembeds of Llama-3.2-1B and 3B (hidden 2048 and 3072; K2 -> the
+vocabulary padded to 129024, group 256; K6 -> the vocabulary as a loaded
+checkpoint has it, 128256) and M = 8 and 64: each call replayed from a
+CUDA graph, beside `torch.matmul` on the dequantized table, with the
+largest difference from the plain version and a digest of the output (the
+same inputs in every tree, so equal digests are equal bits). `--roots`
+times the kernels of each checkout given, in that order, each in a process
+of its own (an older commit unpacked with `git archive` beside this one,
+so that two versions are compared in one run on one card: old, new, new,
+old). `--probe` also builds csrc/quant_matmul_unembed.cu and
+csrc/quant_matmul_int8_unembed.cu twice more each with parts of their
+consumers removed (UNEMBED_PROBE=1: every stage released unread, the
+copies alone; UNEMBED_PROBE=2: the products without the unpack) and times
+those builds at the 1B shape at M = 8 and 64: where each kernel's time
+goes. Their outputs are not the product. Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import tempfile
 import torch
 
 SHAPES = [(2048, 129024), (3072, 129024)]  # hidden -> padded vocabulary
+INT8_SHAPES = [(2048, 128256), (3072, 128256)]  # hidden -> vocabulary
 GROUP = 256
 
 
@@ -60,8 +65,20 @@ def _inputs(k: int, n: int, gen, dev):
     return packed, scale
 
 
+def _int8_inputs(k: int, n: int, gen, dev):
+    codes = torch.randint(-128, 128, (k, n), generator=gen, device=dev,
+                          dtype=torch.int32).to(torch.int8)
+    scale = torch.rand((n,), generator=gen, device=dev) * 0.002
+    return codes, scale
+
+
+def _digest(t: torch.Tensor) -> int:
+    """A sum of the output's bits: equal inputs, equal bits, equal sums."""
+    return int(t.view(torch.int16).to(torch.int64).sum().item())
+
+
 def _time_this_tree() -> dict:
-    """K2 of the gabby_tpu_torch on sys.path, at every shape and M."""
+    """K2 and K6 of the gabby_tpu_torch on sys.path, at every shape and M."""
     from gabby_tpu_torch.ops.cuda import quant_matmul as cqm
     from gabby_tpu_torch.ops.quant import unpack_int4
     dev = torch.device("cuda")
@@ -75,55 +92,92 @@ def _time_this_tree() -> dict:
             x = torch.randn((m, k), generator=gen, device=dev).bfloat16()
             got = cqm.qmatmul_int4_grouped(x, packed, scale, GROUP)
             ref = cqm.int4_grouped_plain(x, packed, scale, GROUP)
-            out[f"{k}x{n} M={m}"] = dict(
+            out[f"K2 {k}x{n} M={m}"] = dict(
                 max_abs_err=(got.float() - ref.float()).abs().max().item(),
+                digest=_digest(got),
                 graph_ms=_graph_ms(lambda: cqm.qmatmul_int4_grouped(
                     x, packed, scale, GROUP)),
                 library_graph_ms=_graph_ms(lambda: torch.matmul(x, table)))
         del packed, scale, table
+    for k, n in INT8_SHAPES:
+        codes, scale = _int8_inputs(k, n, gen, dev)
+        table = codes.bfloat16() * scale.bfloat16()
+        for m in (8, 64):
+            x = torch.randn((m, k), generator=gen, device=dev).bfloat16()
+            got = cqm.qmatmul_int8(x, codes, scale)
+            ref = cqm.int8_plain(x, codes, scale)
+            out[f"K6 {k}x{n} M={m}"] = dict(
+                max_abs_err=(got.float() - ref.float()).abs().max().item(),
+                digest=_digest(got),
+                graph_ms=_graph_ms(lambda: cqm.qmatmul_int8(x, codes,
+                                                            scale)),
+                library_graph_ms=_graph_ms(lambda: torch.matmul(x, table)))
+        del codes, scale, table
     return out
 
 
-def _probe() -> dict:
-    """The 1B unembed at M = 8 through builds with K2_PROBE = 0, 1, 2."""
+def _probe_lib(tmp: str, src: str, probe: int, entry: str):
     from gabby_tpu_torch.ops.cuda import build
-    src = os.path.join(build.CSRC, "quant_matmul_unembed.cu")
+    lib_path = os.path.join(tmp, f"{entry}_probe{probe}.so")
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS,
+                    f"-DUNEMBED_PROBE={probe}", "-shared", "-o", lib_path,
+                    os.path.join(build.CSRC, src)], check=True,
+                   capture_output=True)
+    fn = getattr(ctypes.CDLL(lib_path), entry)
+    fn.argtypes = build._SIGNATURES[entry]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _probe() -> dict:
+    """The 1B unembeds at M = 8 and 64 through builds with UNEMBED_PROBE =
+    0, 1, 2: K2 (csrc/quant_matmul_unembed.cu) and K6
+    (csrc/quant_matmul_int8_unembed.cu)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     k, n = SHAPES[0]
     packed, scale = _inputs(k, n, gen, dev)
-    x = torch.randn((8, k), generator=gen, device=dev).bfloat16()
-    out = torch.empty((8, n), dtype=torch.bfloat16, device=dev)
+    k8, n8 = INT8_SHAPES[0]
+    codes, scale8 = _int8_inputs(k8, n8, gen, dev)
     res = {}
     with tempfile.TemporaryDirectory() as tmp:
         for probe, what in ((0, "whole kernel"), (1, "copies alone"),
                             (2, "products without the unpack")):
-            lib_path = os.path.join(tmp, f"probe{probe}.so")
-            subprocess.run([build._nvcc(), *build.NVCC_FLAGS,
-                            f"-DK2_PROBE={probe}", "-shared", "-o",
-                            lib_path, src], check=True, capture_output=True)
-            fn = ctypes.CDLL(lib_path).gabby_int4_unembed
-            fn.argtypes = build._SIGNATURES["gabby_int4_unembed"]
-            fn.restype = ctypes.c_int
+            k2 = _probe_lib(tmp, "quant_matmul_unembed.cu", probe,
+                            "gabby_int4_unembed")
+            k6 = _probe_lib(tmp, "quant_matmul_int8_unembed.cu", probe,
+                            "gabby_int8_unembed")
+            for m in (8, 64):
+                x = torch.randn((m, k), generator=gen, device=dev).bfloat16()
+                out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+                out8 = torch.empty((m, n8), dtype=torch.bfloat16, device=dev)
 
-            def call():
-                err = fn(x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
-                         out.data_ptr(), 8, k, n, GROUP,
-                         torch.cuda.current_stream().cuda_stream)
-                if err:
-                    raise RuntimeError(f"probe {probe}: CUDA error {err}")
+                def call2():
+                    err = k2(x.data_ptr(), packed.data_ptr(),
+                             scale.data_ptr(), out.data_ptr(), m, k, n, GROUP,
+                             torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f"K2 probe {probe}: error {err}")
 
-            res[what] = _graph_ms(call)
+                def call6():
+                    err = k6(x.data_ptr(), codes.data_ptr(),
+                             scale8.data_ptr(), out8.data_ptr(), m, k8, n8,
+                             torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f"K6 probe {probe}: error {err}")
+
+                res[f"K2 M={m} {what}"] = _graph_ms(call2)
+                res[f"K6 M={m} {what}"] = _graph_ms(call6)
     return res
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="gabby_tpu_torch.tools.bench_unembed")
     p.add_argument("--roots", nargs="*", default=[],
-                   help="checkouts whose K2 to time, in order (default: "
-                   "this one)")
+                   help="checkouts whose K2 and K6 to time, in order "
+                   "(default: this one)")
     p.add_argument("--probe", action="store_true",
-                   help="also time the K2_PROBE builds of this checkout")
+                   help="also time the UNEMBED_PROBE builds of this checkout")
     p.add_argument("--single", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():

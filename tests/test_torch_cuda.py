@@ -259,19 +259,46 @@ def test_int8_stacked(dev, m, k, n):
     torch.testing.assert_close(out.float(), ref.float(), **TOL)
 
 
-@pytest.mark.parametrize("m", [1, 8, 64])
-def test_int8_unembed(dev, m):
-    g = _gen(dev, 6)
-    k, n = 2048, 128256  # the vocab is not padded: 1002 strips of 128
+def _int8_unembed(dev, seed, m, k, n):
+    g = _gen(dev, seed)
     codes = _packed(dev, g, k, n)
     scale = torch.rand((n,), generator=g, device=dev) * 0.002
     x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    return x, codes, scale
+
+
+# the int8 unembeds of Llama-3.2-1B, 3B and Llama-3-8B (the vocabulary not
+# padded: 1002 strips of 128), and a vocabulary whose last strip passes N
+INT8_UNEMBED_SHAPES = [(2048, 128256), (3072, 128256), (4096, 128256),
+                       (2048, 32016)]
+
+
+@pytest.mark.parametrize("m", [1, 8, 13, 64])
+@pytest.mark.parametrize("k,n", INT8_UNEMBED_SHAPES)
+def test_int8_unembed(dev, m, k, n):
+    """K6 (csrc/quant_matmul_int8_unembed.cu) at M = 1 and 8 (the m64n8
+    tile), 13 and 64 (the m64n64 tile) against its plain version; one
+    launch a call; the same bits on a repeat."""
+    x, codes, scale = _int8_unembed(dev, 6, m, k, n)
     before = ck.launch_counts["int8_matmul"]
     out = cqm.qmatmul_int8(x, codes, scale)
     torch.cuda.synchronize()
     assert ck.launch_counts["int8_matmul"] == before + 1
     ref = cqm.int8_plain(x, codes, scale)
     torch.testing.assert_close(out.float(), ref.float(), **TOL)
+    assert torch.equal(out, cqm.qmatmul_int8(x, codes, scale))
+
+
+def test_int8_unembed_refuses_what_its_kernel_does_not_take(dev):
+    x, codes, scale = _int8_unembed(dev, 7, 8, 96, 128)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        cqm.qmatmul_int8(x, codes, scale)
+    x, codes, scale = _int8_unembed(dev, 8, 8, 128, 120)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        cqm.qmatmul_int8(x, codes, scale)
+    x, codes, scale = _int8_unembed(dev, 9, 65, 128, 128)
+    with pytest.raises(ValueError, match="rows"):
+        cqm.qmatmul_int8(x, codes, scale)
 
 
 # M = 129 and 320 cut the 64- and 128-token tiles raggedly
@@ -637,6 +664,11 @@ def test_block_wrappers_refuse_what_their_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="layer"):
         cattn.verify_attention(q, kc, vc, ks, vs, pos, layer=1, fresh_k=fk,
                                fresh_v=fv)
+    # the verify form stages whole tiles of 32 rows
+    k48, v48, ks48, vs48 = _cache(dev, g, nl, b, nk, 48)
+    with pytest.raises(ValueError, match="whole tiles"):
+        cattn.verify_attention(q, k48, v48, ks48, vs48, pos, layer=0,
+                               fresh_k=fk, fresh_v=fv)
     kp, vp, kps, vps, table = _pool(dev, g, nl, b, nk, 48, 2)
     with pytest.raises(ValueError, match="multiple of 32"):
         cpaged.paged_verify_attention(q, kp, vp, table, pos, kps, vps,
@@ -1361,9 +1393,10 @@ def test_single_position_paged_forms(dev, h, group, page):
 
 
 def test_verify_entries_refuse_a_single_position(dev):
-    """csrc/flash_rows.cuh serves T > 1 only: the verify wrappers raise on
-    one position a slot, and the four C entries return an error for T = 1
-    where they launch for T = 2."""
+    """The verify form of csrc/decode_attention.cuh serves T > 1 only: the
+    verify wrappers raise on one position a slot, and the four C entries
+    return an error for T = 1 where they launch for T = 2 (at verify_plan's
+    launch for T = 2)."""
     from gabby_tpu_torch.ops.cuda import build
     g = _gen(dev, 48)
     nl, b, nk, nq, s, page = 1, 2, 2, 8, 64, 32
@@ -1389,23 +1422,92 @@ def test_verify_entries_refuse_a_single_position(dev):
         q, fk, fv = _block(dev, g, b, t, nq, nk)
         out = torch.empty_like(q)
         fresh = (fk.data_ptr(), fv.data_ptr(), pos.data_ptr(), out.data_ptr())
-        dense = (b, t, nq, nk, s, 64, s, 0, 0.125, stream)
-        paged = (b, t, nq, nk, nl, 0, page, s // page, 64, 0, 0.125, stream)
+        plans = [cattn.verify_plan(b, nk, 64, nq // nk, 2, s, 132,
+                                   quant=quant)[:3] for quant in (True, False)]
+
+        def dense(quant):
+            return (b, t, nq, nk, s, 64, s, 0, *plans[1 - quant], 0.125,
+                    stream)
+
+        def paged(quant):
+            return (b, t, nq, nk, nl, 0, page, s // page, 64, 0,
+                    *plans[1 - quant], 0.125, stream)
         errs = [
             lib.gabby_verify_attention(q.data_ptr(), kc.data_ptr(),
                                        vc.data_ptr(), ks.data_ptr(),
-                                       vs.data_ptr(), *fresh, *dense),
+                                       vs.data_ptr(), *fresh, *dense(True)),
             lib.gabby_verify_attention_bf16(q.data_ptr(), kb.data_ptr(),
-                                            vb.data_ptr(), *fresh, *dense),
+                                            vb.data_ptr(), *fresh,
+                                            *dense(False)),
             lib.gabby_paged_attention(q.data_ptr(), kp.data_ptr(),
                                       vp.data_ptr(), kps.data_ptr(),
                                       vps.data_ptr(), table.data_ptr(),
-                                      *fresh, *paged),
+                                      *fresh, *paged(True)),
             lib.gabby_paged_attention_bf16(q.data_ptr(), kpb.data_ptr(),
                                            vpb.data_ptr(), table.data_ptr(),
-                                           *fresh, *paged)]
+                                           *fresh, *paged(False))]
         torch.cuda.synchronize()
         assert all(e != 0 for e in errs) if t == 1 else errs == [0] * 4, errs
+
+
+# ---- the verify forms on csrc/decode_attention.cuh -------------------------
+
+
+@pytest.mark.parametrize("t", [2, 8, 16, 32])
+@pytest.mark.parametrize("group", cattn.GROUPS)
+@pytest.mark.parametrize("h", cattn.HEAD_DIMS)
+def test_verify_forms(dev, h, group, t):
+    """The eight verify forms (K9, K13, K11, K18 over int8; K26, K27, K30,
+    K31 over bf16) against the plain contract at ragged positions, a repeat
+    of each giving the same bits; the paired forms equal the unpaired ones
+    (K13 = K9, K27 = K26, K18 = K11, K31 = K30), and the paged ones the
+    dense ones (K11 = K9, K30 = K26) on the pool's rows gathered into a
+    dense cache as long as the pool's read bound, where both take the same
+    plan. Pages of 512 through a shuffled table whose entries past each
+    slot's rows point at the scratch page."""
+    from gabby_tpu_torch.ops.attention import gather_pages
+    g = _gen(dev, 200 + h + 10 * group + t)
+    nl, b, nk, s, page = 2, 8, 8, 2048, 512
+    pos = torch.tensor(LONG, device=dev, dtype=torch.int32)
+    q, fk, fv = _block(dev, g, b, t, nk * group, nk, h)
+    kw = dict(layer=1, fresh_k=fk, fresh_v=fv)
+    for quant in (True, False):
+        if quant:
+            kp, vp, ks, vs, table = _pool(dev, g, nl, b, nk, page, s // page,
+                                          h)
+        else:
+            kp, vp, table = _bf16_pool(dev, g, nl, b, nk, page, s // page, h)
+            ks = vs = None
+        table = _unallocate_past(table, pos, page)
+        kc, vc, kcs, vcs = [None if x is None else torch.stack(
+            [gather_pages(x, table, i) for i in range(nl)])
+            for x in (kp, vp, ks, vs)]
+        ref = cattn.verify_attention_plain(q, kc, vc, kcs, vcs, pos, **kw)
+        form = "" if quant else "_bf16"
+        outs = {}
+        for paged in (False, True):
+            for paired in (False, True):
+                name = (("paged_verify_attention" if paged
+                         else "verify_attention") + form
+                        + ("_paired" if paired else ""))
+                kk, vv = (kp, vp) if paged else (kc, vc)
+                if paired:
+                    kk, vv = pair_heads(kk), pair_heads(vv)
+                if paged:
+                    def call():
+                        return cpaged.paged_verify_attention(
+                            q, kk, vv, table, pos, ks, vs, **kw)
+                else:
+                    def call():
+                        return cattn.verify_attention(q, kk, vv, kcs, vcs,
+                                                      pos, **kw)
+                out = _counted(name, call)
+                _close(out, ref, ATTN_TOL)
+                assert torch.equal(out, call()), name
+                outs[paged, paired] = out
+        assert torch.equal(outs[False, True], outs[False, False])
+        assert torch.equal(outs[True, True], outs[True, False])
+        assert torch.equal(outs[True, False], outs[False, False])
 
 
 # ---- the s8 forms on csrc/decode_attention.cuh -----------------------------
