@@ -51,8 +51,9 @@ a non-zero exit:
                  graph); then one case per attention source
                  at Llama-3.2-3B's heads (24 q heads over 8 kv heads of
                  128 dims, 28 layers: K3, K16, K32, K13, K17, K15, K20,
-                 K21; K17 by equality against K12 on the same rows, K20
-                 against K15 at a chunk a page)
+                 K21, and K27 over a bf16 cache; K17 by equality against
+                 K12 on the same rows, K20 against K15 at a chunk a page,
+                 K27 against K26)
                  and K1 at
                  its four projections x 28 layers, the same way, on lines
                  of their own;
@@ -76,7 +77,9 @@ a non-zero exit:
                  all launch during this run. Then the reference server's
                  default configuration (`pair_kv_heads=True`, s8 on) on
                  the same ten requests, dense (K15, K21) and with
-                 `paged_pages=33, page_size=512` (K20), the dense one
+                 `paged_pages=33, page_size=512` (K20; its ten prompts
+                 all admit in bursts), then the admission phase in that
+                 configuration (below), the dense one
                  again with `set_int4_rawdot(True)` on three requests
                  (K33 and K2 must launch, K1 must not; every other int4
                  run must not launch K33), and eleven runs of
@@ -102,6 +105,21 @@ a non-zero exit:
                  and the card against the CPU on 2 of its 28 layers (int8
                  and bf16 paired caches). In every run an attention kernel
                  that is not the run's own must not launch;
+     admission   burst admission and prefix reuse on the same weights
+                 and configuration, dense and over 33 pages of 512: at the
+                 model level `prefill_batch_chunk` for six prompts of
+                 530-570 tokens against `prefill_slot` of each alone, and
+                 a 700-token prompt's rows copied (`copy_slot_prefix`) or
+                 its first page adopted, then a suffix prefill, against a
+                 cold prefill, each within 0.05 of the largest logit with
+                 the first greedy token equal; the burst's launches (K2,
+                 not K1, no attention kernel) and the suffix's (K21);
+                 then the engine: the six prompts submitted together (at
+                 least 2 burst admissions), the 700-token prompt, then
+                 three with its prefix and 40-token suffixes (3 prefix
+                 hits reusing 3 x 688 tokens dense, 3 x 512 paged; the
+                 pool's pages add up), TTFT p50 and wall printed, and how
+                 many burst streams equal the same prompts served alone;
   6. checkpoint  the same seed-0 weights written as an HF-layout directory
                  (bf16 safetensors, config.json, generation_config.json,
                  the BPE tokenizer of tests/fixtures) into a temporary
@@ -138,6 +156,7 @@ third serve them from the checkpoints, whose unembed is int8 per channel.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -145,6 +164,7 @@ import io
 import json
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -1126,7 +1146,8 @@ def head128_phase(cfg3, dev) -> list:
     over 8 kv heads of 128 dims: G = 3) and depth (28 launches), over the
     int8 cache of the 3B engine run: K3, K16, K32 (over a bf16 cache of
     the same shape) and K17 paired paged decode (decode_attention.cu),
-    K13 paired verify (verify_attention.cu), K15 paired s8 decode
+    K27 paired verify over the bf16 cache and K13 over the int8 one
+    (verify_attention.cu), K15 paired s8 decode
     (attention_s8.cu, the 3B default) and K20 its paged form, and K21
     paired prefill
     (prefill_attention.cu), each against its plain version, timed as the
@@ -1209,7 +1230,30 @@ def head128_phase(cfg3, dev) -> list:
          lambda i: sdpa(q.transpose(1, 2), kdb[i], vdb[i], enable_gqa=True),
          nl * (2 * b * nk * ctx * h * 2 + 2 * b * nq * h * 2
                + 2 * b * nk * h * 2), dflops, repeat=True)
-    del kb, vb, kdb, vdb
+    # K27: verify, a block of 8, over the same bf16 rows paired; K26's
+    # bits on the unpaired rows
+    kdb = [torch.cat([kb[i, :, :, :ctx], fkv], dim=2) for i in range(nl)]
+    vdb = [torch.cat([vb[i, :, :, :ctx], fvv], dim=2) for i in range(nl)]
+    kbp, vbp = pair_heads(kb), pair_heads(vb)
+    vmask = torch.cat([torch.ones((tv, ctx), dtype=torch.bool, device=dev),
+                       torch.ones((tv, tv), dtype=torch.bool,
+                                  device=dev).tril()], dim=1)
+    case("verify_attention_bf16_paired", heads + ", block of 8, context "
+         "1024, paired bf16 cache", csrc + "verify_attention.cu",
+         pa + ":649",
+         lambda i: cattn.verify_attention(qv, kbp, vbp, None, None, pos,
+                                          layer=i, window=2048, **kwv),
+         lambda i: cattn.verify_attention_plain(qv, kbp, vbp, None, None,
+                                                pos, layer=i, **kwv),
+         lambda i: sdpa(qv.transpose(1, 2), kdb[i], vdb[i], attn_mask=vmask,
+                        enable_gqa=True),
+         nl * (2 * b * nk * ctx * h * 2 + 2 * b * tv * nq * h * 2
+               + 2 * b * nk * tv * h * 2),
+         nl * 4 * b * nq * h * (tv * ctx + tv * (tv + 1) // 2),
+         equal=lambda i: cattn.verify_attention(qv, kb, vb, None, None, pos,
+                                                layer=i, window=2048, **kwv),
+         repeat=True)
+    del kb, vb, kbp, vbp, kdb, vdb
     case("decode_attention_s8_paired", heads + ", context 1024, paired int8 "
          "cache, s8 dots", csrc + "attention_s8.cu", pa + ":256",
          lambda i: cattn.decode_attention_s8(q, kcp, vcp, ks, vs, pos,
@@ -1268,9 +1312,6 @@ def head128_phase(cfg3, dev) -> list:
     del pool
     kd = [deq(kc[i], ks[i], fkv) for i in range(nl)]
     vd = [deq(vc[i], vs[i], fvv) for i in range(nl)]
-    vmask = torch.cat([torch.ones((tv, ctx), dtype=torch.bool, device=dev),
-                       torch.ones((tv, tv), dtype=torch.bool,
-                                  device=dev).tril()], dim=1)
     case("verify_attention_paired", heads + ", block of 8, context 1024, "
          "paired int8 cache", csrc + "verify_attention.cu", pa + ":649",
          lambda i: cattn.verify_attention(qv, kcp, vcp, ks, vs, pos, layer=i,
@@ -1507,6 +1548,327 @@ def steps_model_phase(cfg, params, dev, tol: float = 0.05):
                       s8[name], paired[name], 2 * tol)
 
 
+ADMIT_TOL = 0.05  # the model phase's bound on the largest logit difference
+# a first greedy token that differs passes only as a near-tie, its logit in
+# `want` within this share of the largest logit of the best one (the widest
+# gap measured on the H100 is 0.0065, a dense row copy against a cold
+# prefill). It is fixed, not 2 * ADMIT_TOL: every row within ADMIT_TOL has
+# its chosen token within 2 * ADMIT_TOL of the best
+TIE_BAND = 0.01
+
+
+def stream(i: int, n: int, vocab: int) -> list:
+    """n token ids of a deterministic stream; distinct i, distinct
+    streams from the first token on."""
+    return [(i * 7919 + j * 104729) % (vocab - 16) + 1 for j in range(n)]
+
+
+def compare_logits(what: str, got, want, tol: float = ADMIT_TOL) -> dict:
+    """Logits [rows, V] of one path against another's for the same
+    prompts: the largest difference relative to the largest logit within
+    `tol`, and each row's first greedy token equal (an exact tie in `want`
+    counts as equal), or within TIE_BAND of the best logit of `want` (a
+    near-tie of random weights, which bf16 on two paths can flip); each
+    near-tie's gap is printed."""
+    got, want = got.float().cpu().reshape(-1, got.shape[-1]), \
+        want.float().cpu().reshape(-1, want.shape[-1])
+    if not torch.isfinite(got).all() or got.shape != want.shape:
+        raise AssertionError(f"admission ({what}): bad logits")
+    top = want.abs().max()
+    worst = ((got - want).abs().max() / top).item()
+    gap = ((want.max(-1).values
+            - want.gather(1, got.argmax(-1, keepdim=True))[:, 0]) / top)
+    agree = int((gap == 0).sum())
+    ties = [g for g in gap.tolist() if 0 < g <= TIE_BAND]
+    line = {"phase": "admission", "check": what, "rows": got.shape[0],
+            "max_rel_logit_err": worst, "bound": tol,
+            "first_token_agree": agree, "near_tie_gaps": ties,
+            "tie_band": TIE_BAND}
+    emit(line)
+    if worst > tol or agree + len(ties) < got.shape[0]:
+        raise AssertionError(f"admission ({what}): disagrees ({worst}, "
+                             f"{agree}/{got.shape[0]} first tokens, "
+                             f"near-ties {ties})")
+    return line
+
+
+def prefill_alone(params, cfg, cache, ids, slot, sched):
+    """`ids` prefilled into one slot chunk by chunk (`sched` its (offset,
+    bucket) chunks), as a single admission does; returns the last chunk's
+    logits."""
+    from gabby_tpu_torch.models import llama
+
+    dev = cache.k.device
+    logits = None
+    for off, bucket in sched:
+        take = min(bucket, len(ids) - off)
+        chunk = torch.zeros(bucket, dtype=torch.int64)
+        chunk[:take] = torch.tensor(ids[off:off + take])
+        logits, _ = llama.prefill_slot(params, cfg, chunk.to(dev), take,
+                                       slot, off, cache)
+    return logits
+
+
+def admit_alone(eng, slot: int, ids) -> tuple:
+    """`ids` admitted into `slot` of a stopped engine through its single
+    admission: `_start_admission` (which finds a resident donor and copies
+    or adopts its prefix), `_prefill_one_chunk` until the prompt is in,
+    `_finish_admission` (which registers the prompt as a donor). Returns
+    (the offset the prefill started at, the last chunk's logits)."""
+    from gabby_tpu_torch.runtime.engine import Request
+
+    adm = eng._start_admission(slot, Request(
+        prompt_ids=list(ids), max_tokens=1, temperature=0.0, top_k=0,
+        top_p=1.0))
+    start = adm.offset
+    while not eng._prefill_one_chunk(adm):
+        pass
+    eng._finish_admission(adm)
+    return start, adm.last_logits
+
+
+def admission_model_checks(cfg, params, tok, dev, paged: bool, burst,
+                           prefix, hit) -> dict:
+    """(c) and (d) of the admission phase in the server's default
+    configuration (8 slots, 2048 rows, paired int8; dense, or 33 pages of
+    512), s8 on: `prefill_batch_chunk` over the burst's prompts in lanes
+    0-5 against `prefill_slot` of each prompt alone; then, on an engine
+    whose loop is stopped (`admit_alone`), `prefix` admitted into slot 0
+    and `hit` into slot 1, which must start past their common prefix
+    (dense: the donor's rows copied by `copy_slot_prefix`; paged: its
+    whole prefix pages shared, each then held twice), against `hit`
+    admitted cold into a second such engine. The burst's launches are
+    counted apart: the unembed of its [8, 1, D] last rows must reach K2,
+    its projections (M = 8 x 512) must not reach K1, and no attention
+    kernel may launch (the batched attention is the plain
+    `causal_attention`, as in the reference); the suffix prefill must
+    reach K21. Returns the counts."""
+    from gabby_tpu_torch.ops import cuda as ck
+    from gabby_tpu_torch.runtime import generate
+    from gabby_tpu_torch.runtime.engine import Engine, EngineConfig
+    from gabby_tpu_torch.runtime.kv_cache import create_cache
+    from gabby_tpu_torch.runtime.paged import create_paged_cache
+
+    b, s, page = 8, 2048, 512
+    if paged:
+        def fresh():
+            c = create_paged_cache(cfg, b, s, 33, quantized=True,
+                                   page_size=page, paired=True, device=dev)
+            c.page_table.copy_(torch.arange(1, 33, dtype=torch.int32)
+                               .reshape(b, 4))
+            return c
+        sched = ((0, 512), (512, 512))
+        common = page
+    else:
+        def fresh():
+            return create_cache(cfg, b, s, quantized=True, paired=True,
+                                device=dev)
+        sched = ((0, 512), (512, 64))
+        common = (len(prefix) // 16) * 16
+    config = EngineConfig(batch_slots=b, max_seq=s, kv_quantized=True,
+                          pair_kv_heads=True,
+                          **(dict(paged_pages=33, page_size=page)
+                             if paged else {}))
+
+    def stopped():
+        eng = Engine(cfg, params, tok, config, device=dev)
+        eng.shutdown()  # its loop ends; `admit_alone` drives the admission
+        return eng
+
+    label = "33 pages of 512" if paged else "dense"
+    out = {}
+    ck.set_attn_s8(True)
+    try:
+        cache = fresh()
+        n = len(burst)
+        lengths = torch.ones(b, dtype=torch.int32)
+        mask = torch.zeros(b, dtype=torch.bool)
+        lengths[:n] = torch.tensor([len(p) for p in burst])
+        mask[:n] = True
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        for off, bucket in sched:
+            chunk = torch.zeros((b, bucket), dtype=torch.int64)
+            for lane, p in enumerate(burst):
+                take = min(bucket, len(p) - off)
+                chunk[lane, :take] = torch.tensor(p[off:off + take])
+            logits, _ = generate.prefill_batch_chunk(
+                params, cfg, chunk.to(dev), lengths.to(dev), mask.to(dev),
+                cache, off)
+        torch.cuda.synchronize()
+        out["burst"] = dict(ck.launch_counts)
+        alone = fresh()
+        singles = torch.stack([
+            prefill_alone(params, cfg, alone, p, lane, sched)
+            for lane, p in enumerate(burst)])
+        compare_logits(f"{label}: prefill_batch_chunk vs prefill_slot "
+                       f"alone, {n} prompts", logits[:n], singles)
+        del cache, alone
+
+        eng = stopped()
+        admit_alone(eng, 0, prefix)
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        start, warm = admit_alone(eng, 1, hit)
+        torch.cuda.synchronize()
+        out["suffix"] = dict(ck.launch_counts)
+        if start != common:
+            raise AssertionError(f"admission ({label}): the hit started at "
+                                 f"{start}, not past {common} tokens")
+        if paged:
+            held = eng._slot_pages[1][:common // page]
+            if (held != eng._slot_pages[0][:common // page]
+                    or any(eng._alloc.refs[p] != 2 for p in held)):
+                raise AssertionError(f"admission ({label}): pages "
+                                     f"{eng._slot_pages[:2]} not shared")
+        del eng
+        cold_start, cold = admit_alone(stopped(), 0, hit)
+        if cold_start:
+            raise AssertionError(f"admission ({label}): the cold admission "
+                                 f"found a donor")
+        compare_logits(f"{label}: {'adopted pages' if paged else 'copy_slot_prefix'}"
+                       f" + suffix prefill from {common} vs cold admission",
+                       warm, cold)
+    finally:
+        ck.set_attn_s8(None)
+    burst_counts, suffix_counts = out["burst"], out["suffix"]
+    stray = [k for k, v in burst_counts.items() if v and "attention" in k]
+    if (burst_counts["int4_matmul_grouped"] == 0
+            or burst_counts["int4_matmul_stacked"] or stray
+            or suffix_counts["prefill_attention_paired"] == 0):
+        raise AssertionError(f"admission ({label}): launches {out}")
+    emit({"phase": "admission", "cache": label,
+          "burst_launches": {k: v for k, v in burst_counts.items() if v},
+          "suffix_launches": {k: v for k, v in suffix_counts.items() if v}})
+    return out
+
+
+def admission_engine_run(cfg, params, tok, dev, gpu_line, label, burst,
+                         prefix, hits, min_reused, **engine_kw):
+    """(a) and (b) through the engine in the server's default configuration
+    (8 slots, max_seq 2048, paired int8 cache, s8 on), launch counts set to
+    0 just before and read just after: the burst prompts submitted
+    together into the idle engine, 32 new tokens each, which must take at
+    least 2 burst admissions; then `prefix` served to completion and the
+    `hits` submitted together, which must all be prefix hits reusing at
+    least `min_reused` tokens in all. On the paged cache the pool's pages
+    must add up after the drain. Then the burst prompts are served one at
+    a time on a fresh engine, and how many of their token streams equal
+    the burst's is printed, not required."""
+    from gabby_tpu_torch.ops import cuda as ck
+    from gabby_tpu_torch.runtime.engine import Engine, EngineConfig
+
+    def drain(reqs):
+        for req in reqs:
+            while True:
+                _, fin = req.out.get(timeout=600)
+                if fin is not None:
+                    break
+            if fin not in ("length", "stop"):
+                raise AssertionError(f"admission ({label}): request "
+                                     f"finished {fin}")
+        return [list(r.token_ids) for r in reqs]
+
+    def ttft_p50(reqs):
+        return statistics.median(
+            (r.first_token_ts - r.submit_ts) * 1e3 for r in reqs)
+
+    config = EngineConfig(batch_slots=8, max_seq=2048, kv_quantized=True,
+                          pair_kv_heads=True, **engine_kw)
+    ck.set_attn_s8(True)
+    eng = Engine(cfg, params, tok, config, device=dev)
+    try:
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        wave = [eng.submit_ids(p, max_tokens=NEW_TOKENS) for p in burst]
+        texts = drain(wave)
+        torch.cuda.synchronize()
+        burst_s = time.perf_counter() - t0
+        mid = eng.stats_snapshot()
+        t0 = time.perf_counter()
+        donor = eng.submit_ids(prefix, max_tokens=NEW_TOKENS)
+        drain([donor])
+        hit_reqs = [eng.submit_ids(p, max_tokens=NEW_TOKENS) for p in hits]
+        drain(hit_reqs)
+        torch.cuda.synchronize()
+        prefix_s = time.perf_counter() - t0
+        counts = dict(ck.launch_counts)
+        stats = eng.stats_snapshot()
+    finally:
+        eng.shutdown()
+    pool = None
+    if eng._paged:
+        held = collections.Counter(p for pages in eng._slot_pages
+                                   for p in pages)
+        pool = {"available": eng._alloc.available(),
+                "resident": len(held), "pages": len(eng._alloc.refs)}
+        if (any(eng._alloc.refs[p] != k for p, k in held.items())
+                or pool["available"] + len(held) != pool["pages"] - 1):
+            raise AssertionError(f"admission ({label}): the pool does not "
+                                 f"add up: {pool}")
+    eng = Engine(cfg, params, tok, config, device=dev)
+    try:
+        solo = [drain([eng.submit_ids(p, max_tokens=NEW_TOKENS)])[0]
+                for p in burst]
+    finally:
+        eng.shutdown()
+        ck.set_attn_s8(None)
+    line = {"phase": "admission", "engine": label,
+            "burst_prompt_tokens": [len(p) for p in burst],
+            "burst_admissions": mid["burst_admissions"],
+            "burst_ttft_p50_ms": ttft_p50(wave), "burst_wall_s": burst_s,
+            "burst_texts_equal_to_alone": sum(
+                a == b for a, b in zip(texts, solo)),
+            "prefix_tokens": len(prefix),
+            "hit_prompt_tokens": [len(p) for p in hits],
+            "prefix_hits": stats["prefix_hits"],
+            "prefix_tokens_reused": stats["prefix_tokens_reused"],
+            "prefix_ttft_p50_ms": ttft_p50(hit_reqs),
+            "prefix_wall_s": prefix_s, "pool": pool,
+            "launches": {k: v for k, v in counts.items() if v},
+            "card": gpu_line}
+    emit(line)
+    must = ["int4_matmul_stacked", "int4_matmul_grouped",
+            "prefill_attention_paired",
+            "paged_decode_attention_s8_paired" if eng._paged
+            else "decode_attention_s8_paired"]
+    stray = [k for k, v in counts.items()
+             if v and "attention" in k and k not in must]
+    if (mid["burst_admissions"] < 2 or stats["prefix_hits"] < len(hits)
+            or stats["prefix_tokens_reused"] < min_reused
+            or any(counts[k] == 0 for k in must) or stray):
+        raise AssertionError(f"admission ({label}): {line}")
+
+
+def admission_phase(cfg, params, dev, gpu_line: str) -> None:
+    """Burst admission and prefix reuse on the 1B int4 model at full width
+    and depth, in the server's default configuration, dense and over 33
+    pages of 512: six distinct prompts of 530-570 tokens (on the dense
+    cache the chunks (0, 512), (512, 64); on the paged one (0, 512),
+    (512, 512)) and a 700-token prompt followed by three with its prefix
+    and distinct 40-token suffixes. Model level first (`admission_model_
+    checks`), then the engine (`admission_engine_run`)."""
+    from gabby_tpu_torch.tokenizer import Tokenizer
+
+    t0 = time.perf_counter()
+    v = cfg.vocab_size
+    burst = [stream(100 + i, 530 + 8 * i, v) for i in range(6)]
+    prefix = stream(200, 700, v)
+    hits = [prefix + stream(300 + k, 40, v) for k in range(3)]
+    tok = Tokenizer.byte_fallback(v)
+    for paged, label, kw, reused in (
+            (False, "paired, s8; dense", {}, 3 * 688),
+            (True, "paired, s8; 33 pages of 512",
+             dict(paged_pages=33, page_size=512), 3 * 512)):
+        admission_model_checks(cfg, params, tok, dev, paged, burst, prefix,
+                               hits[0])
+        torch.cuda.empty_cache()
+        admission_engine_run(cfg, params, tok, dev, gpu_line, label, burst,
+                             prefix, hits, reused, **kw)
+        torch.cuda.empty_cache()
+    emit({"phase": "admission", "seconds": time.perf_counter() - t0})
+
+
 # chat prompts of the first engine run: content lengths in characters. A
 # chat prompt is its content plus 23 template tokens under the byte
 # tokenizer; the chunk schedules cover buckets 64, 256 and 512, multi-chunk
@@ -1516,7 +1878,8 @@ NEW_TOKENS = 32
 
 
 def engine_phase(cfg, params, tok, dev, gpu_line: str, label: str, *,
-                 prompt_lens=None, must_launch, buckets, s8: bool = False,
+                 prompt_lens=None, must_launch, may_launch=(), buckets,
+                 s8: bool = False,
                  multi: bool = False, rawdot: bool = False,
                  kv_quantized: bool = True, **engine_kw):
     """Serves one batch of concurrent requests through the engine with the
@@ -1527,7 +1890,8 @@ def engine_phase(cfg, params, tok, dev, gpu_line: str, label: str, *,
     them, off unless given); `s8` and `multi` set the two
     decode-attention switches for the run, `rawdot` the raw-byte-dot form
     of the stacked int4 products. Every attention kernel outside
-    `must_launch` must stay at 0: each has a path of its own; so must the
+    `must_launch` and `may_launch` must stay at 0: each has a path of its
+    own; so must the
     stacked int4 form the run did not ask for (K1 with `rawdot`, K33
     without). Returns (counts, prompt lengths)."""
     from gabby_tpu_torch.ops import cuda as ck
@@ -1589,7 +1953,7 @@ def engine_phase(cfg, params, tok, dev, gpu_line: str, label: str, *,
                  else "int4_matmul_stacked_rawdot")
     stray = [k for k, n in counts.items()
              if n and ("attention" in k or k == not_asked)
-             and k not in must_launch]
+             and k not in must_launch and k not in may_launch]
     if stray:
         raise AssertionError(f"engine ({label}): {stray} launched on a path "
                              f"that is not their own; counts {counts}")
@@ -1608,6 +1972,8 @@ def engine_phase(cfg, params, tok, dev, gpu_line: str, label: str, *,
             "wall_s": wall, "output_tok_per_s": out_tokens / wall,
             "p50_ttft_ms": stats.get("p50_ttft_ms"),
             "decode_steps": stats["decode_steps"] - stats0["decode_steps"],
+            "burst_admissions": (stats["burst_admissions"]
+                                 - stats0["burst_admissions"]),
             "launches": counts, "card": gpu_line}
     if engine_kw.get("speculate_tokens"):
         # acceptance is reported, not asserted: random weights seldom
@@ -1925,9 +2291,15 @@ def main() -> int:
     run("paired, s8", ["decode_attention_s8_paired",
                        "prefill_attention_paired"],
         size=full, pair_kv_heads=True, s8=True)
-    run("paired, s8; 33 pages of 512",
-        ["paged_decode_attention_s8_paired", "prefill_attention_paired"],
-        size=dict(buckets=[512]), pair_kv_heads=True, s8=True, **paged)
+    # on the page grid the ten prompts have two chunk schedules, (0, 512)
+    # and (0, 512), (512, 512): they admit in bursts, whose attention is
+    # the plain batched one, so K21 runs only if one arrives alone
+    run("paired, s8; 33 pages of 512", ["paged_decode_attention_s8_paired"],
+        size=dict(buckets=[512]), pair_kv_heads=True, s8=True,
+        may_launch=["prefill_attention_paired"], **paged)
+    # burst admission and prefix reuse in the same configuration
+    admission_phase(cfg, params, dev, gpu_line)
+    torch.cuda.empty_cache()
     # the same configuration with the raw-byte-dot form of the stacked
     # int4 products (GABBY_INT4_RAWDOT=1): K33 in place of K1, card against
     # CPU, then three requests

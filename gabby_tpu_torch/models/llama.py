@@ -7,8 +7,10 @@
 * Params are a plain dict of tensors; quantized leaves are ops/quant.QTensor
   and `linear()` dispatches on the leaf type.
 * The KV cache (dense KVCache or PagedKVCache; `decode_step`,
-  `prefill_slot` and `verify_step` dispatch on its type) is updated IN
-  PLACE, layer by layer, right after that layer's attention has read it. The reference instead collects every
+  `prefill_slot`, `prefill_hidden` and `verify_step` dispatch on its type)
+  is updated IN PLACE, layer by layer, around that layer's attention
+  (after it, or before it where the attention reads the chunk's rows back
+  from the cache, as the dense batched prefill does). The reference instead collects every
   layer's new rows and writes them once after the scan (in-place writes
   inside the scan made XLA copy the cache); the read contract is the same
   either way — attention sees cache rows j < position plus the current
@@ -41,10 +43,12 @@ from gabby_tpu_torch.ops.linear import linear
 from gabby_tpu_torch.ops.norms import rms_norm
 from gabby_tpu_torch.ops.quant import QTensor
 from gabby_tpu_torch.ops.rope import apply_rope, rope_inv_freq
-from gabby_tpu_torch.runtime.kv_cache import (KVCache, pair_heads,
-                                              quantize_kv)
+from gabby_tpu_torch.runtime.kv_cache import (KVCache, dequantize_kv,
+                                              lane_indices, pair_heads,
+                                              quantize_kv, unpaired)
 from gabby_tpu_torch.runtime.paged import (PagedKVCache, gather_slot_rows,
-                                           write_rows, write_slot_chunk)
+                                           write_batch_chunk, write_rows,
+                                           write_slot_chunk)
 
 Params = dict[str, Any]
 
@@ -202,6 +206,123 @@ def forward(params: Params, cfg: ModelConfig,
         q, k, v = _qkv(cfg, blocks, xn, positions, layer)
         h = _block_tail(cfg, blocks, h, causal_attention(q, k, v), layer)
     return _unembed(params, cfg, h)
+
+
+def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            cache, *, offset: int = 0) -> tuple[torch.Tensor, Any]:
+    """Process a [B, T] chunk of prompt tokens at positions offset..
+    offset+T-1 of every slot, writing its k/v into the cache (if given).
+    Returns (f32 logits [B, T, V], cache)."""
+    h, cache = prefill_hidden(params, cfg, tokens, cache, offset=offset)
+    return _unembed(params, cfg, h), cache
+
+
+def prefill_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                   cache, *, offset: int = 0,
+                   lane_mask: Optional[torch.Tensor] = None
+                   ) -> tuple[torch.Tensor, Any]:
+    """prefill() without the unembed: final hidden states [B, T, D] (serving
+    gathers each row's last valid position first, then unembeds [B, 1, D]).
+
+    lane_mask: optional [B] bool; cache rows are written ONLY for its lanes
+    (burst admission: free slots prefill together while the other slots'
+    rows, possibly live, stay as they were). The masked lanes' rows are
+    written in place, before the layer's attention. At offset 0 the chunk
+    attends to itself; past it, to the slot's rows [0, offset + T) read back
+    from the cache (dequantized, un-paired: the chunk's own rows as stored),
+    through the plain `causal_attention`, as the reference does in jnp."""
+    if isinstance(cache, PagedKVCache):
+        return _prefill_hidden_paged(params, cfg, tokens, cache,
+                                     offset=offset, lane_mask=lane_mask)
+    b, t = tokens.shape
+    if cache is not None and offset + t > cache.max_seq:
+        raise ValueError(f"chunk [{offset}, {offset + t}) overruns the "
+                         f"cache ({cache.max_seq} rows)")
+    if cache is None and offset:
+        raise ValueError("a chunk past offset 0 needs a cache")
+    positions = (offset + torch.arange(t, device=tokens.device)).expand(b, t)
+    h = params["embed"][tokens.long()]
+    blocks = params["blocks"]
+    lanes = lane_indices(lane_mask, b, tokens.device)
+    rows = slice(offset, offset + t)
+    for layer in range(cfg.num_layers):
+        xn = rms_norm(h, blocks["attn_norm"][layer], cfg.rms_norm_eps)
+        q, k, v = _qkv(cfg, blocks, xn, positions, layer)
+        if cache is not None:
+            kr, vr, k_s, v_s = _quantized_rows(
+                cache, k.transpose(1, 2), v.transpose(1, 2), head_major=True)
+            cache.k[layer][lanes, :, rows] = kr[lanes]
+            cache.v[layer][lanes, :, rows] = vr[lanes]
+            if cache.quantized:
+                cache.k_scale[layer][lanes, :, rows] = k_s[lanes]
+                cache.v_scale[layer][lanes, :, rows] = v_s[lanes]
+        if offset == 0:
+            kk, vv = k, v
+        else:
+            kk, vv = _token_major(
+                *(None if x is None else x[layer][:, :, :offset + t]
+                  for x in (cache.k, cache.v, cache.k_scale, cache.v_scale)),
+                cfg.head_dim, k.dtype)
+        h = _block_tail(cfg, blocks, h,
+                        causal_attention(q, kk, vv, q_offset=offset), layer)
+    return h, cache
+
+
+def _token_major(k, v, k_scale, v_scale, head_dim: int, dtype):
+    """Cache rows k, v [B, Nk, S, H] (or paired), with scales [B, Nk, S]
+    when int8, as token-major [B, S, Nk, H] k and v in `dtype`: un-paired
+    and dequantized, what the plain `causal_attention` takes."""
+    k, v = unpaired(k, head_dim), unpaired(v, head_dim)
+    if k_scale is not None:
+        k = dequantize_kv(k, k_scale, dtype)
+        v = dequantize_kv(v, v_scale, dtype)
+    return k.to(dtype).transpose(1, 2), v.to(dtype).transpose(1, 2)
+
+
+def _prefill_hidden_paged(params: Params, cfg: ModelConfig,
+                          tokens: torch.Tensor, cache: PagedKVCache, *,
+                          offset: int = 0,
+                          lane_mask: Optional[torch.Tensor] = None):
+    """prefill_hidden against the paged pool: each layer's chunk rows land
+    in the masked lanes' pages with one page-granular write per pool
+    (`paged.write_batch_chunk`) after the layer's attention. Past offset 0,
+    the rows below `offset` are gathered from every slot's pages into a
+    dense view (one layer at a time, a per-chunk cost), dequantized and
+    un-paired, and the chunk's own unquantized k/v follow them, as in the
+    reference. Offset and chunk length must be page-aligned."""
+    b, t = tokens.shape
+    ps = cache.page_size
+    if offset % ps or t % ps or offset + t > cache.max_seq:
+        raise ValueError(f"chunk [{offset}, {offset + t}) must be aligned to "
+                         f"the page size {ps} and fit {cache.max_seq} rows")
+    positions = (offset + torch.arange(t, device=tokens.device)).expand(b, t)
+    h = params["embed"][tokens.long()]
+    blocks = params["blocks"]
+    phys = cache.page_table[:, :offset // ps].long()  # [B, pages below]
+
+    def densify(pool, layer):
+        g = pool[phys, layer].movedim(1, 2)  # [B, Nk, pages, page, ...]
+        return g.reshape(b, g.shape[1], offset, *g.shape[4:])
+
+    for layer in range(cfg.num_layers):
+        xn = rms_norm(h, blocks["attn_norm"][layer], cfg.rms_norm_eps)
+        q, k, v = _qkv(cfg, blocks, xn, positions, layer)
+        if offset == 0:
+            kk, vv = k, v
+        else:
+            kp, vp = _token_major(
+                *(None if x is None else densify(x, layer)
+                  for x in (cache.k, cache.v, cache.k_scale, cache.v_scale)),
+                cfg.head_dim, k.dtype)
+            kk, vv = torch.cat([kp, k], dim=1), torch.cat([vp, v], dim=1)
+        attn = causal_attention(q, kk, vv, q_offset=offset)
+        write_batch_chunk(
+            cache, offset, *_quantized_rows(cache, k.transpose(1, 2),
+                                            v.transpose(1, 2),
+                                            head_major=True),
+            lane_mask, layer=layer)
+        h = _block_tail(cfg, blocks, h, attn, layer)
+    return h, cache
 
 
 def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,

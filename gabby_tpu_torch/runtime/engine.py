@@ -10,6 +10,17 @@ gabby_tpu/runtime/engine.py).
   chunk per loop iteration, so a long prompt never stalls live streams for
   more than a chunk. Waiting requests are admitted shortest prompt first,
   with an age guard against starvation.
+* Burst admission: when two or more slots are free and two or more
+  waiting requests share a chunk schedule of at most two chunks, they are
+  prefilled together, one lane-masked batched call per chunk
+  (generate.prefill_batch_chunk), so the weights stream once a chunk for
+  the group; the other slots, live ones among them, are untouched.
+* Prefix reuse: a finished request's prompt stays resident in its slot. An
+  admission whose prompt shares at least 64 tokens (on the bucket grid)
+  with a resident prompt starts past them: the dense cache copies the
+  donor's rows (generate.copy_slot_prefix), the paged cache adopts its
+  whole pages by reference (PageAllocator.share), and only the suffix is
+  prefilled.
 * Decode runs bursts of `steps_per_call` steps (`steps_per_call_busy`
   while an admission is in flight) in generate.decode_loop; tokens stream
   back between bursts through one host fetch each.
@@ -20,14 +31,14 @@ gabby_tpu/runtime/engine.py).
   later.
 * `paged_pages > 0` swaps the dense cache for a shared pool of pages
   (runtime/paged.py): the host-side allocator backs each slot's rows on
-  demand, before every prefill chunk and every burst, and takes the pages
-  back when the request finishes.
+  demand, before every prefill chunk and every burst. A finished
+  request's pages stay resident as a prefix donor until the slot is
+  reused or the pool needs them.
 
 Not yet ported from the reference engine (a request or config that asks
-for them is refused, never silently ignored): burst admission, prefix KV
-reuse (dense row copies and paged page adoption), penalties and
-logit_bias, logprobs/top_logprobs, per-request seed, multi-host serving
-and pipelined fetches.
+for them is refused, never silently ignored): penalties and logit_bias,
+logprobs/top_logprobs, per-request seed, multi-host serving and
+pipelined fetches.
 """
 
 from __future__ import annotations
@@ -266,9 +277,13 @@ class Engine:
         self._plain_probe_ctr = 0
 
         self._slots: list[Optional[_Slot]] = [None] * b
-        # the slot mid-prefill (-1: none): free in `_slots`, yet its pages
-        # are live
-        self._admitting_slot = -1
+        # slots mid-prefill (a single admission's, or a burst's while it
+        # runs): free in `_slots`, yet their pages are live
+        self._filling: set[int] = set()
+        # prefix registry: the prompt whose KV rows are resident in each
+        # slot (kept after the request finishes; cleared when a new
+        # admission starts overwriting the slot)
+        self._slot_prompts: list[Optional[list[int]]] = [None] * b
         self._queue: "queue.Queue[Request]" = queue.Queue()
         self._backlog: list[Request] = []
         self._wake = threading.Event()
@@ -278,6 +293,8 @@ class Engine:
         self._lock = threading.Lock()
         self.stats = {"requests": 0, "completion_tokens": 0,
                       "prompt_tokens": 0, "decode_steps": 0,
+                      "burst_admissions": 0, "prefix_hits": 0,
+                      "prefix_tokens_reused": 0,
                       "spec_macro_steps": 0, "spec_tokens": 0,
                       # gauge: is speculation on now (1/0), and how often
                       # the acceptance probe switched it off
@@ -376,9 +393,12 @@ class Engine:
 
     def warmup(self, concurrency: Optional[int] = None) -> float:
         """Dress-rehearse serving before real traffic: one solo request,
-        then a concurrent wave whose prompt lengths cover the bucket ladder
-        and one multi-chunk prompt. Rehearsal requests are internal (kept
-        out of the stats). Raises if any rehearsal request fails. The
+        then a concurrent wave at 2x the slot count whose prompt lengths
+        cover the bucket ladder and one multi-chunk prompt, on distinct
+        token streams (burst admissions, multi-chunk prefill, the busy and
+        drained burst lengths), and one repeat of the solo prompt (the
+        prefix-donor lookup). Rehearsal requests are internal (kept out of
+        the stats). Raises if any rehearsal request fails. The
         speculation state is restored afterwards: synthetic prompts would
         otherwise feed the acceptance probe and could switch speculation
         off for real traffic. Returns seconds elapsed."""
@@ -395,6 +415,8 @@ class Engine:
         errs: list[str] = []
 
         def run(i: int, n: int) -> None:
+            # distinct streams, so that the wave cannot ride a donor (i = 0
+            # repeated is the one that may)
             ids = [(i * 7919 + j * 104729) % vocab + 1 for j in range(n)]
             req = self.submit_ids(ids, max_tokens=gen, internal=True)
             while True:
@@ -406,9 +428,9 @@ class Engine:
 
         run(0, lens[0])
         n = concurrency if concurrency else 2 * ec.batch_slots
-        threads = [threading.Thread(target=run,
-                                    args=(i, lens[i % len(lens)]))
-                   for i in range(1, n + 1)]
+        threads = [threading.Thread(
+            target=run, args=(0, lens[0]) if i == 1 else
+            (i, lens[i % len(lens)])) for i in range(1, n + 1)]
         for t in threads:
             t.start()
         for t in threads:
@@ -488,19 +510,27 @@ class Engine:
         self._cache.page_table.copy_(torch.from_numpy(self._pt_host))
 
     def _release_slot_pages(self, slot_ix: int) -> None:
-        """Give the slot's pages back; its table row points at the scratch
-        page again."""
-        if self._slot_pages[slot_ix]:
-            self._alloc.release(self._slot_pages[slot_ix])
-            self._slot_pages[slot_ix] = []
-            self._pt_host[slot_ix, :] = 0
+        """Drop the slot's page references (pages it shares survive through
+        the other holders' refcounts) and its prefix-registry entry; its
+        table row points at the scratch page again."""
+        self._slot_prompts[slot_ix] = None
+        self._release_tail_pages(slot_ix, 0)
+
+    def _release_tail_pages(self, slot_ix: int, keep: int) -> None:
+        """Drop the slot's pages from logical page `keep` on; its table
+        entries from there point at the scratch page."""
+        tail = self._slot_pages[slot_ix][keep:]
+        if tail:
+            self._alloc.release(tail)
+            del self._slot_pages[slot_ix][keep:]
+            self._pt_host[slot_ix, keep:] = 0
             self._push_page_table()
 
     def _evict_idle_pages(self, keep: int = -1) -> None:
-        """Pool pressure relief: free the pages still held by FREE slots.
-        Live slots and the slot being admitted are never touched."""
+        """Pool pressure relief: free the resident (prefix-donor) pages of
+        FREE slots. Live slots and slots mid-prefill are never touched."""
         for i, s in enumerate(self._slots):
-            if (s is None and i not in (keep, self._admitting_slot)
+            if (s is None and i != keep and i not in self._filling
                     and self._slot_pages[i]):
                 self._release_slot_pages(i)
 
@@ -521,6 +551,29 @@ class Engine:
         self._pt_host[slot_ix, cur:need] = got
         self._push_page_table()
         return True
+
+    def _find_donor(self, ids: list[int]) -> tuple[int, int]:
+        """Longest common prefix of `ids` with a resident slot prompt:
+        (donor slot, common length), the length rounded down to the bucket
+        grid (the suffix prefill starts on it) and capped to leave at least
+        one token to prefill and one bucket of cache room. (-1, 0) below 64
+        tokens, where a copy is not worth a call."""
+        grid = self._buckets[0]
+        n = len(ids)
+        best, best_common = -1, 0
+        for slot_ix, resident in enumerate(self._slot_prompts):
+            if resident is None:
+                continue
+            limit = min(len(resident), n - 1, self.ec.max_seq - grid)
+            common = 0
+            while common < limit and resident[common] == ids[common]:
+                common += 1
+            common = (common // grid) * grid
+            if common > best_common:
+                best, best_common = slot_ix, common
+        if best_common < 64:
+            return -1, 0
+        return best, best_common
 
     def _chunk_schedule(self, n: int) -> tuple:
         """The (offset, bucket) chunks a prompt of n tokens prefills through."""
@@ -579,7 +632,168 @@ class Engine:
                      key=lambda i: (len(self._backlog[i].prompt_ids), i))
         return self._backlog.pop(ix)
 
+    def _select_burst(self) -> Optional[tuple]:
+        """With at least 2 free slots and at least 2 waiting requests of the
+        top priority stratum, group those that share the chunk schedule of
+        the shortest waiting prompt (at most two chunks) into one burst: (the
+        schedule, the slots, the requests), taken off the backlog. Requests
+        with a strong resident-prefix match are left to the single path
+        (a row copy and a short suffix prefill). On the paged cache a burst
+        starts only if the pool backs every lane's pages with 2 to spare."""
+        free = [i for i, s in enumerate(self._slots) if s is None]
+        if len(free) < 2:
+            return None
+        self._drain_ingress()
+        if len(self._backlog) < 2:
+            return None
+        top = max(r.priority for r in self._backlog)
+        pool = [r for r in self._backlog if r.priority == top]
+        if len(pool) < 2:
+            return None
+        anchor = min(pool, key=lambda r: len(r.prompt_ids))
+        sched = self._chunk_schedule(len(anchor.prompt_ids))
+        if self._paged:
+            # count PAGES, not chunks: a chunk spans bucket / page_size
+            rows = sched[-1][0] + sched[-1][1]
+            need = (min(len(free), len(pool))
+                    * -(-rows // self.ec.page_size))
+            if self._alloc.available() < need + 2:
+                return None
+        group = []
+        for r in pool:
+            if len(group) >= len(free):
+                break
+            _, common = self._find_donor(r.prompt_ids)
+            if common * 2 >= len(r.prompt_ids):
+                continue
+            if (len(sched) <= 2
+                    and self._chunk_schedule(len(r.prompt_ids)) == sched):
+                group.append(r)
+        if len(group) < 2:
+            return None
+        for r in group:
+            self._backlog.remove(r)
+        return sched, free[:len(group)], group
+
     # ---- admission ----
+
+    def _start_admission(self, slot_ix: int, req: Request) -> _Admission:
+        """A single admission into free slot `slot_ix`. With a resident
+        donor prefix it starts past it: the dense cache copies the donor's
+        rows (none to copy when the donor is the slot itself); the paged
+        cache adopts the donor's whole prefix pages by reference, or, when
+        the donor is the slot itself, drops the pages past the prefix,
+        which another slot may share, so that the suffix lands in fresh
+        pages."""
+        adm = _Admission(slot_ix=slot_ix, req=req,
+                         ids=np.asarray(req.prompt_ids, np.int64))
+        donor, common = self._find_donor(req.prompt_ids)
+        self._slot_prompts[slot_ix] = None  # about to be overwritten
+        if self._paged:
+            if donor == slot_ix:
+                self._release_tail_pages(slot_ix,
+                                         common // self.ec.page_size)
+            else:
+                self._release_slot_pages(slot_ix)
+                if donor >= 0:
+                    shared = self._alloc.share(
+                        self._slot_pages[donor][:common // self.ec.page_size])
+                    self._slot_pages[slot_ix] = shared
+                    self._pt_host[slot_ix, :len(shared)] = shared
+                    self._push_page_table()
+        elif donor >= 0 and donor != slot_ix:
+            # the donor's prefix rows are frozen: decode writes land at
+            # positions >= its prompt length
+            generate.copy_slot_prefix(self._cache, donor, slot_ix)
+        if donor >= 0:
+            adm.offset = common
+            if not req.internal:
+                with self._lock:
+                    self.stats["prefix_hits"] += 1
+                    self.stats["prefix_tokens_reused"] += common
+        return adm
+
+    def _execute_burst(self, sched: tuple, slots: list[int],
+                       group: list[Request]) -> None:
+        """One lane-masked `prefill_batch_chunk` per chunk of the shared
+        schedule, then each lane's history and one `admit_slots`. A request
+        the model or the pool cannot take fails the group's requests, and
+        the engine serves on."""
+        b, dev = len(self._slots), self.device
+        lengths = np.ones((b,), np.int32)
+        mask = np.zeros((b,), bool)
+        for slot_ix, r in zip(slots, group):
+            lengths[slot_ix] = len(r.prompt_ids)
+            mask[slot_ix] = True
+            self._slot_prompts[slot_ix] = None  # being overwritten
+            if self._paged:
+                self._release_slot_pages(slot_ix)
+        lengths_d = torch.from_numpy(lengths).to(dev)
+        lane_mask = torch.from_numpy(mask).to(dev)
+        self._filling = set(slots)
+        try:
+            for offset, bucket in sched:
+                for slot_ix in slots:
+                    if self._paged and not self._ensure_pages(
+                            slot_ix, offset + bucket):
+                        raise PoolExhausted("kv page pool exhausted")
+                chunk = np.zeros((b, bucket), np.int64)
+                for slot_ix, r in zip(slots, group):
+                    take = min(bucket, len(r.prompt_ids) - offset)
+                    chunk[slot_ix, :take] = r.prompt_ids[offset:offset + take]
+                logits, self._cache = generate.prefill_batch_chunk(
+                    self.params, self.cfg, torch.from_numpy(chunk).to(dev),
+                    lengths_d, lane_mask, self._cache, offset)
+        except (ValueError, IndexError, KeyError, PoolExhausted) as e:
+            for slot_ix, r in zip(slots, group):
+                r.out.put((None, f"error: {e}"))
+                if self._paged:
+                    self._release_slot_pages(slot_ix)
+            return
+        finally:
+            self._filling = set()
+        ec = self.ec
+        temp = np.full((b,), ec.default_temperature, np.float32)
+        topk = np.full((b,), ec.default_top_k, np.int32)
+        topp = np.full((b,), ec.default_top_p, np.float32)
+        for slot_ix, r in zip(slots, group):
+            temp[slot_ix], topk[slot_ix], topp[slot_ix] = (
+                r.temperature, r.top_k, r.top_p)
+            self._write_prompt_history(slot_ix, r.prompt_ids)
+        generate.admit_slots(
+            logits, lengths_d, torch.from_numpy(temp).to(dev),
+            torch.from_numpy(topk).to(dev), torch.from_numpy(topp).to(dev),
+            lane_mask, self._tokens, self._positions, self._active,
+            self._sstate, self._history)
+        now = time.monotonic()
+        for slot_ix, r in zip(slots, group):
+            self._slot_prompts[slot_ix] = list(r.prompt_ids)
+            self._slots[slot_ix] = _Slot(request=r,
+                                         prompt_len=len(r.prompt_ids))
+            self._count_admitted(r, now)
+        with self._lock:
+            self.stats["burst_admissions"] += sum(not r.internal
+                                                  for r in group)
+
+    def _write_prompt_history(self, slot_ix: int, ids) -> None:
+        """The whole prompt into the slot's history row (the n-gram drafts
+        read it), before the slot is activated."""
+        padded = np.zeros((self.ec.max_seq,), np.int32)
+        padded[:len(ids)] = ids
+        generate.write_history(self._history, slot_ix,
+                               torch.from_numpy(padded).to(self.device),
+                               len(ids))
+
+    def _count_admitted(self, req: Request, now: float) -> None:
+        """Stamp the request's first token and count it in the stats."""
+        with self._lock:
+            req.first_token_ts = now
+            if not req.internal:
+                self.stats["requests"] += 1
+                self.stats["prompt_tokens"] += len(req.prompt_ids)
+                self._ttfts.append(now - req.submit_ts)
+                if len(self._ttfts) > 1024:
+                    del self._ttfts[:512]
 
     def _prefill_one_chunk(self, adm: _Admission) -> bool:
         """Advance an admission by ONE chunk; True when fully prefilled."""
@@ -607,25 +821,17 @@ class Engine:
 
     def _finish_admission(self, adm: _Admission) -> None:
         """Activate the prefilled slot; its first token is sampled on the
-        device and reaches the host with the next burst's fetch."""
+        device and reaches the host with the next burst's fetch. The slot's
+        cache now holds the whole prompt: it registers as a prefix donor."""
         req, n = adm.req, len(adm.ids)
-        padded = np.zeros((self.ec.max_seq,), np.int32)
-        padded[:n] = adm.ids
-        generate.write_history(self._history, adm.slot_ix,
-                               torch.from_numpy(padded).to(self.device), n)
+        self._write_prompt_history(adm.slot_ix, adm.ids)
         generate.admit_slot(adm.last_logits, adm.slot_ix, n, req.temperature,
                             req.top_k, req.top_p, self._tokens,
                             self._positions, self._active, self._sstate,
                             history=self._history)
         self._slots[adm.slot_ix] = _Slot(request=req, prompt_len=n)
-        with self._lock:
-            req.first_token_ts = time.monotonic()
-            if not req.internal:
-                self.stats["requests"] += 1
-                self.stats["prompt_tokens"] += n
-                self._ttfts.append(req.first_token_ts - req.submit_ts)
-                if len(self._ttfts) > 1024:
-                    del self._ttfts[:512]
+        self._slot_prompts[adm.slot_ix] = list(req.prompt_ids)
+        self._count_admitted(req, time.monotonic())
 
     # ---- emission ----
 
@@ -700,8 +906,6 @@ class Engine:
         # hears of the finish
         self._active[slot_ix] = False
         self._positions[slot_ix] = self._park
-        if self._paged:
-            self._release_slot_pages(slot_ix)
         req.out.put((tail or None, reason))
 
     # ---- the loop ----
@@ -737,9 +941,9 @@ class Engine:
 
     def _iteration(self, admitting: Optional[_Admission]
                    ) -> tuple[bool, Optional[_Admission]]:
-        """One loop iteration: cancellations and deadlines, at most one
-        admission chunk, then one decode burst. Returns (did_work,
-        the admission still in flight)."""
+        """One loop iteration: cancellations and deadlines, then a burst
+        admission or at most one chunk of a single admission, then one
+        decode burst. Returns (did_work, the admission still in flight)."""
         for i, s in enumerate(self._slots):
             if s is not None and s.request.cancelled:
                 self._finish(i, "cancelled")
@@ -749,15 +953,25 @@ class Engine:
         if admitting is not None and admitting.req.cancelled:
             self._drop_admission(admitting, "cancelled")
             admitting = None
+        burst = None
         if admitting is None:
-            free = [i for i, s in enumerate(self._slots) if s is None]
-            if free:
-                req = self._pop_next_admission()
+            burst = self._select_burst()
+            if burst is not None:
+                self._execute_burst(*burst)
+            else:
+                free = [i for i, s in enumerate(self._slots) if s is None]
+                req = self._pop_next_admission() if free else None
                 if req is not None:
-                    admitting = _Admission(
-                        slot_ix=free[0], req=req,
-                        ids=np.asarray(req.prompt_ids, np.int64))
-        busy = admitting is not None
+                    admitting = self._start_admission(free[0], req)
+        # short decode bursts while an admission is in flight, and after a
+        # burst admission while requests still wait for a free slot: their
+        # TTFT sits behind the decode burst (the reference counts single
+        # admissions only, and decodes a long burst after each burst
+        # admission)
+        busy = admitting is not None or (
+            burst is not None
+            and bool(self._backlog or not self._queue.empty())
+            and any(s is None for s in self._slots))
         if admitting is not None:
             try:
                 if self._prefill_one_chunk(admitting):
@@ -769,10 +983,10 @@ class Engine:
                 # serving the rest
                 self._drop_admission(admitting, f"error: {e}")
                 admitting = None
-        self._admitting_slot = (admitting.slot_ix if admitting is not None
-                                else -1)
+        self._filling = ({admitting.slot_ix} if admitting is not None
+                         else set())
         if not any(s is not None for s in self._slots):
-            return busy, admitting
+            return busy or burst is not None, admitting
 
         steps = self.ec.steps_per_call_busy if busy else \
             self.ec.steps_per_call

@@ -255,3 +255,66 @@ def admit_slot(logits: torch.Tensor, slot: int, prompt_len: int,
     sstate.top_p[slot] = top_p
     if history is not None:
         history[slot, min(prompt_len, history.shape[1] - 1)] = first[0]
+
+
+def prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor, cache,
+                  offset: int):
+    """Prefill of one [B, T] chunk at `offset` for every slot; returns the
+    LAST position's logits [B, V] only (the unembed runs on the [B, 1, D]
+    slice, the decode-sized form) and the cache."""
+    h, cache = llama.prefill_hidden(params, cfg, tokens, cache,
+                                    offset=offset)
+    return llama._unembed(params, cfg, h[:, -1:])[:, 0], cache
+
+
+def prefill_batch_chunk(params, cfg: ModelConfig, tokens: torch.Tensor,
+                        lengths: torch.Tensor, lane_mask: torch.Tensor,
+                        cache, offset: int):
+    """Burst admission: prefill a [B, T] chunk for the lanes in `lane_mask`
+    at once (the weights stream once for the group; the other lanes' cache
+    rows, possibly live, stay as they were) and return the logits [B, V] at
+    each row's LAST VALID position, lengths [B] being the prompts' lengths
+    (a row whose prompt ended in an earlier chunk gets garbage: a burst
+    groups prompts of one chunk schedule)."""
+    h, cache = llama.prefill_hidden(params, cfg, tokens, cache,
+                                    offset=offset, lane_mask=lane_mask)
+    b, t = tokens.shape
+    ix = torch.clamp(lengths.long() - 1 - offset, 0, t - 1)
+    h_last = h[torch.arange(b, device=h.device), ix]  # [B, D]
+    return llama._unembed(params, cfg, h_last[:, None])[:, 0], cache
+
+
+def admit_slots(logits: torch.Tensor, lengths: torch.Tensor,
+                temperature: torch.Tensor, top_k: torch.Tensor,
+                top_p: torch.Tensor, lane_mask: torch.Tensor,
+                tokens: torch.Tensor, positions: torch.Tensor,
+                active: torch.Tensor, sstate: SamplingState,
+                history: torch.Tensor) -> None:
+    """Batched admit_slot for the lanes in `lane_mask` (burst admission):
+    samples each row's first token with its own parameters and writes the
+    slot state in place, the first token also at history[b, lengths[b]].
+    Unmasked lanes keep their state."""
+    nxt = sampling.sample(logits, sstate.generator, temperature=temperature,
+                          top_k=top_k, top_p=top_p)
+    lane = lane_mask
+    tokens.copy_(torch.where(lane, nxt, tokens))
+    positions.copy_(torch.where(lane, lengths.to(positions.dtype), positions))
+    active |= lane
+    rows = torch.arange(tokens.shape[0], device=tokens.device)
+    col = torch.clamp(lengths.long(), max=history.shape[1] - 1)
+    history[rows, col] = torch.where(lane, nxt, history[rows, col])
+    sstate.temperature.copy_(torch.where(lane, temperature,
+                                         sstate.temperature))
+    sstate.top_k.copy_(torch.where(lane, top_k, sstate.top_k))
+    sstate.top_p.copy_(torch.where(lane, top_p, sstate.top_p))
+
+
+def copy_slot_prefix(cache: KVCache, src: int, dst: int) -> KVCache:
+    """Prefix reuse on the dense cache: copy slot `src`'s WHOLE cache row
+    onto slot `dst`, in place. Only the common-prefix rows matter; the rest
+    is overwritten by the admission's suffix prefill or by decode before
+    anything reads it."""
+    for arr in (cache.k, cache.v, cache.k_scale, cache.v_scale):
+        if arr is not None:
+            arr[:, dst] = arr[:, src]
+    return cache

@@ -35,8 +35,18 @@ class KVCache:
         return self.k_scale is not None
 
     @property
+    def batch(self) -> int:
+        return self.k.shape[1]
+
+    @property
     def max_seq(self) -> int:
         return self.k.shape[3]
+
+    def nbytes(self) -> int:
+        tensors = [self.k, self.v]
+        if self.quantized:
+            tensors += [self.k_scale, self.v_scale]
+        return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def kv_shape(cfg: ModelConfig, paired: bool) -> tuple[int, int]:
@@ -96,6 +106,15 @@ def unpaired(x: torch.Tensor, head_dim: int) -> torch.Tensor:
     """x un-paired when its last axis is a pair's 2 * head_dim lanes, else
     x itself: what the plain attention bodies run on."""
     return unpair_heads(x) if x.shape[-1] == 2 * head_dim else x
+
+
+def lane_indices(lane_mask: Optional[torch.Tensor], batch: int,
+                 device) -> torch.Tensor:
+    """The slots a lane-masked batched write reaches: those of `lane_mask`
+    [B] bool, or every slot when it is None."""
+    if lane_mask is None:
+        return torch.arange(batch, device=device)
+    return torch.nonzero(lane_mask)[:, 0]
 
 
 def cache_from_numpy(k, v, k_scale=None, v_scale=None,

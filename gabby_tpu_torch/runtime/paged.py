@@ -14,7 +14,9 @@ pools [P, L, Nk/2, page, 2H], scale pools still per head. The kernels read
 `page_table` [B, max_pages] int32 themselves, so nothing gathers the pool
 on the decode path. Chunked prefill (per admission, not
 per step) does gather the slot's earlier pages into a dense view and runs
-the dense prefill kernel over it.
+the dense prefill kernel over it; a burst's batched chunk gathers every
+slot's (`llama.prefill_hidden`) and writes its masked lanes' pages
+(`write_batch_chunk`).
 
 The allocator lives on the host, in the engine. The device only sees the
 pools and the table. Like the dense cache, the pools are updated IN PLACE.
@@ -30,7 +32,7 @@ import torch
 
 from gabby_tpu_torch import resolve_device
 from gabby_tpu_torch.config import ModelConfig
-from gabby_tpu_torch.runtime.kv_cache import kv_shape
+from gabby_tpu_torch.runtime.kv_cache import kv_shape, lane_indices
 
 PAGE_SIZE = 512  # rows per page (the reference's default)
 
@@ -203,6 +205,38 @@ def write_slot_chunk(cache: PagedKVCache, slot: int, offset: int, k_new,
         # [Nk, n * page, ...] -> [n, Nk, page, ...]
         pool[phys, layer] = new.reshape(new.shape[0], n, ps,
                                         *new.shape[2:]).movedim(1, 0)
+
+    put(cache.k, k_new.to(cache.k.dtype))
+    put(cache.v, v_new.to(cache.v.dtype))
+    if cache.quantized:
+        put(cache.k_scale, ks_new)
+        put(cache.v_scale, vs_new)
+    return cache
+
+
+def write_batch_chunk(cache: PagedKVCache, offset: int, k_new, v_new,
+                      ks_new, vs_new, lane_mask: Optional[torch.Tensor], *,
+                      layer: int) -> PagedKVCache:
+    """Lane-masked batched chunk write (burst admissions): one layer's
+    [B, Nk, T, H] chunk rows (+ scales [B, Nk, T]) of every slot at row
+    `offset` (offset and T page-aligned), in place, page by page through
+    the table. Only the lanes in `lane_mask` (None: all) are written; the
+    others' pages, live slots' among them, are not touched. The reference
+    routes masked-out lanes to the scratch page instead; the port writes in
+    place and skips them."""
+    ps = cache.page_size
+    t = k_new.shape[2]
+    if offset % ps or t % ps:
+        raise ValueError(f"chunk [{offset}, {offset + t}) is not aligned to "
+                         f"the page size {ps}")
+    n = t // ps
+    lanes = lane_indices(lane_mask, k_new.shape[0], k_new.device)
+    phys = cache.page_table[lanes, offset // ps:offset // ps + n].long()
+
+    def put(pool, new):
+        new = new[lanes]  # [b', Nk, n * page, ...] -> [b', n, Nk, page, ...]
+        pool[phys, layer] = new.reshape(new.shape[0], new.shape[1], n, ps,
+                                        *new.shape[3:]).movedim(2, 1)
 
     put(cache.k, k_new.to(cache.k.dtype))
     put(cache.v, v_new.to(cache.v.dtype))

@@ -35,6 +35,8 @@ computed the other form would fail. Against the dequantized contract the
 s8 form is held to 6e-2, as tests/test_pallas_kernels.py:665-686 holds the
 TPU kernel."""
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -1629,3 +1631,86 @@ def test_s8_forms_refuse_what_their_kernel_does_not_take(dev, monkeypatch):
                                      build.stream_ptr(dev))
         assert err != 0, (chunk, plan)
     torch.cuda.synchronize()
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return None if tree is None else tree.to(device)
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("model", ["1b", "3b"])
+def test_prefill_batch_chunk_on_the_card(dev, model, paged):
+    """A burst's two chunks (offsets 0 and 64) through
+    `generate.prefill_batch_chunk` on the card against the same calls on
+    the CPU (plain versions), same int4 weights and inputs: 6 masked lanes
+    of 8 over a paired int8 cache with random rows (dense, or pages of 64
+    behind a shuffled table), at the heads of Llama-3.2-1B (32 q over 8 kv
+    heads of 64) and Llama-3.2-3B (24 over 8 of 128), 2 layers of width 512.
+    The logits of each masked lane's last valid row agree within 5e-2 of
+    the largest logit, the bound of `chip_smoke.py`'s model phase, with the
+    same first greedy token; on both sides the unmasked lanes' rows keep
+    their bits; the unembed of the [8, 1, D] last rows reaches K2."""
+    from gabby_tpu_torch import config as tcfg
+    from gabby_tpu_torch.models import llama
+    from gabby_tpu_torch.ops import quant
+    from gabby_tpu_torch.runtime import generate
+    from gabby_tpu_torch.runtime.kv_cache import create_cache
+    from gabby_tpu_torch.runtime.paged import create_paged_cache
+
+    nq, nk, h = {"1b": (32, 8, 64), "3b": LLAMA_HEADS["3b"]}[model]
+    cfg = tcfg.tiny(num_heads=nq, num_kv_heads=nk, head_dim=h,
+                    hidden_size=512, intermediate_size=1024,
+                    vocab_size=4096, max_seq_len=1024)
+    cpu = torch.device("cpu")
+    params = llama.fuse_projections(quant.quantize_tree(
+        llama.init_params(cfg, torch.Generator().manual_seed(0),
+                          device=cpu), 4, unembed_bits=4, unembed_group=256))
+    b, s, page, t = 8, 1024, 64, 64
+    g = torch.Generator().manual_seed(1)
+    if paged:
+        cache = create_paged_cache(cfg, b, s, 1 + b * s // page,
+                                   quantized=True, page_size=page,
+                                   paired=True, device=cpu)
+        cache.page_table.copy_((torch.randperm(b * s // page, generator=g)
+                                + 1).reshape(b, s // page))
+    else:
+        cache = create_cache(cfg, b, s, quantized=True, paired=True,
+                             device=cpu)
+    for codes in (cache.k, cache.v):
+        codes.copy_(torch.randint(-127, 128, codes.shape, generator=g))
+    for scales in (cache.k_scale, cache.v_scale):
+        scales.copy_(torch.rand(scales.shape, generator=g) * 0.02 + 0.005)
+    tokens = torch.randint(2, cfg.vocab_size, (b, 2 * t), generator=g)
+    lengths = torch.tensor([70, 1, 90, 128, 100, 1, 77, 65],
+                           dtype=torch.int32)
+    mask = lengths > 1
+    caches = {"cpu": cache, "card": dataclasses.replace(
+        cache, **{f.name: getattr(cache, f.name).to(dev)
+                  for f in dataclasses.fields(cache)})}
+
+    def untouched(c):
+        """The unmasked lanes' rows: their slots, or their pages."""
+        if paged:
+            pages = c.page_table[~mask.to(c.k.device)].flatten().long()
+            return [x[pages].clone() for x in (c.k, c.v)]
+        return [x[:, ~mask.to(x.device)].clone() for x in (c.k, c.v)]
+
+    kept = {key: untouched(c) for key, c in caches.items()}
+    logits = {}
+    ck.reset_launch_counts()
+    for key, device in (("card", dev), ("cpu", cpu)):
+        p = params if key == "cpu" else _tree_to(params, dev)
+        for off in (0, t):
+            logits[key], _ = generate.prefill_batch_chunk(
+                p, cfg, tokens[:, off:off + t].to(device),
+                lengths.to(device), mask.to(device), caches[key], off)
+    assert ck.launch_counts["int4_matmul_grouped"] == 2
+    got, want = logits["card"].float().cpu()[mask], logits["cpu"][mask]
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 5e-2
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+    for key, c in caches.items():
+        for x, old in zip(untouched(c), kept[key]):
+            assert torch.equal(x, old)

@@ -687,9 +687,12 @@ def test_engine_output_equals_the_plain_engine(model, plain_streams, mode,
             assert stats["spec_macro_steps"] >= 1 and stats["spec_on"] == 1
             assert stats["spec_tokens"] >= stats["spec_macro_steps"]
         if "paged" in mode:
-            # the finished request's pages went back to the pool
-            assert eng._alloc.available() == kw["paged_pages"] - 1
-            assert not eng._cache.page_table.any()
+            # the finished request's pages stay resident as a prefix donor
+            held = eng._slot_pages[0]
+            assert held and eng._slot_prompts[0] is not None
+            assert eng._cache.page_table[0, :len(held)].tolist() == held
+            assert not eng._cache.page_table[1].any()
+            _assert_pool_adds_up(eng, kw["paged_pages"])
     finally:
         eng.shutdown()
 
@@ -759,10 +762,20 @@ def test_spec_engine_reaches_full_context_capacity(model, paged):
     assert got == want and got[1] == "length" and len(got[0]) == 17
 
 
+def _assert_pool_adds_up(eng, pages):
+    """The free pages and those the slots hold as resident prefix donors
+    make up the pool less the scratch page, each held page once."""
+    held = [p for slot_pages in eng._slot_pages for p in slot_pages]
+    assert len(set(held)) == len(held)
+    assert all(eng._alloc.refs[p] == 1 for p in held)
+    assert eng._alloc.available() + len(held) == pages - 1
+
+
 def test_paged_pool_exhaustion(model):
     """A prompt the pool cannot back gets an error finish; a request whose
-    decode outgrows the pool finishes with `length` and its text so far;
-    the engine keeps serving and the pool is whole again."""
+    decode outgrows the pool finishes with `length` and its text so far
+    (its pages stay resident as a prefix donor); the engine keeps serving
+    and the pool adds up again."""
     eng = _engine(model, paged_pages=3, page_size=16)  # 2 usable pages
     try:
         _, fin = _run(eng, None, 4, ids=list(range(2, 62)))  # 4 pages
@@ -770,9 +783,11 @@ def test_paged_pool_exhaustion(model):
         assert eng._alloc.available() == 2
         toks, fin = _run(eng, None, 40, ids=list(range(2, 12)))
         assert fin == "length" and 0 < len(toks) < 22
-        assert eng._alloc.available() == 2
+        assert eng._slot_pages[0] == [1, 2]
+        _assert_pool_adds_up(eng, 3)
         toks, fin = _run(eng, None, 2, ids=list(range(2, 18)))
         assert fin in ("stop", "length") and len(toks) <= 2
+        _assert_pool_adds_up(eng, 3)
         assert not eng._failed
     finally:
         eng.shutdown()
@@ -877,7 +892,7 @@ def test_warmup_keeps_the_speculation_state(model):
         snap = eng.stats_snapshot()
         assert snap["spec_on"] == 1 and snap["requests"] == 0
         assert not eng._spec_step_s and not eng._plain_step_s
-        assert eng._alloc.available() == PAGED["paged_pages"] - 1
+        _assert_pool_adds_up(eng, PAGED["paged_pages"])
     finally:
         eng.shutdown()
 
