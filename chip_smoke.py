@@ -120,6 +120,26 @@ a non-zero exit:
                  hits reusing 3 x 688 tokens dense, 3 x 512 paged; the
                  pool's pages add up), TTFT p50 and wall printed, and how
                  many burst streams equal the same prompts served alone;
+     features    penalties and logit_bias, logprobs and top_logprobs, and
+                 the per-request seed on the same weights and
+                 configuration (dense): apply_penalties, penalize_row,
+                 token_logprob, top_candidates and the seeded draw on the
+                 card's own decode logits against the CPU's (1e-5
+                 relative, top ids equal but at exact ties, seeded tokens
+                 equal); a {t: 100} logit_bias emits t only; a greedy
+                 penalized request beside 7 plain ones equals its replay
+                 through `decode_loop` one step at a time on the same
+                 slot with the same PenaltyState (near-ties within
+                 TIE_BAND, counted), K1 64, K2 1 and K15 16 launches a
+                 replayed step with the features on and off; top_logprobs
+                 1, 5 and 20 give k sorted rows headed by the token, the
+                 first included, on the plain loop and with speculation
+                 7; a seeded request gives the same tokens alone and
+                 beside 7 unseeded neighbours (single admission both
+                 times), three seeds at least two streams; then the ten
+                 chat requests with and without a penalized and a
+                 top_logprobs 5 request, in turns (without, with, with,
+                 without), ms a decode step printed;
   6. checkpoint  the same seed-0 weights written as an HF-layout directory
                  (bf16 safetensors, config.json, generation_config.json,
                  the BPE tokenizer of tests/fixtures) into a temporary
@@ -142,8 +162,10 @@ a non-zero exit:
                  --no-pair-kv` and GABBY_ATTN_S8=0, and once with random
                  int4 weights, `--kv-quant --speculate 7 --paged-pages
                  33`, one chat completion each through the
-                 C++ front-end, then SIGTERM, where cmake exists to build
-                 it (else a skip line saying why);
+                 C++ front-end (the random int4 one also a completion with
+                 logprobs, top_logprobs 3 and a seed, as many logprob
+                 entries as completion tokens), then SIGTERM, where cmake
+                 exists to build it (else a skip line saying why);
   9. summary     the kernels line (thirty-three kernels; K1, K33, K5,
                  K8 and K2 on two rows each, M = 8 and 64), then
                  {"ok": true, "device": {...}} last.
@@ -1869,6 +1891,426 @@ def admission_phase(cfg, params, dev, gpu_line: str) -> None:
     emit({"phase": "admission", "seconds": time.perf_counter() - t0})
 
 
+# ---- request features: penalties and logit_bias, logprobs and
+# top_logprobs, the per-request seed --------------------------------------
+
+FEATURE_TOL = 1e-5  # relative: the card's f32 elementwise work vs the CPU's
+# per decode step of the 1B model: four stacked projections a layer (K1),
+# one unembed (K2), one s8 paired decode attention a layer (K15)
+STEP_LAUNCHES = {"int4_matmul_stacked": 64, "int4_matmul_grouped": 1,
+                 "decode_attention_s8_paired": 16}
+FEATURE_WINDOW = 1024  # the engine's attention window below 990 live rows
+
+
+def feature_check(line: dict, ok: bool) -> None:
+    """One line per check of the request-features phase; a failed check
+    fails the run."""
+    line = {"phase": "features", **line, "ok": bool(ok)}
+    emit(line)
+    if not ok:
+        raise AssertionError(f"features: {line}")
+
+
+def rel_err(got, want) -> float:
+    got, want = got.float().cpu(), want.float().cpu()
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def step_launches(counts: dict, steps: int) -> dict:
+    """Each kernel of STEP_LAUNCHES's launches a decode step."""
+    return {k: counts[k] / steps for k in STEP_LAUNCHES}
+
+
+def feature_function_checks(cfg, params, dev) -> None:
+    """apply_penalties, penalize_row, token_logprob, top_candidates and the
+    seeded draw on the card's own decode logits ([8, V] f32 from one
+    `decode_step` of 8 prefilled slots, paired int8 cache, s8) against the
+    same functions on the CPU on those logits: FEATURE_TOL relative, top
+    ids equal except at exact ties, the seeded tokens equal."""
+    from gabby_tpu_torch.models import llama
+    from gabby_tpu_torch.ops import cuda as ck
+    from gabby_tpu_torch.ops import sampling
+    from gabby_tpu_torch.runtime import generate
+    from gabby_tpu_torch.runtime.kv_cache import create_cache
+
+    b, v = 8, cfg.vocab_size
+    lens = [24 + 5 * s for s in range(b)]  # one 64-token chunk each
+    ck.set_attn_s8(True)
+    try:
+        cache = create_cache(cfg, b, 2048, quantized=True, paired=True,
+                             device=dev)
+        first = torch.zeros(b, dtype=torch.int32)
+        for slot, n in enumerate(lens):
+            chunk = torch.zeros(64, dtype=torch.int64)
+            chunk[:n] = torch.tensor(stream(400 + slot, n, v))
+            row, _ = llama.prefill_slot(params, cfg, chunk.to(dev), n, slot,
+                                        0, cache)
+            first[slot] = int(row.argmax())
+        logits, _ = llama.decode_step(
+            params, cfg, first.to(dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev), cache,
+            window=FEATURE_WINDOW)
+    finally:
+        ck.set_attn_s8(None)
+    logits = logits.float()
+    host = logits.cpu()
+    g = torch.Generator().manual_seed(16)
+    bias = torch.zeros((b, v))
+    cols = torch.randint(0, v, (b, 300), generator=g)
+    bias.scatter_(1, cols, torch.rand((b, 300), generator=g) * 200 - 100)
+    state = dict(
+        counts=(torch.randint(1, 4, (b, v), generator=g, dtype=torch.int32)
+                * (torch.rand((b, v), generator=g) < 1e-3)).to(torch.int32),
+        presence=torch.rand(b, generator=g) * 4 - 2,
+        frequency=torch.rand(b, generator=g) * 4 - 2, bias=bias,
+        rep=torch.rand(b, generator=g) * 2 + 0.5,
+        prompt_mask=torch.rand((b, v), generator=g) < 2e-3)
+    cpu_state = generate.PenaltyState(**state)
+    card_state = generate.PenaltyState(**{k: t.to(dev)
+                                          for k, t in state.items()})
+    adj = generate.apply_penalties(logits, card_state)
+    host_adj = generate.apply_penalties(host, cpu_state)
+    err = rel_err(adj, host_adj)
+    feature_check({"check": "apply_penalties, card vs CPU",
+                   "max_rel_err": err, "bound": FEATURE_TOL},
+                  err <= FEATURE_TOL)
+    row = 3
+    rows = [state[k][row] for k in ("counts", "presence", "frequency",
+                                    "bias", "rep", "prompt_mask")]
+    got = generate.penalize_row(logits[row], rows[0].to(dev),
+                                float(rows[1]), float(rows[2]),
+                                rows[3].to(dev), float(rows[4]),
+                                rows[5].to(dev))
+    want = generate.penalize_row(host[row], rows[0], float(rows[1]),
+                                 float(rows[2]), rows[3], float(rows[4]),
+                                 rows[5])
+    err = rel_err(got, want)
+    feature_check({"check": "penalize_row, card vs CPU",
+                   "max_rel_err": err, "bound": FEATURE_TOL},
+                  err <= FEATURE_TOL and rel_err(got, host_adj[row]) <=
+                  FEATURE_TOL)
+    ids = torch.cat([host_adj.argmax(-1, keepdim=True),
+                     torch.randint(0, v, (b, 4), generator=g)], dim=1)
+    err = rel_err(
+        generate.token_logprob(adj[:, None].expand(-1, 5, -1), ids.to(dev)),
+        generate.token_logprob(host_adj[:, None].expand(-1, 5, -1), ids))
+    feature_check({"check": "token_logprob, card vs CPU",
+                   "max_rel_err": err, "bound": FEATURE_TOL},
+                  err <= FEATURE_TOL)
+    t_lp, t_ids = generate.top_candidates(adj, 20)
+    h_lp, h_ids = generate.top_candidates(host_adj, 20)
+    t_ids = t_ids.cpu()
+    differ = (t_ids != h_ids).nonzero().tolist()
+    adj_host = adj.cpu()
+    ties = [(r, c) for r, c in differ
+            if host_adj[r, t_ids[r, c]] == host_adj[r, h_ids[r, c]]
+            or adj_host[r, t_ids[r, c]] == adj_host[r, h_ids[r, c]]]
+    err = rel_err(t_lp, h_lp)
+    feature_check({"check": "top_candidates(20), card vs CPU",
+                   "max_rel_err": err, "bound": FEATURE_TOL,
+                   "ids_differ": len(differ), "exact_ties": len(ties)},
+                  err <= FEATURE_TOL and len(ties) == len(differ))
+    # the seeded draw: integer hashing on both, the same adjusted logits
+    kw = dict(temperature=torch.full((b,), 0.8),
+              top_k=torch.tensor([0, 0, 40, 40, 0, 0, 5, 0]),
+              top_p=torch.tensor([1.0, 0.9] * 4),
+              lane_seeds=torch.tensor([0, 1, 7, 2 ** 31 - 1, 42, 42, 9, 3]),
+              lane_positions=torch.tensor(lens) + 1000)
+    card = sampling.sample(adj, torch.Generator(device=dev).manual_seed(0),
+                           **{k: t.to(dev) for k, t in kw.items()})
+    cpu = sampling.sample(adj_host, torch.Generator().manual_seed(0), **kw)
+    feature_check({"check": "seeded draw, card vs CPU",
+                   "tokens": card.tolist()},
+                  torch.equal(card.cpu(), cpu))
+
+
+def serve_all(reqs) -> None:
+    for req in reqs:
+        while True:
+            _, fin = req.out.get(timeout=600)
+            if fin is not None:
+                break
+        if fin not in ("length", "stop"):
+            raise AssertionError(f"features: a request finished {fin}")
+
+
+def wait_first_token(req) -> None:
+    end = time.monotonic() + 300
+    while not req.token_ids:
+        if time.monotonic() > end:
+            raise AssertionError("features: no first token")
+        time.sleep(0.002)
+
+
+def replay_penalized(cfg, params, tok, dev, ids, got, kw) -> None:
+    """The penalized stream `got` of prompt `ids` (slot 0 of an engine run)
+    replayed on a stopped engine of the same configuration: the prompt
+    admitted into slot 0 by the engine's own single admission (its first
+    token from the penalty-adjusted prefill row, counted), then
+    `decode_loop` one step at a time with the engine's PenaltyState and
+    the run's window, fed the run's tokens. Each step must choose the
+    run's token, or one within TIE_BAND of the best adjusted logit (the
+    gap measured by a `decode_step` at the same row). The replay's
+    launches a step, and those of 4 steps with the features off (no
+    PenaltyState, n_top 0), must be STEP_LAUNCHES."""
+    from gabby_tpu_torch.models import llama
+    from gabby_tpu_torch.ops import cuda as ck
+    from gabby_tpu_torch.runtime import generate
+    from gabby_tpu_torch.runtime.engine import Engine, EngineConfig, Request
+
+    eng = Engine(cfg, params, tok, EngineConfig(
+        batch_slots=8, max_seq=2048, kv_quantized=True, pair_kv_heads=True),
+        device=dev)
+    eng.shutdown()
+    adm = eng._start_admission(0, Request(
+        prompt_ids=list(ids), max_tokens=len(got), temperature=0.0, top_k=0,
+        top_p=1.0, **kw))
+    while not eng._prefill_one_chunk(adm):
+        pass
+    eng._finish_admission(adm)
+    near = []
+
+    def settle(step, chose, row_logits):
+        """The run's token where the replay chose another: a near-tie or a
+        failure; the counts and the fed token follow the run."""
+        want = got[step]
+        if chose == want:
+            return
+        top = row_logits.abs().max()
+        gap = ((row_logits.max() - row_logits[want]) / top).item()
+        near.append({"step": step, "gap": gap})
+        if gap > TIE_BAND:
+            raise AssertionError(f"features: the penalized replay chose "
+                                 f"{chose} at step {step}, the run {want} "
+                                 f"(gap {gap})")
+        eng._pstate.counts[0, chose] -= 1
+        eng._pstate.counts[0, want] += 1
+        eng._tokens[0] = want
+
+    settle(0, int(eng._tokens[0]), adm.last_logits.float())
+    totals = collections.Counter()
+    for step in range(1, len(got)):
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        pos = eng._positions.clone()
+        tok_in = eng._tokens.clone()
+        out, _, _, eng._tokens, eng._positions, eng._active, _, _ = \
+            generate.decode_loop(params, cfg, eng._tokens, eng._positions,
+                                 eng._active, eng._cache, eng._sstate, 1,
+                                 eos_ids=eng._eos_ids, window=FEATURE_WINDOW,
+                                 n_top=5, pstate=eng._pstate)
+        torch.cuda.synchronize()
+        totals.update(ck.launch_counts)
+        chose = int(out[0, 0])
+        if chose != got[step]:
+            # the step's adjusted logits, before its own count
+            eng._pstate.counts[0, chose] -= 1
+            row, _ = llama.decode_step(params, cfg, tok_in, pos, eng._cache,
+                                       window=FEATURE_WINDOW)
+            row = generate.apply_penalties(row.float(), eng._pstate)[0]
+            eng._pstate.counts[0, chose] += 1
+            settle(step, chose, row)
+    steps = len(got) - 1
+    on = step_launches(totals, steps)
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    generate.decode_loop(params, cfg, eng._tokens, eng._positions,
+                         eng._active, eng._cache, eng._sstate, 4,
+                         eos_ids=eng._eos_ids, window=FEATURE_WINDOW)
+    torch.cuda.synchronize()
+    off = step_launches(ck.launch_counts, 4)
+    feature_check({"check": "penalized stream = decode_loop replay, one "
+                   "step at a time, same slot and PenaltyState",
+                   "tokens": len(got), "near_ties": near,
+                   "tie_band": TIE_BAND}, True)
+    feature_check({"check": "launches a decode step, features on (penalties"
+                   ", n_top 5) and off", "on": on, "off": off,
+                   "want": STEP_LAUNCHES},
+                  on == off == {k: float(n) for k, n
+                                in STEP_LAUNCHES.items()})
+
+
+def top_rows_check(label: str, reqs) -> None:
+    """Every token, the first included, carries the request's k rows,
+    sorted and all <= 0, headed (greedy) by the token itself within 1e-3
+    of its token_logprobs entry, or by another id of exactly the token's
+    logprob: the bf16 logits of random weights tie exactly, and the argmax
+    and the top-k may then pick different ids (counted)."""
+    bad, ties = [], 0
+    for r in reqs:
+        if len(r.token_top) != len(r.token_ids) or not r.token_ids:
+            bad.append(("rows", len(r.token_top), len(r.token_ids)))
+        for i, (tid, lp, row) in enumerate(zip(r.token_ids, r.token_logprobs,
+                                               r.token_top)):
+            xs = [x for _, x in row]
+            tie = row[0][0] != tid and row[0][1] == lp
+            ties += tie
+            if (len(row) != r.top_logprobs or xs != sorted(xs, reverse=True)
+                    or xs[0] > 0 or (row[0][0] != tid and not tie)
+                    or abs(row[0][1] - lp) > 1e-3):
+                bad.append((r.top_logprobs, i, tid, lp, row[:2]))
+    feature_check({"check": f"top_logprobs rows ({label})",
+                   "ks": [r.top_logprobs for r in reqs],
+                   "tokens": [len(r.token_ids) for r in reqs],
+                   "heads_tied_exactly": ties, "bad": bad[:4]}, not bad)
+
+
+def features_phase(cfg, params, dev, gpu_line: str) -> None:
+    """Penalties and logit_bias, logprobs and top_logprobs, and the
+    per-request seed on the 1B int4 model at full width and depth, in the
+    server's default configuration (8 slots, max_seq 2048, paired int8
+    cache, s8): the functions on the card against the CPU
+    (`feature_function_checks`), then the engine: a forcing logit_bias; a
+    penalized request beside 7 plain ones against its `decode_loop` replay
+    (`replay_penalized`); top_logprobs 1, 5 and 20 on the plain loop and
+    with speculation 7; a seeded request alone and beside 7 unseeded
+    neighbours, and three seeds; then the ten chat requests without and
+    with a penalized and a top_logprobs request, in turns, ms a decode
+    step."""
+    from gabby_tpu_torch.ops import cuda as ck
+    from gabby_tpu_torch.runtime.engine import Engine, EngineConfig
+    from gabby_tpu_torch.tokenizer import Tokenizer
+
+    t0 = time.perf_counter()
+    v = cfg.vocab_size
+    tok = Tokenizer.byte_fallback(v)
+    feature_function_checks(cfg, params, dev)
+    torch.cuda.empty_cache()
+    default = dict(batch_slots=8, max_seq=2048, kv_quantized=True,
+                   pair_kv_heads=True)
+
+    def engine(**kw):
+        return Engine(cfg, params, tok, EngineConfig(**default, **kw),
+                      device=dev)
+
+    def window_line(label, eng, stats0, counts):
+        steps = eng.stats_snapshot()["decode_steps"] - stats0["decode_steps"]
+        emit({"phase": "features", "window": label, "decode_steps": steps,
+              "launches": {k: counts[k] for k in STEP_LAUNCHES},
+              "launches_a_step_with_prefill": step_launches(counts, steps)})
+
+    ck.set_attn_s8(True)
+    try:
+        # logit_bias: a +100 bias forces its token from the first on
+        forced = 12345
+        eng = engine()
+        try:
+            req = eng.submit_ids(stream(500, 100, v), max_tokens=16,
+                                 logit_bias={forced: 100.0})
+            serve_all([req])
+        finally:
+            eng.shutdown()
+        feature_check({"check": "logit_bias {%d: 100}, greedy" % forced,
+                       "tokens": req.token_ids},
+                      req.token_ids == [forced] * 16)
+
+        # penalties: a greedy penalized request in slot 0 beside 7 plain
+        pen_kw = dict(presence_penalty=1.5, frequency_penalty=1.2,
+                      repetition_penalty=1.3)
+        pen_ids = stream(510, 120, v)
+        eng = engine()
+        try:
+            ck.reset_launch_counts()
+            stats0 = eng.stats_snapshot()
+            pen = eng.submit_ids(pen_ids, max_tokens=NEW_TOKENS, **pen_kw)
+            wait_first_token(pen)
+            plain = [eng.submit_ids(stream(520 + i, 60 + 20 * i, v),
+                                    max_tokens=NEW_TOKENS) for i in range(7)]
+            serve_all([pen] + plain)
+            torch.cuda.synchronize()
+            window_line("penalized + 7 plain", eng, stats0,
+                        dict(ck.launch_counts))
+            if eng._pstate is not None:
+                raise AssertionError("features: the PenaltyState outlived "
+                                     "its request")
+        finally:
+            eng.shutdown()
+        replay_penalized(cfg, params, tok, dev, pen_ids, pen.token_ids,
+                         pen_kw)
+        torch.cuda.empty_cache()
+
+        # top_logprobs on the plain loop and with speculation
+        keep_spec = dict(speculate_tokens=7, spec_auto_breakeven=False,
+                         spec_breakeven=1.0)
+        for label, kw in (("plain", {}), ("speculate 7", keep_spec)):
+            eng = engine(**kw)
+            try:
+                ck.reset_launch_counts()
+                stats0 = eng.stats_snapshot()
+                reqs = [eng.submit_ids(stream(600 + i, 50 + 40 * i, v),
+                                       max_tokens=NEW_TOKENS,
+                                       top_logprobs=k)
+                        for i, k in enumerate((1, 5, 20, 5, 1))]
+                serve_all(reqs)
+                torch.cuda.synchronize()
+                window_line(f"top_logprobs, {label}", eng, stats0,
+                            dict(ck.launch_counts))
+                stats = eng.stats_snapshot()
+            finally:
+                eng.shutdown()
+            if kw and not stats["spec_macro_steps"]:
+                raise AssertionError("features: speculation did not run")
+            top_rows_check(label, reqs)
+
+        # the seed: alone, then beside 7 unseeded sampled neighbours
+        sampled = dict(max_tokens=NEW_TOKENS, temperature=1.0)
+        seed_ids = stream(700, 90, v)
+
+        def seeded(seed, neighbours):
+            eng = engine()
+            try:
+                req = eng.submit_ids(seed_ids, seed=seed, **sampled)
+                others = []
+                if neighbours:
+                    wait_first_token(req)
+                    others = [eng.submit_ids(stream(710 + i, 40 + 30 * i, v),
+                                             **sampled) for i in range(7)]
+                serve_all([req] + others)
+            finally:
+                eng.shutdown()
+            return req.token_ids
+
+        alone = seeded(11, False)
+        beside = seeded(11, True)
+        feature_check({"check": "seed 11: alone = beside 7 unseeded",
+                       "tokens": len(alone),
+                       "equal": sum(a == b for a, b in zip(alone, beside))},
+                      alone == beside)
+        streams = {tuple(alone), tuple(seeded(12, False)),
+                   tuple(seeded(13, False))}
+        feature_check({"check": "seeds 11, 12, 13: distinct streams",
+                       "distinct": len(streams)}, len(streams) >= 2)
+        torch.cuda.empty_cache()
+    finally:
+        ck.set_attn_s8(None)
+
+    # wall: the ten chat requests, and the same with request 0 penalized
+    # and request 1 asking for top_logprobs 5, in turns (plain, features,
+    # features, plain)
+    runs = {"plain": None,
+            "penalized + top_logprobs 5": {0: pen_kw,
+                                           1: dict(top_logprobs=5)}}
+    walls = collections.defaultdict(list)
+    for label in ("plain", "penalized + top_logprobs 5",
+                  "penalized + top_logprobs 5", "plain"):
+        report = {}
+        engine_phase(cfg, params, tok, dev, gpu_line,
+                     f"int4, in memory; paired, s8; features: {label}",
+                     buckets=[16, 64, 256, 512], s8=True, pair_kv_heads=True,
+                     must_launch=["int4_matmul_stacked",
+                                  "int4_matmul_grouped",
+                                  "decode_attention_s8_paired"],
+                     may_launch=["prefill_attention_paired"],
+                     request_kw=runs[label], report=report)
+        walls[label].append({
+            "wall_s": report["wall_s"],
+            "decode_steps": report["decode_steps"],
+            "ms_a_decode_step": 1e3 * report["wall_s"]
+            / report["decode_steps"]})
+    emit({"phase": "features", "wall": walls, "card": gpu_line,
+          "seconds": time.perf_counter() - t0})
+
+
 # chat prompts of the first engine run: content lengths in characters. A
 # chat prompt is its content plus 23 template tokens under the byte
 # tokenizer; the chunk schedules cover buckets 64, 256 and 512, multi-chunk
@@ -1881,7 +2323,8 @@ def engine_phase(cfg, params, tok, dev, gpu_line: str, label: str, *,
                  prompt_lens=None, must_launch, may_launch=(), buckets,
                  s8: bool = False,
                  multi: bool = False, rawdot: bool = False,
-                 kv_quantized: bool = True, **engine_kw):
+                 kv_quantized: bool = True, request_kw=None, report=None,
+                 **engine_kw):
     """Serves one batch of concurrent requests through the engine with the
     launch counts set to 0 just before and read just after. The prompts
     are chat messages (prompt_lens None: CONTENT_SIZES) or token ids of
@@ -1893,7 +2336,9 @@ def engine_phase(cfg, params, tok, dev, gpu_line: str, label: str, *,
     `must_launch` and `may_launch` must stay at 0: each has a path of its
     own; so must the
     stacked int4 form the run did not ask for (K1 with `rawdot`, K33
-    without). Returns (counts, prompt lengths)."""
+    without). `request_kw` maps a request's index to further submit
+    arguments; `report` receives the printed line. Returns (counts,
+    prompt lengths)."""
     from gabby_tpu_torch.ops import cuda as ck
     from gabby_tpu_torch.runtime.engine import Engine, EngineConfig
 
@@ -1911,18 +2356,20 @@ def engine_phase(cfg, params, tok, dev, gpu_line: str, label: str, *,
         ck.reset_launch_counts()
         stats0 = eng.stats_snapshot()
         t0 = time.perf_counter()
+        extra = request_kw or {}
         if prompt_lens is None:
             reqs = [eng.submit(
                 [{"role": "user",
                   "content": "".join(chr(97 + (i * 7 + j) % 26)
                                      for j in range(n))}],
-                max_tokens=NEW_TOKENS)
+                max_tokens=NEW_TOKENS, **extra.get(i, {}))
                 for i, n in enumerate(CONTENT_SIZES)]
         else:
             span = min(cfg.vocab_size, tok.vocab_size) - 16
             reqs = [eng.submit_ids(
                 [(i * 7919 + j * 104729) % span + 1 for j in range(n)],
-                max_tokens=NEW_TOKENS) for i, n in enumerate(prompt_lens)]
+                max_tokens=NEW_TOKENS, **extra.get(i, {}))
+                for i, n in enumerate(prompt_lens)]
         fins = []
         for req in reqs:
             while True:
@@ -1986,6 +2433,8 @@ def engine_phase(cfg, params, tok, dev, gpu_line: str, label: str, *,
         line.update(spec_macro_steps=macro, spec_tokens=emitted,
                     tokens_per_macro_step=emitted / macro)
     emit(line)
+    if report is not None:
+        report.update(line)
     return counts, lens
 
 
@@ -2116,11 +2565,15 @@ def load_checkpoint(path: str, bits: int, source, dev):
     return cfg, llama.fuse_projections(params), tok
 
 
-def http_phase(label: str, weights_args: list, env=None):
+def http_phase(label: str, weights_args: list, env=None,
+               features: bool = False):
     """`python -m gabby_tpu_torch.server` as a user starts it (its own
     process, the server on its main thread; `env` adds to its
     environment) with `weights_args` and a small engine, one chat
-    completion through the C++ front-end, then SIGTERM."""
+    completion through the C++ front-end (with `features`, then a second
+    one with `logprobs`, `top_logprobs` 3 and a `seed`, which must carry
+    as many logprob entries, each with 3 alternatives, as completion
+    tokens), then SIGTERM."""
     if shutil.which("cmake") is None:
         emit({"phase": "http", "weights": label,
               "skipped": "cmake is not installed, so the "
@@ -2159,6 +2612,27 @@ def http_phase(label: str, weights_args: list, env=None):
         conn.close()
         if resp.status != 200 or body["usage"]["completion_tokens"] < 1:
             raise AssertionError(f"http ({label}): {resp.status} {body}")
+        if features:
+            conn = http.client.HTTPConnection("127.0.0.1", conn.port,
+                                              timeout=300)
+            conn.request("POST", "/v1/chat/completions", body=json.dumps({
+                "model": "m", "max_tokens": 8, "temperature": 1.0,
+                "seed": 7, "logprobs": True, "top_logprobs": 3,
+                "messages": [{"role": "user", "content": "hello"}]}))
+            lp_resp = conn.getresponse()
+            lp_body = json.loads(lp_resp.read())
+            conn.close()
+            entries = ((lp_body.get("choices") or [{}])[0].get("logprobs")
+                       or {}).get("content", [])
+            n = lp_body.get("usage", {}).get("completion_tokens", 0)
+            emit({"phase": "http", "weights": label,
+                  "request": "logprobs, top_logprobs 3, seed 7",
+                  "status": lp_resp.status, "completion_tokens": n,
+                  "logprob_entries": len(entries)})
+            if (lp_resp.status != 200 or n < 1 or len(entries) != n
+                    or any(len(e["top_logprobs"]) != 3 for e in entries)):
+                raise AssertionError(f"http ({label}): {lp_resp.status} "
+                                     f"{lp_body}")
         ok = True
     finally:
         proc.terminate()
@@ -2299,6 +2773,9 @@ def main() -> int:
         may_launch=["prefill_attention_paired"], **paged)
     # burst admission and prefix reuse in the same configuration
     admission_phase(cfg, params, dev, gpu_line)
+    torch.cuda.empty_cache()
+    # penalties and logit_bias, logprobs and top_logprobs, the seed
+    features_phase(cfg, params, dev, gpu_line)
     torch.cuda.empty_cache()
     # the same configuration with the raw-byte-dot form of the stacked
     # int4 products (GABBY_INT4_RAWDOT=1): K33 in place of K1, card against
@@ -2464,7 +2941,7 @@ def main() -> int:
         servers = [
             ("the literal defaults: random bf16, bf16 paired cache",
              ["--preset", "llama32_1b", "--random-weights"], None),
-            ("random int4", random_int4, None),
+            ("random int4", random_int4, None, True),
             ("int8 checkpoint, --no-pair-kv, GABBY_ATTN_S8=0",
              ["--model-dir", dirs[8], "--kv-quant", "--no-pair-kv"],
              {"GABBY_ATTN_S8": "0"}),

@@ -13,6 +13,7 @@ continuous batching makes those calls overlap on device.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import json
 import os
 import subprocess
@@ -53,20 +54,25 @@ def build_native(repo_root: str = _REPO_ROOT) -> str:
     libstdc++ and libgcc are linked statically, their symbols hidden. With
     the shared libstdc++ of GCC 13, the first number the front-end's logger
     formatted after torch had loaded segfaulted in std::ostream (seen on an
-    H100 host, Ubuntu 24.04); the static build serves there."""
+    H100 host, Ubuntu 24.04); the static build serves there. Processes
+    that build at once take turns (a file lock), so none loads a library
+    another is still linking."""
     build_dir = os.path.join(repo_root, _BUILD_DIR)
     lib = os.path.join(build_dir, "libgabby_bridge.so")
-    if os.path.exists(lib):
-        return lib
-    subprocess.run(
-        ["cmake", "-S", os.path.join(repo_root, "cpp"), "-B", build_dir,
-         "-DCMAKE_BUILD_TYPE=Release",
-         "-DCMAKE_SHARED_LINKER_FLAGS=-static-libstdc++ -static-libgcc "
-         "-Wl,--exclude-libs,ALL"],
-        check=True, capture_output=True)
-    subprocess.run(["cmake", "--build", build_dir, "-j", "4",
-                    "--target", "gabby_bridge"],
-                   check=True, capture_output=True)
+    os.makedirs(build_dir, exist_ok=True)
+    with open(os.path.join(build_dir, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(lib):
+            return lib
+        subprocess.run(
+            ["cmake", "-S", os.path.join(repo_root, "cpp"), "-B", build_dir,
+             "-DCMAKE_BUILD_TYPE=Release",
+             "-DCMAKE_SHARED_LINKER_FLAGS=-static-libstdc++ -static-libgcc "
+             "-Wl,--exclude-libs,ALL"],
+            check=True, capture_output=True)
+        subprocess.run(["cmake", "--build", build_dir, "-j", "4",
+                        "--target", "gabby_bridge"],
+                       check=True, capture_output=True)
     return lib
 
 

@@ -9,6 +9,15 @@ from an EXACT `torch.topk`, where the TPU reference uses `approx_max_k`
 tokens agree token for token. Random draws come from an explicit
 `torch.Generator` and do not reproduce the reference's threefry stream.
 
+Per-request seeds (OpenAI `seed`): a lane with seed >= 0 draws from a
+stream that depends only on (seed, position) and its own filtered
+candidates, so its output reproduces whatever shares the batch. The
+reference folds the position into a threefry key; the port hashes (seed,
+position, rank) into Gumbel noise over the candidates on the device, with
+integer arithmetic that stays inside int64 (so the CPU and the card
+compute the same integers), no host sync and no per-lane generator. The
+tokens differ from the reference's; the determinism contract is the same.
+
 Conventions: temperature == 0 -> greedy; top_k == 0 -> disabled;
 top_p >= 1.0 -> disabled (within the candidate set).
 """
@@ -23,12 +32,47 @@ NEG_INF = -1e30
 MAX_CANDIDATES = 128
 
 
+_MASK32 = 0xFFFFFFFF
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer hash (xorshift-multiply) on int64 tensors holding
+    values in [0, 2^32): every product stays below 2^59."""
+    x = x ^ (x >> 16)
+    x = (x * 0x45D9F3B) & _MASK32
+    x = x ^ (x >> 16)
+    x = (x * 0x45D9F3B) & _MASK32
+    return x ^ (x >> 16)
+
+
+def lane_gumbel(seeds: torch.Tensor, positions: torch.Tensor,
+                k: int) -> torch.Tensor:
+    """Gumbel noise [B, k] f32 for candidate ranks 0..k-1, a function of
+    (seed, position, rank) alone: the seeded lanes' counter-hash stream."""
+    s = seeds.long() & _MASK32
+    p = positions.long() & _MASK32
+    h = _mix32(_mix32(s) ^ p)[:, None]
+    ranks = torch.arange(k, device=seeds.device, dtype=torch.int64)[None, :]
+    h = _mix32((h + ranks * 0x9E3779B9) & _MASK32)
+    # 24 bits to a uniform strictly inside (0, 1), exact in f32
+    u = ((h >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+    return -torch.log(-torch.log(u))
+
+
 def sample(logits: torch.Tensor, generator: Optional[torch.Generator], *,
            temperature: torch.Tensor, top_k: torch.Tensor,
            top_p: torch.Tensor,
-           max_candidates: int = MAX_CANDIDATES) -> torch.Tensor:
+           max_candidates: int = MAX_CANDIDATES,
+           lane_seeds: Optional[torch.Tensor] = None,
+           lane_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """logits: [B, V] f32; temperature/top_p: [B] f32; top_k: [B] int.
-    Returns sampled token ids [B] int32."""
+    Returns sampled token ids [B] int32.
+
+    lane_seeds [B] int (with lane_positions [B] int): lanes with seed >= 0
+    draw from their own (seed, position) stream (`lane_gumbel`); lanes at
+    -1 keep `generator`'s draw. The global draw is made for every lane
+    whatever the seeds, so an unseeded lane's stream does not depend on
+    whether a seeded one ran beside it."""
     b, v = logits.shape
     k = min(max_candidates, v)
     temp = torch.clamp(temperature, min=1e-6)[:, None]
@@ -48,6 +92,11 @@ def sample(logits: torch.Tensor, generator: Optional[torch.Generator], *,
                            torch.full_like(scaled, NEG_INF))
     choice = torch.multinomial(torch.softmax(filtered, dim=-1), 1,
                                generator=generator)  # [B, 1] in [0, K)
+    if lane_seeds is not None:
+        lane_choice = torch.argmax(
+            filtered + lane_gumbel(lane_seeds, lane_positions, k), dim=-1)
+        choice = torch.where(lane_seeds[:, None] >= 0, lane_choice[:, None],
+                             choice)
     sampled = torch.gather(idx, 1, choice)[:, 0]
     greedy_ids = torch.argmax(logits, dim=-1)  # exact, not top-1 of topk
     return torch.where(temperature <= 0.0, greedy_ids,

@@ -34,10 +34,12 @@ gabby_tpu/runtime/engine.py).
   demand, before every prefill chunk and every burst. A finished
   request's pages stay resident as a prefix donor until the slot is
   reused or the pool needs them.
+* Request features: OpenAI penalties and logit_bias (a lazily created
+  generate.PenaltyState; penalized requests admit singly and decode on
+  the plain loop), logprobs and top_logprobs of every emitted token, the
+  first included, and the per-request seed (sampling.lane_gumbel).
 
-Not yet ported from the reference engine (a request or config that asks
-for them is refused, never silently ignored): penalties and logit_bias,
-logprobs/top_logprobs, per-request seed, multi-host serving and
+Not yet ported from the reference engine: multi-host serving and
 pipelined fetches.
 """
 
@@ -149,10 +151,38 @@ class Request:
     cancelled: bool = False  # set by Engine.cancel
     # every generated token id, appended before each out-queue push
     token_ids: list[int] = dataclasses.field(default_factory=list)
+    # each generated token's log-probability under the full (penalized)
+    # softmax, parallel to token_ids and appended before the same push
+    token_logprobs: list[float] = dataclasses.field(default_factory=list)
     # higher priority admits first; deadline_s is a budget from submission
     priority: int = 0
     deadline_s: Optional[float] = None
+    # OpenAI penalties: presence/frequency in [-2, 2] (0 = off) and
+    # logit_bias {token id: bias in [-100, 100]}, applied to every sampled
+    # distribution, the first token's included; logprobs report the
+    # ADJUSTED distribution. repetition_penalty (HF/vLLM extension): tokens
+    # seen in the prompt or sampled so far get logit/rep when positive,
+    # logit*rep when negative; 1.0 = off
+    presence_penalty: float = 0.0
+    frequency_penalty: float = 0.0
+    logit_bias: Optional[dict[int, float]] = None
+    repetition_penalty: float = 1.0
+    # OpenAI `seed`, normalized to [0, 2^31) at submit; None = the
+    # engine's stream. A seeded request reproduces its sampled output
+    # whatever shares the batch
+    seed: Optional[int] = None
     internal: bool = False  # warm-up traffic: kept out of the stats
+    # OpenAI `top_logprobs`: 0 = off; 1-20 = per generated token, the top-k
+    # alternatives of its distribution as (id, logprob) pairs (parallel to
+    # token_ids, appended after token_logprobs)
+    top_logprobs: int = 0
+    token_top: list[list[tuple[int, float]]] = dataclasses.field(
+        default_factory=list)
+
+    @property
+    def penalized(self) -> bool:
+        return bool(self.presence_penalty or self.frequency_penalty
+                    or self.logit_bias or self.repetition_penalty != 1.0)
 
 
 @dataclasses.dataclass
@@ -167,6 +197,9 @@ class _Slot:
             errors="replace"))
     text_held: str = ""
     drop_tail: bool = False
+    # the first token's top-candidate (logprobs, ids) rows on the device,
+    # taken at admission when the request asked for top_logprobs
+    first_top: Optional[tuple] = None
 
 
 @dataclasses.dataclass
@@ -180,11 +213,11 @@ class _Admission:
     last_logits: Optional[torch.Tensor] = None
 
 
-# request fields of the reference engine that this port refuses, with the
-# value that means "not asked for"
-_DEFERRED = {"top_logprobs": 0, "presence_penalty": 0.0,
-             "frequency_penalty": 0.0, "logit_bias": None,
-             "repetition_penalty": 1.0, "seed": None}
+def _n_top_bucket(n: int) -> int:
+    """The call-wide top_logprobs width: 0, or 5, 10 or 20."""
+    if not n:
+        return 0
+    return 5 if n <= 5 else (10 if n <= 10 else 20)
 
 
 class Engine:
@@ -258,6 +291,12 @@ class Engine:
                                      device=dev)
         self._active = torch.zeros(b, dtype=torch.bool, device=dev)
         self._sstate = generate.SamplingState.greedy(b, dev, econfig.seed)
+        # the first tokens' logprobs, written at admission on the device
+        self._first_lp = torch.zeros(b, dtype=torch.float32, device=dev)
+        # penalty rows, created when a penalized request is admitted and
+        # dropped when the last one leaves (_pen_slots: their slots)
+        self._pstate: Optional[generate.PenaltyState] = None
+        self._pen_slots: set[int] = set()
         # per-slot token history: the n-gram speculation corpus (the prompt
         # placed at admission, generated tokens appended on the device)
         self._history = torch.zeros((b, econfig.max_seq), dtype=torch.int32,
@@ -324,22 +363,48 @@ class Engine:
                    top_k: Optional[int] = None,
                    top_p: Optional[float] = None,
                    stop: Optional[list[str]] = None,
+                   top_logprobs: int = 0,
                    priority: int = 0,
                    deadline_s: Optional[float] = None,
-                   internal: bool = False, **deferred) -> Request:
+                   presence_penalty: float = 0.0,
+                   frequency_penalty: float = 0.0,
+                   logit_bias: Optional[dict] = None,
+                   repetition_penalty: float = 1.0,
+                   seed: Optional[int] = None,
+                   internal: bool = False) -> Request:
         ec = self.ec
-        for name, value in deferred.items():
-            if name not in _DEFERRED:
-                raise TypeError(f"submit_ids() got an unexpected keyword "
-                                f"argument {name!r}")
-            if value is not None and value != {} \
-                    and value != _DEFERRED[name]:
-                raise RequestError(f"{name} is not supported by this "
-                                   f"server yet")
+        if not 0 <= (top_logprobs or 0) <= 20:
+            raise RequestError("top_logprobs must be in [0, 20]")
+        if not 0.0 < (repetition_penalty or 1.0) <= 10.0:
+            raise RequestError("repetition_penalty must be in (0, 10]")
         if not -8 <= int(priority or 0) <= 8:
             raise RequestError("priority must be in [-8, 8]")
         if deadline_s is not None and not deadline_s > 0:
             raise RequestError("deadline_ms must be > 0")
+        for name, v in (("presence_penalty", presence_penalty),
+                        ("frequency_penalty", frequency_penalty)):
+            if not -2.0 <= (v or 0.0) <= 2.0:
+                raise RequestError(f"{name} must be in [-2, 2]")
+        if seed is not None:
+            try:
+                seed = int(seed) & 0x7FFFFFFF
+            except (TypeError, ValueError):
+                raise RequestError("seed must be an integer")
+        bias: Optional[dict[int, float]] = None
+        if logit_bias:
+            try:
+                bias = {int(k): float(v) for k, v in logit_bias.items()}
+            except (TypeError, ValueError):
+                raise RequestError("logit_bias keys must be token ids")
+            if len(bias) > 300:  # OpenAI's documented cap
+                raise RequestError("logit_bias supports at most 300 entries")
+            for k, v in bias.items():
+                if not 0 <= k < self.cfg.vocab_size:
+                    raise RequestError(f"logit_bias token id {k} out of "
+                                       f"vocab range")
+                if not -100.0 <= v <= 100.0:
+                    raise RequestError("logit_bias values must be in "
+                                       "[-100, 100]")
         limit = ec.max_seq - 1
         if len(prompt_ids) > limit:
             raise RequestError(
@@ -362,8 +427,13 @@ class Engine:
             top_p=top_p if top_p is not None and 0 < top_p <= 1
             else ec.default_top_p,
             stop=[s for s in (stop or []) if s][:8],
+            top_logprobs=int(top_logprobs or 0),
             priority=int(priority or 0), deadline_s=deadline_s,
-            internal=internal)
+            presence_penalty=float(presence_penalty or 0.0),
+            frequency_penalty=float(frequency_penalty or 0.0),
+            logit_bias=bias,
+            repetition_penalty=float(repetition_penalty or 1.0),
+            seed=seed, internal=internal)
         # a stopped engine must not accept work nobody will drain; the
         # check and the enqueue share the lock with shutdown's flag flip
         with self._lock:
@@ -638,7 +708,8 @@ class Engine:
         the shortest waiting prompt (at most two chunks) into one burst: (the
         schedule, the slots, the requests), taken off the backlog. Requests
         with a strong resident-prefix match are left to the single path
-        (a row copy and a short suffix prefill). On the paged cache a burst
+        (a row copy and a short suffix prefill), and so are penalized ones
+        (their admission writes penalty rows). On the paged cache a burst
         starts only if the pool backs every lane's pages with 2 to spare."""
         free = [i for i, s in enumerate(self._slots) if s is None]
         if len(free) < 2:
@@ -664,7 +735,7 @@ class Engine:
             if len(group) >= len(free):
                 break
             _, common = self._find_donor(r.prompt_ids)
-            if common * 2 >= len(r.prompt_ids):
+            if common * 2 >= len(r.prompt_ids) or r.penalized:
                 continue
             if (len(sched) <= 2
                     and self._chunk_schedule(len(r.prompt_ids)) == sched):
@@ -756,20 +827,26 @@ class Engine:
         temp = np.full((b,), ec.default_temperature, np.float32)
         topk = np.full((b,), ec.default_top_k, np.int32)
         topp = np.full((b,), ec.default_top_p, np.float32)
+        seeds = np.full((b,), -1, np.int32)
         for slot_ix, r in zip(slots, group):
             temp[slot_ix], topk[slot_ix], topp[slot_ix] = (
                 r.temperature, r.top_k, r.top_p)
+            seeds[slot_ix] = -1 if r.seed is None else r.seed
             self._write_prompt_history(slot_ix, r.prompt_ids)
         generate.admit_slots(
             logits, lengths_d, torch.from_numpy(temp).to(dev),
             torch.from_numpy(topk).to(dev), torch.from_numpy(topp).to(dev),
             lane_mask, self._tokens, self._positions, self._active,
-            self._sstate, self._history)
+            self._sstate, self._history, first_lp=self._first_lp,
+            seeds=torch.from_numpy(seeds).to(dev))
         now = time.monotonic()
         for slot_ix, r in zip(slots, group):
             self._slot_prompts[slot_ix] = list(r.prompt_ids)
-            self._slots[slot_ix] = _Slot(request=r,
-                                         prompt_len=len(r.prompt_ids))
+            slot = _Slot(request=r, prompt_len=len(r.prompt_ids))
+            if r.top_logprobs:
+                slot.first_top = generate.top_candidates(
+                    logits[slot_ix], r.top_logprobs)
+            self._slots[slot_ix] = slot
             self._count_admitted(r, now)
         with self._lock:
             self.stats["burst_admissions"] += sum(not r.internal
@@ -819,24 +896,76 @@ class Engine:
         if self._paged:
             self._release_slot_pages(adm.slot_ix)
 
+    def _setup_penalties(self, slot_ix: int, req: Request,
+                         ids) -> Optional[tuple]:
+        """Write a penalized request's rows into the (lazily created)
+        PenaltyState and return its [V] admission rows (counts, bias,
+        prompt mask) on the device, or None for a request without
+        penalties. Freed slots' rows are cleared in _finish, so clean slots
+        need no clearing here."""
+        if not req.penalized:
+            return None
+        v, dev = self.cfg.vocab_size, self.device
+        if self._pstate is None:
+            self._pstate = generate.PenaltyState.zeros(
+                self.ec.batch_slots, v, dev)
+        # counts start at ZERO: OpenAI's formula counts the tokens SAMPLED
+        # so far, never the prompt's; the prompt-presence mask feeds only
+        # repetition_penalty
+        counts_row = torch.zeros(v, dtype=torch.int32, device=dev)
+        bias_row = np.zeros((v,), np.float32)
+        for k, bias in (req.logit_bias or {}).items():
+            bias_row[k] = bias
+        prompt_row = np.zeros((v,), bool)
+        prompt_row[np.asarray(ids, np.int64)] = True
+        bias_row = torch.from_numpy(bias_row).to(dev)
+        prompt_row = torch.from_numpy(prompt_row).to(dev)
+        generate.set_penalty_slot(
+            self._pstate, slot_ix, counts_row, req.presence_penalty,
+            req.frequency_penalty, bias_row, req.repetition_penalty,
+            prompt_row)
+        self._pen_slots.add(slot_ix)
+        return counts_row, bias_row, prompt_row
+
     def _finish_admission(self, adm: _Admission) -> None:
         """Activate the prefilled slot; its first token is sampled on the
-        device and reaches the host with the next burst's fetch. The slot's
-        cache now holds the whole prompt: it registers as a prefix donor."""
-        req, n = adm.req, len(adm.ids)
-        self._write_prompt_history(adm.slot_ix, adm.ids)
-        generate.admit_slot(adm.last_logits, adm.slot_ix, n, req.temperature,
+        device (from the penalty-adjusted row for a penalized request, and
+        counted) and reaches the host with the next burst's fetch. The
+        slot's cache now holds the whole prompt: it registers as a prefix
+        donor."""
+        req, n, slot_ix = adm.req, len(adm.ids), adm.slot_ix
+        self._write_prompt_history(slot_ix, adm.ids)
+        pen_rows = self._setup_penalties(slot_ix, req, adm.ids)
+        if pen_rows is not None:
+            counts_row, bias_row, prompt_row = pen_rows
+            adm.last_logits = generate.penalize_row(
+                adm.last_logits, counts_row, req.presence_penalty,
+                req.frequency_penalty, bias_row, req.repetition_penalty,
+                prompt_row)
+        generate.admit_slot(adm.last_logits, slot_ix, n, req.temperature,
                             req.top_k, req.top_p, self._tokens,
                             self._positions, self._active, self._sstate,
-                            history=self._history)
-        self._slots[adm.slot_ix] = _Slot(request=req, prompt_len=n)
-        self._slot_prompts[adm.slot_ix] = list(req.prompt_ids)
+                            history=self._history, first_lp=self._first_lp,
+                            seed=-1 if req.seed is None else req.seed)
+        if pen_rows is not None:
+            # the first token is an emitted token: count it
+            generate.count_slot_token(self._pstate, slot_ix,
+                                      self._tokens[slot_ix])
+        slot = _Slot(request=req, prompt_len=n)
+        if req.top_logprobs:
+            slot.first_top = generate.top_candidates(adm.last_logits,
+                                                     req.top_logprobs)
+        self._slots[slot_ix] = slot
+        self._slot_prompts[slot_ix] = list(req.prompt_ids)
         self._count_admitted(req, time.monotonic())
 
     # ---- emission ----
 
-    def _emit_token(self, slot_ix: int, token_id: int) -> None:
-        """Append a token to the slot's request and stream its text delta.
+    def _emit_token(self, slot_ix: int, token_id: int,
+                    logprob: float = 0.0, top=None) -> None:
+        """Append a token (its logprob, and with top_logprobs its top rows
+        `top` = (ids, logprobs) of the call-wide bucket, cut to the
+        request's own k) to the slot's request and stream its text delta.
         Only the new token's bytes are decoded (an incremental UTF-8
         decoder holds split multi-byte sequences); the last
         max(len(stop)) - 1 characters are held back so a stop string is
@@ -849,6 +978,12 @@ class Engine:
             self._finish(slot_ix, "stop")
             return
         req.token_ids.append(token_id)
+        req.token_logprobs.append(logprob)
+        if req.top_logprobs:
+            k = req.top_logprobs
+            req.token_top.append(
+                [] if top is None else
+                [(int(i), float(x)) for i, x in zip(top[0][:k], top[1][:k])])
         req.completion_tokens = len(req.token_ids)
         raw = self.tokenizer.token_raw(token_id)
         new_text = ""
@@ -906,6 +1041,18 @@ class Engine:
         # hears of the finish
         self._active[slot_ix] = False
         self._positions[slot_ix] = self._park
+        if slot_ix in self._pen_slots:
+            self._pen_slots.discard(slot_ix)
+            if self._pen_slots:
+                # a later admission must not inherit this slot's rows
+                v, dev = self.cfg.vocab_size, self.device
+                generate.set_penalty_slot(
+                    self._pstate, slot_ix,
+                    torch.zeros(v, dtype=torch.int32, device=dev), 0.0, 0.0,
+                    torch.zeros(v, dtype=torch.float32, device=dev), 1.0,
+                    torch.zeros(v, dtype=torch.bool, device=dev))
+            else:
+                self._pstate = None  # back to the penalty-free loop
         req.out.put((tail or None, reason))
 
     # ---- the loop ----
@@ -1017,43 +1164,66 @@ class Engine:
         window = self._attn_window(steps)
         first_slots = [i for i, s in enumerate(self._slots)
                        if s is not None and s.first_pending]
+        # top_logprobs: when a live request asked for alternatives, the
+        # loops also return exact top-k rows, at a width bucketed to
+        # {5, 10, 20}; each request takes its own k from them
+        n_top = _n_top_bucket(max(s.request.top_logprobs
+                                  for s in self._slots if s is not None))
         t_call = time.perf_counter()
-        if self._spec_enabled and not self._probe_plain_now():
+        # penalized batches take the plain loop: a draft's argmax would need
+        # counts that evolve inside the verify block
+        if (self._spec_enabled and self._pstate is None
+                and not self._probe_plain_now()):
             dl = self.ec.speculate_tokens
-            out_em, out_n, self._tokens, self._positions, self._active = \
+            (out_em, out_n, out_lp, self._tokens, self._positions,
+             self._active, out_top_lp, out_top_ids) = \
                 generate.spec_decode_loop(
                     self.params, self.cfg, self._tokens, self._positions,
                     self._active, self._cache, self._sstate, self._history,
-                    steps, dl, self._eos_ids, window=window)
+                    steps, dl, self._eos_ids, window=window, n_top=n_top)
             # ONE host transfer per burst; it also ends the timed window
             packed = generate.pack_spec_host_view(
-                out_em, out_n, self._active, pre_tokens).cpu().numpy()
+                out_em, out_n, self._active, pre_tokens, out_lp,
+                self._first_lp, out_top_lp, out_top_ids).cpu().numpy()
             self._spec_step_s.append((time.perf_counter() - t_call) / steps)
-            self._process_spec_burst(packed, steps, dl + 1, first_slots)
+            self._process_spec_burst(packed, steps, dl + 1, n_top,
+                                     first_slots)
             self._maybe_disable_spec()
         else:
-            out_tokens, out_active, self._tokens, self._positions, \
-                self._active = generate.decode_loop(
-                    self.params, self.cfg, self._tokens, self._positions,
-                    self._active, self._cache, self._sstate, steps,
-                    eos_ids=self._eos_ids, window=window)
+            (out_tokens, out_active, out_lp, self._tokens, self._positions,
+             self._active, out_top_lp, out_top_ids) = generate.decode_loop(
+                self.params, self.cfg, self._tokens, self._positions,
+                self._active, self._cache, self._sstate, steps,
+                eos_ids=self._eos_ids, window=window, n_top=n_top,
+                pstate=self._pstate)
             with self._lock:
                 self.stats["decode_steps"] += steps
-            packed = generate.pack_host_view(out_tokens, out_active,
-                                             self._active, pre_tokens).cpu()
-            self._plain_step_s.append((time.perf_counter() - t_call) / steps)
-            self._process_burst(packed.numpy(), steps, first_slots)
+            packed = generate.pack_host_view(
+                out_tokens, out_active, self._active, pre_tokens, out_lp,
+                self._first_lp, out_top_lp, out_top_ids).cpu()
+            if self._pstate is None:
+                # penalty-free plain bursts only: the penalized loop costs
+                # more and would skew the auto break-even's denominator
+                self._plain_step_s.append(
+                    (time.perf_counter() - t_call) / steps)
+            self._process_burst(packed.numpy(), steps, n_top, first_slots)
             self._maybe_reprobe_spec()
         return True, admitting
 
     def _emit_first_tokens(self, first_slots: list[int],
-                           first_toks: np.ndarray) -> None:
+                           first_toks: np.ndarray,
+                           first_lps: np.ndarray) -> None:
         """First tokens of fresh admissions come before the burst's own."""
         for slot_ix in first_slots:
             slot = self._slots[slot_ix]
             if slot is not None and slot.first_pending:
                 slot.first_pending = False
-                self._emit_token(slot_ix, int(first_toks[slot_ix]))
+                top = None
+                if slot.first_top is not None:
+                    lp, ids = slot.first_top
+                    top = (ids.tolist(), lp.tolist())
+                self._emit_token(slot_ix, int(first_toks[slot_ix]),
+                                 float(first_lps[slot_ix]), top)
 
     def _finish_stopped_lanes(self, active_host: np.ndarray) -> None:
         """A lane the device stopped without an EOS hit the cache capacity."""
@@ -1061,23 +1231,41 @@ class Engine:
             if slot is not None and not active_host[slot_ix]:
                 self._finish(slot_ix, "length")
 
-    def _process_burst(self, packed: np.ndarray, steps: int,
+    @staticmethod
+    def _unpack_floats(packed: np.ndarray, base: int, n_cand: int, b: int,
+                       n_top: int) -> tuple:
+        """The float part of a packed view that starts at `base`: the
+        candidates' logprobs [n_cand], the first tokens' [B], the top rows'
+        logprobs [n_cand, n_top] and ids [n_cand, n_top]."""
+        lp = packed[base:base + n_cand + b].view(np.float32)
+        base += n_cand + b
+        top_lp = packed[base:base + n_cand * n_top].view(np.float32)
+        top_ids = packed[base + n_cand * n_top:base + 2 * n_cand * n_top]
+        return (lp[:n_cand], lp[n_cand:], top_lp.reshape(n_cand, n_top),
+                top_ids.reshape(n_cand, n_top))
+
+    def _process_burst(self, packed: np.ndarray, steps: int, n_top: int,
                        first_slots: list[int]) -> None:
         b = len(self._slots)
         kb = steps * b
         toks = packed[:kb].reshape(steps, b)
         emitted = packed[kb:2 * kb].reshape(steps, b) != 0
         active_host = packed[2 * kb:2 * kb + b] != 0
+        lps, first_lps, top_lp, top_ids = self._unpack_floats(
+            packed, 2 * kb + 2 * b, kb, b, n_top)
         self._emit_first_tokens(first_slots,
-                                packed[2 * kb + b:2 * kb + 2 * b])
+                                packed[2 * kb + b:2 * kb + 2 * b], first_lps)
         for step in range(steps):
             for slot_ix in range(b):
                 if emitted[step, slot_ix]:
-                    self._emit_token(slot_ix, int(toks[step, slot_ix]))
+                    i = step * b + slot_ix
+                    self._emit_token(
+                        slot_ix, int(toks[step, slot_ix]), float(lps[i]),
+                        (top_ids[i], top_lp[i]) if n_top else None)
         self._finish_stopped_lanes(active_host)
 
     def _process_spec_burst(self, packed: np.ndarray, steps: int, t_blk: int,
-                            first_slots: list[int]) -> None:
+                            n_top: int, first_slots: list[int]) -> None:
         """Host bookkeeping of one speculative burst: candidate tokens
         [K, B, T] of which the first counts[k, b] were emitted."""
         b = len(self._slots)
@@ -1085,18 +1273,24 @@ class Engine:
         em = packed[:kbt].reshape(steps, b, t_blk)
         counts = packed[kbt:kbt + kb].reshape(steps, b)
         active_host = packed[kbt + kb:kbt + kb + b] != 0
+        lps, first_lps, top_lp, top_ids = self._unpack_floats(
+            packed, kbt + kb + 2 * b, kbt, b, n_top)
         with self._lock:
             self.stats["decode_steps"] += steps
             self.stats["spec_macro_steps"] += int(np.sum(counts > 0))
             self.stats["spec_tokens"] += int(np.sum(counts))
         self._emit_first_tokens(first_slots,
-                                packed[kbt + kb + b:kbt + kb + 2 * b])
+                                packed[kbt + kb + b:kbt + kb + 2 * b],
+                                first_lps)
         for step in range(steps):
             for slot_ix in range(b):
                 for t in range(int(counts[step, slot_ix])):
                     if self._slots[slot_ix] is None:
                         break  # finished mid-block (max_tokens, stop string)
-                    self._emit_token(slot_ix, int(em[step, slot_ix, t]))
+                    i = (step * b + slot_ix) * t_blk + t
+                    self._emit_token(
+                        slot_ix, int(em[step, slot_ix, t]), float(lps[i]),
+                        (top_ids[i], top_lp[i]) if n_top else None)
         self._finish_stopped_lanes(active_host)
 
     # ---- speculation economics ----

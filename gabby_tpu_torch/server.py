@@ -100,6 +100,27 @@ def _build_engine(args):
     return Engine(cfg, params, tokenizer, econfig, device=device), cfg
 
 
+def _top_entries(engine, rows):
+    """OpenAI `top_logprobs` payload: per generated token, the top-k
+    alternatives of its distribution as [{token, logprob}] (rows are the
+    engine's (id, logprob) pairs)."""
+    return [[{"token": engine.tokenizer.decode([i]),
+              "logprob": round(lp, 6)} for i, lp in row]
+            for row in rows]
+
+
+def _logprob_fields(engine, req, lo: int, hi: int) -> dict:
+    """token_logprobs, tokens and (when asked for) top_logprobs of the
+    request's tokens [lo, hi)."""
+    out = {"token_logprobs": [round(x, 6)
+                              for x in req.token_logprobs[lo:hi]],
+           "tokens": [engine.tokenizer.decode([i])
+                      for i in req.token_ids[lo:hi]]}
+    if req.top_logprobs:
+        out["top_logprobs"] = _top_entries(engine, req.token_top[lo:hi])
+    return out
+
+
 def make_handler(engine):
     """Adapts bridge requests to the engine (the Generator seam)."""
 
@@ -116,8 +137,6 @@ def make_handler(engine):
             priority=int(request.get("priority") or 0),
             deadline_s=(request["deadline_ms"] / 1e3
                         if request.get("deadline_ms") else None),
-            # not yet ported: the engine refuses them when set (the
-            # front-end fills in the "off" values below when absent)
             top_logprobs=int(request.get("top_logprobs") or 0),
             presence_penalty=float(request.get("presence_penalty") or 0.0),
             frequency_penalty=float(request.get("frequency_penalty")
@@ -125,13 +144,10 @@ def make_handler(engine):
             logit_bias=request.get("logit_bias") or None,
             repetition_penalty=float(request.get("repetition_penalty")
                                      or 1.0),
-            seed=(request["seed"] if request.get("seed", -1) >= 0
+            seed=(int(request["seed"]) if request.get("seed", -1) >= 0
                   else None),
         )
         try:
-            if request.get("logprobs"):
-                raise RequestError("logprobs is not supported by this "
-                                   "server yet")
             if request.get("raw"):
                 req = engine.submit_raw(request.get("prompt", ""), **kw)
             else:
@@ -140,12 +156,27 @@ def make_handler(engine):
             emit({"error": str(e), "status": 400, "done": True})
             return
         streaming = bool(request.get("stream"))
+        want_lp = bool(request.get("logprobs"))
+        lp_seen = 0  # tokens whose logprobs went out in earlier chunks
         parts: list[str] = []
         while True:
             delta, fin = req.out.get()
             if delta:
                 if streaming:
-                    if not emit({"delta": delta}):
+                    chunk = {"delta": delta}
+                    if want_lp:
+                        # the tokens delivered since the last chunk (the
+                        # engine appends before each push). token_top is
+                        # appended after token_logprobs: clamp to the
+                        # shorter list, or a row read between the two
+                        # appends would misalign every later chunk
+                        upto = len(req.token_logprobs)
+                        if req.top_logprobs:
+                            upto = min(upto, len(req.token_top))
+                        chunk.update(_logprob_fields(engine, req, lp_seen,
+                                                     upto))
+                        lp_seen = upto
+                    if not emit(chunk):
                         # client went away: free the slot, then drain
                         engine.cancel(req)
                         while fin is None:
@@ -165,7 +196,7 @@ def make_handler(engine):
                 emit({"error": "engine shut down", "status": 503,
                       "done": True})
                 return
-            emit({
+            final = {
                 "delta": "" if streaming else "".join(parts),
                 "done": True,
                 "finish_reason": ("stop" if fin == "stop" else
@@ -173,7 +204,13 @@ def make_handler(engine):
                                   else "length"),
                 "prompt_tokens": len(req.prompt_ids),
                 "completion_tokens": req.completion_tokens,
-            })
+            }
+            if want_lp and req.token_logprobs:
+                # per generated token: its string and log-prob under the
+                # full softmax (the whole list, as the reference sends it)
+                final.update(_logprob_fields(engine, req, 0,
+                                             len(req.token_logprobs)))
+            emit(final)
             return
 
     return handler

@@ -188,14 +188,6 @@ def test_cancel_frees_the_slot(engine):
     assert fin in ("stop", "length")
 
 
-@pytest.mark.parametrize("field,value", [("seed", 7), ("top_logprobs", 2),
-                                         ("logit_bias", {5: 1.0}),
-                                         ("presence_penalty", 0.5)])
-def test_deferred_fields_are_refused(engine, field, value):
-    with pytest.raises(RequestError, match=field):
-        engine.submit(PROMPTS[0], **{field: value})
-
-
 def test_overlong_prompt_is_refused(engine):
     with pytest.raises(RequestError, match="context window"):
         engine.submit_ids(list(range(2, 2 + MAX_SEQ)))

@@ -199,13 +199,6 @@ def test_chat_completion_roundtrip(port):
     assert out["usage"]["completion_tokens"] <= 5
 
 
-@pytest.mark.parametrize("field,value", [("seed", 3), ("logprobs", True)])
-def test_deferred_field_gets_400(port, field, value):
-    status, body = _post(port, {**CHAT, field: value})
-    assert status == 400, body
-    assert field in body
-
-
 @pytest.mark.parametrize("flags", [
     ["--speculate", "4"],
     ["--paged-pages", "33", "--page-size", "16", "--max-seq", "256"],

@@ -549,7 +549,8 @@ def test_spec_decode_loop_matches_reference(model, paged):
     """Three macro-steps of draft length 4 from the same tokens, positions
     and history: slot 0 carries a self-similar prompt, slot 1 a
     non-repeating one, slot 2 is parked. Candidate tokens, counts, final
-    state and history equal gabby_tpu's (greedy, f32)."""
+    state and history equal gabby_tpu's (greedy, f32), and the emitted
+    tokens' logprobs agree within 1e-3."""
     jc, tc, params, tparams = model
     b, d, steps = 3, 4, 3
     prompts = [[5, 9, 5, 9, 5, 9, 5, 9, 5, 9, 5, 9, 5, 9, 5, 9],
@@ -571,13 +572,13 @@ def test_spec_decode_loop_matches_reference(model, paged):
         temperature=jnp.zeros((b,), jnp.float32),
         top_k=jnp.zeros((b,), jnp.int32), top_p=jnp.ones((b,), jnp.float32),
         key=jax.random.PRNGKey(0), seed=jnp.full((b,), -1, jnp.int32))
-    (j_em, j_n, _, j_tok, j_pos, j_act, jcache, _, j_hist, _, _) = \
+    (j_em, j_n, j_lp, j_tok, j_pos, j_act, jcache, _, j_hist, _, _) = \
         jgen.spec_decode_loop(params, jc, jnp.asarray(tokens),
                               jnp.asarray(positions), jnp.asarray(active),
                               jcache, jstate, jnp.asarray(history), steps, d,
                               jnp.asarray(eos))
     thist = _t(history)
-    t_em, t_n, t_tok, t_pos, t_act = tgen.spec_decode_loop(
+    t_em, t_n, t_lp, t_tok, t_pos, t_act, _, _ = tgen.spec_decode_loop(
         tparams, tc, _t(tokens), _t(positions), _t(active), tcache,
         tgen.SamplingState.greedy(b, "cpu"), thist, steps, d, _t(eos))
     j_n = np.asarray(j_n)
@@ -588,6 +589,9 @@ def test_spec_decode_loop_matches_reference(model, paged):
             n = j_n[k, slot]
             np.testing.assert_array_equal(t_em[k, slot, :n].numpy(),
                                           np.asarray(j_em)[k, slot, :n])
+            np.testing.assert_allclose(t_lp[k, slot, :n].numpy(),
+                                       np.asarray(j_lp)[k, slot, :n],
+                                       rtol=0, atol=1e-3)
     np.testing.assert_array_equal(t_tok.numpy(), np.asarray(j_tok))
     np.testing.assert_array_equal(t_pos.numpy(), np.asarray(j_pos))
     np.testing.assert_array_equal(t_act.numpy(), np.asarray(j_act))
@@ -610,7 +614,7 @@ def test_sampled_lanes_draft_nothing(model):
     history[0, 16] = 5
     state = tgen.SamplingState.greedy(1, "cpu", seed=3)
     state.temperature[0] = 0.8
-    em, n, tok, pos, act = tgen.spec_decode_loop(
+    em, n, _, tok, pos, act, _, _ = tgen.spec_decode_loop(
         tparams, tc, torch.tensor([5], dtype=torch.int32),
         torch.tensor([16], dtype=torch.int32), torch.tensor([True]), cache,
         state, history, 4, 4, torch.tensor([1], dtype=torch.int32))
