@@ -140,6 +140,25 @@ a non-zero exit:
                  chat requests with and without a penalized and a
                  top_logprobs 5 request, in turns (without, with, with,
                  without), ms a decode step printed;
+     options     the reference's three single-card runtime options on
+                 the same weights and configuration: fp8 activations
+                 (the grid pass on the card's own [8, 2048] and [8, 8192]
+                 bf16 decode activations equal to the CPU's bit for bit;
+                 2 of the 16 layers card against CPU, fp8 off within
+                 0.05 and on within 0.10, fp8's own effect printed; K1 64,
+                 K2 1 and K15 16 launches a decode step with fp8 on and
+                 off, ms a step; the ten chat requests off, on, on, off);
+                 the int8 prefill shadow (its bytes against the codes; a
+                 64-token chunk through the engine's single admission
+                 launches K5 and no K1, a 512-token one neither K1 nor
+                 K7, decode still K1 64 a step and no K5; the chunks'
+                 logits through the shadow within 0.05 of the int4
+                 path's, first token equal; ms a 64- and a 512-token
+                 chunk through the int4 path, the shadow and K7); and
+                 dispatch-ahead fetches (the ten chat requests, dense and
+                 over 33 pages of 512, synchronous, pipelined, pipelined,
+                 synchronous, on a stopped engine driven an iteration at
+                 a time: every stream equal; ms a decode step, TTFT p50);
   6. checkpoint  the same seed-0 weights written as an HF-layout directory
                  (bf16 safetensors, config.json, generation_config.json,
                  the BPE tokenizer of tests/fixtures) into a temporary
@@ -158,7 +177,9 @@ a non-zero exit:
                  default command line (`--preset llama32_1b
                  --random-weights`: bf16 weights, bf16 paired cache), once
                  with random int4 weights and `--kv-quant` (paired cache,
-                 s8), once with `--model-dir <int8 directory> --kv-quant
+                 s8; and `--act-fp8 --prefill-int8-shadow
+                 --pipeline-fetch`), once with `--model-dir <int8
+                 directory> --kv-quant
                  --no-pair-kv` and GABBY_ATTN_S8=0, and once with random
                  int4 weights, `--kv-quant --speculate 7 --paged-pages
                  33`, one chat completion each through the
@@ -1391,6 +1412,17 @@ def head128_phase(cfg3, dev) -> list:
     return results
 
 
+def to_cpu(tree):
+    """A params tree copied to the CPU."""
+    from gabby_tpu_torch.ops.quant import QTensor
+
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, QTensor):
+        return tree.to("cpu")
+    return None if tree is None else tree.cpu()
+
+
 def model_phase(cfg, params, dev, label: str, tol: float = 0.05, *,
                 kv_quantized: bool = True, paired: bool = False,
                 rawdot: bool = False):
@@ -1404,15 +1436,7 @@ def model_phase(cfg, params, dev, label: str, tol: float = 0.05, *,
     logit difference relative to the largest logit."""
     from gabby_tpu_torch.models import llama
     from gabby_tpu_torch.ops import cuda as ck
-    from gabby_tpu_torch.ops.quant import QTensor
     from gabby_tpu_torch.runtime.kv_cache import create_cache
-
-    def to_cpu(tree):
-        if isinstance(tree, dict):
-            return {k: to_cpu(v) for k, v in tree.items()}
-        if isinstance(tree, QTensor):
-            return tree.to("cpu")
-        return None if tree is None else tree.cpu()
 
     cpu_params = to_cpu(params)
     caches = {key: create_cache(cfg, 1, 64, quantized=kv_quantized,
@@ -1931,27 +1955,16 @@ def feature_function_checks(cfg, params, dev) -> None:
     from gabby_tpu_torch.ops import cuda as ck
     from gabby_tpu_torch.ops import sampling
     from gabby_tpu_torch.runtime import generate
-    from gabby_tpu_torch.runtime.kv_cache import create_cache
 
     b, v = 8, cfg.vocab_size
-    lens = [24 + 5 * s for s in range(b)]  # one 64-token chunk each
     ck.set_attn_s8(True)
     try:
-        cache = create_cache(cfg, b, 2048, quantized=True, paired=True,
-                             device=dev)
-        first = torch.zeros(b, dtype=torch.int32)
-        for slot, n in enumerate(lens):
-            chunk = torch.zeros(64, dtype=torch.int64)
-            chunk[:n] = torch.tensor(stream(400 + slot, n, v))
-            row, _ = llama.prefill_slot(params, cfg, chunk.to(dev), n, slot,
-                                        0, cache)
-            first[slot] = int(row.argmax())
-        logits, _ = llama.decode_step(
-            params, cfg, first.to(dev),
-            torch.tensor(lens, dtype=torch.int32, device=dev), cache,
-            window=FEATURE_WINDOW)
+        cache, first, positions = eight_slots(cfg, params, dev, 400)
+        logits, _ = llama.decode_step(params, cfg, first, positions, cache,
+                                      window=FEATURE_WINDOW)
     finally:
         ck.set_attn_s8(None)
+    lens = positions.tolist()
     logits = logits.float()
     host = logits.cpu()
     g = torch.Generator().manual_seed(16)
@@ -2309,6 +2322,491 @@ def features_phase(cfg, params, dev, gpu_line: str) -> None:
             / report["decode_steps"]})
     emit({"phase": "features", "wall": walls, "card": gpu_line,
           "seconds": time.perf_counter() - t0})
+
+
+# ---- the runtime options: fp8 activations, the int8 prefill shadow,
+# dispatch-ahead fetches ---------------------------------------------------
+
+
+def option_check(line: dict, ok: bool) -> None:
+    """One line per check of the options phase; a failed check fails the
+    run."""
+    line = {"phase": "options", **line, "ok": bool(ok)}
+    emit(line)
+    if not ok:
+        raise AssertionError(f"options: {line}")
+
+
+def first_layers(params, n: int):
+    """The params with their first n layers (copies, so that no kernel's
+    cached tensor map points into the full stack)."""
+    from gabby_tpu_torch.ops.quant import QTensor
+
+    def cut(v):
+        if isinstance(v, QTensor):
+            return dataclasses.replace(v, q=v.q[:n].clone(),
+                                       scale=v.scale[:n].clone())
+        return v[:n].clone()
+
+    return {**params, "blocks": {k: cut(v)
+                                 for k, v in params["blocks"].items()}}
+
+
+def median_ms(fn, reps: int = 5) -> float:
+    """Median wall ms of `fn` with the card synchronized around each call
+    (eager: host time included), after one warm call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def eight_slots(cfg, params, dev, streams: int):
+    """8 slots prefilled with streams `streams` + slot (24-59 tokens, one
+    64-token chunk each) on a paired int8 cache of 2048 rows: (cache,
+    first greedy tokens, positions) for a decode step."""
+    from gabby_tpu_torch.models import llama
+    from gabby_tpu_torch.runtime.kv_cache import create_cache
+
+    lens = [24 + 5 * s for s in range(8)]
+    cache = create_cache(cfg, 8, 2048, quantized=True, paired=True,
+                         device=dev)
+    first = torch.zeros(8, dtype=torch.int32)
+    for slot, n in enumerate(lens):
+        chunk = torch.zeros(64, dtype=torch.int64)
+        chunk[:n] = torch.tensor(stream(streams + slot, n, cfg.vocab_size))
+        row, _ = llama.prefill_slot(params, cfg, chunk.to(dev), n, slot, 0,
+                                    cache)
+        first[slot] = int(row.argmax())
+    return cache, first.to(dev), torch.tensor(lens, dtype=torch.int32,
+                                              device=dev)
+
+
+def fp8_model_check(cfg, params, dev) -> None:
+    """`model_phase`'s walk (a 16-token prefill, then 3 decode steps, the
+    unpaired int8 cache, the bf16/f32 form) on the card and on the CPU,
+    each with fp8 off and on, every run fed the card's fp8-off greedy
+    tokens: the card against the CPU with fp8 off and with it on, and
+    fp8's own effect on each side, as the largest logit difference
+    relative to the largest logit. With fp8 off the card must stay within
+    ADMIT_TOL of the CPU with 3 of 4 argmaxes equal. With fp8 on the bound
+    is model_phase's W4A8 one, 2 x ADMIT_TOL, for the same reason: where
+    the card's bf16 activations and the CPU's differ by a bf16 step (the
+    kernels sum in another order), the grid can round them to
+    neighbouring e4m3 values (steps of 1/8 to 1/16 of a value), and the
+    two sides' grid errors stop cancelling; the argmaxes are printed, not
+    held (random weights' near-ties flip under fp8 on the CPU alone)."""
+    from gabby_tpu_torch.models import llama
+    from gabby_tpu_torch.ops import cuda as ck
+    from gabby_tpu_torch.ops import quant
+    from gabby_tpu_torch.runtime.kv_cache import create_cache
+
+    ps = {"card": params, "cpu": to_cpu(params)}
+    ids = torch.arange(16) * 7919 % 128000 + 100
+    feed = None
+    rows = {}
+    ck.set_attn_s8(False)
+    try:
+        for on in (False, True):
+            for side, dv in (("card", dev), ("cpu", "cpu")):
+                quant.set_act_fp8(on)
+                try:
+                    cache = create_cache(cfg, 1, 64, quantized=True,
+                                         device=dv)
+                    row, _ = llama.prefill_slot(ps[side], cfg, ids.to(dv),
+                                                16, 0, 0, cache)
+                    out = [row.float().cpu()]
+                    for step in range(3):
+                        tok = (out[-1].argmax() if feed is None
+                               else feed[step]).reshape(1)
+                        row, _ = llama.decode_step(
+                            ps[side], cfg, tok.to(torch.int32).to(dv),
+                            torch.tensor([16 + step], dtype=torch.int32,
+                                         device=dv), cache)
+                        out.append(row[0].float().cpu())
+                finally:
+                    quant.set_act_fp8(False)
+                rows[side, on] = torch.stack(out)
+                if feed is None:
+                    feed = [r.argmax() for r in out[:3]]
+    finally:
+        ck.set_attn_s8(None)
+
+    def err(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    def agree(a, b):
+        return int((a.argmax(-1) == b.argmax(-1)).sum())
+
+    pairs = {"card vs CPU, fp8 off": (("card", False), ("cpu", False)),
+             "card vs CPU, fp8 on": (("card", True), ("cpu", True)),
+             "fp8 on vs off, card": (("card", True), ("card", False)),
+             "fp8 on vs off, CPU": (("cpu", True), ("cpu", False))}
+    got = {k: {"max_rel_logit_err": err(rows[a], rows[b]),
+               "argmax_agree": agree(rows[a], rows[b])}
+           for k, (a, b) in pairs.items()}
+    off, on = got["card vs CPU, fp8 off"], got["card vs CPU, fp8 on"]
+    option_check({"check": f"{cfg.num_layers} layers card vs CPU, fp8 off "
+                  f"and on, 4 rows", **got,
+                  "bound_off": ADMIT_TOL, "bound_on": 2 * ADMIT_TOL},
+                 off["max_rel_logit_err"] <= ADMIT_TOL
+                 and off["argmax_agree"] >= 3
+                 and on["max_rel_logit_err"] <= 2 * ADMIT_TOL)
+
+
+def fp8_checks(cfg, params, tok, dev, gpu_line: str) -> None:
+    """fp8 activations on the 1B int4 model: the grid pass on the card
+    against the CPU on the card's own decode activations, bit for bit; two
+    layers card against CPU with fp8 on; the launches of a decode step
+    with fp8 on (the kernels' counts are those without); ms a step and of
+    the grid pass alone; the ten chat requests without and with fp8, in
+    turns."""
+    from gabby_tpu_torch.models import llama
+    from gabby_tpu_torch.ops import cuda as ck
+    from gabby_tpu_torch.ops import quant
+
+    grid = quant.maybe_fp8_activation
+    widths = [cfg.hidden_size, cfg.intermediate_size]
+    seen = {}
+
+    def capture(x):
+        if x.shape[-1] in widths and x.shape[-1] not in seen:
+            seen[x.shape[-1]] = x.reshape(-1, x.shape[-1]).clone()
+        return grid(x)
+
+    ck.set_attn_s8(True)
+    try:
+        cache, tokens, positions = eight_slots(cfg, params, dev, 800)
+        quant.maybe_fp8_activation = capture
+        try:
+            llama.decode_step(params, cfg, tokens, positions, cache,
+                              window=FEATURE_WINDOW)
+        finally:
+            quant.maybe_fp8_activation = grid
+        for width, x in sorted(seen.items()):
+            card = quant.fp8_activation(x).cpu()
+            host = quant.fp8_activation(x.cpu())
+            differ = int((card.view(torch.int16)
+                          != host.view(torch.int16)).sum())
+            option_check({"check": f"fp8_activation, card vs CPU, the "
+                          f"card's decode activations {list(x.shape)} "
+                          f"{str(x.dtype)[6:]}", "elements_differ": differ,
+                          "grid_ms": median_ms(
+                              lambda x=x: quant.fp8_activation(x), 20)},
+                         x.shape[0] == 8 and x.dtype == torch.bfloat16
+                         and differ == 0)
+        option_check({"check": "decode activations captured at the "
+                      "model's widths", "widths": sorted(seen)},
+                     sorted(seen) == widths)
+
+        def steps(n):
+            for i in range(n):
+                llama.decode_step(params, cfg, tokens, positions + i, cache,
+                                  window=FEATURE_WINDOW)
+
+        per_step = {}
+        for on in (False, True, True, False):
+            quant.set_act_fp8(on)
+            try:
+                torch.cuda.synchronize()
+                ck.reset_launch_counts()
+                steps(4)
+                torch.cuda.synchronize()
+                launches = step_launches(ck.launch_counts, 4)
+                per_step.setdefault(on, []).append(
+                    median_ms(lambda: steps(1), 5))
+            finally:
+                quant.set_act_fp8(False)
+            option_check({"check": f"launches a decode step, fp8 "
+                          f"{'on' if on else 'off'}", "launches": launches,
+                          "want": STEP_LAUNCHES},
+                         launches == {k: float(n) for k, n
+                                      in STEP_LAUNCHES.items()})
+        emit({"phase": "options", "fp8": "ms a decode_step (8 slots, eager,"
+              " synchronized), off, on, on, off",
+              "off_ms": per_step[False], "on_ms": per_step[True],
+              "card": gpu_line})
+        del cache
+    finally:
+        ck.set_attn_s8(None)
+        quant.set_act_fp8(False)
+    fp8_model_check(dataclasses.replace(cfg, num_layers=2),
+                    first_layers(params, 2), dev)
+    walls = collections.defaultdict(list)
+    for on in (False, True, True, False):
+        report = {}
+        quant.set_act_fp8(on)
+        try:
+            engine_phase(cfg, params, tok, dev, gpu_line,
+                         f"int4, in memory; paired, s8; fp8 activations "
+                         f"{'on' if on else 'off'}",
+                         buckets=[16, 64, 256, 512], s8=True,
+                         pair_kv_heads=True,
+                         must_launch=list(STEP_LAUNCHES),
+                         may_launch=["prefill_attention_paired"],
+                         report=report)
+        finally:
+            quant.set_act_fp8(False)
+        walls["on" if on else "off"].append({
+            "wall_s": report["wall_s"],
+            "decode_steps": report["decode_steps"],
+            "p50_ttft_ms": report["p50_ttft_ms"],
+            "ms_a_decode_step": 1e3 * report["wall_s"]
+            / report["decode_steps"]})
+    emit({"phase": "options", "fp8": "the ten chat requests, off, on, on, "
+          "off", "wall": walls, "card": gpu_line})
+
+
+def shadow_checks(cfg, params, tok, dev, gpu_line: str) -> None:
+    """The int8 prefill shadow on the 1B int4 model, default configuration:
+    its bytes; a 64-token chunk through the engine's single admission
+    launches K5 and no K1, a 512-token one neither K1 nor K7, and decode
+    still launches K1 64 a step and no K5; the chunks' logits through the
+    shadow against the int4 path's; ms a 512-token chunk through the int4
+    path, the shadow and K7."""
+    from gabby_tpu_torch.models import llama
+    from gabby_tpu_torch.ops import cuda as ck
+    from gabby_tpu_torch.ops import quant
+    from gabby_tpu_torch.runtime.engine import Engine, EngineConfig, Request
+    from gabby_tpu_torch.runtime.kv_cache import create_cache
+
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    shadow = quant.promote_int4_to_int8(params)
+    torch.cuda.synchronize()
+    got = torch.cuda.memory_allocated() - m0
+    codes = sum(v.q.numel() for k, v in shadow["blocks"].items()
+                if isinstance(v, quant.QTensor) and v.bits == 8)
+    d, f, q = cfg.hidden_size, cfg.intermediate_size, cfg.q_dim
+    want = cfg.num_layers * (d * (q + 2 * cfg.num_kv_heads * cfg.head_dim)
+                             + q * d + d * 2 * f + f * d)
+    option_check({"check": "shadow bytes: memory_allocated after "
+                  "promote_int4_to_int8 - before, against the int8 codes",
+                  "bytes": got, "codes": codes, "card": gpu_line},
+                 codes == want and abs(got - codes) <= codes // 1000)
+
+    ck.set_attn_s8(True)
+    try:
+        # chunk logits and time: the int4 path, the shadow, K7
+        out = {}
+        for bucket, take in ((64, 50), (512, 500)):
+            ids = torch.tensor(stream(900 + bucket, bucket,
+                                      cfg.vocab_size)).to(dev)
+            for label, p in (("int4", params), ("shadow", shadow),
+                             ("K7", params)):
+                if label == "K7" and bucket == 64:
+                    continue
+                ck.set_int4_prefill_kernel(label == "K7")
+                try:
+                    cache = create_cache(cfg, 1, 2048, quantized=True,
+                                         paired=True, device=dev)
+
+                    def chunk(p=p, cache=cache):
+                        return llama.prefill_slot(p, cfg, ids, take, 0, 0,
+                                                  cache)[0]
+
+                    torch.cuda.synchronize()
+                    ck.reset_launch_counts()
+                    out[bucket, label] = chunk()
+                    torch.cuda.synchronize()
+                    counts = dict(ck.launch_counts)
+                    ms = median_ms(chunk, 5)
+                finally:
+                    ck.set_int4_prefill_kernel(None)
+                emit({"phase": "options", "shadow": f"{bucket}-token "
+                      f"chunk ({take} live), {label}", "ms": ms,
+                      "launches": {k: n for k, n in counts.items() if n},
+                      "card": gpu_line})
+            a, r = out[bucket, "shadow"].float().cpu(), \
+                out[bucket, "int4"].float().cpu()
+            err = ((a - r).abs().max() / r.abs().max()).item()
+            option_check({"check": f"{bucket}-token chunk's logits, shadow"
+                          f" vs int4", "max_rel_logit_err": err,
+                          "bound": 0.05,
+                          "first_token": [int(a.argmax()), int(r.argmax())]},
+                         err <= 0.05 and int(a.argmax()) == int(r.argmax()))
+        del shadow, out
+
+        # the engine's own prefill entries
+        eng = Engine(cfg, params, tok, EngineConfig(
+            batch_slots=8, max_seq=2048, kv_quantized=True,
+            pair_kv_heads=True, prefill_int8_shadow=True), device=dev)
+        eng.shutdown()
+        eng._shutdown = False
+        try:
+            for slot, (n, want, none) in enumerate((
+                    (50, "int8_matmul_stacked", ["int4_matmul_stacked"]),
+                    (500, None, ["int4_matmul_stacked", "int4_matmul",
+                                 "int8_matmul_stacked"]))):
+                adm = eng._start_admission(slot, Request(
+                    prompt_ids=stream(950 + slot, n, cfg.vocab_size),
+                    max_tokens=8, temperature=0.0, top_k=0, top_p=1.0))
+                torch.cuda.synchronize()
+                ck.reset_launch_counts()
+                while not eng._prefill_one_chunk(adm):
+                    pass
+                torch.cuda.synchronize()
+                counts = dict(ck.launch_counts)
+                eng._finish_admission(adm)
+                option_check(
+                    {"check": f"engine with the shadow: a {n}-token prompt's"
+                     f" chunk launches {want or 'no stacked product'}"
+                     f", not {none}",
+                     "launches": {k: c for k, c in counts.items() if c}},
+                    (want is None or counts[want] == 4 * cfg.num_layers)
+                    and not any(counts[k] for k in none))
+            steps0 = eng.stats["decode_steps"]
+            torch.cuda.synchronize()
+            ck.reset_launch_counts()
+            eng._iteration(None)  # one decode burst, no admission
+            torch.cuda.synchronize()
+            steps = eng.stats["decode_steps"] - steps0
+            launches = step_launches(ck.launch_counts, steps)
+            option_check({"check": "engine with the shadow: decode "
+                          "launches K1 64 a step and no K5",
+                          "steps": steps, "launches": launches,
+                          "int8_matmul_stacked":
+                              ck.launch_counts["int8_matmul_stacked"]},
+                         steps > 0 and launches == {
+                             k: float(n) for k, n in STEP_LAUNCHES.items()}
+                         and ck.launch_counts["int8_matmul_stacked"] == 0)
+        finally:
+            eng._shutdown = True
+    finally:
+        ck.set_attn_s8(None)
+
+
+def last_finish(req) -> str | None:
+    """The finish reason among the items left in a request's queue."""
+    fin = None
+    while not req.out.empty():
+        fin = req.out.get_nowait()[1] or fin
+    return fin
+
+
+def drive(eng, reqs) -> dict:
+    """Serve `reqs` (already submitted) on an engine whose loop is stopped,
+    an iteration at a time in this thread, until every one has finished
+    and no record is pending: the admissions then do not depend on when
+    the requests reached the engine. Returns the wall, each request's
+    first-token time on the host and the counts."""
+    t0 = time.perf_counter()
+    first = {}
+    admitting = None
+    while (admitting is not None or eng._backlog or not eng._queue.empty()
+           or any(s is not None for s in eng._slots)
+           or eng._pending_burst is not None):
+        _, admitting = eng._iteration(admitting)
+        now = time.perf_counter()
+        for i, r in enumerate(reqs):
+            if i not in first and (r.token_ids or not r.out.empty()):
+                first[i] = now - t0
+    torch.cuda.synchronize()
+    return {"wall_s": time.perf_counter() - t0,
+            "ttft_ms": [1e3 * first.get(i, float("nan"))
+                        for i in range(len(reqs))]}
+
+
+def pipeline_checks(cfg, params, tok, dev, gpu_line: str) -> None:
+    """Dispatch-ahead fetches: the ten chat requests on the default
+    configuration, dense and over 33 pages of 512, synchronous, pipelined,
+    pipelined, synchronous; each run on a stopped engine driven an
+    iteration at a time (`drive`), so that every run admits the same
+    groups and every stream must be equal. ms a decode step (wall over
+    decode steps, prefill included) and TTFT p50 (host time to each
+    request's first token, from the start of the drive)."""
+    from gabby_tpu_torch.ops import cuda as ck
+    from gabby_tpu_torch.runtime.engine import Engine, EngineConfig
+
+    ck.set_attn_s8(True)
+    try:
+        for label, extra, attention in (
+                ("dense", {}, "decode_attention_s8_paired"),
+                ("33 pages of 512", dict(paged_pages=33, page_size=512),
+                 "paged_decode_attention_s8_paired")):
+            streams, rows = {}, []
+            for pipelined in (False, True, True, False):
+                eng = Engine(cfg, params, tok, EngineConfig(
+                    batch_slots=8, max_seq=2048, kv_quantized=True,
+                    pair_kv_heads=True, pipeline_fetch=pipelined, **extra),
+                    device=dev)
+                eng.shutdown()
+                eng._shutdown = False
+                try:
+                    drive(eng, [eng.submit([{"role": "user",
+                                             "content": "warm up"}],
+                                           max_tokens=4)])
+                    stats0 = eng.stats_snapshot()
+                    torch.cuda.synchronize()
+                    ck.reset_launch_counts()
+                    reqs = [eng.submit(
+                        [{"role": "user",
+                          "content": "".join(chr(97 + (i * 7 + j) % 26)
+                                             for j in range(n))}],
+                        max_tokens=NEW_TOKENS)
+                        for i, n in enumerate(CONTENT_SIZES)]
+                    run = drive(eng, reqs)
+                    counts = dict(ck.launch_counts)
+                    stats = eng.stats_snapshot()
+                finally:
+                    eng._shutdown = True
+                got = [tuple(r.token_ids) for r in reqs]
+                fins = [last_finish(r) for r in reqs]
+                missing = [k for k in ("int4_matmul_stacked",
+                                       "int4_matmul_grouped", attention)
+                           if not counts[k]]
+                option_check({"check": f"the run's kernels launched and "
+                              f"every request answered ({label}, "
+                              f"{'pipelined' if pipelined else 'sync'})",
+                              "never_launched": missing, "finishes": fins},
+                             not missing and all(f in ("length", "stop")
+                                                 for f in fins))
+                steps = stats["decode_steps"] - stats0["decode_steps"]
+                rows.append({"pipelined": pipelined,
+                             "wall_s": run["wall_s"], "decode_steps": steps,
+                             "ms_a_decode_step": 1e3 * run["wall_s"] / steps,
+                             "ttft_p50_ms": statistics.median(
+                                 run["ttft_ms"]),
+                             "burst_admissions": (
+                                 stats["burst_admissions"]
+                                 - stats0["burst_admissions"]),
+                             "tokens": sum(map(len, got))})
+                streams.setdefault(pipelined, []).append(got)
+            emit({"phase": "options", "pipeline": label, "runs": rows,
+                  "card": gpu_line})
+            runs = streams[False] + streams[True]
+            option_check({"check": f"pipelined and synchronous streams "
+                          f"equal ({label}, 10 requests, 4 runs)",
+                          "tokens": [len(g) for g in runs[0]],
+                          "runs_equal_to_the_first": sum(
+                              r == runs[0] for r in runs)},
+                         all(r == runs[0] for r in runs))
+    finally:
+        ck.set_attn_s8(None)
+
+
+def options_phase(cfg, params, dev, gpu_line: str) -> None:
+    """The reference's three single-card runtime options on the 1B int4
+    weights in the server's default configuration (8 slots, 2048 rows,
+    paired int8 cache, s8): `--act-fp8` (`fp8_checks`),
+    `--prefill-int8-shadow` (`shadow_checks`) and `--pipeline-fetch`
+    (`pipeline_checks`)."""
+    from gabby_tpu_torch.tokenizer import Tokenizer
+
+    t0 = time.perf_counter()
+    tok = Tokenizer.byte_fallback(cfg.vocab_size)
+    fp8_checks(cfg, params, tok, dev, gpu_line)
+    torch.cuda.empty_cache()
+    shadow_checks(cfg, params, tok, dev, gpu_line)
+    torch.cuda.empty_cache()
+    pipeline_checks(cfg, params, tok, dev, gpu_line)
+    torch.cuda.empty_cache()
+    emit({"phase": "options", "seconds": time.perf_counter() - t0})
 
 
 # chat prompts of the first engine run: content lengths in characters. A
@@ -2777,6 +3275,9 @@ def main() -> int:
     # penalties and logit_bias, logprobs and top_logprobs, the seed
     features_phase(cfg, params, dev, gpu_line)
     torch.cuda.empty_cache()
+    # fp8 activations, the int8 prefill shadow, dispatch-ahead fetches
+    options_phase(cfg, params, dev, gpu_line)
+    torch.cuda.empty_cache()
     # the same configuration with the raw-byte-dot form of the stacked
     # int4 products (GABBY_INT4_RAWDOT=1): K33 in place of K1, card against
     # CPU, then three requests
@@ -2941,7 +3442,10 @@ def main() -> int:
         servers = [
             ("the literal defaults: random bf16, bf16 paired cache",
              ["--preset", "llama32_1b", "--random-weights"], None),
-            ("random int4", random_int4, None, True),
+            ("random int4, --act-fp8 --prefill-int8-shadow "
+             "--pipeline-fetch", random_int4 + [
+                 "--act-fp8", "--prefill-int8-shadow", "--pipeline-fetch"],
+             None, True),
             ("int8 checkpoint, --no-pair-kv, GABBY_ATTN_S8=0",
              ["--model-dir", dirs[8], "--kv-quant", "--no-pair-kv"],
              {"GABBY_ATTN_S8": "0"}),

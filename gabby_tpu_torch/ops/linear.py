@@ -1,6 +1,8 @@
 """Linear projection with dtype-aware dispatch (counterpart of
 gabby_tpu/ops/linear.py): quantized weights (ops/quant.QTensor) go through
-`qlinear`, dense weights through one f32-accumulated product."""
+`qlinear`, dense weights through one f32-accumulated product. With fp8
+activations on (`quant.set_act_fp8`), every input first passes through the
+e4m3 grid."""
 
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ def linear(x: torch.Tensor, w, layer: Optional[int] = None) -> torch.Tensor:
     """x: [..., in] @ w: [in, out] -> [..., out]. `layer` selects one layer
     of a STACKED [L, in, out] weight; quantized stacks reach their kernel
     whole (the layer is a pointer offset there, never a copy)."""
+    x = quant.maybe_fp8_activation(x)  # a no-op unless fp8 activations are on
     if isinstance(w, quant.QTensor):
         return quant.qlinear(x, w, layer=layer)
     if layer is not None and w.dim() == 3:

@@ -22,6 +22,12 @@ kernel (K7) when `cuda.int4_prefill_kernel()` is on; everything else
 unpacks the layer's bytes and runs one `torch.matmul`, as the reference
 leaves them to XLA. Activations are cast to bf16 before every product, as
 in the reference.
+
+FP8 activations (`set_act_fp8`, `GABBY_ACT_FP8=1`; the reference's
+BASELINE config 5) pass every `linear()` input through the float8_e4m3
+value grid with a per-token scale; the products stay whatever the weight
+path uses. `promote_int4_to_int8` builds the exact int8 shadow of an int4
+tree that the engine prefills through (`EngineConfig.prefill_int8_shadow`).
 """
 
 from __future__ import annotations
@@ -34,6 +40,41 @@ import torch
 
 from gabby_tpu_torch.ops import cuda as ck
 from gabby_tpu_torch.ops.cuda import quant_matmul as cqm
+
+# ---- FP8 activations (the reference's BASELINE config 5) ----
+#
+# Read once at import, as in the reference; flip with set_act_fp8 before
+# any weights are built. The grid pass is plain PyTorch, as it is jnp
+# outside any Pallas kernel in the reference.
+
+_ACT_FP8 = os.environ.get("GABBY_ACT_FP8", "0") == "1"
+# e4m3's largest normal is 448. The reference divides by 448.0 under
+# jax.jit, and XLA rewrites that division into a product by float32(1/448):
+# multiplying by the same f32 constant gives the serving reference's bits
+_INV_E4M3_MAX = torch.tensor(1.0 / 448.0, dtype=torch.float32).item()
+
+
+def set_act_fp8(on: bool) -> None:
+    global _ACT_FP8
+    _ACT_FP8 = bool(on)
+
+
+def act_fp8_enabled() -> bool:
+    return _ACT_FP8
+
+
+def fp8_activation(x: torch.Tensor) -> torch.Tensor:
+    """x on the fp8 (e4m3) value grid with a per-token (last-axis) scale,
+    returned in x.dtype."""
+    xf = x.float()
+    absmax = torch.amax(torch.abs(xf), dim=-1, keepdim=True)
+    scale = torch.clamp(absmax * _INV_E4M3_MAX, min=1e-12)
+    xq = (xf / scale).to(torch.float8_e4m3fn)
+    return (xq.float() * scale).to(x.dtype)
+
+
+def maybe_fp8_activation(x: torch.Tensor) -> torch.Tensor:
+    return fp8_activation(x) if _ACT_FP8 else x
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,6 +213,32 @@ def qlinear(x: torch.Tensor, qt: QTensor,
         codes = unpack_int4(q) if qt.bits == 4 else q
         out = (_codes_matmul(x2, codes) * scale).to(x.dtype)
     return out.to(x.dtype).reshape(*lead, out.shape[-1])
+
+
+def promote_int4_to_int8(params):
+    """The exact int8 shadow of an int4 tree, for prefill-sized products:
+    every per-channel int4 QTensor becomes int8 with the same codes
+    (unpacked layer by layer for a stack [L, in // 2, out] -> [L, in,
+    out]) and the same scale tensor, not a copy. Group-scaled tensors (the
+    unembed), int8 tensors and unquantized leaves come back as the same
+    objects. Costs twice the int4 bytes of the promoted weights."""
+    def visit(leaf):
+        if not (isinstance(leaf, QTensor) and leaf.bits == 4
+                and not leaf.group):
+            return leaf
+        if leaf.q.dim() == 3:
+            q8 = torch.stack([unpack_int4(leaf.q[i])
+                              for i in range(leaf.q.shape[0])])
+        else:
+            q8 = unpack_int4(leaf.q)
+        return QTensor(q=q8, scale=leaf.scale, bits=8)
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: walk(v) for k, v in tree.items()}
+        return visit(tree)
+
+    return walk(params)
 
 
 def quantize_unembed_table(table: torch.Tensor, bits: Optional[int] = None,

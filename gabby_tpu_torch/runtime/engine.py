@@ -38,9 +38,15 @@ gabby_tpu/runtime/engine.py).
   generate.PenaltyState; penalized requests admit singly and decode on
   the plain loop), logprobs and top_logprobs of every emitted token, the
   first included, and the per-request seed (sampling.lane_gumbel).
+* `prefill_int8_shadow` prefills through the exact int8 shadow of an int4
+  tree (quant.promote_int4_to_int8); decode and verify keep the packed
+  int4 stream.
+* `pipeline_fetch` dispatches decode burst N+1 before burst N's packed
+  host view is read: the view goes to pinned host memory by an
+  asynchronous copy on the one stream, guarded by an event, and the host
+  bookkeeping lags one burst (slot epochs drop the overshoot tokens).
 
-Not yet ported from the reference engine: multi-host serving and
-pipelined fetches.
+Not yet ported from the reference engine: multi-host serving.
 """
 
 from __future__ import annotations
@@ -131,6 +137,23 @@ class EngineConfig:
     # waiting requests are admitted shortest prompt first; the oldest
     # waiter goes first once it has waited spf_age_limit seconds
     spf_age_limit: float = 5.0
+    # Prefill through an EXACT int8 shadow of int4 weights
+    # (quant.promote_int4_to_int8): the same codes and scales, so no
+    # numerics change. Short chunks (M <= 64) then take the stacked int8
+    # kernel (K5) and longer ones one int8-codes product, instead of the
+    # int4 unpack-then-matmul (or K7). Costs 2x the int4 bytes of the
+    # stacks; decode keeps the packed int4 stream. No-op without int4.
+    prefill_int8_shadow: bool = False
+    # Dispatch-ahead fetches: decode burst N+1 is enqueued before burst
+    # N's packed host view is read, so the transfer rides under N+1's
+    # device work. The view is copied into pinned host memory right after
+    # N is enqueued (an event marks the copy's end); device state stays
+    # exact, while host bookkeeping (max_tokens, stop strings, slot frees)
+    # lags one burst: overshoot tokens are dropped at emission (slot
+    # epochs guard re-admitted slots), and the attention window and the
+    # page horizon add the pending burst's steps. Off under speculation
+    # (verify timings and acceptance need synchronous fetches).
+    pipeline_fetch: bool = False
 
 
 @dataclasses.dataclass
@@ -213,6 +236,26 @@ class _Admission:
     last_logits: Optional[torch.Tensor] = None
 
 
+@dataclasses.dataclass
+class _BurstRecord:
+    """One dispatched decode burst's packed host view and what unpacking
+    and emitting it needs. Under pipeline_fetch `packed` is a pinned host
+    tensor filled by an asynchronous copy that `ready` marks the end of,
+    read one iteration later. `epochs` snapshots each slot's generation at
+    dispatch: emissions into a slot freed (and perhaps re-admitted) since
+    are dropped, the overshoot tokens a synchronous fetch would never
+    have emitted. `first_slots`: the slots whose first token the view
+    carries (first_pending at dispatch); a slot admitted later keeps
+    first_pending until the record that carries it."""
+
+    packed: torch.Tensor
+    steps: int
+    n_top: int
+    epochs: tuple
+    first_slots: tuple
+    ready: Optional[object] = None  # torch.cuda.Event on the card
+
+
 def _n_top_bucket(n: int) -> int:
     """The call-wide top_logprobs width: 0, or 5, 10 or 20."""
     if not n:
@@ -230,6 +273,12 @@ class Engine:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
+        # every prefill entry takes _prefill_params; decode and verify
+        # take params
+        self._prefill_params = params
+        if econfig.prefill_int8_shadow:
+            from gabby_tpu_torch.ops.quant import promote_int4_to_int8
+            self._prefill_params = promote_int4_to_int8(params)
         self.tokenizer = tokenizer
         self.chat = ChatFormat(tokenizer)
         self.ec = econfig
@@ -314,6 +363,13 @@ class Engine:
         self._spec_step_s: "collections.deque[float]" = \
             collections.deque(maxlen=32)
         self._plain_probe_ctr = 0
+        # dispatch-ahead fetches (EngineConfig.pipeline_fetch): at most one
+        # burst record outstanding; a slot's epoch moves at every finish
+        # and admission, so a record dispatched before cannot emit into it
+        self._pipeline = (econfig.pipeline_fetch
+                          and econfig.speculate_tokens == 0)
+        self._pending_burst: Optional[_BurstRecord] = None
+        self._slot_epoch = [0] * b
 
         self._slots: list[Optional[_Slot]] = [None] * b
         # slots mid-prefill (a single admission's, or a burst's while it
@@ -568,11 +624,16 @@ class Engine:
         if not live:
             return None
         span = (self.ec.speculate_tokens + 1) if self._spec_enabled else 1
-        need = max(live) + steps * span + 2
+        need = max(live) + self._lag() + steps * span + 2
         w = 1024
         while w < need:
             w *= 2
         return min(w, self.ec.max_seq)
+
+    def _lag(self) -> int:
+        """Steps the host's token counts lag the device by: the pending
+        record's (pipeline_fetch), else 0."""
+        return self._pending_burst.steps if self._pending_burst else 0
 
     # ---- paged-pool bookkeeping (self._paged only) ----
 
@@ -813,7 +874,8 @@ class Engine:
                     take = min(bucket, len(r.prompt_ids) - offset)
                     chunk[slot_ix, :take] = r.prompt_ids[offset:offset + take]
                 logits, self._cache = generate.prefill_batch_chunk(
-                    self.params, self.cfg, torch.from_numpy(chunk).to(dev),
+                    self._prefill_params, self.cfg,
+                    torch.from_numpy(chunk).to(dev),
                     lengths_d, lane_mask, self._cache, offset)
         except (ValueError, IndexError, KeyError, PoolExhausted) as e:
             for slot_ix, r in zip(slots, group):
@@ -847,6 +909,8 @@ class Engine:
                 slot.first_top = generate.top_candidates(
                     logits[slot_ix], r.top_logprobs)
             self._slots[slot_ix] = slot
+            # a new occupant: a pending record's view predates it
+            self._slot_epoch[slot_ix] += 1
             self._count_admitted(r, now)
         with self._lock:
             self.stats["burst_admissions"] += sum(not r.internal
@@ -883,7 +947,7 @@ class Engine:
         chunk = np.zeros((bucket,), np.int64)
         chunk[:take] = adm.ids[adm.offset:adm.offset + take]
         adm.last_logits, self._cache = generate.prefill_slot(
-            self.params, self.cfg,
+            self._prefill_params, self.cfg,
             torch.from_numpy(chunk).to(self.device), take, adm.slot_ix,
             adm.offset, self._cache)
         adm.offset += take
@@ -956,6 +1020,7 @@ class Engine:
             slot.first_top = generate.top_candidates(adm.last_logits,
                                                      req.top_logprobs)
         self._slots[slot_ix] = slot
+        self._slot_epoch[slot_ix] += 1  # as in _execute_burst
         self._slot_prompts[slot_ix] = list(req.prompt_ids)
         self._count_admitted(req, time.monotonic())
 
@@ -1037,6 +1102,9 @@ class Engine:
                 self.stats["completion_tokens"] += len(req.token_ids)
                 self._spans.append(span)
         self._slots[slot_ix] = None
+        # a record dispatched before this finish must not emit into the
+        # slot's next occupant (see _BurstRecord.epochs)
+        self._slot_epoch[slot_ix] += 1
         # release the lane and park its write position before the client
         # hears of the finish
         self._active[slot_ix] = False
@@ -1073,6 +1141,11 @@ class Engine:
             self._failed = True
             self._fail_msg = msg
             self._shutdown = True
+        try:
+            # tokens the device already made reach their requests first
+            self._drain_pending_burst()
+        except Exception:  # noqa: BLE001 — the device may be what failed
+            self._pending_burst = None
         for slot_ix, slot in enumerate(self._slots):
             if slot is not None:
                 slot.request.out.put((None, msg))
@@ -1133,6 +1206,7 @@ class Engine:
         self._filling = ({admitting.slot_ix} if admitting is not None
                          else set())
         if not any(s is not None for s in self._slots):
+            self._drain_pending_burst()  # no follow-up burst is coming
             return busy or burst is not None, admitting
 
         steps = self.ec.steps_per_call_busy if busy else \
@@ -1155,15 +1229,16 @@ class Engine:
                 if s is None:
                     continue
                 horizon = (s.prompt_len + len(s.request.token_ids)
-                           + steps * span + span + 1)
+                           + self._lag() + steps * span + span + 1)
                 if not self._ensure_pages(i, horizon):
                     self._finish(i, "length")
             if not any(s is not None for s in self._slots):
+                self._drain_pending_burst()
                 return True, admitting
         pre_tokens = self._tokens
         window = self._attn_window(steps)
-        first_slots = [i for i, s in enumerate(self._slots)
-                       if s is not None and s.first_pending]
+        first_slots = tuple(i for i, s in enumerate(self._slots)
+                            if s is not None and s.first_pending)
         # top_logprobs: when a live request asked for alternatives, the
         # loops also return exact top-k rows, at a width bucketed to
         # {5, 10, 20}; each request takes its own k from them
@@ -1198,25 +1273,70 @@ class Engine:
                 pstate=self._pstate)
             with self._lock:
                 self.stats["decode_steps"] += steps
-            packed = generate.pack_host_view(
+            rec = self._record(generate.pack_host_view(
                 out_tokens, out_active, self._active, pre_tokens, out_lp,
-                self._first_lp, out_top_lp, out_top_ids).cpu()
-            if self._pstate is None:
-                # penalty-free plain bursts only: the penalized loop costs
-                # more and would skew the auto break-even's denominator
-                self._plain_step_s.append(
-                    (time.perf_counter() - t_call) / steps)
-            self._process_burst(packed.numpy(), steps, n_top, first_slots)
+                self._first_lp, out_top_lp, out_top_ids), steps, n_top,
+                first_slots)
+            if self._pipeline:
+                # the previous record's copy finished under this burst's
+                # dispatch: read it now, this one next iteration
+                pending, self._pending_burst = self._pending_burst, rec
+                if pending is not None:
+                    self._process_burst(pending)
+            else:
+                if self._pstate is None:
+                    # penalty-free plain bursts only: the penalized loop
+                    # costs more and would skew the auto break-even's
+                    # denominator (a pipelined burst is never timed: its
+                    # dispatch-to-fetch does not bound one burst)
+                    self._plain_step_s.append(
+                        (time.perf_counter() - t_call) / steps)
+                self._process_burst(rec)
             self._maybe_reprobe_spec()
         return True, admitting
 
-    def _emit_first_tokens(self, first_slots: list[int],
-                           first_toks: np.ndarray,
-                           first_lps: np.ndarray) -> None:
+    def _record(self, packed: torch.Tensor, steps: int, n_top: int,
+                first_slots: tuple) -> _BurstRecord:
+        """A burst's record. Synchronous: the host copy, read now.
+        Pipelined on the card: an asynchronous copy into pinned host
+        memory, enqueued before the next burst, and an event after it, so
+        that reading the record waits for this copy alone."""
+        rec = _BurstRecord(packed=packed, steps=steps, n_top=n_top,
+                           epochs=tuple(self._slot_epoch),
+                           first_slots=first_slots)
+        if not packed.is_cuda:
+            return rec
+        if not self._pipeline:
+            rec.packed = packed.cpu()
+            return rec
+        rec.packed = torch.empty(packed.shape, dtype=packed.dtype,
+                                 pin_memory=True)
+        rec.packed.copy_(packed, non_blocking=True)
+        rec.ready = torch.cuda.Event()
+        rec.ready.record()
+        return rec
+
+    def _drain_pending_burst(self) -> None:
+        """Process the outstanding pipelined record now (no slot live, the
+        loop idle, shutdown, failure): no request may wait on a record
+        whose follow-up burst is not coming."""
+        pending, self._pending_burst = self._pending_burst, None
+        if pending is not None:
+            self._process_burst(pending)
+
+    def _claimed(self, slot_ix: int, epochs: Optional[tuple]) -> bool:
+        """The slot is live and, for a record (`epochs`), the occupant it
+        was dispatched for."""
+        return self._slots[slot_ix] is not None and (
+            epochs is None or self._slot_epoch[slot_ix] == epochs[slot_ix])
+
+    def _emit_first_tokens(self, first_slots, first_toks: np.ndarray,
+                           first_lps: np.ndarray,
+                           epochs: Optional[tuple] = None) -> None:
         """First tokens of fresh admissions come before the burst's own."""
         for slot_ix in first_slots:
             slot = self._slots[slot_ix]
-            if slot is not None and slot.first_pending:
+            if self._claimed(slot_ix, epochs) and slot.first_pending:
                 slot.first_pending = False
                 top = None
                 if slot.first_top is not None:
@@ -1225,10 +1345,11 @@ class Engine:
                 self._emit_token(slot_ix, int(first_toks[slot_ix]),
                                  float(first_lps[slot_ix]), top)
 
-    def _finish_stopped_lanes(self, active_host: np.ndarray) -> None:
+    def _finish_stopped_lanes(self, active_host: np.ndarray,
+                              epochs: Optional[tuple] = None) -> None:
         """A lane the device stopped without an EOS hit the cache capacity."""
-        for slot_ix, slot in enumerate(self._slots):
-            if slot is not None and not active_host[slot_ix]:
+        for slot_ix in range(len(self._slots)):
+            if self._claimed(slot_ix, epochs) and not active_host[slot_ix]:
                 self._finish(slot_ix, "length")
 
     @staticmethod
@@ -1244,8 +1365,14 @@ class Engine:
         return (lp[:n_cand], lp[n_cand:], top_lp.reshape(n_cand, n_top),
                 top_ids.reshape(n_cand, n_top))
 
-    def _process_burst(self, packed: np.ndarray, steps: int, n_top: int,
-                       first_slots: list[int]) -> None:
+    def _process_burst(self, rec: _BurstRecord) -> None:
+        """Host bookkeeping of one plain burst: first tokens, then the
+        burst's tokens, then capacity finishes, each only into the slots
+        the record was dispatched for."""
+        if rec.ready is not None:
+            rec.ready.synchronize()  # this record's copy, nothing later
+        packed = rec.packed.numpy()
+        steps, n_top, epochs = rec.steps, rec.n_top, rec.epochs
         b = len(self._slots)
         kb = steps * b
         toks = packed[:kb].reshape(steps, b)
@@ -1253,19 +1380,20 @@ class Engine:
         active_host = packed[2 * kb:2 * kb + b] != 0
         lps, first_lps, top_lp, top_ids = self._unpack_floats(
             packed, 2 * kb + 2 * b, kb, b, n_top)
-        self._emit_first_tokens(first_slots,
-                                packed[2 * kb + b:2 * kb + 2 * b], first_lps)
+        self._emit_first_tokens(rec.first_slots,
+                                packed[2 * kb + b:2 * kb + 2 * b], first_lps,
+                                epochs)
         for step in range(steps):
             for slot_ix in range(b):
-                if emitted[step, slot_ix]:
+                if emitted[step, slot_ix] and self._claimed(slot_ix, epochs):
                     i = step * b + slot_ix
                     self._emit_token(
                         slot_ix, int(toks[step, slot_ix]), float(lps[i]),
                         (top_ids[i], top_lp[i]) if n_top else None)
-        self._finish_stopped_lanes(active_host)
+        self._finish_stopped_lanes(active_host, epochs)
 
     def _process_spec_burst(self, packed: np.ndarray, steps: int, t_blk: int,
-                            n_top: int, first_slots: list[int]) -> None:
+                            n_top: int, first_slots: tuple) -> None:
         """Host bookkeeping of one speculative burst: candidate tokens
         [K, B, T] of which the first counts[k, b] were emitted."""
         b = len(self._slots)
@@ -1368,8 +1496,11 @@ class Engine:
         while not self._shutdown:
             worked, admitting = self._iteration(admitting)
             if not worked and admitting is None:
+                self._drain_pending_burst()  # idle: settle it now
                 self._wake.wait(timeout=0.05)
                 self._wake.clear()
+        # the tokens the device already made come before the aborts
+        self._drain_pending_burst()
         if admitting is not None:
             self._drop_admission(admitting, "abort")
         for slot_ix in range(len(self._slots)):

@@ -5,10 +5,11 @@ chat completions, backed by the PyTorch continuous-batching engine. The
 flags are the reference server's (gabby_tpu/server.py) plus `--device`
 (default cuda). `--pair-kv` defaults to AUTO as there: the paired kv-head
 cache layout whenever the kv-head count is even (`--no-pair-kv` reverts),
-dense and paged. Flags of features not yet ported (fp8 activations, the
-int8 prefill shadow, meshes, multi-host, pipelined fetches,
-sequence-parallel prefill, the profiler port) are accepted by the parser
-and refused with "not yet ported" when set.
+dense and paged. `--act-fp8`, `--prefill-int8-shadow` and
+`--pipeline-fetch` are the reference's options, off by default. Flags of
+features not yet ported (meshes, multi-host, sequence-parallel prefill,
+the profiler port) are accepted by the parser and refused with "not yet
+ported" when set.
 
 Examples:
   python -m gabby_tpu_torch.tools.quantize --model-dir ~/hf/Llama-3.2-1B \\
@@ -19,6 +20,8 @@ Examples:
       --quant 4 --kv-quant
   python -m gabby_tpu_torch.server --preset llama32_1b --random-weights \\
       --quant 4 --kv-quant --speculate 7 --paged-pages 33 --page-size 512
+  python -m gabby_tpu_torch.server --preset llama32_1b --random-weights \\
+      --quant 4 --kv-quant --act-fp8 --prefill-int8-shadow --pipeline-fetch
   python -m gabby_tpu_torch.server --preset tiny --random-weights \\
       --device cpu --port 0
 """
@@ -37,10 +40,8 @@ import torch
 from gabby_tpu_torch.runtime.engine import RequestError
 
 # flag dest -> the value that means "feature off"
-_NOT_PORTED = {"act_fp8": False, "tp": 1, "dp": 1,
-               "prefill_int8_shadow": False,
-               "sp_ring": False, "pipeline_fetch": False,
-               "coordinator": "", "profiler_port": 0}
+_NOT_PORTED = {"tp": 1, "dp": 1, "sp_ring": False, "coordinator": "",
+               "profiler_port": 0}
 
 
 def _build_engine(args):
@@ -55,6 +56,9 @@ def _build_engine(args):
         if getattr(args, name) != off:
             sys.exit(f"--{name.replace('_', '-')}: not yet ported to "
                      f"gabby_tpu_torch")
+    if args.act_fp8:
+        # read wherever a projection runs: set before any weights are built
+        quant.set_act_fp8(True)
     device = resolve_device(args.device)
     if args.model_dir:
         # an HF-layout directory (quantized at load when --quant is given)
@@ -93,6 +97,8 @@ def _build_engine(args):
         paged_pages=args.paged_pages, page_size=args.page_size,
         speculate_tokens=args.speculate, spec_breakeven=args.spec_breakeven,
         spec_reprobe_steps=args.spec_reprobe_steps,
+        prefill_int8_shadow=args.prefill_int8_shadow,
+        pipeline_fetch=args.pipeline_fetch,
         # auto: on whenever eligible (the port has no mesh, so: an even
         # kv-head count), dense and paged
         pair_kv_heads=(args.pair_kv if args.pair_kv is not None
@@ -275,17 +281,29 @@ def build_parser() -> argparse.ArgumentParser:
                         "caches; see EngineConfig.pair_kv_heads). Default: "
                         "auto, on when the kv-head count is even. "
                         "--no-pair-kv reverts")
-    # the reference server's flags of features not yet ported (fp8
-    # activations, the int8 prefill shadow, meshes, multi-host, pipelined
-    # fetches, sequence-parallel prefill, the profiler port): accepted so
-    # scripts written for it parse, refused when set
-    p.add_argument("--act-fp8", action="store_true")
+    p.add_argument("--act-fp8", action="store_true",
+                   help="pass activations through the fp8 (e4m3) grid with "
+                        "per-token scales before every matmul (BASELINE "
+                        "config 5; the products keep the weight path's "
+                        "kernels)")
+    p.add_argument("--prefill-int8-shadow", action="store_true",
+                   help="prefill through an exact int8 shadow of int4 "
+                        "weights (2x the int4 weight bytes on the card, "
+                        "same numerics; short chunks take the stacked "
+                        "int8 kernel; see EngineConfig.prefill_int8_shadow)")
+    p.add_argument("--pipeline-fetch", action="store_true",
+                   help="dispatch decode burst N+1 before reading burst "
+                        "N's host view, which is copied to pinned memory "
+                        "behind an event (host bookkeeping lags one burst; "
+                        "off under --speculate; see EngineConfig."
+                        "pipeline_fetch)")
+    # the reference server's flags of features not yet ported (meshes,
+    # multi-host, sequence-parallel prefill, the profiler port): accepted
+    # so scripts written for it parse, refused when set
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--dp", type=int, default=1)
-    p.add_argument("--prefill-int8-shadow", action="store_true")
     p.add_argument("--sp-prefill-tokens", type=int, default=1024)
     p.add_argument("--sp-ring", action="store_true")
-    p.add_argument("--pipeline-fetch", action="store_true")
     p.add_argument("--coordinator", default="")
     p.add_argument("--num-processes", type=int, default=0)
     p.add_argument("--process-id", type=int, default=-1)

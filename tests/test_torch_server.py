@@ -313,13 +313,49 @@ def test_default_server_decodes_with_the_s8_form(monkeypatch):
         assert calls and set(calls) == {("decode_attention", 32)}
 
 
-@pytest.mark.parametrize("flag", [["--dp", "2"], ["--act-fp8"],
-                                  ["--prefill-int8-shadow"], ["--tp", "2"],
-                                  ["--pipeline-fetch"], ["--sp-ring"],
-                                  ["--coordinator", "host:1"]])
+@pytest.mark.parametrize("flag", [["--dp", "2"], ["--tp", "2"],
+                                  ["--sp-ring"], ["--coordinator", "host:1"],
+                                  ["--profiler-port", "9999"]])
 def test_unported_flags_are_still_refused(flag):
     from gabby_tpu_torch import server
     args = server.build_parser().parse_args(
         ["--preset", "tiny", "--random-weights", "--device", "cpu"] + flag)
     with pytest.raises(SystemExit, match="not yet ported"):
         server._build_engine(args)
+
+
+def test_not_ported_holds_the_parallel_flags_and_the_profiler():
+    from gabby_tpu_torch import server
+    assert set(server._NOT_PORTED) == {"tp", "dp", "sp_ring", "coordinator",
+                                       "profiler_port"}
+
+
+@pytest.mark.parametrize("flag", ["--act-fp8", "--prefill-int8-shadow",
+                                  "--pipeline-fetch"])
+def test_ported_flags_build_their_engine(flag):
+    """Each of the reference's three single-card options builds the tiny
+    int4 CPU engine with the option on, and a request is served."""
+    from gabby_tpu_torch import server
+    from gabby_tpu_torch.ops import quant
+    args = server.build_parser().parse_args(
+        ["--preset", "tiny", "--random-weights", "--device", "cpu",
+         "--quant", "4", "--kv-quant", flag])
+    engine, was = None, quant.act_fp8_enabled()
+    try:
+        engine, _ = server._build_engine(args)
+        if flag == "--act-fp8":
+            assert quant.act_fp8_enabled()
+        elif flag == "--prefill-int8-shadow":
+            shadow = engine._prefill_params["blocks"]["wqkv"]
+            assert shadow.bits == 8
+            assert shadow.scale is engine.params["blocks"]["wqkv"].scale
+            assert engine.params["blocks"]["wqkv"].bits == 4
+        else:
+            assert engine._pipeline
+        _, fin, _, n = engine.generate_sync(
+            [{"role": "user", "content": "hi"}], max_tokens=3)
+        assert fin in ("stop", "length") and n >= 1
+    finally:
+        if engine is not None:
+            engine.shutdown()
+        quant.set_act_fp8(was)
