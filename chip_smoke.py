@@ -187,7 +187,29 @@ a non-zero exit:
                  logprobs, top_logprobs 3 and a seed, as many logprob
                  entries as completion tokens), then SIGTERM, where cmake
                  exists to build it (else a skip line saying why);
-  9. summary     the kernels line (thirty-three kernels; K1, K33, K5,
+  9. tensor-parallel
+                 the 1B int4 model at full width and depth (seed 0) in
+                 the server's default configuration apart from pairing
+                 (unpaired int8 cache, s8; 8 slots, max_seq 2048) over two
+                 ranks: (a) K1 at one rank's four projections at tp = 2
+                 and tp = 4 and K2 at a tp = 2 rank's vocab shard, each
+                 against its plain version with the kernels phase's
+                 tolerance (kernel-only, this process); then two rank
+                 processes on the one card (spawned; gloo, as the
+                 backend rule picks for ranks that share a card) that
+                 must hold (b) a 64-token prefill and 16 decode steps fed
+                 the tp = 1 greedy tokens within ADMIT_TOL of the tp = 1
+                 logits on the card, both ranks bit for bit equal; (c)
+                 rank 0's engine serving the ten chat requests, the
+                 follower replaying its plans, dense and over 33 pages of
+                 512: identical token streams on both ranks; (d) K1 64,
+                 K2 1 and K14 16 (K19 16 paged) launches and 34
+                 all-reduces a decode step on each rank, and K1 64, K2 1,
+                 K14 16 and no all-reduce at tp = 1; (e) ms a decode step
+                 and the ten-request wall at tp = 2 against tp = 1, beside
+                 the card's name and power limit (two ranks share one
+                 card here: no speed on two cards is measured);
+ 10. summary     the kernels line (thirty-three kernels; K1, K33, K5,
                  K8 and K2 on two rows each, M = 8 and 64), then
                  {"ok": true, "device": {...}} last.
 
@@ -1657,15 +1679,15 @@ def prefill_alone(params, cfg, cache, ids, slot, sched):
 
 def admit_alone(eng, slot: int, ids) -> tuple:
     """`ids` admitted into `slot` of a stopped engine through its single
-    admission: `_start_admission` (which finds a resident donor and copies
-    or adopts its prefix), `_prefill_one_chunk` until the prompt is in,
+    admission: `_find_donor` and `_start_admission` (which copies or adopts
+    the resident donor's prefix), `_prefill_one_chunk` until the prompt is in,
     `_finish_admission` (which registers the prompt as a donor). Returns
     (the offset the prefill started at, the last chunk's logits)."""
     from gabby_tpu_torch.runtime.engine import Request
 
     adm = eng._start_admission(slot, Request(
         prompt_ids=list(ids), max_tokens=1, temperature=0.0, top_k=0,
-        top_p=1.0))
+        top_p=1.0), *eng._find_donor(list(ids)))
     start = adm.offset
     while not eng._prefill_one_chunk(adm):
         pass
@@ -2077,7 +2099,7 @@ def replay_penalized(cfg, params, tok, dev, ids, got, kw) -> None:
     eng.shutdown()
     adm = eng._start_admission(0, Request(
         prompt_ids=list(ids), max_tokens=len(got), temperature=0.0, top_k=0,
-        top_p=1.0, **kw))
+        top_p=1.0, **kw), *eng._find_donor(list(ids)))
     while not eng._prefill_one_chunk(adm):
         pass
     eng._finish_admission(adm)
@@ -2643,9 +2665,10 @@ def shadow_checks(cfg, params, tok, dev, gpu_line: str) -> None:
                     (50, "int8_matmul_stacked", ["int4_matmul_stacked"]),
                     (500, None, ["int4_matmul_stacked", "int4_matmul",
                                  "int8_matmul_stacked"]))):
+                ids = stream(950 + slot, n, cfg.vocab_size)
                 adm = eng._start_admission(slot, Request(
-                    prompt_ids=stream(950 + slot, n, cfg.vocab_size),
-                    max_tokens=8, temperature=0.0, top_k=0, top_p=1.0))
+                    prompt_ids=ids, max_tokens=8, temperature=0.0, top_k=0,
+                    top_p=1.0), *eng._find_donor(ids))
                 torch.cuda.synchronize()
                 ck.reset_launch_counts()
                 while not eng._prefill_one_chunk(adm):
@@ -3161,6 +3184,592 @@ def ptxas_lines(log: str, src: str) -> list:
             keep.append(" ".join(line.split()))
     return keep
 
+# ---- tensor parallelism --------------------------------------------------
+
+TP = 2
+# the server's default configuration apart from pairing (refused under tp)
+TP_ENGINE = dict(batch_slots=8, max_seq=2048, kv_quantized=True)
+TP_PAGED = dict(paged_pages=33, page_size=512)
+# per decode step of one rank at tp = 2 (or of the one process at tp = 1):
+# K1, K2 and the unpaired s8 decode attention, dense and paged
+TP_STEP = {"int4_matmul_stacked": 64, "int4_matmul_grouped": 1}
+TP_ATTN = {False: "decode_attention_s8", True: "paged_decode_attention_s8"}
+
+
+def tp_check(line: dict, ok: bool) -> None:
+    """One line per check of the tensor-parallel phase; a failed check
+    fails the run."""
+    line = {"phase": "tensor-parallel", **line, "ok": bool(ok)}
+    emit(line)
+    if not ok:
+        raise AssertionError(f"tensor-parallel: {line}")
+
+
+def int4_1b(cfg, dev):
+    """The 1B model's int4 tree (group-256 int4 unembed) from seed 0,
+    unfused."""
+    from gabby_tpu_torch.models import llama
+    from gabby_tpu_torch.ops import quant
+
+    source = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                               dtype=torch.bfloat16, device=dev)
+    return quant.quantize_tree(source, 4, unembed_bits=4, unembed_group=256)
+
+
+def tp_kernel_checks(cfg, dev, gpu_line: str) -> None:
+    """(a) K1 at one rank's four projections at tp = 2 and tp = 4 (16
+    layers, M = 8), K2 at a tp = 2 rank's vocab shard of the padded
+    unembed, [8, 2048] x [2048, 64512] with group-256 scales, and the
+    attention kernels at a tp = 2 rank's heads (`tp_attention_checks`),
+    each against its plain version with the kernels phase's tolerance, K2
+    twice bit for bit, on random codes; kernel-only, in this process."""
+    from gabby_tpu_torch.ops.cuda import quant_matmul as cqm
+    from gabby_tpu_torch.ops.quant import unpack_int4
+    from gabby_tpu_torch.parallel import local_config
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    for tp in (2, 4):
+        results: list = []
+        projs = projections(local_config(cfg, tp))
+        stacked_case_into(
+            results, g, cfg.num_layers, projs, "int4_matmul_stacked",
+            "gabby_tpu_torch/csrc/quant_matmul_stacked.cu",
+            "gabby_tpu/ops/pallas/quant_matmul.py:424",
+            cqm.qmatmul_int4_stacked, cqm.int4_stacked_plain, bits=4, m=8,
+            what=f"one rank's decode step at tp = {tp}", repeat=True)
+        tp_check({"check": f"K1 at the tp = {tp} shard shapes",
+                  "projections_k_n": projs, "card": gpu_line,
+                  **results[0]}, True)
+    d, group, b = cfg.hidden_size, 256, 8
+    vs = 129024 // TP
+    up = torch.randint(-128, 128, (d // 2, vs), generator=g, device=dev,
+                       dtype=torch.int32).to(torch.int8)
+    us = torch.rand((d // group, vs), generator=g, device=dev) * 0.02
+    ux = torch.randn((b, d), generator=g, device=dev).bfloat16()
+    uw = (unpack_int4(up).float()
+          * torch.repeat_interleave(us, group, dim=0)).bfloat16()
+    got = cqm.qmatmul_int4_grouped(ux, up, us, group)
+    err = check("int4_matmul_grouped at the vocab shard", [got],
+                [cqm.int4_grouped_plain(ux, up, us, group)])
+    nbytes = up.numel() + us.numel() * 4 + ux.numel() * 2 + b * vs * 2
+    tp_check({"check": "K2 at a tp = 2 rank's vocab shard",
+              "shapes": f"[{b}, {d}] x [{d}, {vs}], group {group}",
+              "max_abs_err": err, "tol": TOL,
+              "repeat_equal": torch.equal(
+                  got, cqm.qmatmul_int4_grouped(ux, up, us, group)),
+              "ms": time_ms(lambda: cqm.qmatmul_int4_grouped(ux, up, us,
+                                                             group)),
+              "graph_ms": graph_ms(lambda: cqm.qmatmul_int4_grouped(
+                  ux, up, us, group)),
+              "plain_ms": time_ms(lambda: cqm.int4_grouped_plain(
+                  ux, up, us, group), 3),
+              "library_ms": time_ms(lambda: torch.matmul(ux, uw)),
+              "card": gpu_line, **bound(nbytes, 2 * b * d * vs)},
+             torch.equal(got, cqm.qmatmul_int4_grouped(ux, up, us, group)))
+    del up, us, ux, uw
+    tp_attention_checks(local_config(cfg, TP), dev, gpu_line, g)
+
+
+def tp_attention_checks(lcfg, dev, gpu_line: str, g) -> None:
+    """(a) continued: the attention kernels a tp = 2 rank launches, at its
+    heads (`lcfg`: 16 q over 4 kv heads of 64 for 1B), on 8 slots of 2048
+    rows: K14 (the unpaired s8 decode attention, dense) and K19 (the same
+    through the page table of 33 pages of 512) at context 1024, K4 (the
+    unpaired int8 prefill attention) on a 512-token chunk at offset 512.
+    Each against its plain version with the kernels phase's tolerance
+    (S8_TOL for the s8 forms, ATTN_TOL for K4) and repeated bit for bit,
+    timed beside the plain version and the library call."""
+    from gabby_tpu_torch.ops.cuda import attention as cattn
+    from gabby_tpu_torch.ops.cuda import paged_attention as cpaged
+    from gabby_tpu_torch.ops.cuda import prefill_attention as cpfa
+    from gabby_tpu_torch.runtime.kv_cache import quantize_kv
+
+    nl, b, s, ctx, page = lcfg.num_layers, 8, 2048, 1024, 512
+    nq, nk, h = lcfg.num_heads, lcfg.num_kv_heads, lcfg.head_dim
+    heads = f"{nq} q heads, {nk} kv heads, head {h}"
+    pa = "gabby_tpu/ops/pallas/attention.py"
+    csrc = "gabby_tpu_torch/csrc/"
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    results: list = []
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    kc, ks = quantize_kv(randn(nl, b, nk, s, h))
+    vc, vs = quantize_kv(randn(nl, b, nk, s, h))
+    pos = torch.full((b,), ctx, dtype=torch.int32, device=dev)
+    q = randn(b, 1, nq, h).bfloat16()
+    fk, fv = randn(b, nk, h).bfloat16(), randn(b, nk, h).bfloat16()
+    kw = dict(fresh_k=fk, fresh_v=fv)
+    qt = q.transpose(1, 2)
+    nbytes = nl * (2 * b * nk * ctx * (h + 4) + 2 * b * nq * h * 2
+                   + 2 * b * nk * h * 2)
+    ops = nl * 4 * b * nq * (ctx + 1) * h
+    s8 = dict(peak=INT8_OP_PER_S, tol=S8_TOL, repeat=True)
+
+    def dense_rows(codes, scales, fresh):
+        """Rows j < ctx of a [B, Nk, S, H] int8 layer in bf16, then the
+        fresh row: what the library call is given ready-made."""
+        return torch.cat([(codes[:, :, :ctx].float()
+                           * scales[:, :, :ctx, None]).bfloat16(),
+                          fresh[:, :, None]], dim=2)
+
+    kd = [dense_rows(kc[i], ks[i], fk) for i in range(nl)]
+    vd = [dense_rows(vc[i], vs[i], fv) for i in range(nl)]
+    attn_case_into(
+        results, nl, "decode_attention_s8",
+        f"{nl} layers x [{b} slots, {heads}, context {ctx}], int8 cache "
+        f"of {s} rows, s8 dots", csrc + "attention_s8.cu", pa + ":256",
+        lambda i: cattn.decode_attention_s8(q, kc, vc, ks, vs, pos, layer=i,
+                                            window=ctx + 1, **kw),
+        lambda i: cattn.decode_attention_s8_plain(q, kc, vc, ks, vs, pos,
+                                                  layer=i, **kw),
+        lambda i: sdpa(qt, kd[i], vd[i], enable_gqa=True), nbytes, ops,
+        **s8)
+    del kd, vd
+
+    # K4: slot 3's 512-token chunk at offset 512
+    t, off = 512, 512
+    q4 = randn(1, t, nq, h).bfloat16()
+    kw4 = dict(fresh_k=randn(nk, t, h).bfloat16(),
+               fresh_v=randn(nk, t, h).bfloat16())
+    mask = torch.cat([torch.ones((t, off), dtype=torch.bool, device=dev),
+                      torch.ones((t, t), dtype=torch.bool,
+                                 device=dev).tril()], dim=1)
+    kd = [torch.cat([(kc[i, 3, :, :off].float()
+                      * ks[i, 3, :, :off, None]).bfloat16(),
+                     kw4["fresh_k"]], dim=1)[None] for i in range(nl)]
+    vd = [torch.cat([(vc[i, 3, :, :off].float()
+                      * vs[i, 3, :, :off, None]).bfloat16(),
+                     kw4["fresh_v"]], dim=1)[None] for i in range(nl)]
+    keys = t * off + t * (t + 1) // 2  # (query, key) pairs kept
+    attn_case_into(
+        results, nl, "prefill_attention",
+        f"{nl} layers x [T={t} at offset {off}, {heads}], one slot",
+        csrc + "prefill_attention.cu",
+        "gabby_tpu/ops/pallas/prefill_attention.py:142",
+        lambda i: cpfa.prefill_attention(q4, kc, vc, ks, vs, 3, off,
+                                         layer=i, **kw4),
+        lambda i: cpfa.prefill_attention_plain(q4, kc, vc, ks, vs, 3, off,
+                                               layer=i, **kw4),
+        lambda i: sdpa(q4.transpose(1, 2), kd[i], vd[i], attn_mask=mask,
+                       enable_gqa=True),
+        nl * (2 * nk * off * (h + 4) + 2 * t * nq * h * 2
+              + 2 * nk * t * h * 2), nl * 4 * nq * h * keys, iters=3,
+        repeat=True)
+    del kd, vd, kc, vc, ks, vs, q4, kw4
+
+    # K19: the pool of the paged engine runs, each slot's four logical
+    # pages scattered over it by a shuffled table
+    npages = s // page * b + 1
+    kp, kps = quantize_kv(randn(npages, nl, nk, page, h))
+    vp, vps = quantize_kv(randn(npages, nl, nk, page, h))
+    table = (torch.randperm(npages - 1, generator=g, device=dev) + 1
+             ).reshape(b, s // page).to(torch.int32).contiguous()
+    pool = (kp, vp, table, pos, kps, vps)
+
+    def paged_rows(codes, scales, layer, fresh):
+        idx = table[:, :ctx // page].long()
+        rows = codes[:, layer][idx].movedim(1, 2).reshape(b, nk, ctx, h)
+        sc = scales[:, layer][idx].movedim(1, 2).reshape(b, nk, ctx)
+        return torch.cat([(rows.float() * sc[..., None]).bfloat16(),
+                          fresh[:, :, None]], dim=2)
+
+    kd = [paged_rows(kp, kps, i, fk) for i in range(nl)]
+    vd = [paged_rows(vp, vps, i, fv) for i in range(nl)]
+    attn_case_into(
+        results, nl, "paged_decode_attention_s8",
+        f"{nl} layers x [{b} slots, {heads}, context {ctx}], int8 pool of "
+        f"{npages} pages of {page} rows, shuffled table, s8 dots",
+        csrc + "attention_s8.cu", pa + ":800",
+        lambda i: cpaged.paged_decode_attention_s8(q, *pool, layer=i, **kw),
+        lambda i: cpaged.paged_decode_attention_s8_plain(q, *pool, layer=i,
+                                                         **kw),
+        lambda i: sdpa(qt, kd[i], vd[i], enable_gqa=True),
+        nbytes + nl * b * (s // page) * 4, ops, **s8)
+    del kd, vd, kp, vp, kps, vps, pool
+    torch.cuda.empty_cache()
+    for r in results:
+        tp_check({"check": f"{r['name']} at a tp = 2 rank's heads",
+                  "card": gpu_line, **r}, True)
+
+
+def tp_forced(params, cfg, dev, fed=None, prompt=None) -> tuple:
+    """(b)'s walk: `prompt` (64 tokens of a stream when None) prefilled
+    into slot 0 of an unpaired int8 cache (s8 on), in chunks of 512 (one of
+    64 for 64 tokens or fewer), then decode steps fed `fed`, or, with fed
+    None, 16 fed the greedy tokens, which come back. Returns (fed, [1 +
+    steps, V] f32 logits on the CPU: row j predicts the j-th new token)."""
+    from gabby_tpu_torch.models import llama
+    from gabby_tpu_torch.ops import cuda as ck
+    from gabby_tpu_torch.runtime.kv_cache import create_cache
+    from gabby_tpu_torch.parallel import local_config
+
+    group = params.get("tp")
+    lcfg = local_config(cfg, 1 if group is None else group.size)
+    cache = create_cache(lcfg, 1, 2048, quantized=True, device=dev)
+    ids = stream(900, 64, cfg.vocab_size) if prompt is None else prompt
+    n = len(ids)
+    bucket = 64 if n <= 64 else 512
+    greedy = fed is None
+    steps = 16 if greedy else len(fed)
+    ck.set_attn_s8(True)
+    try:
+        row = prefill_alone(params, cfg, cache, ids, 0,
+                            [(o, bucket) for o in range(0, n, bucket)])
+        rows = [row]
+        fed = [int(row.argmax())] if greedy else list(fed)
+        for step in range(steps):
+            lg, _ = llama.decode_step(
+                params, cfg, torch.tensor([fed[step]], dtype=torch.int32,
+                                          device=dev),
+                torch.tensor([n + step], dtype=torch.int32, device=dev),
+                cache)
+            rows.append(lg[0])
+            if greedy and step < steps - 1:
+                fed.append(int(lg[0].argmax()))
+    finally:
+        ck.set_attn_s8(None)
+    return fed, torch.stack(rows).float().cpu()
+
+
+def tp_decode_costs(params, cfg, dev, paged: bool) -> dict:
+    """(d) and (e): 8 slots prefilled (24-59 tokens) on an unpaired int8
+    cache, dense or 33 pages of 512, then 4 decode steps with the launch
+    and all-reduce counts set to 0 just before and read just after: each a
+    step; then ms a step (median of 5, synchronized, eager)."""
+    from gabby_tpu_torch.models import llama
+    from gabby_tpu_torch.ops import cuda as ck
+    from gabby_tpu_torch.parallel import collectives, local_config
+    from gabby_tpu_torch.runtime.kv_cache import create_cache
+    from gabby_tpu_torch.runtime.paged import create_paged_cache
+
+    group = params.get("tp")
+    lcfg = local_config(cfg, 1 if group is None else group.size)
+    if paged:
+        cache = create_paged_cache(lcfg, 8, 2048, 33, quantized=True,
+                                   page_size=512, device=dev)
+        cache.page_table.copy_(1 + torch.arange(32, dtype=torch.int32)
+                               .reshape(8, 4))
+    else:
+        cache = create_cache(lcfg, 8, 2048, quantized=True, device=dev)
+    lens = [24 + 5 * s for s in range(8)]
+    first = []
+    ck.set_attn_s8(True)
+    try:
+        for slot, n in enumerate(lens):
+            chunk = torch.zeros(512 if paged else 64, dtype=torch.int64)
+            chunk[:n] = torch.tensor(stream(950 + slot, n, cfg.vocab_size))
+            row, _ = llama.prefill_slot(params, cfg, chunk.to(dev), n, slot,
+                                        0, cache)
+            first.append(int(row.argmax()))
+        tokens = torch.tensor(first, dtype=torch.int32, device=dev)
+        pos = torch.tensor(lens, dtype=torch.int32, device=dev)
+        window = None if paged else FEATURE_WINDOW
+
+        def steps(n):
+            for i in range(n):
+                llama.decode_step(params, cfg, tokens, pos + i, cache,
+                                  window=window)
+
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        collectives.reset_counts()
+        steps(4)
+        torch.cuda.synchronize()
+        names = {**TP_STEP, TP_ATTN[paged]: 16}
+        launches = {k: ck.launch_counts[k] / 4 for k in names}
+        all_reduces = collectives.counts["all_reduce"] / 4
+        ms = median_ms(lambda: steps(1), 5)
+    finally:
+        ck.set_attn_s8(None)
+    return {"launches": launches, "want": names, "all_reduces": all_reduces,
+            "ms_a_step": ms}
+
+
+def tp_engine_runs(cfg, params, dev, sync) -> dict:
+    """(c): the ten chat requests of the engine phase (NEW_TOKENS each,
+    greedy) through one Engine a configuration, dense and over 33 pages of
+    512, after one warm-up request; the launch and all-reduce counts set
+    to 0 after the warm-up on every rank (the follower's when the leader
+    says so through the store, before the leader submits) and read after
+    the run. Under a multi-rank `sync` rank 0 serves and the follower
+    replays its plans. Returns per configuration the finished streams,
+    counts, wall, decode steps and TTFT p50 (rank 0)."""
+    from gabby_tpu_torch.ops import cuda as ck
+    from gabby_tpu_torch.parallel import collectives
+    from gabby_tpu_torch.runtime.engine import Engine, EngineConfig
+    from gabby_tpu_torch.tokenizer import Tokenizer
+
+    tok = Tokenizer.byte_fallback(cfg.vocab_size)
+    multi = sync is not None and sync.num_processes > 1
+    leader = not multi or sync.is_leader
+    store = sync.group.store if multi else None
+    out = {}
+    ck.set_attn_s8(True)
+    try:
+        for label, extra in (("dense", {}), ("33 pages of 512", TP_PAGED)):
+            eng = Engine(cfg, params, tok, EngineConfig(**TP_ENGINE, **extra),
+                         device=dev, sync=sync)
+            streams: list = []
+            real_finish = eng._finish
+
+            def finish(slot_ix, reason, real_finish=real_finish,
+                       streams=streams, eng=eng):
+                s = eng._slots[slot_ix]
+                if s is not None:
+                    streams.append((tuple(s.request.prompt_ids),
+                                    list(s.request.token_ids)))
+                real_finish(slot_ix, reason)
+
+            eng._finish = finish
+            row = {}
+            if leader:
+                warm = eng.submit([{"role": "user", "content": "warm up"}],
+                                  max_tokens=4)
+                while warm.out.get(timeout=600)[1] is None:
+                    pass
+                if multi:
+                    store.set(f"smoke/warm/{label}", "1")
+                    store.wait([f"smoke/reset/{label}"])
+                ck.reset_launch_counts()
+                collectives.reset_counts()
+                stats0 = eng.stats_snapshot()
+                t0 = time.perf_counter()
+                reqs = [eng.submit(
+                    [{"role": "user",
+                      "content": "".join(chr(97 + (i * 7 + j) % 26)
+                                         for j in range(n))}],
+                    max_tokens=NEW_TOKENS) for i, n in enumerate(CONTENT_SIZES)]
+                fins = []
+                for req in reqs:
+                    while True:
+                        _, fin = req.out.get(timeout=600)
+                        if fin is not None:
+                            fins.append(fin)
+                            break
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                stats = eng.stats_snapshot()
+                row.update(
+                    fins=fins, wall_s=wall,
+                    decode_steps=stats["decode_steps"]
+                    - stats0["decode_steps"],
+                    p50_ttft_ms=stats.get("p50_ttft_ms"),
+                    tokens=[r.completion_tokens for r in reqs])
+                row["ms_a_decode_step"] = 1e3 * wall / row["decode_steps"]
+                counts = dict(ck.launch_counts)
+                all_reduces = collectives.counts["all_reduce"]
+                eng.shutdown()
+            else:
+                store.wait([f"smoke/warm/{label}"])
+                ck.reset_launch_counts()
+                collectives.reset_counts()
+                store.set(f"smoke/reset/{label}", "1")
+                eng._thread.join()
+                counts = dict(ck.launch_counts)
+                all_reduces = collectives.counts["all_reduce"]
+            row.update(streams=sorted(streams), all_reduces=all_reduces,
+                       launches={k: n for k, n in counts.items() if n})
+            out[label] = row
+    finally:
+        ck.set_attn_s8(None)
+    return out
+
+
+def first_divergence(got: list, want: list):
+    """The first stream of `got` whose tokens differ from `want`'s for the
+    same prompt (both sorted (prompt ids, tokens) pairs): (prompt ids,
+    want's tokens, got's tokens, the first position that differs), else
+    None."""
+    for (prompt, a), (prompt_w, b) in zip(got, want):
+        if prompt != prompt_w:
+            raise AssertionError("tensor-parallel: the runs finished other "
+                                 "prompts")
+        if a != b:
+            p = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                     min(len(a), len(b)))
+            return list(prompt), list(b), list(a), p
+    return None
+
+
+def _tp_rank(rank: int, nprocs: int, store_path: str, fed: list,
+             tp1_streams: dict) -> dict:
+    """One rank of the tensor-parallel phase on cuda:0 (spawned): joins the
+    group through a FileStore (the backend by the rule: ranks that share a
+    card take gloo), cuts its shard of the seed-0 int4 tree, and runs (b),
+    (d) and (c); then, for each configuration whose streams differ from
+    `tp1_streams` (the tp = 1 run's), the first diverging stream's walk
+    (`tp_forced` fed the tp = 1 tokens up to the first position that
+    differs; both ranks hold the same streams, so both walk it). Returns
+    what the parent checks."""
+    import torch.distributed as dist
+
+    from gabby_tpu_torch import config as cfglib
+    from gabby_tpu_torch.models import llama
+    from gabby_tpu_torch.parallel import (bind_group, init_distributed,
+                                          shard_params)
+    from gabby_tpu_torch.parallel.multihost import HostSync
+
+    dev = torch.device("cuda", 0)
+    group = init_distributed(None, nprocs, rank, device=dev, timeout=600,
+                             store=dist.FileStore(store_path, nprocs))
+    cfg = cfglib.llama32_1b(max_seq_len=2048)
+    params = bind_group(llama.fuse_projections(shard_params(
+        int4_1b(cfg, dev), rank, nprocs)), group)
+    torch.cuda.empty_cache()
+    _, logits = tp_forced(params, cfg, dev, fed)
+    costs = {paged: tp_decode_costs(params, cfg, dev, paged)
+             for paged in (False, True)}
+    runs = tp_engine_runs(cfg, params, dev, HostSync(group, timeout=600))
+    walks = {}
+    for label, want in tp1_streams.items():
+        d = first_divergence(runs[label]["streams"], want)
+        if d is not None:
+            prompt, tokens, _, p = d
+            _, rows = tp_forced(params, cfg, dev, tokens[:p], prompt)
+            walks[label] = rows[p].numpy()
+    # numpy, not a tensor: a tensor would cross by shared memory, which
+    # needs this process alive after it returns
+    return {"backend": group.backend, "logits": logits.numpy(),
+            "costs": costs, "runs": runs, "walks": walks}
+
+
+def tp_phase(cfg, dev, gpu_line: str) -> None:
+    """The tensor-parallel phase, (a)-(e) of the docstring: the tp = 1
+    sides on the card in this process, then two spawned ranks."""
+    from gabby_tpu_torch.models import llama
+    from gabby_tpu_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    tp_kernel_checks(cfg, dev, gpu_line)
+    torch.cuda.empty_cache()
+    params = llama.fuse_projections(int4_1b(cfg, dev))
+    fed, want = tp_forced(params, cfg, dev)
+    one = {paged: tp_decode_costs(params, cfg, dev, paged)
+           for paged in (False, True)}
+    one_runs = tp_engine_runs(cfg, params, dev, None)
+    del params
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="gabby_tp_") as d:
+        ranks = mesh.spawn_ranks(
+            _tp_rank, TP, (os.path.join(d, "store"), fed,
+                           {k: v["streams"] for k, v in one_runs.items()}),
+            timeout=900)
+    # (b)
+    for rank, r in enumerate(ranks):
+        got = torch.from_numpy(r["logits"])
+        worst = ((got - want).abs().max() / want.abs().max()).item()
+        tp_check({"check": f"rank {rank}: 64-token prefill + 16 fed decode "
+                  f"steps, tp = 2 against tp = 1 on the card",
+                  "backend": r["backend"], "rows": got.shape[0],
+                  "max_rel_logit_err": worst, "bound": ADMIT_TOL,
+                  "argmax_agree": int((got.argmax(-1)
+                                       == want.argmax(-1)).sum())},
+                 worst <= ADMIT_TOL and r["backend"] == "gloo")
+    tp_check({"check": "both ranks' logits bit for bit equal"},
+             (ranks[0]["logits"] == ranks[1]["logits"]).all())
+    # (d)
+    for paged in (False, True):
+        where = "33 pages of 512" if paged else "dense"
+        c = one[paged]
+        tp_check({"check": f"tp = 1, {where}: launches and all-reduces a "
+                  "decode step", **c},
+                 c["launches"] == {k: float(n) for k, n in c["want"].items()}
+                 and c["all_reduces"] == 0)
+        for rank, r in enumerate(ranks):
+            c = r["costs"][paged]
+            tp_check({"check": f"rank {rank}, {where}: launches and "
+                      "all-reduces a decode step", **c,
+                      "want_all_reduces": 2 * cfg.num_layers + 2},
+                     c["launches"] == {k: float(n)
+                                       for k, n in c["want"].items()}
+                     and c["all_reduces"] == 2 * cfg.num_layers + 2)
+    # (c) and (e)
+    for label in ("dense", "33 pages of 512"):
+        lead, follow = (r["runs"][label] for r in ranks)
+        attn = TP_ATTN[label != "dense"]
+        path = list(TP_STEP) + [attn]
+        tp_check({"check": f"{label}: the ten chat requests, rank 0 serving "
+                  "and rank 1 replaying its plans: identical streams, "
+                  "every kernel of the path and the all-reduces launched "
+                  "on both ranks", "finished": lead["fins"],
+                  "tokens": lead["tokens"],
+                  "launches": [lead["launches"], follow["launches"]],
+                  "all_reduces": [lead["all_reduces"],
+                                  follow["all_reduces"]],
+                  "streams_equal_to_tp_1": sum(
+                      a == b for a, b in zip(lead["streams"],
+                                             one_runs[label]["streams"]))},
+                 lead["streams"] == follow["streams"]
+                 and len(lead["streams"]) == len(CONTENT_SIZES) + 1
+                 and all(f in ("stop", "length") for f in lead["fins"])
+                 and all(lead["launches"].get(k, 0) > 0
+                         and follow["launches"].get(k, 0) > 0 for k in path)
+                 and lead["all_reduces"] == follow["all_reduces"] > 0
+                 and one_runs[label]["all_reduces"] == 0)
+        paged = label != "dense"
+        emit({"phase": "tensor-parallel", "cost": label,
+              "note": "two ranks share one card here: not the cost on two "
+              "cards", "card": gpu_line,
+              "ms_a_decode_step_model": {
+                  "tp1": one[paged]["ms_a_step"],
+                  "tp2": [r["costs"][paged]["ms_a_step"] for r in ranks]},
+              "engine_ten_requests": {
+                  key: {k: run[k] for k in ("wall_s", "decode_steps",
+                                            "ms_a_decode_step",
+                                            "p50_ttft_ms")}
+                  for key, run in (("tp1", one_runs[label]),
+                                   ("tp2", lead))}})
+    tp_divergence(cfg, dev, gpu_line, one_runs, ranks[0])
+    emit({"phase": "tensor-parallel", "seconds": time.perf_counter() - t0})
+
+
+def tp_divergence(cfg, dev, gpu_line: str, one_runs: dict, lead: dict) -> None:
+    """Why a tp = 2 greedy stream leaves the tp = 1 one, printed, not
+    judged: for the first diverging stream of each configuration, the
+    tp = 1 walk over the same prompt and tokens (`tp_forced`) beside rank
+    0's, at the first position that differs: the two streams' tokens
+    there, the tp = 1 logits' gap between their best two tokens and
+    between the two streams' tokens, the tp = 2 logits' gap between the
+    same two, and the largest difference of the two rows, each relative
+    to the row's largest logit. A gap below that difference is a near-tie
+    that the sums' order can flip."""
+    from gabby_tpu_torch.models import llama
+
+    params = None
+    for label, run in one_runs.items():
+        got = lead["runs"][label]["streams"]
+        d = first_divergence(got, run["streams"])
+        if d is None:
+            continue
+        prompt, tokens, other, p = d
+        if params is None:
+            params = llama.fuse_projections(int4_1b(cfg, dev))
+        _, rows = tp_forced(params, cfg, dev, tokens[:p], prompt)
+        one, two = rows[p], torch.from_numpy(lead["walks"][label])
+        top = one.abs().max().item()
+        t1 = tokens[p] if p < len(tokens) else None
+        t2 = other[p] if p < len(other) else None
+        best = one.topk(2).values
+        pair = t1 is not None and t2 is not None
+        emit({"phase": "tensor-parallel", "diagnosis": label,
+              "diverging_streams": sum(a != b for a, b in
+                                       zip(got, run["streams"])),
+              "prompt_tokens": len(prompt), "first_diverging_position": p,
+              "tp1_token": t1, "tp2_token": t2,
+              "walk_argmax": [int(one.argmax()), int(two.argmax())],
+              "tp1_best_two_gap_rel": (best[0] - best[1]).item() / top,
+              "tp1_gap_between_the_tokens_rel":
+                  (one[t1] - one[t2]).item() / top if pair else None,
+              "tp2_gap_between_the_tokens_rel":
+                  (two[t2] - two[t1]).item() / top if pair else None,
+              "walk_max_rel_logit_err": (two - one).abs().max().item() / top,
+              "card": gpu_line})
+    del params
+    torch.cuda.empty_cache()
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3457,6 +4066,9 @@ def main() -> int:
                 done.result()
 
     clock("http")
+    # tensor parallelism over two ranks on this card
+    tp_phase(cfg, dev, gpu_line)
+    clock("tensor-parallel")
     # each kernel's launches come from the run of the path that is its own
     own = {"int8_matmul_stacked": counts8, "int8_matmul": counts8,
            "int4_matmul_stacked_rawdot": runs["paired, s8; raw-byte-dot"],

@@ -2,10 +2,9 @@
 
 A copy of gabby_tpu/config.py for the PyTorch port (which imports nothing
 of the JAX package): a typed, hashable ModelConfig built from a parsed
-HuggingFace `config.json`, and the presets. The reference's `fused_tp`
-field (the shard-block layout of fused projections under a model-axis
-mesh) is absent until `parallel/` is ported: the checkpoint loader accepts
-and writes the value 1 in its place.
+HuggingFace `config.json`, and the presets. `fused_tp` is the shard-block
+layout of fused projections (llama.fuse_projections) for tensor-parallel
+serving (gabby_tpu_torch/parallel/).
 """
 
 from __future__ import annotations
@@ -42,6 +41,10 @@ class ModelConfig:
     # Special token ids (Llama-3 tokenizer). Overridden by generation_config.json.
     bos_token_id: int = 128000
     eos_token_ids: tuple[int, ...] = (128001, 128008, 128009)
+    # Shard-block layout of fused projection weights: the `tp` the tree
+    # was fused with (llama.fuse_projections). 1 = plain concatenation;
+    # set through dataclasses.replace when fusing for tp ranks.
+    fused_tp: int = 1
 
     @property
     def q_dim(self) -> int:

@@ -11,8 +11,10 @@ INT4/INT8 checkpoint never materializes in bf16 there — and stacked.
 The files are the reference's, byte for byte: `write_safetensors` of the
 same arrays gives the same file in either package, and a `gabby-quant`
 directory written by `save_quantized` here loads there and the reverse.
-Not carried over: `device_put_fn` (placement of each leaf on a mesh),
-until `parallel/` is ported; tensors land on the device the caller names.
+`device_put_fn(path, leaf)` places each leaf as it is read (tensor
+parallelism: parallel.sharding.sharded_put_fn slices it to the rank's
+block first, so a checkpoint never lands whole on a card); by default
+tensors land on the device the caller names.
 """
 
 from __future__ import annotations
@@ -117,23 +119,29 @@ def _stack_q(qs: list) -> Any:
 
 def load_llama_params(model_dir: str, cfg: ModelConfig, *,
                       dtype=torch.bfloat16, quant_bits: Optional[int] = None,
-                      device=None) -> dict:
+                      device=None, device_put_fn=None) -> dict:
     """HF Llama checkpoint -> our stacked params dict on `device`.
 
     HF nn.Linear weights are [out, in]; ours are [in, out] (x @ w), so each
     projection is transposed once. With `quant_bits` each layer's weight is
-    quantized on the device before it is stacked."""
+    quantized on the device before it is stacked. `device_put_fn(path,
+    leaf)` places every leaf, and every layer of a projection before it is
+    stacked (default: a move to `device`)."""
     dev = resolve_device(device)
     t = read_model_tensors(model_dir)
+    place = device_put_fn or (lambda path, leaf: leaf.to(dev))
 
-    def put(a: torch.Tensor) -> torch.Tensor:
-        return a.to(dev, dtype)
+    def put(path: tuple, a: torch.Tensor) -> torch.Tensor:
+        return place(path, a).to(dtype)
 
-    def proj(name: str, layer: int):
-        w = t[f"model.layers.{layer}.{name}.weight"].to(dev).T.contiguous()
+    def proj(ours: str, name: str, layer: int):
+        w = t[f"model.layers.{layer}.{name}.weight"]
         if quant_bits is None:
-            return w.to(dtype)
-        return quant.quantize(w, quant_bits)
+            return put(("blocks", ours), w.T).contiguous()
+        # a row shard's scales need the whole input dim: quantize the
+        # layer whole on the device, then place it
+        return place(("blocks", ours),
+                     quant.quantize(w.to(dev).T.contiguous(), quant_bits))
 
     names = {
         "wq": "self_attn.q_proj", "wk": "self_attn.k_proj",
@@ -143,18 +151,18 @@ def load_llama_params(model_dir: str, cfg: ModelConfig, *,
     }
     blocks: dict[str, Any] = {}
     for ours, hf in names.items():
-        blocks[ours] = _stack_q([proj(hf, layer)
+        blocks[ours] = _stack_q([proj(ours, hf, layer)
                                  for layer in range(cfg.num_layers)])
     for ours, hf in (("attn_norm", "input_layernorm"),
                      ("mlp_norm", "post_attention_layernorm")):
         blocks[ours] = torch.stack([
-            put(t[f"model.layers.{layer}.{hf}.weight"])
+            put(("blocks", ours), t[f"model.layers.{layer}.{hf}.weight"])
             for layer in range(cfg.num_layers)])
 
     params: dict[str, Any] = {
-        "embed": put(t["model.embed_tokens.weight"]),
+        "embed": put(("embed",), t["model.embed_tokens.weight"]),
         "blocks": blocks,
-        "final_norm": put(t["model.norm.weight"]),
+        "final_norm": put(("final_norm",), t["model.norm.weight"]),
         "lm_head": None,
     }
     # the unembed is THE largest weight stream of a decode step: a
@@ -164,11 +172,12 @@ def load_llama_params(model_dir: str, cfg: ModelConfig, *,
     # embedding or not
     if not cfg.tie_word_embeddings:
         head = t["lm_head.weight"].to(dev).T.contiguous()
-        params["lm_head"] = (quant.quantize_unembed_table(head)
-                             if quant_bits else head.to(dtype))
+        params["lm_head"] = place(("lm_head",), (
+            quant.quantize_unembed_table(head) if quant_bits
+            else head.to(dtype)))
     elif quant_bits:
-        params["lm_head"] = quant.quantize_unembed_table(
-            t["model.embed_tokens.weight"].to(dev).T.contiguous())
+        params["lm_head"] = place(("lm_head",), quant.quantize_unembed_table(
+            t["model.embed_tokens.weight"].to(dev).T.contiguous()))
     return params
 
 
@@ -209,7 +218,6 @@ def save_quantized(out_dir: str, cfg: ModelConfig, params: dict,
     flat, qbits = _flatten_params(params)
     write_safetensors(os.path.join(out_dir, "model.safetensors"), flat)
     config = {k: v for k, v in cfg.__dict__.items() if k != "rope_scaling"}
-    config["fused_tp"] = 1  # the reference's field: plain concatenation
     with open(os.path.join(out_dir, GABBY_META), "w") as f:
         json.dump({"format": "gabby-quant", "bits": bits, "qbits": qbits,
                    # int4 nibble pairing of quant.pack_int4; loaders
@@ -229,9 +237,13 @@ def save_quantized(out_dir: str, cfg: ModelConfig, params: dict,
 
 
 def load_quantized(model_dir: str, *, max_seq_len: Optional[int] = None,
-                   dtype=torch.bfloat16, device=None):
-    """Loads a save_quantized() directory. Returns (cfg, params, bits)."""
+                   dtype=torch.bfloat16, device=None, tp: int = 1,
+                   device_put_fn=None):
+    """Loads a save_quantized() directory for a run over `tp` ranks (each
+    leaf placed by `device_put_fn(path, leaf)`, default a move to
+    `device`). Returns (cfg, params, bits)."""
     dev = resolve_device(device)
+    place = device_put_fn or (lambda path, leaf: leaf.to(dev))
     with open(os.path.join(model_dir, GABBY_META)) as f:
         meta = json.load(f)
     if meta.get("format") != "gabby-quant":
@@ -249,11 +261,15 @@ def load_quantized(model_dir: str, *, max_seq_len: Optional[int] = None,
                 f"reads 'halfsplit' — re-run tools/quantize.py from the "
                 f"original weights")
     cfg_kv = dict(meta["config"])
-    fused_tp = cfg_kv.pop("fused_tp", 1)
-    if fused_tp != 1:
+    fused_tp = cfg_kv.setdefault("fused_tp", 1)
+    fused = any(name.endswith(("wqkv", "w_gup")) for name in qbits)
+    if fused_tp != tp and (fused_tp != 1 or fused):
+        # fused columns are laid out per shard of fused_tp ranks; an
+        # unfused tree (fused_tp 1) shards over any tp
         raise ValueError(
-            f"checkpoint was fused for a model-axis mesh (fused_tp="
-            f"{fused_tp}): not yet ported to gabby_tpu_torch")
+            f"checkpoint was fused for tp={fused_tp} (its fused_tp) but "
+            f"this run has tp={tp}: re-fuse it with fuse_projections(params, "
+            f"tp={tp})")
     cfg_kv["rope_scaling"] = (RopeScaling(**meta["rope_scaling"])
                               if meta.get("rope_scaling") else None)
     cfg_kv["eos_token_ids"] = tuple(cfg_kv.get("eos_token_ids", ()))
@@ -272,24 +288,26 @@ def load_quantized(model_dir: str, *, max_seq_len: Optional[int] = None,
             node = node.setdefault(p, {})
         if name in qbits:
             bits, group = qbits[name]
-            leaf = quant.QTensor(q=flat[name + ".q"].to(dev),
-                                 scale=flat[name + ".scale"].to(dev),
+            leaf = quant.QTensor(q=flat[name + ".q"],
+                                 scale=flat[name + ".scale"],
                                  bits=int(bits), group=int(group))
         else:
-            leaf = flat[name].to(dev)
+            leaf = flat[name]
             if leaf.is_floating_point():
                 leaf = leaf.to(dtype)
-        node[parts[-1]] = leaf
+        node[parts[-1]] = place(tuple(parts), leaf)
     params.setdefault("lm_head", None)
     return cfg, params, int(meta["bits"])
 
 
 def load_model_dir(model_dir: str, *, dtype=torch.bfloat16,
                    quant_bits: Optional[int] = None,
-                   max_seq_len: Optional[int] = None, device=None):
-    """Load the five HF JSONs + weights onto `device`. Directories written
-    by save_quantized() load directly (quant_bits then comes from the
-    checkpoint's own metadata).
+                   max_seq_len: Optional[int] = None, device=None,
+                   tp: int = 1, device_put_fn=None):
+    """Load the five HF JSONs + weights onto `device` (each leaf placed by
+    `device_put_fn` when given). Directories written by save_quantized()
+    load directly (quant_bits then comes from the checkpoint's own
+    metadata; its fused_tp must suit `tp`, see load_quantized).
 
     Returns (cfg, params, tokenizer | None).
     """
@@ -304,7 +322,8 @@ def load_model_dir(model_dir: str, *, dtype=torch.bfloat16,
 
     if os.path.exists(os.path.join(model_dir, GABBY_META)):
         cfg, params, _bits = load_quantized(
-            model_dir, max_seq_len=max_seq_len, dtype=dtype, device=device)
+            model_dir, max_seq_len=max_seq_len, dtype=dtype, device=device,
+            tp=tp, device_put_fn=device_put_fn)
         return cfg, params, tokenizer()
 
     overrides: dict[str, Any] = {}
@@ -324,5 +343,6 @@ def load_model_dir(model_dir: str, *, dtype=torch.bfloat16,
                                                      cfg.bos_token_id)})
 
     params = load_llama_params(model_dir, cfg, dtype=dtype,
-                               quant_bits=quant_bits, device=device)
+                               quant_bits=quant_bits, device=device,
+                               device_put_fn=device_put_fn)
     return cfg, params, tokenizer()

@@ -20,6 +20,15 @@
   rows and verify blocks pair by a reshape (adjacent heads are adjacent in
   memory), head-major prefill chunks through `pair_heads`. Attention gets
   the fresh k/v head-major either way.
+* Tensor parallelism (gabby_tpu_torch/parallel/): a rank's local tree
+  (sharding.shard_params) carries its TPGroup under params["tp"]
+  (sharding.bind_group), so every step reaches its collectives through the
+  params it is given. Each step then computes with the rank's head counts
+  and FFN width (sharding.local_config) and takes the seams the
+  reference's GSPMD inserts: the vocab-sharded embedding lookup, one
+  all-reduce after `wo` and one after `w_down` in every layer, and the
+  vocab gather of the unembed's logits (parallel/collectives.py). A tree
+  without a group (tp = 1) calls no collective.
 """
 
 from __future__ import annotations
@@ -43,6 +52,8 @@ from gabby_tpu_torch.ops.linear import linear
 from gabby_tpu_torch.ops.norms import rms_norm
 from gabby_tpu_torch.ops.quant import QTensor
 from gabby_tpu_torch.ops.rope import apply_rope, rope_inv_freq
+from gabby_tpu_torch.parallel import collectives
+from gabby_tpu_torch.parallel.sharding import local_config
 from gabby_tpu_torch.runtime.kv_cache import (KVCache, dequantize_kv,
                                               lane_indices, pair_heads,
                                               quantize_kv, unpaired)
@@ -115,19 +126,39 @@ def params_from_numpy(tree, dtype=None, device=None) -> Params:
     return walk(tree)
 
 
-def fuse_projections(params: Params) -> Params:
+def fuse_projections(params: Params, tp: int = 1) -> Params:
     """wq|wk|wv -> wqkv and w_gate|w_up -> w_gup, concatenated along the
     output axis (codes and per-channel scales alike for QTensors), so each
-    group runs as ONE product per layer. Returns a new params dict."""
+    group runs as ONE product per layer. Returns a new params dict.
+
+    tp: the number of ranks the fused tree will be column-sharded over.
+    The columns are laid out per shard, [q0|k0|v0 | q1|k1|v1 | ...] where
+    x_i is shard i's block of x, so rank i's contiguous block of the fused
+    columns is exactly its own q/k/v (gate/up); `_split_fused` recovers
+    the parts. tp = 1 is the plain concatenation. Every projection's
+    output dim must divide by tp. A checkpoint of such a tree records tp
+    as its config's fused_tp; a rank's own shard fuses with tp = 1."""
+    def shard_cat(arrs):
+        if tp == 1:
+            return torch.cat(arrs, dim=-1)
+        for a in arrs:
+            if a.shape[-1] % tp:
+                raise ValueError(
+                    f"fuse_projections(tp={tp}): output dim {a.shape[-1]} "
+                    f"does not divide by the model-axis size")
+        parts = [a.reshape(*a.shape[:-1], tp, a.shape[-1] // tp)
+                 for a in arrs]
+        out = torch.cat(parts, dim=-1)  # [..., tp, block]
+        return out.reshape(*out.shape[:-2], -1)
+
     def cat(leaves):
         if isinstance(leaves[0], QTensor):
             if len({leaf.bits for leaf in leaves}) != 1:
                 raise ValueError("cannot fuse mixed-precision projections")
-            return QTensor(q=torch.cat([leaf.q for leaf in leaves], dim=-1),
-                           scale=torch.cat([leaf.scale for leaf in leaves],
-                                           dim=-1),
+            return QTensor(q=shard_cat([leaf.q for leaf in leaves]),
+                           scale=shard_cat([leaf.scale for leaf in leaves]),
                            bits=leaves[0].bits)
-        return torch.cat(leaves, dim=-1)
+        return shard_cat(leaves)
 
     blocks = dict(params["blocks"])
     if "wq" in blocks:
@@ -140,6 +171,34 @@ def fuse_projections(params: Params) -> Params:
     return out
 
 
+def _split_fused(y: torch.Tensor, dims: tuple[int, ...],
+                 tp: int) -> list[torch.Tensor]:
+    """Split a fused projection's output into its logical parts. For tp > 1
+    the columns are [shard0: a0|b0|c0, shard1: ...] (fuse_projections):
+    expose the shard axis, slice each part's block, merge the shards."""
+    if tp == 1:
+        return list(torch.split(y, dims, dim=-1))
+    ys = y.reshape(*y.shape[:-1], tp, sum(dims) // tp)
+    outs, off = [], 0
+    for d in dims:
+        part = ys[..., off:off + d // tp]
+        outs.append(part.reshape(*part.shape[:-2], d))
+        off += d // tp
+    return outs
+
+
+def _tp_view(params: Params, cfg: ModelConfig):
+    """(the config this rank computes with, its TPGroup or None)."""
+    group = params.get("tp")
+    if group is None:
+        return cfg, None
+    return local_config(cfg, group.size), group
+
+
+def _embed(params: Params, ids: torch.Tensor) -> torch.Tensor:
+    return collectives.embed(ids, params["embed"], params.get("tp"))
+
+
 @functools.lru_cache(maxsize=16)
 def _inv_freq(cfg: ModelConfig, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(rope_inv_freq(
@@ -150,9 +209,9 @@ def _qkv(cfg: ModelConfig, blk: Params, x: torch.Tensor,
          positions: torch.Tensor, layer: int):
     b, t, _ = x.shape
     if "wqkv" in blk:
-        qkv = linear(x, blk["wqkv"], layer)
-        q, k, v = torch.split(qkv, (cfg.q_dim, cfg.kv_dim, cfg.kv_dim),
-                              dim=-1)
+        q, k, v = _split_fused(linear(x, blk["wqkv"], layer),
+                               (cfg.q_dim, cfg.kv_dim, cfg.kv_dim),
+                               cfg.fused_tp)
     else:
         q = linear(x, blk["wq"], layer)
         k = linear(x, blk["wk"], layer)
@@ -166,32 +225,37 @@ def _qkv(cfg: ModelConfig, blk: Params, x: torch.Tensor,
 
 
 def _mlp(cfg: ModelConfig, blk: Params, x: torch.Tensor,
-         layer: int) -> torch.Tensor:
+         layer: int, group=None) -> torch.Tensor:
     if "w_gup" in blk:
-        gate, up = torch.split(linear(x, blk["w_gup"], layer).float(),
-                               cfg.intermediate_size, dim=-1)
+        gate, up = _split_fused(linear(x, blk["w_gup"], layer).float(),
+                                (cfg.intermediate_size,) * 2, cfg.fused_tp)
     else:
         gate = linear(x, blk["w_gate"], layer).float()
         up = linear(x, blk["w_up"], layer).float()
-    return linear((F.silu(gate) * up).to(x.dtype), blk["w_down"], layer)
+    return collectives.all_reduce_sum(
+        linear((F.silu(gate) * up).to(x.dtype), blk["w_down"], layer), group)
 
 
 def _unembed(params: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     """Final norm + unembed -> f32 logits over the TRUE vocab (the int4
-    table's padded columns are sliced off before sampling sees them)."""
+    table's padded columns are sliced off before sampling sees them;
+    a rank's vocab shard is gathered first)."""
     h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
     if params.get("lm_head") is not None:
-        return linear(h, params["lm_head"]).float()[..., :cfg.vocab_size]
-    return torch.matmul(h.float(), params["embed"].float().T)
+        out = linear(h, params["lm_head"]).float()
+    else:
+        out = torch.matmul(h.float(), params["embed"].float().T)
+    return collectives.gather_vocab(out, params.get("tp"), cfg.vocab_size)
 
 
 def _block_tail(cfg: ModelConfig, blocks: Params, h: torch.Tensor,
-                attn: torch.Tensor, layer: int) -> torch.Tensor:
+                attn: torch.Tensor, layer: int, group=None) -> torch.Tensor:
     """Output projection + residual, then the MLP half of the block."""
     b, t = h.shape[:2]
-    h = h + linear(attn.reshape(b, t, cfg.q_dim), blocks["wo"], layer)
+    h = h + collectives.all_reduce_sum(
+        linear(attn.reshape(b, t, cfg.q_dim), blocks["wo"], layer), group)
     xn2 = rms_norm(h, blocks["mlp_norm"][layer], cfg.rms_norm_eps)
-    return h + _mlp(cfg, blocks, xn2, layer)
+    return h + _mlp(cfg, blocks, xn2, layer, group)
 
 
 def forward(params: Params, cfg: ModelConfig,
@@ -199,12 +263,14 @@ def forward(params: Params, cfg: ModelConfig,
     """Cache-free full forward: [B, T] -> f32 logits [B, T, V]."""
     b, t = tokens.shape
     positions = torch.arange(t, device=tokens.device).expand(b, t)
-    h = params["embed"][tokens]
+    h = _embed(params, tokens)
+    cfg, group = _tp_view(params, cfg)
     blocks = params["blocks"]
     for layer in range(cfg.num_layers):
         xn = rms_norm(h, blocks["attn_norm"][layer], cfg.rms_norm_eps)
         q, k, v = _qkv(cfg, blocks, xn, positions, layer)
-        h = _block_tail(cfg, blocks, h, causal_attention(q, k, v), layer)
+        h = _block_tail(cfg, blocks, h, causal_attention(q, k, v), layer,
+                        group)
     return _unembed(params, cfg, h)
 
 
@@ -241,7 +307,8 @@ def prefill_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     if cache is None and offset:
         raise ValueError("a chunk past offset 0 needs a cache")
     positions = (offset + torch.arange(t, device=tokens.device)).expand(b, t)
-    h = params["embed"][tokens.long()]
+    h = _embed(params, tokens)
+    cfg, group = _tp_view(params, cfg)
     blocks = params["blocks"]
     lanes = lane_indices(lane_mask, b, tokens.device)
     rows = slice(offset, offset + t)
@@ -264,7 +331,8 @@ def prefill_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   for x in (cache.k, cache.v, cache.k_scale, cache.v_scale)),
                 cfg.head_dim, k.dtype)
         h = _block_tail(cfg, blocks, h,
-                        causal_attention(q, kk, vv, q_offset=offset), layer)
+                        causal_attention(q, kk, vv, q_offset=offset), layer,
+                        group)
     return h, cache
 
 
@@ -296,7 +364,8 @@ def _prefill_hidden_paged(params: Params, cfg: ModelConfig,
         raise ValueError(f"chunk [{offset}, {offset + t}) must be aligned to "
                          f"the page size {ps} and fit {cache.max_seq} rows")
     positions = (offset + torch.arange(t, device=tokens.device)).expand(b, t)
-    h = params["embed"][tokens.long()]
+    h = _embed(params, tokens)
+    cfg, group = _tp_view(params, cfg)
     blocks = params["blocks"]
     phys = cache.page_table[:, :offset // ps].long()  # [B, pages below]
 
@@ -321,7 +390,7 @@ def _prefill_hidden_paged(params: Params, cfg: ModelConfig,
                                             v.transpose(1, 2),
                                             head_major=True),
             lane_mask, layer=layer)
-        h = _block_tail(cfg, blocks, h, attn, layer)
+        h = _block_tail(cfg, blocks, h, attn, layer, group)
     return h, cache
 
 
@@ -348,7 +417,8 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     # gating): clamp its row like the reference's dynamic_update_slice
     write_pos = torch.clamp(positions.long(), max=cache.max_seq - 1)
     lanes = torch.arange(b, device=tokens.device)
-    h = params["embed"][tokens[:, None].long()]  # [B, 1, D]
+    h = _embed(params, tokens[:, None])  # [B, 1, D]
+    cfg, group = _tp_view(params, cfg)
     blocks = params["blocks"]
     for layer in range(cfg.num_layers):
         xn = rms_norm(h, blocks["attn_norm"][layer], cfg.rms_norm_eps)
@@ -370,7 +440,7 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         if cache.quantized:
             cache.k_scale[layer][lanes, :, write_pos] = k_s
             cache.v_scale[layer][lanes, :, write_pos] = v_s
-        h = _block_tail(cfg, blocks, h, attn, layer)
+        h = _block_tail(cfg, blocks, h, attn, layer, group)
     return _unembed(params, cfg, h)[:, 0], cache
 
 
@@ -408,7 +478,8 @@ def _decode_step_paged(params: Params, cfg: ModelConfig,
     scratch page."""
     read_pos = (positions if attn_positions is None
                 else attn_positions).to(torch.int32)
-    h = params["embed"][tokens[:, None].long()]  # [B, 1, D]
+    h = _embed(params, tokens[:, None])  # [B, 1, D]
+    cfg, group = _tp_view(params, cfg)
     blocks = params["blocks"]
     for layer in range(cfg.num_layers):
         xn = rms_norm(h, blocks["attn_norm"][layer], cfg.rms_norm_eps)
@@ -419,7 +490,7 @@ def _decode_step_paged(params: Params, cfg: ModelConfig,
             fresh_v=v[:, 0].contiguous())
         write_rows(cache, positions[:, None], *_quantized_rows(cache, k, v),
                    layer=layer)
-        h = _block_tail(cfg, blocks, h, attn, layer)
+        h = _block_tail(cfg, blocks, h, attn, layer, group)
     return _unembed(params, cfg, h)[:, 0], cache
 
 
@@ -442,7 +513,8 @@ def prefill_slot(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         raise ValueError(f"chunk [{offset}, {offset + t}) overruns the "
                          f"cache ({cache.max_seq} rows)")
     positions = offset + torch.arange(t, device=tokens.device)
-    h = params["embed"][tokens[None, :].long()]  # [1, T, D]
+    h = _embed(params, tokens[None, :])  # [1, T, D]
+    cfg, group = _tp_view(params, cfg)
     blocks = params["blocks"]
     for layer in range(cfg.num_layers):
         xn = rms_norm(h, blocks["attn_norm"][layer], cfg.rms_norm_eps)
@@ -459,7 +531,7 @@ def prefill_slot(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         if cache.quantized:
             cache.k_scale[layer, slot, :, rows] = k_s
             cache.v_scale[layer, slot, :, rows] = v_s
-        h = _block_tail(cfg, blocks, h, attn, layer)
+        h = _block_tail(cfg, blocks, h, attn, layer, group)
     # unembed only the last valid position (one row, not T)
     logits = _unembed(params, cfg, h[:, length - 1:length])[0, 0]
     return logits, cache
@@ -483,7 +555,8 @@ def _prefill_slot_paged(params: Params, cfg: ModelConfig,
         raise ValueError(f"chunk [{offset}, {offset + t}) must be aligned to "
                          f"the page size {ps} and fit {cache.max_seq} rows")
     positions = offset + torch.arange(t, device=tokens.device)
-    h = params["embed"][tokens[None, :].long()]  # [1, T, D]
+    h = _embed(params, tokens[None, :])  # [1, T, D]
+    cfg, group = _tp_view(params, cfg)
     blocks = params["blocks"]
     past = max(offset, ps)  # at least one page: the view is never empty
     for layer in range(cfg.num_layers):
@@ -500,7 +573,7 @@ def _prefill_slot_paged(params: Params, cfg: ModelConfig,
         write_slot_chunk(cache, slot, offset,
                          *_quantized_rows(cache, kt, vt, head_major=True),
                          layer=layer)
-        h = _block_tail(cfg, blocks, h, attn, layer)
+        h = _block_tail(cfg, blocks, h, attn, layer, group)
     logits = _unembed(params, cfg, h[:, length - 1:length])[0, 0]
     return logits, cache
 
@@ -541,7 +614,8 @@ def verify_step(params: Params, cfg: ModelConfig, tokens_bt: torch.Tensor,
                                     last - positions0[:, None].long()), min=0)
     rows = torch.clamp(positions0[:, None].long() + src, max=last)  # [B, T]
     lanes = torch.arange(b, device=dev)[:, None]
-    h = params["embed"][tokens_bt.long()]  # [B, T, D]
+    h = _embed(params, tokens_bt)  # [B, T, D]
+    cfg, group = _tp_view(params, cfg)
     blocks = params["blocks"]
     for layer in range(cfg.num_layers):
         xn = rms_norm(h, blocks["attn_norm"][layer], cfg.rms_norm_eps)
@@ -557,7 +631,7 @@ def verify_step(params: Params, cfg: ModelConfig, tokens_bt: torch.Tensor,
         if cache.quantized:
             cache.k_scale[layer][lanes, :, rows] = k_s
             cache.v_scale[layer][lanes, :, rows] = v_s
-        h = _block_tail(cfg, blocks, h, attn, layer)
+        h = _block_tail(cfg, blocks, h, attn, layer, group)
     return _unembed(params, cfg, h), cache
 
 
@@ -577,7 +651,8 @@ def _verify_step_paged(params: Params, cfg: ModelConfig,
                 else attn_positions).to(torch.int32)
     positions = positions0[:, None] + torch.arange(t,
                                                    device=tokens_bt.device)
-    h = params["embed"][tokens_bt.long()]  # [B, T, D]
+    h = _embed(params, tokens_bt)  # [B, T, D]
+    cfg, group = _tp_view(params, cfg)
     blocks = params["blocks"]
     for layer in range(cfg.num_layers):
         xn = rms_norm(h, blocks["attn_norm"][layer], cfg.rms_norm_eps)
@@ -589,5 +664,5 @@ def _verify_step_paged(params: Params, cfg: ModelConfig,
             fresh_v=v.transpose(1, 2).contiguous())
         write_rows(cache, positions, *_quantized_rows(cache, k, v),
                    layer=layer)
-        h = _block_tail(cfg, blocks, h, attn, layer)
+        h = _block_tail(cfg, blocks, h, attn, layer, group)
     return _unembed(params, cfg, h), cache

@@ -45,8 +45,19 @@ gabby_tpu/runtime/engine.py).
   host view is read: the view goes to pinned host memory by an
   asynchronous copy on the one stream, guarded by an event, and the host
   bookkeeping lags one burst (slot epochs drop the overshoot tokens).
+* Every iteration is a plan: `_compose_plan` decides (cancellations,
+  deadlines, a burst or a single admission with its donor, the burst's
+  decode steps) and `_execute_plan` runs it. Tensor-parallel serving
+  (params carrying a TPGroup, see parallel/) runs one engine a rank: rank
+  0 composes and broadcasts each plan through `sync` (a
+  parallel.multihost.HostSync) and every rank executes it, so all device
+  calls and host decisions stay in lockstep. Decisions read from a clock
+  ride the plan or are taken out: speculation keeps its configured
+  break-even, pipelined fetches are off, warm-up is refused. A watchdog
+  fails every request when a peer's liveness counter stalls.
 
-Not yet ported from the reference engine: multi-host serving.
+Not yet ported from the reference engine: the data axis (dp > 1, its
+packed-view replication, sequence-parallel prefill).
 """
 
 from __future__ import annotations
@@ -68,6 +79,7 @@ import torch
 from gabby_tpu_torch import resolve_device
 from gabby_tpu_torch.config import ModelConfig
 from gabby_tpu_torch.ops import sampling
+from gabby_tpu_torch.parallel.sharding import local_config
 from gabby_tpu_torch.runtime import generate
 from gabby_tpu_torch.runtime.kv_cache import create_cache
 from gabby_tpu_torch.runtime.paged import PageAllocator, create_paged_cache
@@ -265,11 +277,18 @@ def _n_top_bucket(n: int) -> int:
 
 class Engine:
     """Continuous-batching engine over a fixed slot batch, on `device`
-    (CUDA unless the caller passes device="cpu")."""
+    (CUDA unless the caller passes device="cpu").
+
+    sync: a parallel.multihost.HostSync for multi-process serving. With
+    more than one process, rank 0 (the leader) serves submissions and
+    broadcasts every iteration's plan; the others (followers) replay it
+    and are released by the leader's shutdown plan. A rank-local params
+    tree (one carrying a TPGroup) needs one."""
 
     def __init__(self, cfg: ModelConfig, params, tokenizer: Tokenizer,
                  econfig: EngineConfig = EngineConfig(), *,
-                 device=None, stop_ids: Optional[set[int]] = None):
+                 device=None, stop_ids: Optional[set[int]] = None,
+                 sync=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -291,6 +310,18 @@ class Engine:
             raise ValueError("speculate_tokens must be in [0, 15]")
         b = econfig.batch_slots
         dev = self.device
+        self._sync = sync
+        self._multi = sync is not None and sync.num_processes > 1
+        group = params.get("tp")
+        tp = 1 if group is None else group.size
+        if econfig.pair_kv_heads and tp > 1:
+            raise ValueError("pair_kv_heads is single-device only for now "
+                             "(unvalidated under cache shardings)")
+        if tp > 1 and not self._multi:
+            raise ValueError("a tensor-parallel engine needs sync: its "
+                             "ranks must replay one plan")
+        # the cache holds this rank's kv heads
+        cache_cfg = local_config(cfg, tp)
         self._paged = econfig.paged_pages > 0
         if econfig.pair_kv_heads and cfg.num_kv_heads % 2:
             raise ValueError("pair_kv_heads needs an even kv-head count")
@@ -304,7 +335,7 @@ class Engine:
                                  f"kernels take pages of a multiple of 32 "
                                  f"rows")
             self._cache = create_paged_cache(
-                cfg, b, econfig.max_seq, econfig.paged_pages,
+                cache_cfg, b, econfig.max_seq, econfig.paged_pages,
                 dtype=getattr(torch, econfig.cache_dtype),
                 quantized=econfig.kv_quantized, page_size=ps,
                 paired=econfig.pair_kv_heads, device=dev)
@@ -321,7 +352,7 @@ class Engine:
             self._buckets = tuple(sorted({ps, max(ps, 512)}))
         else:
             self._cache = create_cache(
-                cfg, b, econfig.max_seq,
+                cache_cfg, b, econfig.max_seq,
                 dtype=getattr(torch, econfig.cache_dtype),
                 quantized=econfig.kv_quantized,
                 paired=econfig.pair_kv_heads, device=dev)
@@ -367,9 +398,13 @@ class Engine:
         # burst record outstanding; a slot's epoch moves at every finish
         # and admission, so a record dispatched before cannot emit into it
         self._pipeline = (econfig.pipeline_fetch
-                          and econfig.speculate_tokens == 0)
+                          and econfig.speculate_tokens == 0
+                          and not self._multi)
         self._pending_burst: Optional[_BurstRecord] = None
         self._slot_epoch = [0] * b
+        # the leader's requests between composing a plan and executing it
+        self._pending_admit: Optional[Request] = None
+        self._burst_reqs: Optional[list[Request]] = None
 
         self._slots: list[Optional[_Slot]] = [None] * b
         # slots mid-prefill (a single admission's, or a burst's while it
@@ -400,6 +435,10 @@ class Engine:
         self._thread = threading.Thread(target=self._loop_guarded,
                                         daemon=True, name="gabby-engine")
         self._thread.start()
+        if (self._multi and sync.timeout is not None
+                and sync.store is not None):
+            threading.Thread(target=self._watchdog, daemon=True,
+                             name="gabby-watchdog").start()
 
     # ---- public API ----
 
@@ -527,7 +566,14 @@ class Engine:
         the stats). Raises if any rehearsal request fails. The
         speculation state is restored afterwards: synthetic prompts would
         otherwise feed the acceptance probe and could switch speculation
-        off for real traffic. Returns seconds elapsed."""
+        off for real traffic. Single-process only: followers never run it,
+        so a leader-side reset would desynchronize the ranks. Returns
+        seconds elapsed."""
+        if self._multi:
+            raise RuntimeError(
+                "Engine.warmup is single-process only (a leader-side stats "
+                "reset would desynchronize the counters every rank's "
+                "speculation decisions derive from)")
         t0 = time.monotonic()
         ec = self.ec
         spec_was = self._spec_enabled
@@ -716,6 +762,27 @@ class Engine:
         return tuple(out)
 
     @staticmethod
+    def _req_meta(req: Request) -> dict:
+        """The request fields a follower needs to mirror every host-side
+        decision (sampling, penalties, max_tokens, stop matching, top
+        rows)."""
+        return dict(max_tokens=req.max_tokens, temperature=req.temperature,
+                    top_k=req.top_k, top_p=req.top_p, stop=list(req.stop),
+                    top_logprobs=req.top_logprobs,
+                    presence_penalty=req.presence_penalty,
+                    frequency_penalty=req.frequency_penalty,
+                    logit_bias=(dict(req.logit_bias)
+                                if req.logit_bias else None),
+                    repetition_penalty=req.repetition_penalty,
+                    seed=req.seed)
+
+    @staticmethod
+    def _stub_request(ids, meta: dict) -> Request:
+        """A follower's shadow of the leader's Request: the same control
+        fields; nobody reads its out queue."""
+        return Request(prompt_ids=list(ids), **meta)
+
+    @staticmethod
     def _slack(req: Request) -> float:
         if req.deadline_s is None:
             return float("inf")
@@ -763,7 +830,7 @@ class Engine:
                      key=lambda i: (len(self._backlog[i].prompt_ids), i))
         return self._backlog.pop(ix)
 
-    def _select_burst(self) -> Optional[tuple]:
+    def _select_burst(self, freed=()) -> Optional[tuple]:
         """With at least 2 free slots and at least 2 waiting requests of the
         top priority stratum, group those that share the chunk schedule of
         the shortest waiting prompt (at most two chunks) into one burst: (the
@@ -771,8 +838,10 @@ class Engine:
         with a strong resident-prefix match are left to the single path
         (a row copy and a short suffix prefill), and so are penalized ones
         (their admission writes penalty rows). On the paged cache a burst
-        starts only if the pool backs every lane's pages with 2 to spare."""
-        free = [i for i, s in enumerate(self._slots) if s is None]
+        starts only if the pool backs every lane's pages with 2 to spare.
+        `freed`: live slots this iteration's plan finishes first."""
+        free = [i for i, s in enumerate(self._slots)
+                if s is None or i in freed]
         if len(free) < 2:
             return None
         self._drain_ingress()
@@ -809,17 +878,18 @@ class Engine:
 
     # ---- admission ----
 
-    def _start_admission(self, slot_ix: int, req: Request) -> _Admission:
+    def _start_admission(self, slot_ix: int, req: Request, donor: int,
+                         common: int) -> _Admission:
         """A single admission into free slot `slot_ix`. With a resident
-        donor prefix it starts past it: the dense cache copies the donor's
-        rows (none to copy when the donor is the slot itself); the paged
-        cache adopts the donor's whole prefix pages by reference, or, when
-        the donor is the slot itself, drops the pages past the prefix,
-        which another slot may share, so that the suffix lands in fresh
-        pages."""
+        donor prefix (the plan's `donor` and `common`, from `_find_donor`
+        when the plan was composed; donor -1: none) it starts past it:
+        the dense cache copies the donor's rows
+        (none to copy when the donor is the slot itself); the paged cache
+        adopts the donor's whole prefix pages by reference, or, when the
+        donor is the slot itself, drops the pages past the prefix, which
+        another slot may share, so that the suffix lands in fresh pages."""
         adm = _Admission(slot_ix=slot_ix, req=req,
                          ids=np.asarray(req.prompt_ids, np.int64))
-        donor, common = self._find_donor(req.prompt_ids)
         self._slot_prompts[slot_ix] = None  # about to be overwritten
         if self._paged:
             if donor == slot_ix:
@@ -1159,39 +1229,137 @@ class Engine:
             except queue.Empty:
                 break
 
-    def _iteration(self, admitting: Optional[_Admission]
-                   ) -> tuple[bool, Optional[_Admission]]:
-        """One loop iteration: cancellations and deadlines, then a burst
-        admission or at most one chunk of a single admission, then one
-        decode burst. Returns (did_work, the admission still in flight)."""
-        for i, s in enumerate(self._slots):
-            if s is not None and s.request.cancelled:
-                self._finish(i, "cancelled")
-            elif s is not None and self._slack(s.request) <= 0:
-                self._finish(i, "deadline")
+    def _watchdog(self) -> None:
+        """A peer that dies INSIDE a collective leaves this rank's loop
+        blocked there: no exception, and the broadcast timeout never fires
+        because the loop never reaches the next broadcast. Poll the peers'
+        liveness counters (HostSync.dead_peers); after two polls that see
+        a dead peer, fail every request. The stuck loop thread is
+        abandoned (an abandoned collective cannot be taken back)."""
+        sync = self._sync
+        poll = min(2.0, sync.timeout / 4)
+        misses = 0
+        while not self._shutdown:
+            time.sleep(poll)
+            try:
+                dead = sync.dead_peers()
+            except Exception:  # noqa: BLE001 — a failed probe is fatal
+                dead = [p for p in range(sync.num_processes)
+                        if p != sync.process_index]
+            if not dead:
+                misses = 0
+                continue
+            # one confirming poll guards against a single starved read
+            misses += 1
+            if misses >= 2:
+                self._fail_all_requests(
+                    f"error: peer rank(s) {dead} lost: tensor-parallel "
+                    f"serving cannot continue (liveness counter stalled "
+                    f"past {sync.timeout:.0f}s)")
+                return
+
+    def _compose_plan(self, admitting: Optional[_Admission]
+                      ) -> Optional[dict]:
+        """The leader's (or the single process's) decisions for one
+        iteration: cancellations and deadlines, then a burst admission or
+        one single admission (with its donor prefix) when no admission is
+        in flight, then the decode burst's steps. Everything read from a
+        clock or the ingress queue is decided here, so a follower that
+        executes the plan makes the same device calls. None when there is
+        nothing to do."""
+        plan: dict = {}
+        live = [i for i, s in enumerate(self._slots) if s is not None]
+        cancels = [i for i in live if self._slots[i].request.cancelled]
+        overdue = [i for i in live if i not in cancels
+                   and self._slack(self._slots[i].request) <= 0]
+        if cancels:
+            plan["cancel"] = cancels
+        if overdue:
+            plan["deadline"] = overdue
+        freed = set(cancels + overdue)
         self._drain_ingress()
+        pending = admitting
         if admitting is not None and admitting.req.cancelled:
-            self._drop_admission(admitting, "cancelled")
-            admitting = None
-        burst = None
-        if admitting is None:
-            burst = self._select_burst()
+            plan["cancel_admission"] = True
+            pending = None
+        group: list[Request] = []
+        free = [i for i, s in enumerate(self._slots)
+                if s is None or i in freed]
+        if pending is None:
+            burst = self._select_burst(freed)
             if burst is not None:
-                self._execute_burst(*burst)
+                sched, slots, group = burst
+                self._burst_reqs = group
+                plan["burst"] = {
+                    "sched": sched, "slots": slots,
+                    "prompts": [list(r.prompt_ids) for r in group],
+                    "metas": [self._req_meta(r) for r in group]}
             else:
-                free = [i for i, s in enumerate(self._slots) if s is None]
                 req = self._pop_next_admission() if free else None
                 if req is not None:
-                    admitting = self._start_admission(free[0], req)
+                    self._pending_admit = req
+                    donor, common = self._find_donor(req.prompt_ids)
+                    plan["admit"] = {"slot": free[0],
+                                     "ids": list(req.prompt_ids),
+                                     "meta": self._req_meta(req),
+                                     "donor": donor, "common": common}
+        if admitting is None and not group and "admit" not in plan \
+                and not live:
+            return None
         # short decode bursts while an admission is in flight, and after a
         # burst admission while requests still wait for a free slot: their
         # TTFT sits behind the decode burst (the reference counts single
         # admissions only, and decodes a long burst after each burst
         # admission)
-        busy = admitting is not None or (
-            burst is not None
-            and bool(self._backlog or not self._queue.empty())
-            and any(s is None for s in self._slots))
+        waiting = bool(self._backlog or not self._queue.empty())
+        busy = (pending is not None or "admit" in plan
+                or (bool(group) and waiting and len(free) > len(group)))
+        steps = (self.ec.steps_per_call_busy if busy
+                 else self.ec.steps_per_call)
+        if not busy and waiting:
+            # requests wait for a slot: stop at the nearest predictable
+            # free-up (a slot reaching max_tokens), a power of two
+            remaining = [self._slots[i].request.max_tokens
+                         - len(self._slots[i].request.token_ids)
+                         for i in live if i not in freed]
+            remaining += [r.max_tokens for r in group]
+            if remaining:
+                tgt = max(1, min(steps, min(remaining)))
+                steps = 1 << (tgt.bit_length() - 1)
+        plan["steps"] = steps
+        return plan
+
+    def _execute_plan(self, plan: dict, admitting: Optional[_Admission]
+                      ) -> Optional[_Admission]:
+        """One iteration's device calls and host bookkeeping, the same on
+        every rank (followers rebuild the plan's requests as stubs): the
+        plan's finishes, its burst or single admission, at most one
+        prefill chunk, then one decode burst. Returns the admission still
+        in flight."""
+        for i in plan.get("cancel", ()):
+            self._finish(i, "cancelled")
+        for i in plan.get("deadline", ()):
+            self._finish(i, "deadline")
+        if plan.get("cancel_admission") and admitting is not None:
+            self._drop_admission(admitting, "cancelled")
+            admitting = None
+        follower = self._multi and not self._sync.is_leader
+        if "burst" in plan:
+            spec = plan["burst"]
+            if follower:
+                group = [self._stub_request(p, m)
+                         for p, m in zip(spec["prompts"], spec["metas"])]
+            else:
+                group, self._burst_reqs = self._burst_reqs, None
+            self._execute_burst(spec["sched"], spec["slots"], group)
+        if "admit" in plan:
+            spec = plan["admit"]
+            if follower:
+                req = self._stub_request(spec["ids"], spec["meta"])
+            else:
+                req, self._pending_admit = self._pending_admit, None
+            admitting = self._start_admission(spec["slot"], req,
+                                              spec["donor"], spec["common"])
         if admitting is not None:
             try:
                 if self._prefill_one_chunk(admitting):
@@ -1207,17 +1375,9 @@ class Engine:
                          else set())
         if not any(s is not None for s in self._slots):
             self._drain_pending_burst()  # no follow-up burst is coming
-            return busy or burst is not None, admitting
+            return admitting
 
-        steps = self.ec.steps_per_call_busy if busy else \
-            self.ec.steps_per_call
-        if not busy and (self._backlog or not self._queue.empty()):
-            # requests wait for a slot: stop at the nearest predictable
-            # free-up (a slot reaching max_tokens), a power of two
-            remaining = [s.request.max_tokens - len(s.request.token_ids)
-                         for s in self._slots if s is not None]
-            tgt = max(1, min(steps, min(remaining)))
-            steps = 1 << (tgt.bit_length() - 1)
+        steps = plan["steps"]
         if self._paged:
             # back every live slot's rows past this burst's furthest
             # possible write (a verify macro-step writes its whole block,
@@ -1234,7 +1394,7 @@ class Engine:
                     self._finish(i, "length")
             if not any(s is not None for s in self._slots):
                 self._drain_pending_burst()
-                return True, admitting
+                return admitting
         pre_tokens = self._tokens
         window = self._attn_window(steps)
         first_slots = tuple(i for i, s in enumerate(self._slots)
@@ -1293,7 +1453,17 @@ class Engine:
                         (time.perf_counter() - t_call) / steps)
                 self._process_burst(rec)
             self._maybe_reprobe_spec()
-        return True, admitting
+        return admitting
+
+    def _iteration(self, admitting: Optional[_Admission]
+                   ) -> tuple[bool, Optional[_Admission]]:
+        """One single-process loop iteration, for driving a stopped engine
+        step by step: (did work, the admission still in flight)."""
+        plan = self._compose_plan(admitting)
+        if plan is None:
+            self._drain_pending_burst()  # idle: settle it now
+            return False, admitting
+        return True, self._execute_plan(plan, admitting)
 
     def _record(self, packed: torch.Tensor, steps: int, n_top: int,
                 first_slots: tuple) -> _BurstRecord:
@@ -1429,8 +1599,9 @@ class Engine:
         plain window holds 8 samples every 16th burst runs plain, and after
         that every 128th still does, so the denominator follows the current
         batch occupancy. Output-safe: the two loops are interchangeable per
-        burst."""
-        if not self.ec.spec_auto_breakeven:
+        burst. Single-process only: ranks must dispatch the same programs,
+        and wall timings are local."""
+        if not self.ec.spec_auto_breakeven or self._multi:
             return False
         self._plain_probe_ctr += 1
         period = 16 if len(self._plain_step_s) < 8 else 128
@@ -1438,9 +1609,10 @@ class Engine:
 
     def _spec_breakeven_now(self) -> float:
         """The break-even in force: the measured verify/plain per-step cost
-        ratio once both rolling windows hold 8 samples (spec_auto_breakeven),
-        else the configured prior."""
-        if (not self.ec.spec_auto_breakeven
+        ratio once both rolling windows hold 8 samples (spec_auto_breakeven,
+        single process), else the configured prior: ranks must switch
+        speculation at the same plan, and wall timings are local."""
+        if (not self.ec.spec_auto_breakeven or self._multi
                 or len(self._plain_step_s) < 8
                 or len(self._spec_step_s) < 8):
             return self.ec.spec_breakeven
@@ -1493,12 +1665,34 @@ class Engine:
 
     def _loop(self) -> None:
         admitting: Optional[_Admission] = None
-        while not self._shutdown:
-            worked, admitting = self._iteration(admitting)
-            if not worked and admitting is None:
-                self._drain_pending_burst()  # idle: settle it now
-                self._wake.wait(timeout=0.05)
-                self._wake.clear()
+        leader = not self._multi or self._sync.is_leader
+        while True:
+            if leader:
+                plan = ({"op": "shutdown"} if self._shutdown
+                        else self._compose_plan(admitting))
+                if plan is None:
+                    self._drain_pending_burst()  # idle: settle it now
+                    if not self._multi:
+                        self._wake.wait(timeout=0.05)
+                        self._wake.clear()
+                        continue
+                    # an idle leader sends a no-op plan every <= 2 s, so
+                    # that no follower waits in a broadcast near its timeout
+                    self._wake.wait(timeout=2.0)
+                    self._wake.clear()
+                    plan = ({"op": "shutdown"} if self._shutdown
+                            else self._compose_plan(admitting)
+                            or {"op": "noop"})
+            else:
+                plan = None
+            if self._multi:
+                plan = self._sync.broadcast(plan)
+            if plan.get("op") == "noop":
+                continue
+            if plan.get("op") == "shutdown":
+                break
+            admitting = self._execute_plan(plan, admitting)
+        self._shutdown = True  # followers: the leader's shutdown plan
         # the tokens the device already made come before the aborts
         self._drain_pending_burst()
         if admitting is not None:

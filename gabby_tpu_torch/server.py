@@ -6,10 +6,16 @@ flags are the reference server's (gabby_tpu/server.py) plus `--device`
 (default cuda). `--pair-kv` defaults to AUTO as there: the paired kv-head
 cache layout whenever the kv-head count is even (`--no-pair-kv` reverts),
 dense and paged. `--act-fp8`, `--prefill-int8-shadow` and
-`--pipeline-fetch` are the reference's options, off by default. Flags of
-features not yet ported (meshes, multi-host, sequence-parallel prefill,
-the profiler port) are accepted by the parser and refused with "not yet
-ported" when set.
+`--pipeline-fetch` are the reference's options, off by default.
+
+Tensor parallelism: `--tp N` on one host starts N - 1 follower processes
+of the same command (rank i on cuda:i; every rank on the CPU with
+`--device cpu`); `--coordinator host:port --num-processes P --process-id
+i` starts one rank of a run over P processes (tp = P), as the reference's
+multi-host flags do. Rank 0 serves HTTP and broadcasts the engine's plans;
+a follower opens no port. Flags of features not yet ported (the data axis
+`--dp`, ring attention, the profiler port) are accepted by the parser and
+refused with "not yet ported" when set.
 
 Examples:
   python -m gabby_tpu_torch.tools.quantize --model-dir ~/hf/Llama-3.2-1B \\
@@ -24,13 +30,17 @@ Examples:
       --quant 4 --kv-quant --act-fp8 --prefill-int8-shadow --pipeline-fetch
   python -m gabby_tpu_torch.server --preset tiny --random-weights \\
       --device cpu --port 0
+  python -m gabby_tpu_torch.server --preset llama32_1b --random-weights \\
+      --quant 4 --kv-quant --tp 2
 """
 
 from __future__ import annotations
 
 import argparse
+import datetime
 import os
 import signal
+import subprocess
 import sys
 import threading
 from typing import Callable, Optional
@@ -40,34 +50,49 @@ import torch
 from gabby_tpu_torch.runtime.engine import RequestError
 
 # flag dest -> the value that means "feature off"
-_NOT_PORTED = {"tp": 1, "dp": 1, "sp_ring": False, "coordinator": "",
-               "profiler_port": 0}
+_NOT_PORTED = {"dp": 1, "sp_ring": False, "profiler_port": 0}
 
 
-def _build_engine(args):
-    from gabby_tpu_torch import config as cfglib
-    from gabby_tpu_torch import resolve_device
-    from gabby_tpu_torch.models import llama
-    from gabby_tpu_torch.ops import quant
-    from gabby_tpu_torch.runtime.engine import Engine, EngineConfig
-    from gabby_tpu_torch.tokenizer import Tokenizer
-
+def _refuse_unported(args) -> None:
     for name, off in _NOT_PORTED.items():
         if getattr(args, name) != off:
             sys.exit(f"--{name.replace('_', '-')}: not yet ported to "
                      f"gabby_tpu_torch")
+
+
+def _build_engine(args, group=None, sync=None):
+    """The engine of one rank: `group` (a parallel.TPGroup, None for a
+    single process) picks the rank's device and weight shard; `sync` (its
+    HostSync) keeps the ranks in lockstep."""
+    from gabby_tpu_torch import config as cfglib
+    from gabby_tpu_torch import resolve_device
+    from gabby_tpu_torch.models import llama
+    from gabby_tpu_torch.ops import quant
+    from gabby_tpu_torch.parallel import (bind_group, shard_params,
+                                          sharded_put_fn)
+    from gabby_tpu_torch.runtime.engine import Engine, EngineConfig
+    from gabby_tpu_torch.tokenizer import Tokenizer
+
+    _refuse_unported(args)
     if args.act_fp8:
         # read wherever a projection runs: set before any weights are built
         quant.set_act_fp8(True)
-    device = resolve_device(args.device)
+    tp = 1 if group is None else group.size
+    if tp > 1 and args.pair_kv:
+        sys.exit("--pair-kv: pair_kv_heads is single-device only for now "
+                 "(unvalidated under tensor parallelism)")
+    device = resolve_device(args.device) if group is None else group.device
     if args.model_dir:
         # an HF-layout directory (quantized at load when --quant is given)
-        # or one written by tools.quantize (its own metadata decides)
+        # or one written by tools.quantize (its own metadata decides);
+        # under tp each leaf is cut to this rank's block as it is read
         from gabby_tpu_torch.loader import load_model_dir
         cfg, params, tokenizer = load_model_dir(
             args.model_dir, dtype=torch.bfloat16,
             quant_bits=args.quant or None, max_seq_len=args.max_seq,
-            device=device)
+            device=device, tp=tp, device_put_fn=(
+                sharded_put_fn(group.rank, tp, device) if tp > 1
+                else None))
         if tokenizer is None:
             sys.exit(f"{args.model_dir} has no tokenizer.json")
         dtype = torch.bfloat16
@@ -85,7 +110,14 @@ def _build_engine(args):
                        if args.quant == 4 else {})
             params = quant.quantize_tree(params, args.quant, **unembed)
         tokenizer = Tokenizer.byte_fallback(cfg.vocab_size)
+        if tp > 1:
+            params = shard_params(params, group.rank, tp)
+    # fuse qkv and gate/up into single products. A rank's shard fuses to
+    # its own block of the tree fused with tp (the per-shard layout of
+    # fuse_projections): one plain block, as local_config says
     params = llama.fuse_projections(params)
+    if tp > 1:
+        params = bind_group(params, group)
     if args.pair_kv and cfg.num_kv_heads % 2:
         sys.exit("--pair-kv: pair_kv_heads needs an even kv-head count")
     econfig = EngineConfig(
@@ -99,11 +131,77 @@ def _build_engine(args):
         spec_reprobe_steps=args.spec_reprobe_steps,
         prefill_int8_shadow=args.prefill_int8_shadow,
         pipeline_fetch=args.pipeline_fetch,
-        # auto: on whenever eligible (the port has no mesh, so: an even
-        # kv-head count), dense and paged
+        # auto: on whenever eligible (one rank and an even kv-head count),
+        # dense and paged
         pair_kv_heads=(args.pair_kv if args.pair_kv is not None
-                       else cfg.num_kv_heads % 2 == 0))
-    return Engine(cfg, params, tokenizer, econfig, device=device), cfg
+                       else tp == 1 and cfg.num_kv_heads % 2 == 0))
+    return Engine(cfg, params, tokenizer, econfig, device=device,
+                  sync=sync), cfg
+
+
+def _start_ranks(args, argv: list[str]):
+    """Join this process's rank: with --coordinator, rank --process-id of
+    --num-processes; with --tp N alone, rank 0 of N, after starting ranks
+    1..N-1 as processes of the same command line. Returns (TPGroup,
+    follower processes)."""
+    from gabby_tpu_torch import resolve_device
+    from gabby_tpu_torch.parallel import init_distributed
+
+    device = resolve_device(args.device)
+    timeout = args.sync_timeout or None
+    if args.coordinator:
+        n, rank = args.num_processes, args.process_id
+        if n < 1 or not 0 <= rank < n:
+            sys.exit("--coordinator needs --num-processes P >= 1 and "
+                     "--process-id in [0, P)")
+        if args.tp not in (1, n):
+            sys.exit(f"--tp {args.tp} differs from --num-processes {n}: "
+                     f"tp is the number of processes")
+        if device.type == "cuda":
+            device = torch.device("cuda", rank % torch.cuda.device_count())
+        return init_distributed(args.coordinator, n, rank, device=device,
+                                timeout=timeout), []
+    n = args.tp
+    if device.type == "cuda" and n > torch.cuda.device_count():
+        # the reference needs dp * tp devices (parallel/mesh.py there)
+        sys.exit(f"--tp {n} needs {n} visible cards; "
+                 f"{torch.cuda.device_count()} visible")
+    import torch.distributed as dist
+    store = dist.TCPStore("127.0.0.1", 0, n, is_master=True,
+                          wait_for_workers=False,
+                          timeout=datetime.timedelta(seconds=timeout or 1800))
+    coordinator = f"127.0.0.1:{store.port}"
+    pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [pkg_root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                      if p])
+    followers = [subprocess.Popen(
+        [sys.executable, "-m", "gabby_tpu_torch.server", *argv,
+         "--coordinator", coordinator, "--num-processes", str(n),
+         "--process-id", str(i)], env=env) for i in range(1, n)]
+    try:
+        if device.type == "cuda":
+            device = torch.device("cuda", 0)
+        group = init_distributed(coordinator, n, 0, store=store,
+                                 device=device, timeout=timeout)
+    except BaseException:
+        _stop_followers(followers, 0)
+        raise
+    return group, followers
+
+
+def _stop_followers(followers, grace: float) -> None:
+    """Wait up to `grace` seconds for the followers (the leader's shutdown
+    plan releases them), then kill what is left."""
+    for p in followers:
+        try:
+            p.wait(timeout=grace)
+        except subprocess.TimeoutExpired:
+            pass
+        if p.poll() is None:
+            p.kill()
+            p.wait()
 
 
 def _top_entries(engine, rows):
@@ -295,19 +393,31 @@ def build_parser() -> argparse.ArgumentParser:
                    help="dispatch decode burst N+1 before reading burst "
                         "N's host view, which is copied to pinned memory "
                         "behind an event (host bookkeeping lags one burst; "
-                        "off under --speculate; see EngineConfig."
-                        "pipeline_fetch)")
-    # the reference server's flags of features not yet ported (meshes,
-    # multi-host, sequence-parallel prefill, the profiler port): accepted
-    # so scripts written for it parse, refused when set
-    p.add_argument("--tp", type=int, default=1)
+                        "off under --speculate and tensor parallelism; see "
+                        "EngineConfig.pipeline_fetch)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel degree: ranks 1..N-1 start as "
+                        "processes of this command, one card each (all on "
+                        "the CPU with --device cpu)")
+    p.add_argument("--coordinator", default="",
+                   help="multi-process: rank 0's host:port (start the same "
+                        "command for every rank; rank 0 serves HTTP, the "
+                        "rest follow its plan broadcasts)")
+    p.add_argument("--num-processes", type=int, default=0,
+                   help="multi-process: the number of ranks (tp)")
+    p.add_argument("--process-id", type=int, default=-1,
+                   help="multi-process: this rank")
+    p.add_argument("--sync-timeout", type=float, default=60.0,
+                   help="multi-process: seconds a plan broadcast or a "
+                        "collective may block before the peer is declared "
+                        "dead and in-flight requests fail (0 = wait "
+                        "forever)")
+    # the reference server's flags of features not yet ported (the data
+    # axis, ring attention, the profiler port): accepted so scripts
+    # written for it parse, refused when set
     p.add_argument("--dp", type=int, default=1)
     p.add_argument("--sp-prefill-tokens", type=int, default=1024)
     p.add_argument("--sp-ring", action="store_true")
-    p.add_argument("--coordinator", default="")
-    p.add_argument("--num-processes", type=int, default=0)
-    p.add_argument("--process-id", type=int, default=-1)
-    p.add_argument("--sync-timeout", type=float, default=60.0)
     p.add_argument("--profiler-port", type=int, default=0)
     p.add_argument("--compile-cache", default="")
     return p
@@ -318,10 +428,33 @@ def main(argv: Optional[list[str]] = None,
          stop: Optional[threading.Event] = None) -> int:
     """Serve until SIGINT/SIGTERM, or until `stop` is set. Embedders may
     pass `on_ready`, called with the bound port once warm-up is done."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
+    from gabby_tpu_torch.parallel.multihost import HostSync
+
+    _refuse_unported(args)
+    group = sync = None
+    followers: list = []
+    if args.coordinator or args.tp > 1:
+        group, followers = _start_ranks(args, argv)
+        sync = HostSync(group, timeout=args.sync_timeout or None)
+    try:
+        return _serve(args, group, sync, on_ready, stop)
+    finally:
+        _stop_followers(followers, 60)
+
+
+def _serve(args, group, sync, on_ready, stop) -> int:
     from gabby_tpu_torch.bridge import NativeServer
 
-    engine, _ = _build_engine(args)
+    engine, _ = _build_engine(args, group, sync)
+    if sync is not None and not sync.is_leader:
+        # no HTTP front door: the engine thread replays the leader's plans
+        # until its shutdown plan arrives
+        print(f"follower {sync.process_index}/{sync.num_processes} "
+              "serving leader plans", flush=True)
+        engine._thread.join()
+        return 0
     server = NativeServer(
         make_handler(engine), port=args.port, workers=args.workers,
         model_id=args.model_id or (
@@ -330,14 +463,18 @@ def main(argv: Optional[list[str]] = None,
         read_timeout_millis=args.read_timeout_millis,
         write_timeout_millis=args.write_timeout_millis,
         log_level=args.log_level, stats_fn=engine.stats_snapshot)
-    if args.warmup:
+    # warm-up is single-process only (Engine.warmup)
+    do_warmup = args.warmup and sync is None
+    if do_warmup:
         server.set_ready(False)
     port = server.start()
     print(f"listening on port {port}", flush=True)
-    if args.warmup:
+    if do_warmup:
         secs = engine.warmup()
         server.set_ready(True)
         print(f"ready (warm-up {secs:.1f}s)", flush=True)
+    elif args.warmup:
+        print("warm-up skipped (tensor parallel)", flush=True)
     stop = stop or threading.Event()
 
     def on_signal(sig, frame):

@@ -339,7 +339,8 @@ def test_load_quantized_refuses_interleaved_int4(tmp_path):
 
 def test_fused_tp_in_gabby_json(int8_checkpoint):
     """The reference writes its `fused_tp` field into gabby.json: 1 (plain
-    concatenation) is accepted, a mesh-fused tree is refused."""
+    concatenation) is accepted, and a tree fused for tp = 2 loads at tp = 2
+    and is refused at tp = 1."""
     d = int8_checkpoint
     assert json.loads((d / "gabby.json").read_text())["config"]["fused_tp"] == 1
     jc, _, _ = jloader.load_quantized(str(d))
@@ -347,7 +348,9 @@ def test_fused_tp_in_gabby_json(int8_checkpoint):
     _rewrite_meta(d, lambda meta: meta["config"].pop("fused_tp"))
     tloader.load_quantized(str(d), device="cpu")  # absent: older files
     _rewrite_meta(d, lambda meta: meta["config"].update(fused_tp=2))
-    with pytest.raises(ValueError, match="not yet ported"):
+    cfg, _, _ = tloader.load_quantized(str(d), device="cpu", tp=2)
+    assert cfg.fused_tp == 2
+    with pytest.raises(ValueError, match="fused for tp=2"):
         tloader.load_quantized(str(d), device="cpu")
 
 

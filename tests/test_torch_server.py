@@ -313,8 +313,7 @@ def test_default_server_decodes_with_the_s8_form(monkeypatch):
         assert calls and set(calls) == {("decode_attention", 32)}
 
 
-@pytest.mark.parametrize("flag", [["--dp", "2"], ["--tp", "2"],
-                                  ["--sp-ring"], ["--coordinator", "host:1"],
+@pytest.mark.parametrize("flag", [["--dp", "2"], ["--sp-ring"],
                                   ["--profiler-port", "9999"]])
 def test_unported_flags_are_still_refused(flag):
     from gabby_tpu_torch import server
@@ -326,8 +325,7 @@ def test_unported_flags_are_still_refused(flag):
 
 def test_not_ported_holds_the_parallel_flags_and_the_profiler():
     from gabby_tpu_torch import server
-    assert set(server._NOT_PORTED) == {"tp", "dp", "sp_ring", "coordinator",
-                                       "profiler_port"}
+    assert set(server._NOT_PORTED) == {"dp", "sp_ring", "profiler_port"}
 
 
 @pytest.mark.parametrize("flag", ["--act-fp8", "--prefill-int8-shadow",
