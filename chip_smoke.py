@@ -209,7 +209,31 @@ a non-zero exit:
                  and the ten-request wall at tp = 2 against tp = 1, beside
                  the card's name and power limit (two ranks share one
                  card here: no speed on two cards is measured);
- 10. summary     the kernels line (thirty-three kernels; K1, K33, K5,
+ 10. data-parallel
+                 the same model and configuration over two replicas (dp =
+                 2, tp = 1; 4 slots each): (a) K1 at one replica's lanes
+                 (M = 4) and K14 over its 4 slots at context 1024, each
+                 against its plain version with the kernels phase's
+                 tolerance (kernel-only, this process); then two replica
+                 processes on the one card (spawned, gloo) that must hold
+                 (b) K1 64, K2 1 and K14 16 (K19 16 paged) launches a
+                 decode step over a replica's 4 slots, and one dp gather
+                 a decode burst in the engine runs; (c) rank 0's engine
+                 serving the ten chat requests, the other replica
+                 replaying its plans, dense and over 33 pages of 512:
+                 identical records on both ranks, every kernel of the path
+                 launched on both, the streams compared with the
+                 tensor-parallel phase's single-process ones and the first
+                 diverging one walked (a `"diagnosis"` line: near-tie or
+                 not); (d) a 1024-token prompt in 512-token chunks into
+                 replica 1's slot 5 by sequence-parallel prefill, all-gather
+                 and ring, against the single-rank prefill_slot: the
+                 final logits within ADMIT_TOL of the largest and equal on
+                 both ranks, the owner's rows within ADMIT_TOL, and each
+                 route's peak bytes printed; (e) ms a decode step and the
+                 ten-request wall at dp = 2 against dp = 1 (two replicas
+                 share one card here: no speed on two cards is measured);
+ 11. summary     the kernels line (thirty-three kernels; K1, K33, K5,
                  K8 and K2 on two rows each, M = 8 and 64), then
                  {"ok": true, "device": {...}} last.
 
@@ -3433,11 +3457,12 @@ def tp_forced(params, cfg, dev, fed=None, prompt=None) -> tuple:
     return fed, torch.stack(rows).float().cpu()
 
 
-def tp_decode_costs(params, cfg, dev, paged: bool) -> dict:
-    """(d) and (e): 8 slots prefilled (24-59 tokens) on an unpaired int8
-    cache, dense or 33 pages of 512, then 4 decode steps with the launch
-    and all-reduce counts set to 0 just before and read just after: each a
-    step; then ms a step (median of 5, synchronized, eager)."""
+def tp_decode_costs(params, cfg, dev, paged: bool, slots: int = 8) -> dict:
+    """(d) and (e): `slots` slots (8; one replica's 4 at dp = 2) prefilled
+    (24-59 tokens) on an unpaired int8 cache, dense or 33 pages of 512
+    (four a slot), then 4 decode steps with the launch and all-reduce
+    counts set to 0 just before and read just after: each a step; then ms
+    a step (median of 5, synchronized, eager)."""
     from gabby_tpu_torch.models import llama
     from gabby_tpu_torch.ops import cuda as ck
     from gabby_tpu_torch.parallel import collectives, local_config
@@ -3447,13 +3472,13 @@ def tp_decode_costs(params, cfg, dev, paged: bool) -> dict:
     group = params.get("tp")
     lcfg = local_config(cfg, 1 if group is None else group.size)
     if paged:
-        cache = create_paged_cache(lcfg, 8, 2048, 33, quantized=True,
+        cache = create_paged_cache(lcfg, slots, 2048, 33, quantized=True,
                                    page_size=512, device=dev)
-        cache.page_table.copy_(1 + torch.arange(32, dtype=torch.int32)
-                               .reshape(8, 4))
+        cache.page_table.copy_(1 + torch.arange(4 * slots, dtype=torch.int32)
+                               .reshape(slots, 4))
     else:
-        cache = create_cache(lcfg, 8, 2048, quantized=True, device=dev)
-    lens = [24 + 5 * s for s in range(8)]
+        cache = create_cache(lcfg, slots, 2048, quantized=True, device=dev)
+    lens = [24 + 5 * s for s in range(slots)]
     first = []
     ck.set_attn_s8(True)
     try:
@@ -3523,6 +3548,14 @@ def tp_engine_runs(cfg, params, dev, sync) -> dict:
                 real_finish(slot_ix, reason)
 
             eng._finish = finish
+            # every decode burst reads one host view (`_host_view`)
+            bursts = [0]
+
+            def host_view(*a, real_view=eng._host_view, bursts=bursts):
+                bursts[0] += 1
+                return real_view(*a)
+
+            eng._host_view = host_view
             row = {}
             if leader:
                 warm = eng.submit([{"role": "user", "content": "warm up"}],
@@ -3534,6 +3567,7 @@ def tp_engine_runs(cfg, params, dev, sync) -> dict:
                     store.wait([f"smoke/reset/{label}"])
                 ck.reset_launch_counts()
                 collectives.reset_counts()
+                bursts[0] = 0
                 stats0 = eng.stats_snapshot()
                 t0 = time.perf_counter()
                 reqs = [eng.submit(
@@ -3559,17 +3593,19 @@ def tp_engine_runs(cfg, params, dev, sync) -> dict:
                     tokens=[r.completion_tokens for r in reqs])
                 row["ms_a_decode_step"] = 1e3 * wall / row["decode_steps"]
                 counts = dict(ck.launch_counts)
-                all_reduces = collectives.counts["all_reduce"]
+                coll = dict(collectives.counts)
                 eng.shutdown()
             else:
                 store.wait([f"smoke/warm/{label}"])
                 ck.reset_launch_counts()
                 collectives.reset_counts()
+                bursts[0] = 0
                 store.set(f"smoke/reset/{label}", "1")
                 eng._thread.join()
                 counts = dict(ck.launch_counts)
-                all_reduces = collectives.counts["all_reduce"]
-            row.update(streams=sorted(streams), all_reduces=all_reduces,
+                coll = dict(collectives.counts)
+            row.update(streams=sorted(streams), all_reduces=coll["all_reduce"],
+                       collectives=coll, bursts=bursts[0],
                        launches={k: n for k, n in counts.items() if n})
             out[label] = row
     finally:
@@ -3635,9 +3671,11 @@ def _tp_rank(rank: int, nprocs: int, store_path: str, fed: list,
             "costs": costs, "runs": runs, "walks": walks}
 
 
-def tp_phase(cfg, dev, gpu_line: str) -> None:
+def tp_phase(cfg, dev, gpu_line: str) -> tuple:
     """The tensor-parallel phase, (a)-(e) of the docstring: the tp = 1
-    sides on the card in this process, then two spawned ranks."""
+    sides on the card in this process, then two spawned ranks. Returns the
+    single-process sides (decode costs, engine runs), which the
+    data-parallel phase compares with too."""
     from gabby_tpu_torch.models import llama
     from gabby_tpu_torch.parallel import mesh
 
@@ -3723,6 +3761,7 @@ def tp_phase(cfg, dev, gpu_line: str) -> None:
                                    ("tp2", lead))}})
     tp_divergence(cfg, dev, gpu_line, one_runs, ranks[0])
     emit({"phase": "tensor-parallel", "seconds": time.perf_counter() - t0})
+    return one, one_runs
 
 
 def tp_divergence(cfg, dev, gpu_line: str, one_runs: dict, lead: dict) -> None:
@@ -3769,6 +3808,311 @@ def tp_divergence(cfg, dev, gpu_line: str, one_runs: dict, lead: dict) -> None:
     del params
     torch.cuda.empty_cache()
 
+
+
+# ---- data parallelism ----------------------------------------------------
+
+DP = 2
+# (d): the SP threshold that the 512-token bucket meets, and the slot that
+# replica 1 owns, so that its prior rows cross to replica 0
+DP_SP_TOKENS = 512
+DP_SP_SLOT = 5
+DP_SP_PROMPT = 1024  # two 512-token chunks, the second past offset 512
+
+
+def dp_check(line: dict, ok: bool) -> None:
+    """One line per check of the data-parallel phase; a failed check fails
+    the run."""
+    line = {"phase": "data-parallel", **line, "ok": bool(ok)}
+    emit(line)
+    if not ok:
+        raise AssertionError(f"data-parallel: {line}")
+
+
+def dp_kernel_checks(cfg, dev, gpu_line: str) -> None:
+    """(a) K1 at one replica's lanes (M = 4, the 1B's four projections x
+    16 layers) and K14 over one replica's 4 slots (32 q over 8 kv heads,
+    context 1024 in 2048 rows), each against its plain version with the
+    kernels phase's tolerance and repeated bit for bit, timed eagerly and
+    from a graph beside the plain version and the library call;
+    kernel-only, in this process."""
+    from gabby_tpu_torch.ops.cuda import attention as cattn
+    from gabby_tpu_torch.ops.cuda import quant_matmul as cqm
+    from gabby_tpu_torch.runtime.kv_cache import quantize_kv
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    results: list = []
+    b = TP_ENGINE["batch_slots"] // DP
+    stacked_case_into(
+        results, g, cfg.num_layers, projections(cfg), "int4_matmul_stacked",
+        "gabby_tpu_torch/csrc/quant_matmul_stacked.cu",
+        "gabby_tpu/ops/pallas/quant_matmul.py:524",
+        cqm.qmatmul_int4_stacked, cqm.int4_stacked_plain, bits=4, m=b,
+        what="one replica's decode step at dp = 2", repeat=True)
+    nl, s, ctx = cfg.num_layers, 2048, 1024
+    nq, nk, h = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    kc, ks = quantize_kv(randn(nl, b, nk, s, h))
+    vc, vs = quantize_kv(randn(nl, b, nk, s, h))
+    pos = torch.full((b,), ctx, dtype=torch.int32, device=dev)
+    q = randn(b, 1, nq, h).bfloat16()
+    fk, fv = randn(b, nk, h).bfloat16(), randn(b, nk, h).bfloat16()
+    kw = dict(fresh_k=fk, fresh_v=fv)
+
+    def rows(codes, scales, fresh):
+        return torch.cat([(codes[:, :, :ctx].float()
+                           * scales[:, :, :ctx, None]).bfloat16(),
+                          fresh[:, :, None]], dim=2)
+
+    kd = [rows(kc[i], ks[i], fk) for i in range(nl)]
+    vd = [rows(vc[i], vs[i], fv) for i in range(nl)]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    attn_case_into(
+        results, nl, "decode_attention_s8",
+        f"{nl} layers x [{b} slots, {nq} q heads, {nk} kv heads, head {h}, "
+        f"context {ctx}], int8 cache of {s} rows, s8 dots",
+        "gabby_tpu_torch/csrc/attention_s8.cu",
+        "gabby_tpu/ops/pallas/attention.py:256",
+        lambda i: cattn.decode_attention_s8(q, kc, vc, ks, vs, pos, layer=i,
+                                            window=ctx + 1, **kw),
+        lambda i: cattn.decode_attention_s8_plain(q, kc, vc, ks, vs, pos,
+                                                  layer=i, **kw),
+        lambda i: sdpa(q.transpose(1, 2), kd[i], vd[i], enable_gqa=True),
+        nl * (2 * b * nk * ctx * (h + 4) + 2 * b * nq * h * 2
+              + 2 * b * nk * h * 2), nl * 4 * b * nq * (ctx + 1) * h,
+        peak=INT8_OP_PER_S, tol=S8_TOL, repeat=True)
+    del kd, vd, kc, vc, ks, vs
+    torch.cuda.empty_cache()
+    for r in results:
+        dp_check({"check": f"{r['name']} at one replica's {b} lanes",
+                  "card": gpu_line, **r}, True)
+
+
+def dp_sp_prefill(params, cfg, dev, group, prompt: list) -> dict:
+    """(d) on one rank: the prompt's 512-token chunks into slot
+    DP_SP_SLOT through sp_prefill_slot, by the all-gather and by the ring,
+    each on a fresh unpaired int8 cache of this replica's 4 slots, against
+    the same chunks through the single-rank prefill_slot (the same
+    weights, no collective) on a cache of one slot: the final logits'
+    largest difference and the owner's rows' (dequantized), each relative
+    to the largest; the bytes the call adds to the peak allocation (its
+    activations and K/V buffers: `torch.cuda.max_memory_allocated` around
+    it), its ms and its collectives."""
+    from gabby_tpu_torch.models import llama
+    from gabby_tpu_torch.parallel import collectives, sp
+    from gabby_tpu_torch.runtime.kv_cache import create_cache, dequantize_kv
+
+    bl = TP_ENGINE["batch_slots"] // DP
+    ids = torch.tensor(prompt, device=dev)
+    n, t = len(prompt), DP_SP_TOKENS
+    ref_cache = create_cache(cfg, 1, 2048, quantized=True, device=dev)
+    for off in range(0, n, t):
+        want, _ = llama.prefill_slot(params, cfg, ids[off:off + t], t, 0, off,
+                                     ref_cache)
+    want = want.float()
+
+    def rows(cache, slot):
+        return [dequantize_kv(codes[:, slot, :, :n], scales[:, slot, :, :n],
+                              torch.float32)
+                for codes, scales in ((cache.k, cache.k_scale),
+                                      (cache.v, cache.v_scale))]
+
+    ref_rows = rows(ref_cache, 0)
+    out = {}
+    for route, ring in (("all-gather", False), ("ring", True)):
+        cache = create_cache(cfg, bl, 2048, quantized=True, device=dev)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        collectives.reset_counts()
+        t0 = time.perf_counter()
+        for off in range(0, n, t):
+            got, cache = sp.sp_prefill_slot(params, cfg, ids[off:off + t], t,
+                                            DP_SP_SLOT, off, cache,
+                                            group=group, ring=ring)
+        torch.cuda.synchronize()
+        row = {"ms": 1e3 * (time.perf_counter() - t0),
+               "peak_extra_bytes": torch.cuda.max_memory_allocated() - base,
+               "collectives": dict(collectives.counts),
+               "logits": got.float().cpu().numpy(),
+               "max_rel_logit_err": ((got.float() - want).abs().max()
+                                     / want.abs().max()).item(),
+               "argmax_equal": int(got.argmax()) == int(want.argmax())}
+        if DP_SP_SLOT // bl == group.dp_rank:
+            row["max_rel_row_err"] = max(
+                ((a - b).abs().max() / b.abs().max()).item()
+                for a, b in zip(rows(cache, DP_SP_SLOT % bl), ref_rows))
+        out[route] = row
+        del cache
+        torch.cuda.empty_cache()
+    return out
+
+
+def _dp_rank(rank: int, nprocs: int, store_path: str, prompt: list) -> dict:
+    """One replica of the data-parallel phase on cuda:0 (spawned): joins a
+    dp = nprocs grid through a FileStore (gloo: the ranks share the card),
+    builds the whole seed-0 int4 tree (weights are replicated over dp),
+    and runs (b)'s and (e)'s model steps over its 4 slots, (d), then (c)'s
+    engine runs. Returns what the parent checks, as numpy and plain
+    Python."""
+    import torch.distributed as dist
+
+    from gabby_tpu_torch import config as cfglib
+    from gabby_tpu_torch.models import llama
+    from gabby_tpu_torch.parallel import init_distributed
+    from gabby_tpu_torch.parallel.multihost import HostSync
+
+    dev = torch.device("cuda", 0)
+    group = init_distributed(None, nprocs, rank, dp=nprocs, device=dev,
+                             timeout=600,
+                             store=dist.FileStore(store_path, nprocs))
+    cfg = cfglib.llama32_1b(max_seq_len=2048)
+    params = llama.fuse_projections(int4_1b(cfg, dev))
+    torch.cuda.empty_cache()
+    costs = {paged: tp_decode_costs(params, cfg, dev, paged,
+                                    slots=TP_ENGINE["batch_slots"] // nprocs)
+             for paged in (False, True)}
+    sp = dp_sp_prefill(params, cfg, dev, group, prompt)
+    runs = tp_engine_runs(cfg, params, dev, HostSync(group, timeout=600))
+    return {"backend": group.backend, "costs": costs, "sp": sp,
+            "runs": runs}
+
+
+def dp_divergence(cfg, dev, gpu_line: str, one_runs: dict,
+                  lead: dict) -> None:
+    """Where a dp = 2 greedy stream leaves the dp = 1 one, printed, not
+    judged: the dp = 1 single-slot walk over the same prompt and the dp = 1
+    tokens (`tp_forced`), at the first position that differs: the two
+    streams' tokens, the walk's gap between them and between its best two,
+    relative to the row's largest logit; a gap within TIE_BAND is a
+    near-tie that a sum in another order can flip."""
+    from gabby_tpu_torch.models import llama
+
+    params = None
+    for label, run in one_runs.items():
+        got = lead["runs"][label]["streams"]
+        d = first_divergence(got, run["streams"])
+        if d is None:
+            emit({"phase": "data-parallel", "diagnosis": label,
+                  "diverging_streams": 0})
+            continue
+        prompt, tokens, other, p = d
+        if params is None:
+            params = llama.fuse_projections(int4_1b(cfg, dev))
+        _, walk = tp_forced(params, cfg, dev, tokens[:p], prompt)
+        row = walk[p]
+        top = row.abs().max().item()
+        t1 = tokens[p] if p < len(tokens) else None
+        t2 = other[p] if p < len(other) else None
+        best = row.topk(2).values
+        gap = (abs(row[t1] - row[t2]).item() / top
+               if t1 is not None and t2 is not None else None)
+        emit({"phase": "data-parallel", "diagnosis": label,
+              "diverging_streams": sum(a != b for a, b in
+                                       zip(got, run["streams"])),
+              "prompt_tokens": len(prompt), "first_diverging_position": p,
+              "dp1_token": t1, "dp2_token": t2,
+              "walk_argmax": int(row.argmax()),
+              "dp1_best_two_gap_rel": (best[0] - best[1]).item() / top,
+              "gap_between_the_tokens_rel": gap,
+              "near_tie": gap is not None and gap <= TIE_BAND,
+              "card": gpu_line})
+    del params
+    torch.cuda.empty_cache()
+
+
+def dp_phase(cfg, dev, gpu_line: str, one: dict, one_runs: dict) -> None:
+    """The data-parallel phase: (a) in this process, then two replicas
+    spawned on the card; `one` and `one_runs` are the tensor-parallel
+    phase's single-process decode costs and engine runs (dp = 1)."""
+    from gabby_tpu_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    dp_kernel_checks(cfg, dev, gpu_line)
+    prompt = stream(990, DP_SP_PROMPT, cfg.vocab_size)
+    with tempfile.TemporaryDirectory(prefix="gabby_dp_") as d:
+        ranks = mesh.spawn_ranks(_dp_rank, DP, (os.path.join(d, "store"),
+                                                prompt), timeout=900)
+    # (b)
+    for rank, r in enumerate(ranks):
+        for paged in (False, True):
+            where = "33 pages of 512" if paged else "dense"
+            c = r["costs"][paged]
+            dp_check({"check": f"replica {rank}, {where}: launches a decode "
+                      "step over its 4 slots", "backend": r["backend"],
+                      **c},
+                     c["launches"] == {k: float(n)
+                                       for k, n in c["want"].items()}
+                     and r["backend"] == "gloo")
+        for label in ("dense", "33 pages of 512"):
+            run = r["runs"][label]
+            per = run["collectives"]["gather_slots"] / max(run["bursts"], 1)
+            dp_check({"check": f"replica {rank}, {label}: dp gathers a "
+                      "decode burst", "bursts": run["bursts"],
+                      "collectives": run["collectives"],
+                      "gathers_a_burst": per},
+                     per == 1.0 and run["bursts"] > 0
+                     and run["collectives"]["all_reduce"] == 0)
+    # (c)
+    for label in ("dense", "33 pages of 512"):
+        lead, follow = (r["runs"][label] for r in ranks)
+        path = list(TP_STEP) + [TP_ATTN[label != "dense"]]
+        dp_check({"check": f"{label}: the ten chat requests, rank 0 serving "
+                  "and rank 1 replaying its plans: identical records, every "
+                  "kernel of the path launched on both replicas",
+                  "finished": lead["fins"], "tokens": lead["tokens"],
+                  "launches": [lead["launches"], follow["launches"]],
+                  "streams_equal_to_dp_1": sum(
+                      a == b for a, b in zip(lead["streams"],
+                                             one_runs[label]["streams"])),
+                  "streams": len(lead["streams"])},
+                 lead["streams"] == follow["streams"]
+                 and len(lead["streams"]) == len(CONTENT_SIZES) + 1
+                 and all(f in ("stop", "length") for f in lead["fins"])
+                 and all(lead["launches"].get(k, 0) > 0
+                         and follow["launches"].get(k, 0) > 0
+                         for k in path))
+    dp_divergence(cfg, dev, gpu_line, one_runs, ranks[0])
+    # (d)
+    for route in ("all-gather", "ring"):
+        got = [r["sp"][route] for r in ranks]
+        owner = got[DP_SP_SLOT // (TP_ENGINE["batch_slots"] // DP)]
+        dp_check({"check": f"SP prefill by the {route}: {DP_SP_PROMPT} "
+                  f"tokens in chunks of {DP_SP_TOKENS} into slot "
+                  f"{DP_SP_SLOT}, against the single-rank prefill_slot",
+                  "bound": ADMIT_TOL, "card": gpu_line,
+                  **{k: [g[k] for g in got] for k in (
+                      "max_rel_logit_err", "argmax_equal", "ms",
+                      "peak_extra_bytes", "collectives")},
+                  "owner_max_rel_row_err": owner["max_rel_row_err"]},
+                 all(g["max_rel_logit_err"] <= ADMIT_TOL for g in got)
+                 and owner["max_rel_row_err"] <= ADMIT_TOL
+                 and (got[0]["logits"] == got[1]["logits"]).all())
+    emit({"phase": "data-parallel", "check": "SP peak bytes, ring beside "
+          "all-gather", "card": gpu_line,
+          "peak_extra_bytes": {route: [r["sp"][route]["peak_extra_bytes"]
+                                       for r in ranks]
+                               for route in ("all-gather", "ring")}})
+    # (e)
+    for paged in (False, True):
+        label = "33 pages of 512" if paged else "dense"
+        emit({"phase": "data-parallel", "cost": label,
+              "note": "two replicas share one card here: not the cost on "
+              "two cards", "card": gpu_line,
+              "ms_a_decode_step_model": {
+                  "dp1_8_slots": one[paged]["ms_a_step"],
+                  "dp2_4_slots_each": [r["costs"][paged]["ms_a_step"]
+                                       for r in ranks]},
+              "engine_ten_requests": {
+                  key: {k: run[k] for k in ("wall_s", "decode_steps",
+                                            "ms_a_decode_step",
+                                            "p50_ttft_ms")}
+                  for key, run in (("dp1", one_runs[label]),
+                                   ("dp2", ranks[0]["runs"][label]))}})
+    emit({"phase": "data-parallel", "seconds": time.perf_counter() - t0})
 
 
 def main() -> int:
@@ -4067,8 +4411,11 @@ def main() -> int:
 
     clock("http")
     # tensor parallelism over two ranks on this card
-    tp_phase(cfg, dev, gpu_line)
+    one, one_runs = tp_phase(cfg, dev, gpu_line)
     clock("tensor-parallel")
+    # data parallelism: two replicas on this card
+    dp_phase(cfg, dev, gpu_line, one, one_runs)
+    clock("data-parallel")
     # each kernel's launches come from the run of the path that is its own
     own = {"int8_matmul_stacked": counts8, "int8_matmul": counts8,
            "int4_matmul_stacked_rawdot": runs["paired, s8; raw-byte-dot"],

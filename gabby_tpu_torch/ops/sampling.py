@@ -8,6 +8,12 @@ from an EXACT `torch.topk`, where the TPU reference uses `approx_max_k`
 (~0.95 recall); greedy decoding is an exact argmax in both, so greedy
 tokens agree token for token. Random draws come from an explicit
 `torch.Generator` and do not reproduce the reference's threefry stream.
+Every call draws one uniform a lane of the WHOLE slot batch (`draw_total`)
+and a lane picks its token by inverse CDF from its own uniform (at
+`draw_offset` + its row): under data parallelism a replica holding slots
+[lo, hi) draws the same vector and keeps its part, so an unseeded lane's
+stream does not depend on which replica holds it, as the reference's draw
+over the sharded global batch does not.
 
 Per-request seeds (OpenAI `seed`): a lane with seed >= 0 draws from a
 stream that depends only on (seed, position) and its own filtered
@@ -64,7 +70,9 @@ def sample(logits: torch.Tensor, generator: Optional[torch.Generator], *,
            top_p: torch.Tensor,
            max_candidates: int = MAX_CANDIDATES,
            lane_seeds: Optional[torch.Tensor] = None,
-           lane_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+           lane_positions: Optional[torch.Tensor] = None,
+           draw_offset: int = 0,
+           draw_total: Optional[int] = None) -> torch.Tensor:
     """logits: [B, V] f32; temperature/top_p: [B] f32; top_k: [B] int.
     Returns sampled token ids [B] int32.
 
@@ -72,7 +80,8 @@ def sample(logits: torch.Tensor, generator: Optional[torch.Generator], *,
     draw from their own (seed, position) stream (`lane_gumbel`); lanes at
     -1 keep `generator`'s draw. The global draw is made for every lane
     whatever the seeds, so an unseeded lane's stream does not depend on
-    whether a seeded one ran beside it."""
+    whether a seeded one ran beside it. It is `uniforms(generator,
+    draw_total)` (default B), of which row i takes entry draw_offset + i."""
     b, v = logits.shape
     k = min(max_candidates, v)
     temp = torch.clamp(temperature, min=1e-6)[:, None]
@@ -90,8 +99,9 @@ def sample(logits: torch.Tensor, generator: Optional[torch.Generator], *,
 
     filtered = torch.where(keep_k & keep_p, scaled,
                            torch.full_like(scaled, NEG_INF))
-    choice = torch.multinomial(torch.softmax(filtered, dim=-1), 1,
-                               generator=generator)  # [B, 1] in [0, K)
+    u = uniforms(generator, b if draw_total is None else draw_total,
+                 logits.device)[draw_offset:draw_offset + b]
+    choice = inverse_cdf(torch.softmax(filtered, dim=-1), u)  # [B, 1]
     if lane_seeds is not None:
         lane_choice = torch.argmax(
             filtered + lane_gumbel(lane_seeds, lane_positions, k), dim=-1)
@@ -101,6 +111,25 @@ def sample(logits: torch.Tensor, generator: Optional[torch.Generator], *,
     greedy_ids = torch.argmax(logits, dim=-1)  # exact, not top-1 of topk
     return torch.where(temperature <= 0.0, greedy_ids,
                        sampled).to(torch.int32)
+
+
+def uniforms(generator: Optional[torch.Generator], n: int,
+             device) -> torch.Tensor:
+    """One call's draw: n uniforms in [0, 1) from `generator`. A replica
+    that samples no lane of a call draws it all the same (and drops it),
+    so that every replica's stream stays where the others' are."""
+    return torch.rand(n, generator=generator, device=device)
+
+
+def inverse_cdf(probs: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """probs [B, K] (zero past a prefix of kept candidates), u [B] in
+    [0, 1) -> [B, 1] int64: the first candidate whose cumulative
+    probability passes u x the row's total, never past the last candidate
+    of positive probability."""
+    cum = torch.cumsum(probs, dim=-1)
+    pick = torch.searchsorted(cum, (u * cum[:, -1])[:, None], right=True)
+    last = (probs > 0).sum(dim=-1, keepdim=True) - 1
+    return torch.minimum(pick, last.clamp(min=0))
 
 
 def greedy(logits: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Process groups for tensor-parallel serving (counterpart of
+"""Process groups for tensor- and data-parallel serving (counterpart of
 gabby_tpu/parallel/mesh.py).
 
 The reference is single-controller SPMD: one process drives all of a
@@ -9,8 +9,14 @@ device, with explicit collectives in the model (parallel/collectives.py)
 and a torch.distributed store for control and liveness
 (parallel/multihost.py). So every run with tp > 1 has the reference's
 multi-host shape: rank 0 owns the HTTP front door and composes the
-serving plan, every other rank replays it. Only the model axis is ported
-(the server refuses --dp).
+serving plan, every other rank replays it.
+
+The processes form the reference's ("data", "model") grid: dp replicas of
+a tp group, rank r = d * tp + t with the model axis innermost, as the
+reference's make_mesh places it. Each rank's TPGroup carries its tp
+group (the model's collectives) and its dp group (the ranks that hold the
+same model shard in the other replicas: the data axis's collectives).
+dp = 1 is the tensor-parallel run it was.
 
 The data plane's backend follows one rule, printed at start-up and never
 switched after a failure: nccl when every rank has a card of its own,
@@ -41,10 +47,12 @@ from gabby_tpu_torch import resolve_device
 
 @dataclasses.dataclass
 class TPGroup:
-    """One rank's view of the tensor-parallel group: its rank and the
-    group's size, its device, the data-plane process group (the model's
-    collectives), the gloo control group (plan broadcasts) and the store
-    (liveness counters)."""
+    """One rank's view of the dp x tp grid: its rank in the tensor-parallel
+    group and that group's size, its device, the tp data-plane process
+    group (the model's collectives), its replica's index `dp_rank` among
+    `dp_size` and the dp process group (the data axis), the gloo control
+    group over every rank (plan broadcasts) and the store (liveness
+    counters)."""
 
     rank: int
     size: int
@@ -53,10 +61,26 @@ class TPGroup:
     group: Any = None
     ctrl: Any = None
     store: Any = None
+    dp_rank: int = 0
+    dp_size: int = 1
+    dp_group: Any = None
+
+    @property
+    def world_rank(self) -> int:
+        return self.global_rank(self.dp_rank)
+
+    @property
+    def world_size(self) -> int:
+        return self.dp_size * self.size
+
+    def global_rank(self, dp_rank: int) -> int:
+        """The rank in the whole grid of replica `dp_rank`'s rank that
+        holds this rank's model shard."""
+        return dp_rank * self.size + self.rank
 
     def close(self) -> None:
         """Leave the process group (a no-op for the local group)."""
-        if self.size > 1 and dist.is_initialized():
+        if self.world_size > 1 and dist.is_initialized():
             dist.destroy_process_group()
 
 
@@ -86,14 +110,20 @@ def choose_backend(device: torch.device, store, rank: int,
 
 
 def init_distributed(coordinator: Optional[str], num_processes: int,
-                     process_id: int, *, store=None, device=None,
-                     timeout: Optional[float] = 60.0) -> TPGroup:
-    """Join rank `process_id` of `num_processes` (tp = num_processes) and
-    return its TPGroup. The store is `store` when given (tests pass a
-    FileStore), else a TCPStore at `coordinator` ("host:port", hosted by
-    rank 0). The data plane's backend is `choose_backend`'s, printed.
-    timeout: seconds any collective may block before it raises (None: the
-    torch default of 30 minutes)."""
+                     process_id: int, *, dp: int = 1, store=None,
+                     device=None, timeout: Optional[float] = 60.0) -> TPGroup:
+    """Join rank `process_id` of `num_processes` = dp x tp and return its
+    TPGroup (rank r is replica r // tp's tp rank r % tp). The store is
+    `store` when given (tests pass a FileStore), else a TCPStore at
+    `coordinator` ("host:port", hosted by rank 0). The data plane's
+    backend is `choose_backend`'s for the whole world, printed. Every rank
+    makes every tp and dp subgroup, in one order. timeout: seconds any
+    collective may block before it raises (None: the torch default of 30
+    minutes)."""
+    if dp < 1 or num_processes % dp:
+        raise ValueError(f"dp={dp} must divide the process count "
+                         f"{num_processes}")
+    tp = num_processes // dp
     dev = resolve_device(device)
     td = (datetime.timedelta(seconds=timeout) if timeout
           else datetime.timedelta(minutes=30))
@@ -107,11 +137,25 @@ def init_distributed(coordinator: Optional[str], num_processes: int,
     dist.init_process_group(backend, store=store, rank=process_id,
                             world_size=num_processes, timeout=td)
     ctrl = dist.new_group(backend="gloo", timeout=td)
-    print(f"tp rank {process_id}/{num_processes} on {dev}: data plane "
-          f"{backend}, control plane gloo", flush=True)
-    return TPGroup(rank=process_id, size=num_processes, device=dev,
-                   backend=backend, group=dist.group.WORLD, ctrl=ctrl,
-                   store=store)
+    d, t = divmod(process_id, tp)
+    tp_group = dp_group = dist.group.WORLD
+    if dp > 1 and tp > 1:
+        # the model axis innermost: replica d is ranks [d * tp, (d + 1) * tp)
+        tp_groups = [dist.new_group([r * tp + i for i in range(tp)],
+                                    timeout=td) for r in range(dp)]
+        dp_groups = [dist.new_group([r * tp + i for r in range(dp)],
+                                    timeout=td) for i in range(tp)]
+        tp_group, dp_group = tp_groups[d], dp_groups[t]
+    elif dp > 1:
+        tp_group = None
+    else:
+        dp_group = None
+    grid = f"dp {d}/{dp}, " if dp > 1 else ""
+    print(f"{grid}tp rank {t}/{tp} on {dev}: data plane {backend}, "
+          f"control plane gloo", flush=True)
+    return TPGroup(rank=t, size=tp, device=dev, backend=backend,
+                   group=tp_group, ctrl=ctrl, store=store, dp_rank=d,
+                   dp_size=dp, dp_group=dp_group)
 
 
 def _rank_entry(fn, rank: int, nprocs: int, args: tuple, results) -> None:

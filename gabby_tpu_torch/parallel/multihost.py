@@ -5,9 +5,9 @@ Every rank must make the same device calls and collectives in the same
 order, but requests only arrive at rank 0's HTTP front door. HostSync
 closes that gap: rank 0 broadcasts each serving-loop iteration's plan
 (admissions, decode step count, cancellations) and every rank replays it,
-so the tensor-parallel shards stay in lockstep. Payloads are arbitrary
-pickled objects, moved over the gloo control group in two phases: the
-length, then the padded bytes.
+so the tensor-parallel shards and the data-parallel replicas stay in
+lockstep. Payloads are arbitrary pickled objects, moved over the gloo
+control group in two phases: the length, then the padded bytes.
 """
 
 from __future__ import annotations
@@ -48,8 +48,9 @@ class HostSync:
 
     def __init__(self, group, timeout: Optional[float] = 60.0):
         self.group = group
-        self.process_index = group.rank
-        self.num_processes = group.size
+        # every rank of the dp x tp grid replays the plan
+        self.process_index = group.world_rank
+        self.num_processes = group.world_size
         self.timeout = timeout
         self.store = group.store
         self._hb_seen: dict[int, tuple[Optional[int], float]] = {}

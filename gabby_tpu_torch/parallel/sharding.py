@@ -12,6 +12,14 @@ Megatron-style layout, as in the reference:
   KV cache        : kv-head axis sharded (each rank's engine allocates
                     local_config's kv heads); the page table stays whole
 
+Over the data axis (dp replicas of the tp group) the weights are
+replicated, and the dense cache's slot axis is sharded: replica d holds
+slots `slot_block(B, dp, d)` (the reference's P("data", "model") on the
+slot and kv-head axes). The paged pool shards only its kv heads: every
+replica holds the whole pool (the page axis is unsharded and the
+allocator host-global) and the page table rows of its own slots. Per-slot
+state (tokens, positions, sampling rows) follows the slots.
+
 The reference expresses these as PartitionSpecs and lets GSPMD place the
 leaves; here each rank holds its own slice (`shard_params`), taken as a
 contiguous block of the rule's axis. A column-sharded QTensor's scale is
@@ -181,3 +189,13 @@ def local_config(cfg: ModelConfig, tp: int) -> ModelConfig:
         cfg, num_heads=cfg.num_heads // tp,
         num_kv_heads=cfg.num_kv_heads // tp,
         intermediate_size=cfg.intermediate_size // tp, fused_tp=1)
+
+
+def slot_block(batch: int, dp: int, dp_rank: int) -> tuple[int, int]:
+    """Replica `dp_rank`'s slots [lo, hi) of `batch` slots over dp
+    replicas, contiguous blocks in replica order."""
+    if batch % dp:
+        raise ValueError(f"batch_slots={batch} must be divisible by dp={dp} "
+                         f"(slots shard over the data axis)")
+    n = batch // dp
+    return dp_rank * n, (dp_rank + 1) * n

@@ -55,9 +55,22 @@ gabby_tpu/runtime/engine.py).
   ride the plan or are taken out: speculation keeps its configured
   break-even, pipelined fetches are off, warm-up is refused. A watchdog
   fails every request when a peer's liveness counter stalls.
-
-Not yet ported from the reference engine: the data axis (dp > 1, its
-packed-view replication, sequence-parallel prefill).
+* Data parallelism (a `sync` whose group has dp_size > 1, see
+  parallel/mesh.py): replica d owns slots [d B/dp, (d + 1) B/dp), the
+  reference's P("data") on the slot axis. Every rank keeps the host state
+  of all B slots (the plan replays identically) and device state (cache,
+  slot rows, sampling and penalty rows, history) for its own slots only.
+  An admission runs on the replica that owns its slot: the other replicas
+  skip its device calls but draw its uniforms (sampling.uniforms), and
+  its first token reaches them through the gathered host view. Each
+  decode burst runs on a replica's own lanes; its packed view is gathered
+  over the dp group before it is read (`_host_view`), so every rank
+  unpacks the same bytes. A burst admission masks out the lanes another
+  replica owns; a prefix donor is taken only from the destination's own
+  replica. With a dense cache, an admission chunk of at least
+  `sp_prefill_tokens` whose bucket dp divides runs on every replica as
+  sequence-parallel prefill (parallel/sp.py): the chunk's tokens shard
+  over the replicas and the owner writes the rows.
 """
 
 from __future__ import annotations
@@ -79,7 +92,8 @@ import torch
 from gabby_tpu_torch import resolve_device
 from gabby_tpu_torch.config import ModelConfig
 from gabby_tpu_torch.ops import sampling
-from gabby_tpu_torch.parallel.sharding import local_config
+from gabby_tpu_torch.parallel import collectives, sp
+from gabby_tpu_torch.parallel.sharding import local_config, slot_block
 from gabby_tpu_torch.runtime import generate
 from gabby_tpu_torch.runtime.kv_cache import create_cache
 from gabby_tpu_torch.runtime.paged import PageAllocator, create_paged_cache
@@ -166,6 +180,16 @@ class EngineConfig:
     # page horizon add the pending burst's steps. Off under speculation
     # (verify timings and acceptance need synchronous fetches).
     pipeline_fetch: bool = False
+    # Sequence-parallel prefill for long admissions under dp > 1
+    # (parallel/sp.py): an admission chunk whose bucket is at least
+    # sp_prefill_tokens and divisible by dp shards its token axis over the
+    # data-parallel replicas (the chunk's K/V all-gathered for attention,
+    # or rotated around the ring with sp_prefill_ring). Dense cache only
+    # (paged admissions keep the per-slot path); decided from the bucket
+    # and the config, so every rank takes the same path. 0 disables. At
+    # the default no bucket of the ladder (at most 512) reaches it.
+    sp_prefill_tokens: int = 1024
+    sp_prefill_ring: bool = False
 
 
 @dataclasses.dataclass
@@ -283,7 +307,8 @@ class Engine:
     more than one process, rank 0 (the leader) serves submissions and
     broadcasts every iteration's plan; the others (followers) replay it
     and are released by the leader's shutdown plan. A rank-local params
-    tree (one carrying a TPGroup) needs one."""
+    tree (one carrying a TPGroup) needs one, and so does data parallelism:
+    the sync's group says the rank's replica (dp_rank of dp_size)."""
 
     def __init__(self, cfg: ModelConfig, params, tokenizer: Tokenizer,
                  econfig: EngineConfig = EngineConfig(), *,
@@ -314,12 +339,19 @@ class Engine:
         self._multi = sync is not None and sync.num_processes > 1
         group = params.get("tp")
         tp = 1 if group is None else group.size
-        if econfig.pair_kv_heads and tp > 1:
+        grid = None if sync is None else sync.group
+        self._grid = grid if grid is not None and grid.dp_size > 1 else None
+        dp = 1 if self._grid is None else grid.dp_size
+        if econfig.pair_kv_heads and (tp > 1 or dp > 1):
             raise ValueError("pair_kv_heads is single-device only for now "
                              "(unvalidated under cache shardings)")
         if tp > 1 and not self._multi:
             raise ValueError("a tensor-parallel engine needs sync: its "
                              "ranks must replay one plan")
+        # this replica's slots [lo, lo + bl): the device state's rows
+        self._lo, hi = slot_block(b, dp, 0 if dp == 1 else grid.dp_rank)
+        self._dp, self._bl = dp, hi - self._lo
+        bl = self._bl
         # the cache holds this rank's kv heads
         cache_cfg = local_config(cfg, tp)
         self._paged = econfig.paged_pages > 0
@@ -334,8 +366,11 @@ class Engine:
                 raise ValueError(f"page_size={ps}: the paged attention "
                                  f"kernels take pages of a multiple of 32 "
                                  f"rows")
+            # the whole pool on every replica (the page axis is unsharded,
+            # the allocator host-global); a replica's page table holds its
+            # own slots' rows, and only its slots' pages hold its writes
             self._cache = create_paged_cache(
-                cache_cfg, b, econfig.max_seq, econfig.paged_pages,
+                cache_cfg, bl, econfig.max_seq, econfig.paged_pages,
                 dtype=getattr(torch, econfig.cache_dtype),
                 quantized=econfig.kv_quantized, page_size=ps,
                 paired=econfig.pair_kv_heads, device=dev)
@@ -352,11 +387,12 @@ class Engine:
             self._buckets = tuple(sorted({ps, max(ps, 512)}))
         else:
             self._cache = create_cache(
-                cache_cfg, b, econfig.max_seq,
+                cache_cfg, bl, econfig.max_seq,
                 dtype=getattr(torch, econfig.cache_dtype),
                 quantized=econfig.kv_quantized,
                 paired=econfig.pair_kv_heads, device=dev)
             self._buckets = PREFILL_BUCKETS
+        self._sp = dp > 1 and not self._paged and econfig.sp_prefill_tokens > 0
         stop = stop_ids if stop_ids is not None else self.chat.stop_ids()
         self._stop_set = {int(s) for s in stop}
         self._eos_ids = torch.tensor(sorted(self._stop_set),
@@ -366,20 +402,22 @@ class Engine:
         # gating, and row max_seq - 1 is never read before a live slot
         # overwrites it
         self._park = econfig.max_seq - 1
-        self._tokens = torch.zeros(b, dtype=torch.int32, device=dev)
-        self._positions = torch.full((b,), self._park, dtype=torch.int32,
+        self._tokens = torch.zeros(bl, dtype=torch.int32, device=dev)
+        self._positions = torch.full((bl,), self._park, dtype=torch.int32,
                                      device=dev)
-        self._active = torch.zeros(b, dtype=torch.bool, device=dev)
-        self._sstate = generate.SamplingState.greedy(b, dev, econfig.seed)
+        self._active = torch.zeros(bl, dtype=torch.bool, device=dev)
+        # every replica draws the whole batch's uniforms (sampling.sample)
+        self._sstate = generate.SamplingState.greedy(
+            bl, dev, econfig.seed, draw_offset=self._lo, draw_total=b)
         # the first tokens' logprobs, written at admission on the device
-        self._first_lp = torch.zeros(b, dtype=torch.float32, device=dev)
+        self._first_lp = torch.zeros(bl, dtype=torch.float32, device=dev)
         # penalty rows, created when a penalized request is admitted and
         # dropped when the last one leaves (_pen_slots: their slots)
         self._pstate: Optional[generate.PenaltyState] = None
         self._pen_slots: set[int] = set()
         # per-slot token history: the n-gram speculation corpus (the prompt
         # placed at admission, generated tokens appended on the device)
-        self._history = torch.zeros((b, econfig.max_seq), dtype=torch.int32,
+        self._history = torch.zeros((bl, econfig.max_seq), dtype=torch.int32,
                                     device=dev)
         self._spec_enabled = econfig.speculate_tokens > 0
         # the acceptance probe's window start (spec_macro_steps,
@@ -684,7 +722,8 @@ class Engine:
     # ---- paged-pool bookkeeping (self._paged only) ----
 
     def _push_page_table(self) -> None:
-        self._cache.page_table.copy_(torch.from_numpy(self._pt_host))
+        self._cache.page_table.copy_(torch.from_numpy(
+            self._pt_host[self._lo:self._lo + self._bl]))
 
     def _release_slot_pages(self, slot_ix: int) -> None:
         """Drop the slot's page references (pages it shares survive through
@@ -729,17 +768,21 @@ class Engine:
         self._push_page_table()
         return True
 
-    def _find_donor(self, ids: list[int]) -> tuple[int, int]:
+    def _find_donor(self, ids: list[int],
+                    slot: Optional[int] = None) -> tuple[int, int]:
         """Longest common prefix of `ids` with a resident slot prompt:
         (donor slot, common length), the length rounded down to the bucket
         grid (the suffix prefill starts on it) and capped to leave at least
         one token to prefill and one bucket of cache room. (-1, 0) below 64
-        tokens, where a copy is not worth a call."""
+        tokens, where a copy is not worth a call. Under dp > 1, with the
+        destination `slot` given, only residents of its replica count:
+        another replica's rows or pages are not on this one's device."""
         grid = self._buckets[0]
         n = len(ids)
         best, best_common = -1, 0
         for slot_ix, resident in enumerate(self._slot_prompts):
-            if resident is None:
+            if resident is None or (slot is not None
+                                    and not self._same_replica(slot, slot_ix)):
                 continue
             limit = min(len(resident), n - 1, self.ec.max_seq - grid)
             common = 0
@@ -751,6 +794,52 @@ class Engine:
         if best_common < 64:
             return -1, 0
         return best, best_common
+
+    def _same_replica(self, a: int, b: int) -> bool:
+        return a // self._bl == b // self._bl
+
+    def _local(self, slot_ix: int) -> Optional[int]:
+        """The slot's row in this replica's device state, or None when
+        another replica owns it."""
+        j = slot_ix - self._lo
+        return j if 0 <= j < self._bl else None
+
+    def _burn_draw(self, n: int) -> None:
+        """The uniforms a sampling call of n lanes draws, drawn and dropped
+        by a replica that skips the call (its slot lives elsewhere)."""
+        sampling.uniforms(self._sstate.generator, n, self.device)
+
+    def _check_ids(self, ids) -> None:
+        """Under dp > 1 only the owner's device sees a prompt: a token id
+        the embedding would refuse is refused on every rank alike."""
+        if self._dp > 1 and len(ids) and not (
+                0 <= min(ids) and max(ids) < self.cfg.vocab_size):
+            raise IndexError(f"prompt token id out of the vocab "
+                             f"[0, {self.cfg.vocab_size})")
+
+    def _share_top(self, slot_ix: int, top, k: int):
+        """A first token's top rows (logprobs [k] f32, ids [k] int32), from
+        the replica that owns the slot to every replica (the leader's
+        request may live on another replica than its slot)."""
+        if self._dp == 1:
+            return top
+        packed = (None if top is None else
+                  torch.cat([top[0].float().view(torch.int32),
+                             top[1].to(torch.int32)]))
+        packed = collectives.from_replica(
+            packed, slot_ix // self._bl, self._grid, shape=(2 * k,),
+            dtype=torch.int32, device=self.device)
+        return packed[:k].view(torch.float32), packed[k:]
+
+    def _host_view(self, packed: torch.Tensor, segments) -> torch.Tensor:
+        """The burst's packed view on the host, over all B slots: under
+        dp > 1 every replica's view, gathered over the dp group (one
+        collective a burst) and merged slot-major (the reference's
+        `_fetch_replicate`), so every rank reads the same bytes."""
+        if self._dp == 1:
+            return packed.cpu()
+        parts = collectives.gather_slots(packed, self._grid).cpu()
+        return generate.merge_host_views(parts, segments, self._bl)
 
     def _chunk_schedule(self, n: int) -> tuple:
         """The (offset, bucket) chunks a prompt of n tokens prefills through."""
@@ -903,10 +992,13 @@ class Engine:
                     self._slot_pages[slot_ix] = shared
                     self._pt_host[slot_ix, :len(shared)] = shared
                     self._push_page_table()
-        elif donor >= 0 and donor != slot_ix:
+        elif (donor >= 0 and donor != slot_ix
+              and self._local(slot_ix) is not None):
             # the donor's prefix rows are frozen: decode writes land at
-            # positions >= its prompt length
-            generate.copy_slot_prefix(self._cache, donor, slot_ix)
+            # positions >= its prompt length (the plan's donor lives on
+            # the slot's replica: _find_donor)
+            generate.copy_slot_prefix(self._cache, self._local(donor),
+                                      self._local(slot_ix))
         if donor >= 0:
             adm.offset = common
             if not req.internal:
@@ -920,13 +1012,17 @@ class Engine:
         """One lane-masked `prefill_batch_chunk` per chunk of the shared
         schedule, then each lane's history and one `admit_slots`. A request
         the model or the pool cannot take fails the group's requests, and
-        the engine serves on."""
-        b, dev = len(self._slots), self.device
-        lengths = np.ones((b,), np.int32)
-        mask = np.zeros((b,), bool)
-        for slot_ix, r in zip(slots, group):
-            lengths[slot_ix] = len(r.prompt_ids)
-            mask[slot_ix] = True
+        the engine serves on. Under dp > 1 each replica prefills its own
+        lanes of the group (none: no call), the others masked out."""
+        b, bl, dev = len(self._slots), self._bl, self.device
+        lengths = np.ones((bl,), np.int32)
+        mask = np.zeros((bl,), bool)
+        mine = [(self._local(slot_ix), r) for slot_ix, r in zip(slots, group)
+                if self._local(slot_ix) is not None]
+        for j, r in mine:
+            lengths[j] = len(r.prompt_ids)
+            mask[j] = True
+        for slot_ix in slots:
             self._slot_prompts[slot_ix] = None  # being overwritten
             if self._paged:
                 self._release_slot_pages(slot_ix)
@@ -934,15 +1030,19 @@ class Engine:
         lane_mask = torch.from_numpy(mask).to(dev)
         self._filling = set(slots)
         try:
+            for r in group:
+                self._check_ids(r.prompt_ids)
             for offset, bucket in sched:
                 for slot_ix in slots:
                     if self._paged and not self._ensure_pages(
                             slot_ix, offset + bucket):
                         raise PoolExhausted("kv page pool exhausted")
-                chunk = np.zeros((b, bucket), np.int64)
-                for slot_ix, r in zip(slots, group):
+                if not mine:
+                    continue
+                chunk = np.zeros((bl, bucket), np.int64)
+                for j, r in mine:
                     take = min(bucket, len(r.prompt_ids) - offset)
-                    chunk[slot_ix, :take] = r.prompt_ids[offset:offset + take]
+                    chunk[j, :take] = r.prompt_ids[offset:offset + take]
                 logits, self._cache = generate.prefill_batch_chunk(
                     self._prefill_params, self.cfg,
                     torch.from_numpy(chunk).to(dev),
@@ -956,28 +1056,33 @@ class Engine:
         finally:
             self._filling = set()
         ec = self.ec
-        temp = np.full((b,), ec.default_temperature, np.float32)
-        topk = np.full((b,), ec.default_top_k, np.int32)
-        topp = np.full((b,), ec.default_top_p, np.float32)
-        seeds = np.full((b,), -1, np.int32)
+        temp = np.full((bl,), ec.default_temperature, np.float32)
+        topk = np.full((bl,), ec.default_top_k, np.int32)
+        topp = np.full((bl,), ec.default_top_p, np.float32)
+        seeds = np.full((bl,), -1, np.int32)
+        for j, r in mine:
+            temp[j], topk[j], topp[j] = r.temperature, r.top_k, r.top_p
+            seeds[j] = -1 if r.seed is None else r.seed
         for slot_ix, r in zip(slots, group):
-            temp[slot_ix], topk[slot_ix], topp[slot_ix] = (
-                r.temperature, r.top_k, r.top_p)
-            seeds[slot_ix] = -1 if r.seed is None else r.seed
             self._write_prompt_history(slot_ix, r.prompt_ids)
-        generate.admit_slots(
-            logits, lengths_d, torch.from_numpy(temp).to(dev),
-            torch.from_numpy(topk).to(dev), torch.from_numpy(topp).to(dev),
-            lane_mask, self._tokens, self._positions, self._active,
-            self._sstate, self._history, first_lp=self._first_lp,
-            seeds=torch.from_numpy(seeds).to(dev))
+        if mine:
+            generate.admit_slots(
+                logits, lengths_d, torch.from_numpy(temp).to(dev),
+                torch.from_numpy(topk).to(dev), torch.from_numpy(topp).to(dev),
+                lane_mask, self._tokens, self._positions, self._active,
+                self._sstate, self._history, first_lp=self._first_lp,
+                seeds=torch.from_numpy(seeds).to(dev))
+        else:
+            self._burn_draw(b)
         now = time.monotonic()
         for slot_ix, r in zip(slots, group):
             self._slot_prompts[slot_ix] = list(r.prompt_ids)
             slot = _Slot(request=r, prompt_len=len(r.prompt_ids))
             if r.top_logprobs:
-                slot.first_top = generate.top_candidates(
-                    logits[slot_ix], r.top_logprobs)
+                j = self._local(slot_ix)
+                slot.first_top = self._share_top(
+                    slot_ix, None if j is None else generate.top_candidates(
+                        logits[j], r.top_logprobs), r.top_logprobs)
             self._slots[slot_ix] = slot
             # a new occupant: a pending record's view predates it
             self._slot_epoch[slot_ix] += 1
@@ -988,10 +1093,13 @@ class Engine:
 
     def _write_prompt_history(self, slot_ix: int, ids) -> None:
         """The whole prompt into the slot's history row (the n-gram drafts
-        read it), before the slot is activated."""
+        read it), before the slot is activated; by its replica."""
+        j = self._local(slot_ix)
+        if j is None:
+            return
         padded = np.zeros((self.ec.max_seq,), np.int32)
         padded[:len(ids)] = ids
-        generate.write_history(self._history, slot_ix,
+        generate.write_history(self._history, j,
                                torch.from_numpy(padded).to(self.device),
                                len(ids))
 
@@ -1016,10 +1124,21 @@ class Engine:
             raise PoolExhausted("kv page pool exhausted")
         chunk = np.zeros((bucket,), np.int64)
         chunk[:take] = adm.ids[adm.offset:adm.offset + take]
-        adm.last_logits, self._cache = generate.prefill_slot(
-            self._prefill_params, self.cfg,
-            torch.from_numpy(chunk).to(self.device), take, adm.slot_ix,
-            adm.offset, self._cache)
+        self._check_ids(chunk[:take])
+        tokens = torch.from_numpy(chunk).to(self.device)
+        j = self._local(adm.slot_ix)
+        if (self._sp and bucket >= self.ec.sp_prefill_tokens
+                and bucket % self._dp == 0):
+            # a long chunk: every replica takes a block of its tokens; the
+            # logits come back on every rank, the rows in the owner's cache
+            adm.last_logits, self._cache = sp.sp_prefill_slot(
+                self._prefill_params, self.cfg, tokens, take, adm.slot_ix,
+                adm.offset, self._cache, group=self._grid,
+                ring=self.ec.sp_prefill_ring)
+        elif j is not None:
+            adm.last_logits, self._cache = generate.prefill_slot(
+                self._prefill_params, self.cfg, tokens, take, j, adm.offset,
+                self._cache)
         adm.offset += take
         return adm.offset >= len(adm.ids)
 
@@ -1041,8 +1160,12 @@ class Engine:
             return None
         v, dev = self.cfg.vocab_size, self.device
         if self._pstate is None:
-            self._pstate = generate.PenaltyState.zeros(
-                self.ec.batch_slots, v, dev)
+            # on every replica: the decode loops must match
+            self._pstate = generate.PenaltyState.zeros(self._bl, v, dev)
+        self._pen_slots.add(slot_ix)
+        j = self._local(slot_ix)
+        if j is None:
+            return None
         # counts start at ZERO: OpenAI's formula counts the tokens SAMPLED
         # so far, never the prompt's; the prompt-presence mask feeds only
         # repetition_penalty
@@ -1055,10 +1178,9 @@ class Engine:
         bias_row = torch.from_numpy(bias_row).to(dev)
         prompt_row = torch.from_numpy(prompt_row).to(dev)
         generate.set_penalty_slot(
-            self._pstate, slot_ix, counts_row, req.presence_penalty,
+            self._pstate, j, counts_row, req.presence_penalty,
             req.frequency_penalty, bias_row, req.repetition_penalty,
             prompt_row)
-        self._pen_slots.add(slot_ix)
         return counts_row, bias_row, prompt_row
 
     def _finish_admission(self, adm: _Admission) -> None:
@@ -1066,29 +1188,37 @@ class Engine:
         device (from the penalty-adjusted row for a penalized request, and
         counted) and reaches the host with the next burst's fetch. The
         slot's cache now holds the whole prompt: it registers as a prefix
-        donor."""
+        donor. Under dp > 1 the slot's replica does the device work; the
+        others draw its uniforms."""
         req, n, slot_ix = adm.req, len(adm.ids), adm.slot_ix
+        j = self._local(slot_ix)
         self._write_prompt_history(slot_ix, adm.ids)
         pen_rows = self._setup_penalties(slot_ix, req, adm.ids)
-        if pen_rows is not None:
-            counts_row, bias_row, prompt_row = pen_rows
-            adm.last_logits = generate.penalize_row(
-                adm.last_logits, counts_row, req.presence_penalty,
-                req.frequency_penalty, bias_row, req.repetition_penalty,
-                prompt_row)
-        generate.admit_slot(adm.last_logits, slot_ix, n, req.temperature,
-                            req.top_k, req.top_p, self._tokens,
-                            self._positions, self._active, self._sstate,
-                            history=self._history, first_lp=self._first_lp,
-                            seed=-1 if req.seed is None else req.seed)
-        if pen_rows is not None:
-            # the first token is an emitted token: count it
-            generate.count_slot_token(self._pstate, slot_ix,
-                                      self._tokens[slot_ix])
+        top = None
+        if j is None:
+            self._burn_draw(1)
+        else:
+            if pen_rows is not None:
+                counts_row, bias_row, prompt_row = pen_rows
+                adm.last_logits = generate.penalize_row(
+                    adm.last_logits, counts_row, req.presence_penalty,
+                    req.frequency_penalty, bias_row, req.repetition_penalty,
+                    prompt_row)
+            generate.admit_slot(adm.last_logits, j, n, req.temperature,
+                                req.top_k, req.top_p, self._tokens,
+                                self._positions, self._active, self._sstate,
+                                history=self._history,
+                                first_lp=self._first_lp,
+                                seed=-1 if req.seed is None else req.seed)
+            if pen_rows is not None:
+                # the first token is an emitted token: count it
+                generate.count_slot_token(self._pstate, j, self._tokens[j])
+            if req.top_logprobs:
+                top = generate.top_candidates(adm.last_logits,
+                                              req.top_logprobs)
         slot = _Slot(request=req, prompt_len=n)
         if req.top_logprobs:
-            slot.first_top = generate.top_candidates(adm.last_logits,
-                                                     req.top_logprobs)
+            slot.first_top = self._share_top(slot_ix, top, req.top_logprobs)
         self._slots[slot_ix] = slot
         self._slot_epoch[slot_ix] += 1  # as in _execute_burst
         self._slot_prompts[slot_ix] = list(req.prompt_ids)
@@ -1177,19 +1307,21 @@ class Engine:
         self._slot_epoch[slot_ix] += 1
         # release the lane and park its write position before the client
         # hears of the finish
-        self._active[slot_ix] = False
-        self._positions[slot_ix] = self._park
+        j = self._local(slot_ix)
+        if j is not None:
+            self._active[j] = False
+            self._positions[j] = self._park
         if slot_ix in self._pen_slots:
             self._pen_slots.discard(slot_ix)
-            if self._pen_slots:
+            if self._pen_slots and j is not None:
                 # a later admission must not inherit this slot's rows
                 v, dev = self.cfg.vocab_size, self.device
                 generate.set_penalty_slot(
-                    self._pstate, slot_ix,
+                    self._pstate, j,
                     torch.zeros(v, dtype=torch.int32, device=dev), 0.0, 0.0,
                     torch.zeros(v, dtype=torch.float32, device=dev), 1.0,
                     torch.zeros(v, dtype=torch.bool, device=dev))
-            else:
+            elif not self._pen_slots:
                 self._pstate = None  # back to the penalty-free loop
         req.out.put((tail or None, reason))
 
@@ -1298,7 +1430,7 @@ class Engine:
                 req = self._pop_next_admission() if free else None
                 if req is not None:
                     self._pending_admit = req
-                    donor, common = self._find_donor(req.prompt_ids)
+                    donor, common = self._find_donor(req.prompt_ids, free[0])
                     plan["admit"] = {"slot": free[0],
                                      "ids": list(req.prompt_ids),
                                      "meta": self._req_meta(req),
@@ -1417,9 +1549,10 @@ class Engine:
                     self._active, self._cache, self._sstate, self._history,
                     steps, dl, self._eos_ids, window=window, n_top=n_top)
             # ONE host transfer per burst; it also ends the timed window
-            packed = generate.pack_spec_host_view(
+            packed = self._host_view(generate.pack_spec_host_view(
                 out_em, out_n, self._active, pre_tokens, out_lp,
-                self._first_lp, out_top_lp, out_top_ids).cpu().numpy()
+                self._first_lp, out_top_lp, out_top_ids),
+                generate.spec_view_segments(steps, dl + 1, n_top)).numpy()
             self._spec_step_s.append((time.perf_counter() - t_call) / steps)
             self._process_spec_burst(packed, steps, dl + 1, n_top,
                                      first_slots)
@@ -1474,10 +1607,11 @@ class Engine:
         rec = _BurstRecord(packed=packed, steps=steps, n_top=n_top,
                            epochs=tuple(self._slot_epoch),
                            first_slots=first_slots)
-        if not packed.is_cuda:
+        if not packed.is_cuda and self._dp == 1:
             return rec
         if not self._pipeline:
-            rec.packed = packed.cpu()
+            rec.packed = self._host_view(
+                packed, generate.view_segments(steps, n_top))
             return rec
         rec.packed = torch.empty(packed.shape, dtype=packed.dtype,
                                  pin_memory=True)

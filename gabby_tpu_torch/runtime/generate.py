@@ -41,16 +41,26 @@ class SamplingState:
     # OpenAI `seed`: -1 = the engine's stream; >= 0 = the lane draws from
     # its own (seed, position) stream (sampling.lane_gumbel)
     seed: torch.Tensor         # [B] int32
+    # these B lanes are lanes [draw_offset, draw_offset + B) of a slot
+    # batch of draw_total (None: B) that every replica draws uniforms for
+    draw_offset: int = 0
+    draw_total: Optional[int] = None
 
     @staticmethod
-    def greedy(batch: int, device, seed: int = 0) -> "SamplingState":
+    def greedy(batch: int, device, seed: int = 0, draw_offset: int = 0,
+               draw_total: Optional[int] = None) -> "SamplingState":
         return SamplingState(
             temperature=torch.zeros(batch, dtype=torch.float32,
                                     device=device),
             top_k=torch.zeros(batch, dtype=torch.int32, device=device),
             top_p=torch.ones(batch, dtype=torch.float32, device=device),
             generator=torch.Generator(device=device).manual_seed(seed),
-            seed=torch.full((batch,), -1, dtype=torch.int32, device=device))
+            seed=torch.full((batch,), -1, dtype=torch.int32, device=device),
+            draw_offset=draw_offset, draw_total=draw_total)
+
+    def draws(self) -> dict:
+        """sampling.sample's draw arguments for these lanes."""
+        return dict(draw_offset=self.draw_offset, draw_total=self.draw_total)
 
 
 @dataclasses.dataclass
@@ -195,7 +205,7 @@ def decode_loop(params, cfg: ModelConfig, tokens: torch.Tensor,
                               temperature=sstate.temperature,
                               top_k=sstate.top_k, top_p=sstate.top_p,
                               lane_seeds=sstate.seed,
-                              lane_positions=positions)
+                              lane_positions=positions, **sstate.draws())
         out_lp.append(token_logprob(logits, nxt))
         top_lp, top_ids = top_candidates(logits, n_top)
         out_top_lp.append(top_lp)
@@ -282,7 +292,7 @@ def spec_decode_loop(params, cfg: ModelConfig, tokens: torch.Tensor,
                               temperature=sstate.temperature,
                               top_k=sstate.top_k, top_p=sstate.top_p,
                               lane_seeds=sstate.seed,
-                              lane_positions=positions)
+                              lane_positions=positions, **sstate.draws())
         em = torch.cat([em0[:, None].to(torch.int32), pred[:, 1:]], dim=1)
         out_lp.append(token_logprob(logits_bt, em))  # [B, T]
         top_lp, top_ids = top_candidates(logits_bt, n_top)  # [B, T, n]
@@ -382,6 +392,35 @@ def pack_host_view(out_tokens: torch.Tensor, out_active: torch.Tensor,
                       _bits(top_lp), top_ids.reshape(-1).to(torch.int32)])
 
 
+def view_segments(steps: int, n_top: int) -> list[tuple[int, int]]:
+    """pack_host_view's sections as (leading, trailing) sizes around the
+    slot axis: each section is [leading, B, trailing]."""
+    return [(steps, 1), (steps, 1), (1, 1), (1, 1), (steps, 1), (1, 1),
+            (steps, n_top), (steps, n_top)]
+
+
+def spec_view_segments(steps: int, t_blk: int,
+                       n_top: int) -> list[tuple[int, int]]:
+    """pack_spec_host_view's sections, as view_segments gives them."""
+    return [(steps, t_blk), (steps, 1), (1, 1), (1, 1), (steps, t_blk),
+            (1, 1), (steps, t_blk * n_top), (steps, t_blk * n_top)]
+
+
+def merge_host_views(parts: torch.Tensor, segments, batch: int
+                     ) -> torch.Tensor:
+    """Replica views [dp, n] of `batch` slots each (replica d holding
+    slots [d * batch, (d + 1) * batch)) -> the one packed view [dp * n] of
+    all dp * batch slots that a single replica would have packed."""
+    dp = parts.shape[0]
+    out, off = [], 0
+    for lead, trail in segments:
+        n = lead * batch * trail
+        block = parts[:, off:off + n].reshape(dp, lead, batch, trail)
+        out.append(block.permute(1, 0, 2, 3).reshape(-1))
+        off += n
+    return torch.cat(out)
+
+
 def prefill_slot(params, cfg: ModelConfig, tokens: torch.Tensor, length: int,
                  slot: int, offset: int, cache):
     """Single-slot chunked prefill: a [T]-bucket chunk into cache row `slot`
@@ -474,7 +513,8 @@ def admit_slots(logits: torch.Tensor, lengths: torch.Tensor,
         seeds = torch.full_like(sstate.seed, -1)
     nxt = sampling.sample(logits, sstate.generator, temperature=temperature,
                           top_k=top_k, top_p=top_p, lane_seeds=seeds,
-                          lane_positions=lengths.long() - 1)
+                          lane_positions=lengths.long() - 1,
+                          **sstate.draws())
     lane = lane_mask
     if first_lp is not None:
         first_lp.copy_(torch.where(lane, token_logprob(logits, nxt),

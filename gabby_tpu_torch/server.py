@@ -8,14 +8,17 @@ cache layout whenever the kv-head count is even (`--no-pair-kv` reverts),
 dense and paged. `--act-fp8`, `--prefill-int8-shadow` and
 `--pipeline-fetch` are the reference's options, off by default.
 
-Tensor parallelism: `--tp N` on one host starts N - 1 follower processes
-of the same command (rank i on cuda:i; every rank on the CPU with
-`--device cpu`); `--coordinator host:port --num-processes P --process-id
-i` starts one rank of a run over P processes (tp = P), as the reference's
+Tensor and data parallelism: `--tp T` (and `--dp D`) on one host starts
+D x T - 1 follower processes of the same command (rank i on cuda:i; every
+rank on the CPU with `--device cpu`): dp replicas of a tp group, rank r =
+d x T + t. `--coordinator host:port --num-processes P --process-id i`
+starts one rank of a run over P = D x T processes, as the reference's
 multi-host flags do. Rank 0 serves HTTP and broadcasts the engine's plans;
-a follower opens no port. Flags of features not yet ported (the data axis
-`--dp`, ring attention, the profiler port) are accepted by the parser and
-refused with "not yet ported" when set.
+a follower opens no port. Under `--dp` the decode slots shard over the
+replicas, and admission chunks of at least `--sp-prefill-tokens` run as
+sequence-parallel prefill (`--sp-ring`: ring attention). The profiler
+port is not yet ported: its flag is accepted by the parser and refused
+with "not yet ported" when set.
 
 Examples:
   python -m gabby_tpu_torch.tools.quantize --model-dir ~/hf/Llama-3.2-1B \\
@@ -32,6 +35,8 @@ Examples:
       --device cpu --port 0
   python -m gabby_tpu_torch.server --preset llama32_1b --random-weights \\
       --quant 4 --kv-quant --tp 2
+  python -m gabby_tpu_torch.server --preset llama32_1b --random-weights \\
+      --quant 4 --kv-quant --dp 2 --tp 2 --sp-prefill-tokens 512
 """
 
 from __future__ import annotations
@@ -50,7 +55,7 @@ import torch
 from gabby_tpu_torch.runtime.engine import RequestError
 
 # flag dest -> the value that means "feature off"
-_NOT_PORTED = {"dp": 1, "sp_ring": False, "profiler_port": 0}
+_NOT_PORTED = {"profiler_port": 0}
 
 
 def _refuse_unported(args) -> None:
@@ -78,7 +83,8 @@ def _build_engine(args, group=None, sync=None):
         # read wherever a projection runs: set before any weights are built
         quant.set_act_fp8(True)
     tp = 1 if group is None else group.size
-    if tp > 1 and args.pair_kv:
+    dp = 1 if group is None else group.dp_size
+    if (tp > 1 or dp > 1) and args.pair_kv:
         sys.exit("--pair-kv: pair_kv_heads is single-device only for now "
                  "(unvalidated under tensor parallelism)")
     device = resolve_device(args.device) if group is None else group.device
@@ -131,41 +137,53 @@ def _build_engine(args, group=None, sync=None):
         spec_reprobe_steps=args.spec_reprobe_steps,
         prefill_int8_shadow=args.prefill_int8_shadow,
         pipeline_fetch=args.pipeline_fetch,
-        # auto: on whenever eligible (one rank and an even kv-head count),
-        # dense and paged
+        # sequence-parallel prefill for long admissions under dp > 1
+        # (parallel/sp.py; ring attention with --sp-ring, parallel/ring.py)
+        sp_prefill_tokens=args.sp_prefill_tokens,
+        sp_prefill_ring=args.sp_ring,
+        # auto: on whenever eligible (one process and an even kv-head
+        # count), dense and paged
         pair_kv_heads=(args.pair_kv if args.pair_kv is not None
-                       else tp == 1 and cfg.num_kv_heads % 2 == 0))
+                       else tp == 1 and dp == 1
+                       and cfg.num_kv_heads % 2 == 0))
     return Engine(cfg, params, tokenizer, econfig, device=device,
                   sync=sync), cfg
 
 
 def _start_ranks(args, argv: list[str]):
     """Join this process's rank: with --coordinator, rank --process-id of
-    --num-processes; with --tp N alone, rank 0 of N, after starting ranks
-    1..N-1 as processes of the same command line. Returns (TPGroup,
-    follower processes)."""
+    --num-processes (dp x tp); with --tp T and --dp D alone, rank 0 of D x
+    T, after starting ranks 1..D x T - 1 as processes of the same command
+    line. Returns (TPGroup, follower processes)."""
     from gabby_tpu_torch import resolve_device
     from gabby_tpu_torch.parallel import init_distributed
 
     device = resolve_device(args.device)
     timeout = args.sync_timeout or None
+    dp = args.dp
     if args.coordinator:
         n, rank = args.num_processes, args.process_id
         if n < 1 or not 0 <= rank < n:
             sys.exit("--coordinator needs --num-processes P >= 1 and "
                      "--process-id in [0, P)")
-        if args.tp not in (1, n):
-            sys.exit(f"--tp {args.tp} differs from --num-processes {n}: "
-                     f"tp is the number of processes")
+        if n % dp:
+            # one device a process: the global device count is P
+            sys.exit(f"--dp {dp} must divide the global device count {n}")
+        if args.tp not in (1, n // dp):
+            sys.exit(f"--tp {args.tp} differs from --num-processes {n} / "
+                     f"--dp {dp}: dp x tp is the number of processes")
         if device.type == "cuda":
             device = torch.device("cuda", rank % torch.cuda.device_count())
-        return init_distributed(args.coordinator, n, rank, device=device,
-                                timeout=timeout), []
-    n = args.tp
+        return init_distributed(args.coordinator, n, rank, dp=dp,
+                                device=device, timeout=timeout), []
+    n = dp * args.tp
     if device.type == "cuda" and n > torch.cuda.device_count():
-        # the reference needs dp * tp devices (parallel/mesh.py there)
-        sys.exit(f"--tp {n} needs {n} visible cards; "
-                 f"{torch.cuda.device_count()} visible")
+        # the reference's mesh takes dp * tp devices (its
+        # parallel/mesh.py: "dp*tp = D*T != N devices")
+        what = f"--dp {dp} --tp {args.tp}" if dp > 1 else f"--tp {n}"
+        sys.exit(f"{what} needs {n} visible cards; "
+                 f"{torch.cuda.device_count()} visible (dp*tp = "
+                 f"{dp}*{args.tp} != {torch.cuda.device_count()} devices)")
     import torch.distributed as dist
     store = dist.TCPStore("127.0.0.1", 0, n, is_master=True,
                           wait_for_workers=False,
@@ -183,7 +201,7 @@ def _start_ranks(args, argv: list[str]):
     try:
         if device.type == "cuda":
             device = torch.device("cuda", 0)
-        group = init_distributed(coordinator, n, 0, store=store,
+        group = init_distributed(coordinator, n, 0, dp=dp, store=store,
                                  device=device, timeout=timeout)
     except BaseException:
         _stop_followers(followers, 0)
@@ -404,7 +422,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "command for every rank; rank 0 serves HTTP, the "
                         "rest follow its plan broadcasts)")
     p.add_argument("--num-processes", type=int, default=0,
-                   help="multi-process: the number of ranks (tp)")
+                   help="multi-process: the number of ranks (dp x tp)")
     p.add_argument("--process-id", type=int, default=-1,
                    help="multi-process: this rank")
     p.add_argument("--sync-timeout", type=float, default=60.0,
@@ -412,12 +430,22 @@ def build_parser() -> argparse.ArgumentParser:
                         "collective may block before the peer is declared "
                         "dead and in-flight requests fail (0 = wait "
                         "forever)")
-    # the reference server's flags of features not yet ported (the data
-    # axis, ring attention, the profiler port): accepted so scripts
-    # written for it parse, refused when set
-    p.add_argument("--dp", type=int, default=1)
-    p.add_argument("--sp-prefill-tokens", type=int, default=1024)
-    p.add_argument("--sp-ring", action="store_true")
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel degree (decode slots shard over dp "
+                        "replicas of the tp group, dp x tp processes; "
+                        "requires --slots %% dp == 0)")
+    p.add_argument("--sp-prefill-tokens", type=int, default=1024,
+                   help="sequence-parallel prefill threshold: admission "
+                        "chunks >= this many tokens shard their token axis "
+                        "over the data-parallel replicas when --dp > 1 "
+                        "(Ulysses-style; 0 disables)")
+    p.add_argument("--sp-ring", action="store_true",
+                   help="use ring attention for sequence-parallel prefill "
+                        "instead of the K/V all-gather: per-replica chunk "
+                        "K/V memory drops to O(T/dp) for prompts whose "
+                        "gathered K/V would not fit")
+    # the reference server's profiler flag, not yet ported: accepted so
+    # scripts written for it parse, refused when set
     p.add_argument("--profiler-port", type=int, default=0)
     p.add_argument("--compile-cache", default="")
     return p
@@ -433,9 +461,14 @@ def main(argv: Optional[list[str]] = None,
     from gabby_tpu_torch.parallel.multihost import HostSync
 
     _refuse_unported(args)
+    if args.dp < 1:
+        sys.exit(f"--dp {args.dp} must be >= 1")
+    if args.slots % args.dp != 0:
+        sys.exit(f"--slots {args.slots} must be divisible by --dp "
+                 f"{args.dp} (slots shard over the data axis)")
     group = sync = None
     followers: list = []
-    if args.coordinator or args.tp > 1:
+    if args.coordinator or args.tp > 1 or args.dp > 1:
         group, followers = _start_ranks(args, argv)
         sync = HostSync(group, timeout=args.sync_timeout or None)
     try:
@@ -474,7 +507,7 @@ def _serve(args, group, sync, on_ready, stop) -> int:
         server.set_ready(True)
         print(f"ready (warm-up {secs:.1f}s)", flush=True)
     elif args.warmup:
-        print("warm-up skipped (tensor parallel)", flush=True)
+        print("warm-up skipped (multi-process)", flush=True)
     stop = stop or threading.Event()
 
     def on_signal(sig, frame):

@@ -63,13 +63,30 @@ def _finish(req):
 
 
 def _serve(eng, extra=None):
-    """PROMPTS submitted back to back (extra: request index -> further
-    submit arguments), then drained: each request's (tokens, finish,
-    logprobs, top rows)."""
+    """PROMPTS (extra: request index -> further submit arguments) all
+    queued before the engine's first iteration, then served with its loop
+    stopped, an iteration at a time: each request's (tokens, finish,
+    logprobs, top rows). Both modes must see the same arrivals: submitted
+    to a running loop, the requests an iteration finds waiting depend on
+    thread timing, and a burst admission (the lane-masked batched chunk)
+    does not give a lone admission's f32 bits."""
     extra = extra or {}
+    eng.shutdown()
+    eng._shutdown = False
     reqs = [eng.submit_ids(p, max_tokens=n, **extra.get(i, {}))
             for i, (p, n) in enumerate(zip(PROMPTS, MAX_TOKENS))]
-    fins = [_finish(r) for r in reqs]
+    fins: list = [None] * len(reqs)
+    admitting = None
+    for _ in range(10000):
+        for i, r in enumerate(reqs):
+            while fins[i] is None and not r.out.empty():
+                fins[i] = r.out.get()[1]
+        if all(f is not None for f in fins):
+            break
+        _, admitting = eng._iteration(admitting)
+    assert all(f is not None for f in fins), fins
+    worked, _ = eng._iteration(admitting)  # idle: settles a pending record
+    assert not worked
     return [(tuple(r.token_ids), fin, tuple(r.token_logprobs),
              tuple(map(tuple, r.token_top))) for r, fin in zip(reqs, fins)]
 
@@ -77,7 +94,9 @@ def _serve(eng, extra=None):
 def _both(model, extra=None, **kw):
     out = {}
     for mode in (True, False):
-        eng = _engine(model, pipeline_fetch=mode, **kw)
+        # no age guard: when it fires depends on the wall clock, and so
+        # would the admission order
+        eng = _engine(model, pipeline_fetch=mode, spf_age_limit=1e9, **kw)
         try:
             assert eng._pipeline == mode
             out[mode] = _serve(eng, extra)

@@ -313,9 +313,10 @@ def test_default_server_decodes_with_the_s8_form(monkeypatch):
         assert calls and set(calls) == {("decode_attention", 32)}
 
 
-@pytest.mark.parametrize("flag", [["--dp", "2"], ["--sp-ring"],
-                                  ["--profiler-port", "9999"]])
+@pytest.mark.parametrize("flag", [["--profiler-port", "9999"]])
 def test_unported_flags_are_still_refused(flag):
+    """The profiler port is the one flag left unported (--dp and --sp-ring
+    are served since the data axis was ported: tests/test_torch_dp.py)."""
     from gabby_tpu_torch import server
     args = server.build_parser().parse_args(
         ["--preset", "tiny", "--random-weights", "--device", "cpu"] + flag)
@@ -324,8 +325,9 @@ def test_unported_flags_are_still_refused(flag):
 
 
 def test_not_ported_holds_the_parallel_flags_and_the_profiler():
+    """Of the parallel flags and the profiler, only the profiler is left."""
     from gabby_tpu_torch import server
-    assert set(server._NOT_PORTED) == {"dp", "sp_ring", "profiler_port"}
+    assert set(server._NOT_PORTED) == {"profiler_port"}
 
 
 @pytest.mark.parametrize("flag", ["--act-fp8", "--prefill-int8-shadow",
