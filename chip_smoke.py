@@ -8,9 +8,12 @@ a non-zero exit:
   1. card        the GPU's name and power limit (nvidia-smi);
   2. build       nvcc builds gabby_tpu_torch/csrc/*.cu (one process per
                  source, all started together);
-  3. kernels     each kernel (K1-K33) at the serving path's shapes for
+  3. kernels     each kernel (K1-K41) at the serving path's shapes for
                  Llama-3.2-1B (8 slots, context 1024 in a 2048-row cache,
-                 int8 for K3-K21, bf16 for K22-K32; prefill at T=512,
+                 int8 for K3-K21, K34, K35, K38, K39, bf16 for K22-K32,
+                 K36, K37, K40, K41; the no-fresh-row forms K34-K41 read
+                 rows j <= 1024, K34 also at positions 0 to 2047 and
+                 within a window of 512; prefill at T=512,
                  offset 512; K7 at one 512-token chunk; the verify kernels
                  at a block of 8; the paged ones through a shuffled table
                  of 512-row pages; K1, K33, K5, K8, K2 and K6 also at M
@@ -34,7 +37,11 @@ a non-zero exit:
                  K16 against K3, K24 against K32, K25 against K24, K17
                  against K10, K29 against K28; the s8 forms K15 against
                  K14, K20 against K19, and K19 against K14 on the same
-                 rows at a quantization chunk a page; the verify forms
+                 rows at a quantization chunk a page; the no-fresh-row
+                 forms K34 and K36 against themselves on one layer's
+                 cache alone, K35 against K34, K37 against K36, K38 and
+                 K40 against K34 and K36 on the pool's rows gathered,
+                 K39 against K38, K41 against K40; the verify forms
                  K13 against K9, K11 against K9 and K30 against K26 on
                  the pool's rows gathered, K18 against K11, K27 against
                  K26, K31 against K30) and twice on the same inputs, bit
@@ -50,8 +57,9 @@ a non-zero exit:
                  whichever is larger; every library call also from a
                  graph); then one case per attention source
                  at Llama-3.2-3B's heads (24 q heads over 8 kv heads of
-                 128 dims, 28 layers: K3, K16, K32, K13, K17, K15, K20,
-                 K21, and K27 over a bf16 cache; K17 by equality against
+                 128 dims, 28 layers: K3, K16, K34, K32, K36, K13, K17,
+                 K15, K20, K21, and K27 over a bf16 cache; K17 by equality
+                 against
                  K12 on the same rows, K20 against K15 at a chunk a page,
                  K27 against K26)
                  and K1 at
@@ -187,6 +195,29 @@ a non-zero exit:
                  logprobs, top_logprobs 3 and a seed, as many logprob
                  entries as completion tokens), then SIGTERM, where cmake
                  exists to build it (else a skip line saying why);
+     nofresh     K34-K41's path: a decode step of 16 layers at the 1B
+                 heads over 8 slots of 2048-row int8 and bf16 caches
+                 (positions 0 to 2047) through the reference's public
+                 decode ops without fresh rows: each layer writes the
+                 token's row, then `cache_attention_quantized` /
+                 `cache_attention` (stacked, one layer, paired) and
+                 `paged_decode_attention(..., fresh_k=None)` over 33
+                 pages of 512, paired or not; the launches counted (each
+                 form's kernel, no other attention kernel), then the
+                 forms' bits against the stacked unpaired dense form and
+                 each dense form within the attention tolerance of the
+                 fresh-row kernel (K3, K24) on the same rows;
+     profiler    `python -m gabby_tpu_torch.server --profiler-port P` on
+                 the int4 1B model in the server's default configuration
+                 (8 slots): the ten chat requests, then again with one
+                 capture of 1000 ms posted with them; the gzipped trace's
+                 `aten::` ops on one thread (the engine's), its kernel
+                 events naming K1, K2 and K15, and the ten completions
+                 equal to those without the capture;
+     profile_decode
+                 `python -m gabby_tpu_torch.tools.profile_decode --config
+                 int4_1b`: its table on earlier lines, then the device's
+                 total against the wall of its 3 traced calls;
   9. tensor-parallel
                  the 1B int4 model at full width and depth (seed 0) in
                  the server's default configuration apart from pairing
@@ -233,8 +264,8 @@ a non-zero exit:
                  route's peak bytes printed; (e) ms a decode step and the
                  ten-request wall at dp = 2 against dp = 1 (two replicas
                  share one card here: no speed on two cards is measured);
- 11. summary     the kernels line (thirty-three kernels; K1, K33, K5,
-                 K8 and K2 on two rows each, M = 8 and 64), then
+ 11. summary     the kernels line (forty-one kernels; K1, K33, K5, K8 and
+                 K2 on two rows each, M = 8 and 64, K34 on three), then
                  {"ok": true, "device": {...}} last.
 
 Weights are random (Llama-3.2-1B at full width and depth, seed 0). The
@@ -549,7 +580,7 @@ def projections(cfg) -> list:
 
 
 def kernel_phase(cfg, dev):
-    """K1-K33 at the 1B serving shapes against their plain versions."""
+    """K1-K41 at the 1B serving shapes against their plain versions."""
     from gabby_tpu_torch.ops import cuda as ck
     from gabby_tpu_torch.ops import quant
     from gabby_tpu_torch.ops.attention import gather_layer, gather_pages
@@ -833,6 +864,68 @@ def kernel_phase(cfg, dev):
         nl * 4 * nq * h * (live + b), case="spread positions", repeat=True)
     del kd, vd, smask
 
+    # K34, K35: the no-fresh-row form (the cache holds the current token:
+    # rows j <= positions[b]; the reference's public ops without fresh
+    # rows), K3's rows and plan, 1025 live rows a slot at window ctx + 1;
+    # K34 gives the same bits on one layer's cache alone, K35 (paired)
+    # K34's; then K34 at unequal positions from 0 (one row) to 2047 (the
+    # whole cache), and within a window of 512 rows
+    nf_rows = ctx + 1
+    kd = [(kc[i, :, :, :nf_rows].float() * ks[i, :, :, :nf_rows, None])
+          .bfloat16() for i in range(nl)]
+    vd = [(vc[i, :, :, :nf_rows].float() * vs[i, :, :, :nf_rows, None])
+          .bfloat16() for i in range(nl)]
+
+    def nofresh_bytes(rows: int, row_bytes: int) -> int:
+        return nl * (2 * nk * rows * row_bytes + 2 * b * nq * h * 2)
+
+    def k34(i):
+        return cattn.decode_attention(q, kc, vc, ks, vs, pos, layer=i,
+                                      window=nf_rows)
+
+    for name, k_, v_, what, same in (
+            ("decode_attention_nofresh", kc, vc, "",
+             lambda i: cattn.decode_attention(q, kc[i], vc[i], ks[i], vs[i],
+                                              pos, window=nf_rows)),
+            ("decode_attention_nofresh_paired", kcp, vcp, ", paired", k34)):
+        attn_case(
+            name, dense_shapes + what + ", no fresh row: rows j <= 1024",
+            csrc + "decode_attention.cu", pa + ":256",
+            lambda i, k_=k_, v_=v_: cattn.decode_attention(
+                q, k_, v_, ks, vs, pos, layer=i, window=nf_rows),
+            lambda i, k_=k_, v_=v_: cattn.decode_attention_plain(
+                q, k_, v_, ks, vs, pos, layer=i),
+            lambda i: sdpa(qt, kd[i], vd[i], enable_gqa=True),
+            nofresh_bytes(b * nf_rows, h + 4), nl * 4 * b * nq * nf_rows * h,
+            equal=same, repeat=True)
+    del kd, vd
+    spread0 = torch.tensor([0, 16, 1024, 300, 2047, 64, 1300, 700],
+                           dtype=torch.int32, device=dev)
+    for wpos, window, case in ((spread0, None, "positions 0 to 2047"),
+                               (spread0.clamp(max=511), 512,
+                                "positions 0 to 511, window 512")):
+        top = int(wpos.max()) + 1
+        smask = (torch.arange(top, device=dev)[None, :]
+                 <= wpos[:, None])[:, None, None, :]
+        kd = [(kc[i, :, :, :top].float() * ks[i, :, :, :top, None])
+              .bfloat16() for i in range(nl)]
+        vd = [(vc[i, :, :, :top].float() * vs[i, :, :, :top, None])
+              .bfloat16() for i in range(nl)]
+        live = int(wpos.sum()) + b
+        attn_case(
+            "decode_attention_nofresh", "16 layers x [8 slots at 1-2048 "
+            "rows, 32 q heads, 8 kv heads, head 64], int8 cache of 2048 "
+            "rows, no fresh row", csrc + "decode_attention.cu", pa + ":256",
+            lambda i, wpos=wpos, window=window: cattn.decode_attention(
+                q, kc, vc, ks, vs, wpos, layer=i, window=window),
+            lambda i, wpos=wpos: cattn.decode_attention_plain(
+                q, kc, vc, ks, vs, wpos, layer=i),
+            lambda i, kd=kd, vd=vd, smask=smask: sdpa(
+                qt, kd[i], vd[i], attn_mask=smask, enable_gqa=True),
+            nofresh_bytes(live, h + 4), nl * 4 * nq * h * live, case=case,
+            repeat=True)
+        del kd, vd, smask
+
     def prefill_inputs(t, off):
         """One slot's chunk of t tokens at offset off (slot 3), and what
         the library call is given ready-made: the dequantized past rows
@@ -1034,6 +1127,41 @@ def kernel_phase(cfg, dev):
                equal=lambda i: cpaged.paged_decode_attention_s8(
                    q, *pool, layer=i, **kw))
 
+    # K38, K39: K34's work through the table (rows j <= 1024 of a slot's
+    # four pages); K38 gives K34's bits on the pool's rows gathered into a
+    # dense cache as long as its read bound (the same plan), K39 K38's
+    idx_nf = table[:, :ctx // page + 1].long()  # the pages of rows <= ctx
+
+    def nofresh_rows(rows, scales, layer):
+        """Rows j <= ctx of one layer of a pool through the table, in bf16
+        (dequantized when scales are given): the library call's input."""
+        got = rows[:, layer][idx_nf].movedim(1, 2).reshape(
+            b, nk, -1, h)[:, :, :nf_rows]
+        if scales is None:
+            return got
+        sc = scales[:, layer][idx_nf].movedim(1, 2).reshape(
+            b, nk, -1)[:, :, :nf_rows]
+        return (got.float() * sc[..., None]).bfloat16()
+
+    kd = [nofresh_rows(kp, kps, i) for i in range(nl)]
+    vd = [nofresh_rows(vp, vps, i) for i in range(nl)]
+    for name, pl, what, same in (
+            ("paged_decode_attention_nofresh", pool, "",
+             lambda i: cattn.decode_attention(q, *dense_pool[:2],
+                                              *dense_pool[2:], pos,
+                                              layer=i)),
+            ("paged_decode_attention_nofresh_paired", pool_p, ", paired",
+             lambda i: cpaged.paged_decode_attention(q, *pool, layer=i))):
+        attn_case(
+            name, pool_shapes + what + ", no fresh row: rows j <= 1024",
+            csrc + "paged_attention.cu", pa + ":800",
+            lambda i, pl=pl: cpaged.paged_decode_attention(q, *pl, layer=i),
+            lambda i, pl=pl: cpaged.paged_decode_attention_plain(q, *pl,
+                                                                 layer=i),
+            lambda i: sdpa(qt, kd[i], vd[i], enable_gqa=True),
+            nofresh_bytes(b * nf_rows, h + 4) + tbytes,
+            nl * 4 * b * nq * nf_rows * h, equal=same, repeat=True)
+
     # K11: K9's work read through the table; K18: on the paired pool
     kd = [gathered(kp, kps, i, fkv) for i in range(nl)]
     vd = [gathered(vp, vps, i, fvv) for i in range(nl)]
@@ -1108,6 +1236,32 @@ def kernel_phase(cfg, dev):
     bf16_decode_case("decode_attention_multi_bf16",
                      cattn.decode_attention_multi, kb, vb, ", slot-batched",
                      csrc + "decode_attention.cu", pa + ":460", repeat=True)
+    # K36, K37: the no-fresh-row form over the bf16 cache (the reference's
+    # public cache_attention without fresh rows), rows j <= 1024; K36 gives
+    # the same bits on one layer's cache alone, K37 (paired) K36's
+    kd = [kb[i, :, :, :nf_rows] for i in range(nl)]
+    vd = [vb[i, :, :, :nf_rows] for i in range(nl)]
+
+    def k36(i):
+        return cattn.decode_attention(q, kb, vb, None, None, pos, layer=i,
+                                      window=nf_rows)
+
+    for name, k_, v_, what, same in (
+            ("decode_attention_nofresh_bf16", kb, vb, "",
+             lambda i: cattn.decode_attention(q, kb[i], vb[i], None, None,
+                                              pos, window=nf_rows)),
+            ("decode_attention_nofresh_bf16_paired", kbp, vbp, ", paired",
+             k36)):
+        attn_case(
+            name, bf16_shapes + what + ", no fresh row: rows j <= 1024",
+            csrc + "decode_attention.cu", pa + ":256",
+            lambda i, k_=k_, v_=v_: cattn.decode_attention(
+                q, k_, v_, None, None, pos, layer=i, window=nf_rows),
+            lambda i, k_=k_, v_=v_: cattn.decode_attention_plain(
+                q, k_, v_, None, None, pos, layer=i),
+            lambda i: sdpa(qt, kd[i], vd[i], enable_gqa=True),
+            nofresh_bytes(b * nf_rows, 2 * h),
+            nl * 4 * b * nq * nf_rows * h, equal=same, repeat=True)
     # K26, K27: verify, a block of 8
     kd = [torch.cat([kb[i, :, :, :ctx], fkv], dim=2) for i in range(nl)]
     vd = [torch.cat([vb[i, :, :, :ctx], fvv], dim=2) for i in range(nl)]
@@ -1224,7 +1378,28 @@ def kernel_phase(cfg, dev):
                     qqt, kd[i], vd[i], attn_mask=None if tq == 1 else vmask,
                     enable_gqa=True),
                 work[0] + tbytes, work[1], repeat=True, **extra)
-    del dense_b
+    # K40, K41: the no-fresh-row form through the table over the bf16
+    # pools; K40 gives K36's bits on the pool's rows gathered (the same
+    # plan), K41 K40's
+    kd = [nofresh_rows(kpb, None, i) for i in range(nl)]
+    vd = [nofresh_rows(vpb, None, i) for i in range(nl)]
+    for name, pl, what, same in (
+            ("paged_decode_attention_nofresh_bf16", pool_b, "",
+             lambda i: cattn.decode_attention(q, *dense_b, None, None, pos,
+                                              layer=i)),
+            ("paged_decode_attention_nofresh_bf16_paired", pool_bp,
+             ", paired",
+             lambda i: cpaged.paged_decode_attention(q, *pool_b, layer=i))):
+        attn_case(
+            name, bf16_pool + what + ", no fresh row: rows j <= 1024",
+            csrc + "paged_attention.cu", pa + ":800",
+            lambda i, pl=pl: cpaged.paged_decode_attention(q, *pl, layer=i),
+            lambda i, pl=pl: cpaged.paged_decode_attention_plain(q, *pl,
+                                                                 layer=i),
+            lambda i: sdpa(qt, kd[i], vd[i], enable_gqa=True),
+            nofresh_bytes(b * nf_rows, 2 * h) + tbytes,
+            nl * 4 * b * nq * nf_rows * h, equal=same, repeat=True)
+    del dense_b, kd, vd
     for r in results:
         emit({"phase": "kernels", "tol": TOL, **r})
     return results
@@ -1303,6 +1478,24 @@ def head128_phase(cfg3, dev) -> list:
          lambda i: cattn.decode_attention_plain(q, kc, vc, ks, vs, pos,
                                                 layer=i, **kw),
          lib, dbytes, dflops, equal=k3, repeat=True)
+    # K34: the no-fresh-row form over the same int8 rows, j <= 1024
+    nf_rows = ctx + 1
+    kdn = [(kc[i, :, :, :nf_rows].float() * ks[i, :, :, :nf_rows, None])
+           .bfloat16() for i in range(nl)]
+    vdn = [(vc[i, :, :, :nf_rows].float() * vs[i, :, :, :nf_rows, None])
+           .bfloat16() for i in range(nl)]
+    qbytes = nl * 2 * b * nq * h * 2
+    case("decode_attention_nofresh", heads + ", context 1024, int8 cache, "
+         "no fresh row: rows j <= 1024", csrc + "decode_attention.cu",
+         pa + ":256",
+         lambda i: cattn.decode_attention(q, kc, vc, ks, vs, pos, layer=i,
+                                          window=nf_rows),
+         lambda i: cattn.decode_attention_plain(q, kc, vc, ks, vs, pos,
+                                                layer=i),
+         lambda i: sdpa(q.transpose(1, 2), kdn[i], vdn[i], enable_gqa=True),
+         nl * 2 * b * nk * nf_rows * (h + 4) + qbytes,
+         nl * 4 * b * nq * nf_rows * h, repeat=True)
+    del kdn, vdn
     # K32: the slot-batched launch over a bf16 cache of the same shape
     kb, vb = rand(nl, b, nk, s, h).bfloat16(), rand(nl, b, nk, s, h).bfloat16()
     kdb = [torch.cat([kb[i, :, :, :ctx], fk[:, :, None]], dim=2)
@@ -1319,6 +1512,18 @@ def head128_phase(cfg3, dev) -> list:
          lambda i: sdpa(q.transpose(1, 2), kdb[i], vdb[i], enable_gqa=True),
          nl * (2 * b * nk * ctx * h * 2 + 2 * b * nq * h * 2
                + 2 * b * nk * h * 2), dflops, repeat=True)
+    # K36: the no-fresh-row form over the same bf16 rows, j <= 1024
+    case("decode_attention_nofresh_bf16", heads + ", context 1024, bf16 "
+         "cache, no fresh row: rows j <= 1024", csrc + "decode_attention.cu",
+         pa + ":256",
+         lambda i: cattn.decode_attention(q, kb, vb, None, None, pos,
+                                          layer=i, window=nf_rows),
+         lambda i: cattn.decode_attention_plain(q, kb, vb, None, None, pos,
+                                                layer=i),
+         lambda i: sdpa(q.transpose(1, 2), kb[i, :, :, :nf_rows],
+                        vb[i, :, :, :nf_rows], enable_gqa=True),
+         nl * 2 * b * nk * nf_rows * h * 2 + qbytes,
+         nl * 4 * b * nq * nf_rows * h, repeat=True)
     # K27: verify, a block of 8, over the same bf16 rows paired; K26's
     # bits on the unpaired rows
     kdb = [torch.cat([kb[i, :, :, :ctx], fkv], dim=2) for i in range(nl)]
@@ -4115,6 +4320,344 @@ def dp_phase(cfg, dev, gpu_line: str, one: dict, one_runs: dict) -> None:
     emit({"phase": "data-parallel", "seconds": time.perf_counter() - t0})
 
 
+# ---- the no-fresh-row forms' path, the profiler, the decode profile ------
+
+NOFRESH_POSITIONS = [0, 16, 1024, 300, 2047, 64, 1300, 700]
+NOFRESH_COUNTS = {  # launches a layer on the path: stacked and one layer
+    "decode_attention_nofresh": 2, "decode_attention_nofresh_paired": 1,
+    "decode_attention_nofresh_bf16": 2,
+    "decode_attention_nofresh_bf16_paired": 1,
+    "paged_decode_attention_nofresh": 1,
+    "paged_decode_attention_nofresh_paired": 1,
+    "paged_decode_attention_nofresh_bf16": 1,
+    "paged_decode_attention_nofresh_bf16_paired": 1}
+
+
+def nofresh_path_phase(cfg, dev, gpu_line: str) -> dict:
+    """K34-K41's path: a decode step through the reference's public decode
+    ops without fresh rows, at the 1B heads over 8 slots of 2048-row
+    caches (int8 and bf16, positions 0 to 2047): every layer first writes
+    the current token's k/v row into the cache (int8: quantized as the
+    engine writes it), then attends rows j <= positions[b] through
+    `cache_attention_quantized` / `cache_attention` (the stacked cache with
+    `layer`, one layer's cache alone, the paired cache) and
+    `paged_decode_attention(..., fresh_k=None)` (the same rows in 33 pages
+    of 512 behind a shuffled table, paired or not). The launch counts are
+    set to 0 just before and read just after: each form launches its
+    kernel (NOFRESH_COUNTS a layer) and no other attention kernel
+    launches. Then, outside the counted run: the one-layer, paired and
+    paged forms give the stacked unpaired dense form's bits (one kernel,
+    one plan), and each dense form is within ATTN_TOL of the fresh-row
+    form of the bf16/f32 kernel (K3, K24) on the same rows, the token's
+    row folded in last instead of read (int8: unquantized). Returns the
+    counts."""
+    from gabby_tpu_torch.ops import cuda as ck
+    from gabby_tpu_torch.ops.attention import (cache_attention,
+                                               cache_attention_quantized)
+    from gabby_tpu_torch.ops.cuda import paged_attention as cpaged
+    from gabby_tpu_torch.runtime.kv_cache import pair_heads, quantize_kv
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    nl, b, s, page = cfg.num_layers, 8, 2048, 512
+    nq, nk, h = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    kc, ks = quantize_kv(randn(nl, b, nk, s, h))
+    vc, vs = quantize_kv(randn(nl, b, nk, s, h))
+    kb = randn(nl, b, nk, s, h).bfloat16()
+    vb = randn(nl, b, nk, s, h).bfloat16()
+    q = randn(nl, b, 1, nq, h).bfloat16()
+    k_new = randn(nl, b, nk, h).bfloat16()
+    v_new = randn(nl, b, nk, h).bfloat16()
+    pos = torch.tensor(NOFRESH_POSITIONS, dtype=torch.int32, device=dev)
+    lanes = torch.arange(b, device=dev)
+    for i in range(nl):  # the cache holds the current token
+        for codes, scales, new in ((kc, ks, k_new), (vc, vs, v_new)):
+            rows, sc = quantize_kv(new[i].float())
+            codes[i][lanes, :, pos.long()] = rows
+            scales[i][lanes, :, pos.long()] = sc
+        kb[i][lanes, :, pos.long()] = k_new[i]
+        vb[i][lanes, :, pos.long()] = v_new[i]
+    npages = b * s // page + 1
+    table = (torch.randperm(npages - 1, generator=g, device=dev) + 1
+             ).reshape(b, s // page).to(torch.int32).contiguous()
+
+    def pooled(x):
+        """[L, B, Nk(/2), S, *] as a pool [P, L, Nk(/2), page, *] behind
+        `table` (page 0 unused)."""
+        pool = torch.zeros((npages, nl, x.shape[2], page, *x.shape[4:]),
+                           dtype=x.dtype, device=dev)
+        split = x.reshape(nl, b, x.shape[2], s // page, page, *x.shape[4:])
+        pool[table.long()] = split.permute(1, 3, 0, 2, 4,
+                                           *range(5, split.dim()))
+        return pool
+
+    kcp, vcp, kbp, vbp = (pair_heads(x) for x in (kc, vc, kb, vb))
+    pools = {"int8": (pooled(kc), pooled(vc), table, pos, pooled(ks),
+                      pooled(vs)),
+             "int8 paired": (pooled(kcp), pooled(vcp), table, pos,
+                             pooled(ks), pooled(vs)),
+             "bf16": (pooled(kb), pooled(vb), table, pos, None, None),
+             "bf16 paired": (pooled(kbp), pooled(vbp), table, pos, None,
+                             None)}
+    calls = {
+        "K34": lambda i: cache_attention_quantized(q[i], kc, vc, ks, vs, pos,
+                                                   layer=i),
+        "K34, one layer": lambda i: cache_attention_quantized(
+            q[i], kc[i], vc[i], ks[i], vs[i], pos),
+        "K35": lambda i: cache_attention_quantized(q[i], kcp, vcp, ks, vs,
+                                                   pos, layer=i),
+        "K36": lambda i: cache_attention(q[i], kb, vb, pos, layer=i),
+        "K36, one layer": lambda i: cache_attention(q[i], kb[i], vb[i], pos),
+        "K37": lambda i: cache_attention(q[i], kbp, vbp, pos, layer=i),
+        "K38": lambda i: cpaged.paged_decode_attention(
+            q[i], *pools["int8"], layer=i),
+        "K39": lambda i: cpaged.paged_decode_attention(
+            q[i], *pools["int8 paired"], layer=i),
+        "K40": lambda i: cpaged.paged_decode_attention(
+            q[i], *pools["bf16"], layer=i),
+        "K41": lambda i: cpaged.paged_decode_attention(
+            q[i], *pools["bf16 paired"], layer=i)}
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = {name: [fn(i) for i in range(nl)] for name, fn in calls.items()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ck.launch_counts)
+    want = {k: n * nl for k, n in NOFRESH_COUNTS.items()}
+    got = {k: counts[k] for k in want}
+    stray = {k: n for k, n in counts.items()
+             if n and "attention" in k and k not in want}
+    if got != want or stray:
+        raise AssertionError(f"nofresh path: launches {got}, wanted {want}; "
+                             f"stray {stray}")
+    for name, o in outs.items():
+        if not all(torch.isfinite(x.float()).all() for x in o):
+            raise AssertionError(f"nofresh path: {name} non-finite")
+    same = {"K34, one layer": "K34", "K35": "K34", "K38": "K34",
+            "K39": "K38", "K36, one layer": "K36", "K37": "K36",
+            "K40": "K36", "K41": "K40"}
+    for name, base in same.items():
+        if not all(torch.equal(a, c) for a, c in zip(outs[name],
+                                                     outs[base])):
+            raise AssertionError(f"nofresh path: {name} differs from "
+                                 f"{base} on the same rows")
+    ck.set_attn_s8(False)
+    try:
+        fresh = {"K34": [cache_attention_quantized(
+                     q[i], kc, vc, ks, vs, pos, layer=i, fresh_k=k_new[i],
+                     fresh_v=v_new[i]) for i in range(nl)],
+                 "K36": [cache_attention(
+                     q[i], kb, vb, pos, layer=i, fresh_k=k_new[i],
+                     fresh_v=v_new[i]) for i in range(nl)]}
+    finally:
+        ck.set_attn_s8(None)
+    errs = {name: check(f"nofresh path: {name} vs the fresh-row form",
+                        outs[name], ref, ATTN_TOL)
+            for name, ref in fresh.items()}
+    emit({"phase": "nofresh", "path": f"{nl} layers x [{b} slots at "
+          f"positions {NOFRESH_POSITIONS}, {nq} q heads, {nk} kv heads, "
+          f"head {h}], {s}-row caches: each layer writes the token's row, "
+          "then the public decode ops without fresh rows (stacked, one "
+          f"layer, paired; {npages} pages of {page})",
+          "launches": got, "wall_s": wall,
+          "max_abs_err_vs_fresh_row_form": errs,
+          "equal_bits": sorted(same), "card": gpu_line})
+    return counts
+
+
+# K1, K2 and K15 of a decode step of the server's default int4 1B
+# configuration, by the kernel names in a trace (K15: the s8 paired form
+# of decode_attention_kernel at the 1B heads, G = 4, H = 64)
+PROFILE_KERNELS = {"int4_matmul_stacked": "stacked_kernel",
+                   "int4_matmul_grouped": "unembed_kernel",
+                   "decode_attention_s8_paired":
+                       "decode_attention_kernel<4, 64, true, false, true, "
+                       "1, true,"}
+
+
+# the server's default command line for the int4 1B model, and the
+# decode profile's
+PROFILE_SERVER = ["--preset", "llama32_1b", "--random-weights", "--quant",
+                  "4", "--kv-quant"]
+PROFILE_DECODE = ["--config", "int4_1b"]
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("", 0))
+        return sock.getsockname()[1]
+
+
+def profiler_phase(gpu_line: str) -> None:
+    """`python -m gabby_tpu_torch.server --profiler-port P` on the int4 1B
+    model in the server's default configuration (paired int8 cache, s8; 8
+    slots, max_seq 2048), its own process: the ten chat requests (32 new
+    tokens each) through the C++ front-end, then again with one capture
+    (GET /capture?duration_ms=1000) posted with them. The capture must
+    answer 200 with a gzipped Chrome trace whose `aten::` ops lie on one
+    thread (the engine's: the profiler is opened there) and whose kernel
+    events name K1, K2 and K15 (PROFILE_KERNELS); the ten
+    completions must equal those of the run without the capture. Then
+    SIGTERM; the trace's directory is removed."""
+    import gzip
+    import http.client
+    import queue
+
+    if shutil.which("cmake") is None:
+        raise AssertionError("profiler: cmake is not installed, so the C++ "
+                             "front-end (cpp/) cannot be built here")
+    from gabby_tpu_torch.bridge import build_native
+    build_native()
+    pport = _free_port()
+    proc = subprocess.Popen(
+        [sys.executable, "-X", "faulthandler", "-m",
+         "gabby_tpu_torch.server", *PROFILE_SERVER, "--slots", "8",
+         "--max-seq", "2048", "--port", "0", "--no-warmup", "--log-level",
+         "0", "--profiler-port", str(pport)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    out: list[str] = []
+    ports: "queue.Queue[int]" = queue.Queue()
+
+    def read() -> None:
+        for line in proc.stdout:
+            out.append(line)
+            if line.startswith("listening on port"):
+                ports.put(int(line.split()[-1]))
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+
+    def chat(port: int, i: int, n: int) -> str:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        conn.request("POST", "/v1/chat/completions", body=json.dumps({
+            "model": "m", "max_tokens": NEW_TOKENS, "messages": [
+                {"role": "user", "content": "".join(
+                    chr(97 + (i * 7 + j) % 26) for j in range(n))}]}))
+        resp = conn.getresponse()
+        body = json.loads(resp.read())
+        conn.close()
+        if resp.status != 200:
+            raise AssertionError(f"profiler: chat {i}: {resp.status} {body}")
+        return body["choices"][0]["message"]["content"]
+
+    def capture():
+        conn = http.client.HTTPConnection("127.0.0.1", pport, timeout=600)
+        conn.request("GET", "/capture?duration_ms=1000")
+        resp = conn.getresponse()
+        body = resp.read()
+        conn.close()
+        return resp.status, body, dict(resp.getheaders())
+
+    ok, trace_dir = False, None
+    try:
+        port = ports.get(timeout=600)
+        texts, walls = [], []
+        with concurrent.futures.ThreadPoolExecutor(11) as pool:
+            for traced in (False, True):
+                t0 = time.perf_counter()
+                got = [pool.submit(chat, port, i, n)
+                       for i, n in enumerate(CONTENT_SIZES)]
+                cap = pool.submit(capture) if traced else None
+                texts.append([f.result() for f in got])
+                walls.append(time.perf_counter() - t0)
+        status, body, headers = cap.result()
+        if status != 200:
+            raise AssertionError(f"profiler: capture answered {status}: "
+                                 f"{body[:500]!r}")
+        trace_dir = os.path.dirname(headers["X-Trace-Path"])
+        trace = json.loads(gzip.decompress(body))
+        events = trace.get("traceEvents", [])
+        ops = [e for e in events
+               if str(e.get("name", "")).startswith("aten::")]
+        kernels = sorted({e["name"] for e in events
+                          if e.get("cat") == "kernel"})
+        found = {k: [n[:120] for n in kernels if name in n][:2]
+                 for k, name in PROFILE_KERNELS.items()}
+        line = {"phase": "profiler", "trace_bytes_gz": len(body),
+                "events": len(events), "aten_ops": len(ops),
+                "aten_threads": len({e.get("tid") for e in ops}),
+                "kernel_events": sum(1 for e in events
+                                     if e.get("cat") == "kernel"),
+                "kernel_names": len(kernels), "found": found,
+                "start_ms": float(headers.get("X-Start-Ms", "nan")),
+                "stop_ms": float(headers.get("X-Stop-Ms", "nan")),
+                "export_ms": float(headers.get("X-Export-Ms", "nan")),
+                "wall_s": walls, "streams_equal": texts[0] == texts[1],
+                "card": gpu_line}
+        emit(line)
+        if not ops or line["aten_threads"] != 1:
+            raise AssertionError(f"profiler: the trace's aten:: ops are not "
+                                 f"one thread's: {line}")
+        missing = [k for k, names in found.items() if not names]
+        if missing:
+            raise AssertionError(f"profiler: no kernel of {missing} in the "
+                                 f"trace; its kernels: {kernels[:40]}")
+        if texts[0] != texts[1]:
+            raise AssertionError("profiler: the streams with a capture "
+                                 "differ from those without")
+        ok = True
+    finally:
+        proc.terminate()
+        try:
+            rc = proc.wait(60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+        reader.join(10)
+        if trace_dir is not None:
+            shutil.rmtree(trace_dir, ignore_errors=True)
+        if not ok or rc != 0:
+            print("".join(out[-60:]), file=sys.stderr, flush=True)
+    if rc != 0:
+        raise AssertionError(f"profiler: the server exited with {rc}")
+
+
+def profile_decode_phase(gpu_line: str) -> None:
+    """`python -m gabby_tpu_torch.tools.profile_decode --config int4_1b` in
+    its own process: its table printed as it is (earlier lines), then its
+    device total against the wall of its 3 traced calls, and against the
+    wall of its one call outside the trace, on a JSON line."""
+    import re
+    run = subprocess.run(
+        [sys.executable, "-m", "gabby_tpu_torch.tools.profile_decode",
+         *PROFILE_DECODE], cwd=ROOT, capture_output=True, text=True,
+        timeout=900)
+    if run.returncode:
+        print(run.stdout[-4000:], run.stderr[-4000:], file=sys.stderr,
+              flush=True)
+        raise AssertionError(f"profile_decode exited with {run.returncode}")
+    lines = run.stdout.strip().splitlines()
+    head = [ln for ln in lines if " total " in ln and " wall " in ln]
+    rows = [ln for ln in lines if " us/step " in ln]
+    m = re.search(r"total ([\d.]+) ms over (\d+) calls x (\d+) steps, "
+                  r"wall ([\d.]+) ms .*; one call untraced ([\d.]+) ms",
+                  head[0] if head else "")
+    if m is None or not rows:
+        raise AssertionError(f"profile_decode printed no total or rows: "
+                             f"{run.stdout[-2000:]}")
+    for ln in [head[0]] + rows:
+        print(ln, flush=True)
+    device_ms, calls, steps, wall_ms, plain_ms = (
+        float(m.group(1)), int(m.group(2)), int(m.group(3)),
+        float(m.group(4)), float(m.group(5)))
+    emit({"phase": "profile_decode", "argv": PROFILE_DECODE,
+          "device_ms": device_ms, "wall_ms": wall_ms,
+          "device_share": device_ms / wall_ms,
+          "ms_a_step_wall": wall_ms / (calls * steps),
+          "ms_a_step_device": device_ms / (calls * steps),
+          "ms_a_step_untraced": plain_ms / steps,
+          "device_share_untraced": device_ms / calls / plain_ms,
+          "top": [[float(x.group(1)), int(x.group(2)), x.group(3)]
+                  for x in (re.match(r"\s*([\d.]+) us/step\s+x\s*(\d+)\s+"
+                                     r"(.*)", ln) for ln in rows[:10])],
+          "card": gpu_line})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4410,6 +4953,14 @@ def main() -> int:
                 done.result()
 
     clock("http")
+    # the reference's public decode ops without fresh rows (K34-K41)
+    nofresh = nofresh_path_phase(cfg, dev, gpu_line)
+    torch.cuda.empty_cache()
+    # --profiler-port: a capture while the ten chat requests run
+    profiler_phase(gpu_line)
+    # the decode profile of the int4 1B model
+    profile_decode_phase(gpu_line)
+    clock("nofresh, profiler, profile_decode")
     # tensor parallelism over two ranks on this card
     one, one_runs = tp_phase(cfg, dev, gpu_line)
     clock("tensor-parallel")
@@ -4454,7 +5005,8 @@ def main() -> int:
            "paged_verify_attention_bf16_paired":
                runs["bf16; paired; 33 pages of 512; speculate 7"],
            "decode_attention_multi_bf16":
-               runs["bf16; unpaired, slot-batched"]}
+               runs["bf16; unpaired, slot-batched"],
+           **{name: nofresh for name in NOFRESH_COUNTS}}
     for k in kernels:
         name = k.get("counter", k["name"])
         k["launches"] = own.get(name, counts)[name]

@@ -5,7 +5,9 @@
 //   dense bf16 cache: K24 (unpaired), K25 (paired) and the slot-batched
 //     launch K32;
 //   paged int8 pool: K10 (unpaired) and K17 (paired);
-//   paged bf16 pool: K28 (unpaired) and K29 (paired).
+//   paged bf16 pool: K28 (unpaired) and K29 (paired);
+//   dense, without fresh rows: K34, K35 (int8) and K36, K37 (bf16),
+//     unpaired and paired (paged_attention.cu builds the paged ones).
 //
 // Replaces gabby_tpu/ops/pallas/attention.py:_decode_call (its
 // _flash_step body, reached from decode_attention) and _paged_decode_call
@@ -14,7 +16,11 @@
 // same file (the same function, chosen by GABBY_ATTN_MULTI=1): one query
 // position of G query heads per kv head attends cache rows j < min(pos[b],
 // limit) of one layer, and then the current token's unquantized k/v,
-// folded in last as an always-attended extra row. Over the paged pool row
+// folded in last as an always-attended extra row; in the no-fresh-row form
+// (_decode_call with fresh_k=None, reached from the reference's public
+// cache_attention and cache_attention_quantized) the cache already holds
+// the current token, rows j < min(pos[b] + 1, limit) are read and nothing
+// is folded in after them. Over the paged pool row
 // j of slot b lives at pool[table[b, j / page], layer, kh, j % page]; the
 // table is read here, nothing gathers the pool, and entries past a slot's
 // rows are never read (the loop ends at the slot's own position). The
@@ -23,7 +29,8 @@
 // decode_attention.cuh, whose s8 form (K14, K15, K19, K20) attention_s8.cu
 // instantiates and whose verify form (the multi-position forms K9, K11,
 // K13, K18, K26, K27, K30, K31) verify_attention.cu and paged_attention.cu:
-// this unit builds the 80 instantiations of the forms above.
+// this unit builds the 120 instantiations of the forms above (80 with
+// fresh rows, 40 dense without).
 //
 // The arithmetic is the reference's: scores are bf16 q times bf16 k (int8
 // codes are exact in bf16) summed in f32 on the tensor cores, times
@@ -91,6 +98,15 @@
 //     in rank order, then the fresh row, and stores bf16. No workspace, no
 //     atomics, no second kernel: one launch a call, and a repeat gives the
 //     same bits.
+//   * The no-fresh-row forms (K34-K37 here, K38-K41 in paged_attention.cu)
+//     are this kernel with its fresh row taken out at compile time
+//     (kFresh = false): no fresh key or value is read, no fresh score is
+//     taken, the ranks' merge stores acc / l, and the slot's live rows are
+//     n = min(pos[b] + 1, limit, capacity) (at position 0, one row, which
+//     the last part takes: every other warp and rank keeps the empty
+//     partial, which the merge weighs by exp(-1e30 - m) = 0). The launch
+//     plan is the fresh form's for the same limit, so nothing else changes
+//     and the fresh forms are the same instantiations as before.
 //   * The slot-batched launch (K16, K32) is this kernel with the same plan:
 //     a block takes one slot (the plan's sb = 1), since a block here is a
 //     (slot, kv head, rank) and there is no per-grid-step cost to spread.
@@ -105,86 +121,6 @@
 // programmatic dependent launch.
 
 #include "decode_attention.cuh"
-
-namespace {
-
-template <int H, bool kQuant, bool kPaged, bool kPair>
-int by_group(const void* q, const KvRows& src, const void* fk,
-             const void* fv, const void* pos, void* out, int B, int Nq,
-             int Nk, int limit, float sm_scale, int split, cudaStream_t s) {
-  switch (Nq / Nk) {
-    case 1: return launch<1, H, kQuant, kPaged, kPair>(
-        q, src, fk, fv, pos, out, B, Nq, Nk, limit, sm_scale, split, s);
-    case 2: return launch<2, H, kQuant, kPaged, kPair>(
-        q, src, fk, fv, pos, out, B, Nq, Nk, limit, sm_scale, split, s);
-    case 3: return launch<3, H, kQuant, kPaged, kPair>(
-        q, src, fk, fv, pos, out, B, Nq, Nk, limit, sm_scale, split, s);
-    case 4: return launch<4, H, kQuant, kPaged, kPair>(
-        q, src, fk, fv, pos, out, B, Nq, Nk, limit, sm_scale, split, s);
-    case 8: return launch<8, H, kQuant, kPaged, kPair>(
-        q, src, fk, fv, pos, out, B, Nq, Nk, limit, sm_scale, split, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// The instantiation of the cache's head_dim, element and line layout
-template <bool kPaged, bool kPair>
-int by_form(const void* q, const KvRows& src, const void* fk, const void* fv,
-            const void* pos, void* out, int B, int Nq, int Nk, int H,
-            int limit, float sm_scale, int split, cudaStream_t s) {
-  const bool quant = src.ks != nullptr;
-  if (H == 64)
-    return quant ? by_group<64, true, kPaged, kPair>(
-                       q, src, fk, fv, pos, out, B, Nq, Nk, limit, sm_scale,
-                       split, s)
-                 : by_group<64, false, kPaged, kPair>(
-                       q, src, fk, fv, pos, out, B, Nq, Nk, limit, sm_scale,
-                       split, s);
-  if (H == 128)
-    return quant ? by_group<128, true, kPaged, kPair>(
-                       q, src, fk, fv, pos, out, B, Nq, Nk, limit, sm_scale,
-                       split, s)
-                 : by_group<128, false, kPaged, kPair>(
-                       q, src, fk, fv, pos, out, B, Nq, Nk, limit, sm_scale,
-                       split, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-// Checks what the kernel takes (the plan's slots a block, cluster and tile
-// among them; paged: a page the tile divides) and launches
-template <bool kPaged>
-int dispatch(const void* q, const KvRows& src, const void* fk,
-             const void* fv, const void* pos, void* out, int B, int Nq,
-             int Nk, int H, int limit, int sb, int split, int tile,
-             float sm_scale, void* stream) {
-  const bool quant = src.ks != nullptr;
-  const int want_tile =
-      quant ? 16 * tile_blocks<64, true>()
-            : 16 * (H == 128 ? tile_blocks<128, false>()
-                             : tile_blocks<64, false>());
-  const bool aligned =
-      reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
-      reinterpret_cast<uintptr_t>(src.k) % 16 == 0 &&
-      reinterpret_cast<uintptr_t>(src.v) % 16 == 0 &&
-      reinterpret_cast<uintptr_t>(fk) % 2 == 0 &&
-      reinterpret_cast<uintptr_t>(fv) % 2 == 0;
-  if (B < 1 || Nk < 1 || Nq % Nk != 0 || src.rows < 1 || limit < 0 ||
-      (src.pair != 0 && src.pair != 1) || (src.pair && Nk % 2 != 0) ||
-      sb != DECODE_SLOTS || B % sb != 0 ||
-      (split != 1 && split != 2 && split != 4 && split != kMaxSplit) ||
-      tile != want_tile || !aligned || (quant && src.vs == nullptr) ||
-      (kPaged && (src.table == nullptr || src.rows % tile != 0 ||
-                  src.max_pages < 1 || src.layer < 0 ||
-                  src.layer >= src.layers)))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return src.pair ? by_form<kPaged, true>(q, src, fk, fv, pos, out, B, Nq,
-                                          Nk, H, limit, sm_scale, split, s)
-                  : by_form<kPaged, false>(q, src, fk, fv, pos, out, B, Nq,
-                                           Nk, H, limit, sm_scale, split, s);
-}
-
-}  // namespace
 
 extern "C" {
 
@@ -205,7 +141,7 @@ int gabby_decode_attention(const void* q, const void* k, const void* v,
                            void* stream) {
   if (k_scale == nullptr || v_scale == nullptr)
     return (int)cudaErrorInvalidValue;
-  return dispatch<false>(
+  return dispatch_decode<false, true>(
       q, kv_rows(k, v, k_scale, v_scale, nullptr, S, 1, 1, 0, pair), fresh_k,
       fresh_v, positions, out, B, Nq, Nk, H, limit, sb, split, tile,
       sm_scale, stream);
@@ -219,9 +155,40 @@ int gabby_decode_attention_bf16(const void* q, const void* k, const void* v,
                                 int Nq, int Nk, int S, int H, int limit,
                                 int pair, int sb, int split, int tile,
                                 float sm_scale, void* stream) {
-  return dispatch<false>(
+  return dispatch_decode<false, true>(
       q, kv_rows(k, v, nullptr, nullptr, nullptr, S, 1, 1, 0, pair),
       fresh_k, fresh_v, positions, out, B, Nq, Nk, H, limit, sb, split, tile,
+      sm_scale, stream);
+}
+
+// K34 and K35: the no-fresh-row form of K3 and K12, the same arguments
+// without fresh_k and fresh_v: the cache already holds the current token,
+// rows j < min(positions[b] + 1, limit) are read (limit >= 1).
+int gabby_decode_attention_nofresh(const void* q, const void* k,
+                                   const void* v, const void* k_scale,
+                                   const void* v_scale, const void* positions,
+                                   void* out, int B, int Nq, int Nk, int S,
+                                   int H, int limit, int pair, int sb,
+                                   int split, int tile, float sm_scale,
+                                   void* stream) {
+  if (k_scale == nullptr || v_scale == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return dispatch_decode<false, false>(
+      q, kv_rows(k, v, k_scale, v_scale, nullptr, S, 1, 1, 0, pair), nullptr,
+      nullptr, positions, out, B, Nq, Nk, H, limit, sb, split, tile,
+      sm_scale, stream);
+}
+
+// K36 and K37: the same over a bf16 cache (K24's and K25's no-fresh form)
+int gabby_decode_attention_nofresh_bf16(const void* q, const void* k,
+                                        const void* v, const void* positions,
+                                        void* out, int B, int Nq, int Nk,
+                                        int S, int H, int limit, int pair,
+                                        int sb, int split, int tile,
+                                        float sm_scale, void* stream) {
+  return dispatch_decode<false, false>(
+      q, kv_rows(k, v, nullptr, nullptr, nullptr, S, 1, 1, 0, pair), nullptr,
+      nullptr, positions, out, B, Nq, Nk, H, limit, sb, split, tile,
       sm_scale, stream);
 }
 
@@ -240,7 +207,7 @@ int gabby_paged_decode_attention(const void* q, const void* k, const void* v,
                                  float sm_scale, void* stream) {
   if (k_scale == nullptr || v_scale == nullptr)
     return (int)cudaErrorInvalidValue;
-  return dispatch<true>(
+  return dispatch_decode<true, true>(
       q, kv_rows(k, v, k_scale, v_scale, table, page, max_pages, L, layer,
                  pair),
       fresh_k, fresh_v, positions, out, B, Nq, Nk, H, page * max_pages, sb,
@@ -258,7 +225,7 @@ int gabby_paged_decode_attention_bf16(const void* q, const void* k,
                                       int page, int max_pages, int H,
                                       int pair, int sb, int split, int tile,
                                       float sm_scale, void* stream) {
-  return dispatch<true>(
+  return dispatch_decode<true, true>(
       q, kv_rows(k, v, nullptr, nullptr, table, page, max_pages, L, layer,
                  pair),
       fresh_k, fresh_v, positions, out, B, Nq, Nk, H, page * max_pages, sb,

@@ -42,7 +42,7 @@ import torch.nn.functional as F
 
 from gabby_tpu_torch import resolve_device
 from gabby_tpu_torch.config import ModelConfig
-from gabby_tpu_torch.ops.attention import (cache_attention_bf16,
+from gabby_tpu_torch.ops.attention import (cache_attention,
                                            cache_attention_quantized,
                                            causal_attention,
                                            paged_attention,
@@ -430,7 +430,7 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 layer=layer, fresh_k=fresh_k.contiguous(),
                 fresh_v=fresh_v.contiguous(), window=window)
         else:
-            attn = cache_attention_bf16(
+            attn = cache_attention(
                 q, cache.k, cache.v, read_pos, layer=layer,
                 fresh_k=fresh_k.contiguous(), fresh_v=fresh_v.contiguous(),
                 window=window)

@@ -1,21 +1,22 @@
 """Grouped-query attention contracts (counterpart of gabby_tpu/ops/attention.py).
 
-The plain PyTorch bodies here are the semantics the kernels are held to.
-`cache_attention_quantized` and `cache_attention_bf16` (decode, fresh-row
-form, over an int8 and a bf16 cache), `slot_prefill_attention` (chunked
-prefill, fresh-block form), `verify_attention` (speculative verify, T
-candidate positions per slot) and `paged_attention` (decode and verify
-against the paged pool) over a stacked cache dispatch to their CUDA
-kernels (ops/cuda/attention.py, ops/cuda/prefill_attention.py,
+The plain PyTorch bodies here (the *_reference functions) are the
+semantics the kernels are held to. `cache_attention` and
+`cache_attention_quantized` (decode over a bf16 and an int8 cache, with
+or without fresh rows, stacked with `layer` or not), `slot_prefill_attention`
+(chunked prefill, fresh-block form), `verify_attention` (speculative
+verify, T candidate positions per slot) and `paged_attention` (decode and
+verify against the paged pool) dispatch to their CUDA kernels
+(ops/cuda/attention.py, ops/cuda/prefill_attention.py,
 ops/cuda/paged_attention.py), which take plain bodies for CPU tensors (of
 any float type). On the GPU the cache is int8 with scales or bf16 without
 (the reference's k_scale=None form); another type raises. Every contract
 takes the paired cache layout too ([.., Nk/2, S, 2H], detected by the lane
 width; scales per head) and un-pairs it for the plain bodies.
-Single-position decode over an int8 cache takes the s8 form when
-`ops.cuda.attn_s8()` is on (the default), else the bf16/f32 form; verify,
-prefill and every bf16-cache form have no s8 form. Math runs in f32;
-outputs return in q's dtype.
+Single-position decode with fresh rows over an int8 cache takes the s8
+form when `ops.cuda.attn_s8()` is on (the default), else the bf16/f32
+form; verify, prefill, every bf16-cache form and the no-fresh-row forms
+have no s8 form. Math runs in f32; outputs return in q's dtype.
 
 One designed divergence: at max_seq < 4096 the reference leaves dense
 decode over a bf16 cache to XLA (KERNEL_ATTN_MIN_SEQ,
@@ -73,18 +74,20 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      scale).to(q.dtype)
 
 
-def cache_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                    v_cache: torch.Tensor, positions: torch.Tensor, *,
-                    scale: Optional[float] = None,
-                    fresh_k: Optional[torch.Tensor] = None,
-                    fresh_v: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Decode attention against a head-major cache [B, Nk, S, H] (or the
-    paired [B, Nk/2, S, 2H]).
+def cache_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
+                              v_cache: torch.Tensor, positions: torch.Tensor,
+                              *, scale: Optional[float] = None,
+                              fresh_k: Optional[torch.Tensor] = None,
+                              fresh_v: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """The decode contract, plain: attention against one layer's head-major
+    cache [B, Nk, S, H] (or the paired [B, Nk/2, S, 2H]), in q's dtype.
 
     q: [B, 1, Nq, H] at positions[b]. Without fresh rows the cache holds the
     current token and rows j <= positions[b] are attended; with fresh_k/v
     ([B, Nk, H], the current token's unquantized k/v) rows j < positions[b]
-    are attended plus the fresh row. Output [B, 1, Nq, H] in q's dtype."""
+    are attended plus the fresh row. Output [B, 1, Nq, H] in q's dtype.
+    The kernels' plain versions call it; it reaches no kernel."""
     b, _, _, h = q.shape
     k_cache, v_cache = unpaired(k_cache, h), unpaired(v_cache, h)
     nk, s = k_cache.shape[1], k_cache.shape[2]
@@ -99,8 +102,78 @@ def cache_attention(q: torch.Tensor, k_cache: torch.Tensor,
                           torch.ones((b, 1), dtype=torch.bool,
                                      device=q.device)], dim=1)[:, None, :]
     else:
+        # one layout whatever the cache's strides (the paired layout's
+        # rows un-paired are a strided view), as the concatenation above
+        # gives the fresh-row form: the products then sum in one order
+        kk, vv = kk.contiguous(), vv.contiguous()
         mask = (rows <= positions[:, None])[:, None, :]
     return _gqa_core(_split_groups(q, nk), kk, vv, mask, scale).to(q.dtype)
+
+
+def _takes_kernel(q: torch.Tensor, k_cache: torch.Tensor,
+                  layer: Optional[int]) -> bool:
+    """The reference's condition for its decode kernel: one position, and
+    query heads that the kv heads divide (paired lanes count two heads)."""
+    paired = k_cache.shape[-1] == 2 * q.shape[-1]
+    nk = k_cache.shape[2 if layer is not None else 1] * (2 if paired else 1)
+    return q.shape[1] == 1 and q.shape[2] % nk == 0
+
+
+def _decode_kernel(q, k_cache, v_cache, k_scale, v_scale, positions, *,
+                   layer: Optional[int], fresh_k, fresh_v,
+                   scale: Optional[float], window: Optional[int]):
+    """The decode kernel a single-position call takes, in the reference's
+    order: with fresh rows, the slot-batched launch over the unpaired cache
+    when `attn_multi()` is on and a slot block divides B (K16, K32), else
+    over an int8 cache the s8 form when `attn_s8()` is on (K14, K15), else
+    the bf16/f32 form (K3, K12, K24, K25); without fresh rows the
+    bf16/f32 form's no-fresh-row kernel (K34-K37). layer=None: one layer's
+    cache, viewed as a one-layer stack."""
+    k_cache, v_cache, k_scale, v_scale, layer = cattn.stacked(
+        k_cache, v_cache, k_scale, v_scale, layer)
+    args = (q, k_cache, v_cache, k_scale, v_scale, positions)
+    kw = dict(layer=layer, fresh_k=fresh_k, fresh_v=fresh_v, scale=scale,
+              window=window)
+    if fresh_k is not None:
+        if (ck.attn_multi() and k_cache.shape[-1] == q.shape[-1]
+                and cattn.pick_slot_block(q.shape[0]) > 1):
+            return cattn.decode_attention_multi(*args, **kw)
+        if k_scale is not None and ck.attn_s8():
+            return cattn.decode_attention_s8(*args, **kw)
+    return cattn.decode_attention(*args, **kw)
+
+
+def cache_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, positions: torch.Tensor, *,
+                    scale: Optional[float] = None,
+                    layer: Optional[int] = None,
+                    fresh_k: Optional[torch.Tensor] = None,
+                    fresh_v: Optional[torch.Tensor] = None,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """Decode attention against a head-major unquantized cache
+    [B, Nk, S, H] (or the paired [B, Nk/2, S, 2H]), or the stacked
+    [L, B, Nk, S, H] with `layer`: the reference's dispatching op.
+
+    q: [B, 1, Nq, H] at positions[b]; contract as
+    `cache_attention_reference` (with fresh_k/v [B, Nk, H]: rows
+    j < positions[b] plus the fresh row; without: rows j <= positions[b]),
+    reading at most `window` rows when given (the caller guarantees it
+    covers the slot's rows). A single position whose query heads the kv
+    heads divide takes the decode kernel, with or without fresh rows,
+    stacked or not (`_decode_kernel`; on the GPU the cache is bf16); CPU
+    tensors take the kernel's plain version. One designed divergence: the
+    reference leaves a bf16 cache below KERNEL_ATTN_MIN_SEQ rows to XLA
+    (see the module's docstring); the port takes the kernel at every
+    max_seq."""
+    if _takes_kernel(q, k_cache, layer):
+        return _decode_kernel(q, k_cache, v_cache, None, None, positions,
+                              layer=layer, fresh_k=fresh_k, fresh_v=fresh_v,
+                              scale=scale, window=window)
+    if layer is not None:
+        k_cache, v_cache = k_cache[layer], v_cache[layer]
+    return cache_attention_reference(q, k_cache, v_cache, positions,
+                                     scale=scale, fresh_k=fresh_k,
+                                     fresh_v=fresh_v)
 
 
 def cache_attention_quantized(q: torch.Tensor, k_codes: torch.Tensor,
@@ -114,55 +187,27 @@ def cache_attention_quantized(q: torch.Tensor, k_codes: torch.Tensor,
     """Decode attention straight off an int8 head-major cache.
 
     k/v_codes: [B, Nk, S, H] int8, or the stacked [L, B, Nk, S, H] with
-    `layer` (or their paired layouts); k/v_scale: [(L,) B, Nk, S] f32. The
-    fresh-row form with a stacked cache is the serving path: it goes to a
-    flash-decode kernel, which reads only rows j < min(positions[b],
-    window): slot-batched in the bf16/f32 form when `attn_multi()` is on,
-    the cache is unpaired and a slot block divides B (whatever `attn_s8()`
-    says, as in the reference); else the s8 form when `attn_s8()` is on,
-    else the bf16/f32 form."""
-    if (layer is not None and fresh_k is not None and q.shape[1] == 1):
-        kw = dict(layer=layer, fresh_k=fresh_k, fresh_v=fresh_v, scale=scale,
-                  window=window)
-        args = (q, k_codes, v_codes, k_scale, v_scale, positions)
-        # the reference's order: on the unpaired cache the slot-batched
-        # launch (bf16/f32 form) comes before the s8 switch is looked at
-        if (ck.attn_multi() and k_codes.shape[-1] == q.shape[-1]
-                and cattn.pick_slot_block(q.shape[0]) > 1):
-            return cattn.decode_attention_multi(*args, **kw)
-        if ck.attn_s8():
-            return cattn.decode_attention_s8(*args, **kw)
-        return cattn.decode_attention(*args, **kw)
+    `layer` (or their paired layouts); k/v_scale: [(L,) B, Nk, S] f32.
+    Contract as `cache_attention`. A single position whose query heads the
+    kv heads divide goes to a flash-decode kernel, which reads only the
+    slot's live rows: with fresh rows (the serving path) slot-batched in
+    the bf16/f32 form when `attn_multi()` is on, the cache is unpaired and
+    a slot block divides B (whatever `attn_s8()` says, as in the
+    reference), else the s8 form when `attn_s8()` is on, else the bf16/f32
+    form; without fresh rows the no-fresh-row kernel (K34, K35). Otherwise
+    the codes are dequantized for the plain contract."""
+    if _takes_kernel(q, k_codes, layer):
+        return _decode_kernel(q, k_codes, v_codes, k_scale, v_scale,
+                              positions, layer=layer, fresh_k=fresh_k,
+                              fresh_v=fresh_v, scale=scale, window=window)
     if layer is not None:
         k_codes, v_codes = k_codes[layer], v_codes[layer]
         k_scale, v_scale = k_scale[layer], v_scale[layer]
     h = q.shape[-1]
     kk = dequantize_kv(unpaired(k_codes, h), k_scale, q.dtype)
     vv = dequantize_kv(unpaired(v_codes, h), v_scale, q.dtype)
-    return cache_attention(q, kk, vv, positions, scale=scale,
-                           fresh_k=fresh_k, fresh_v=fresh_v)
-
-
-def cache_attention_bf16(q: torch.Tensor, k_cache: torch.Tensor,
-                         v_cache: torch.Tensor, positions: torch.Tensor, *,
-                         layer: int, fresh_k: torch.Tensor,
-                         fresh_v: torch.Tensor,
-                         scale: Optional[float] = None,
-                         window: Optional[int] = None) -> torch.Tensor:
-    """Decode attention over the stacked unquantized cache [L, B, Nk, S, H]
-    (or paired [L, B, Nk/2, S, 2H]) in the fresh-row form: rows
-    j < min(positions[b], window) of `layer` plus the current token's
-    fresh_k/v [B, Nk, H]. The serving path over a bf16 cache: the
-    slot-batched launch (K32) when `attn_multi()` is on, the cache is
-    unpaired and a slot block divides B, as in the reference's order; else
-    the flash-decode kernel (K24; K25 when paired)."""
-    kw = dict(layer=layer, fresh_k=fresh_k, fresh_v=fresh_v, scale=scale,
-              window=window)
-    args = (q, k_cache, v_cache, None, None, positions)
-    if (ck.attn_multi() and k_cache.shape[-1] == q.shape[-1]
-            and cattn.pick_slot_block(q.shape[0]) > 1):
-        return cattn.decode_attention_multi(*args, **kw)
-    return cattn.decode_attention(*args, **kw)
+    return cache_attention_reference(q, kk, vv, positions, scale=scale,
+                                     fresh_k=fresh_k, fresh_v=fresh_v)
 
 
 def slot_prefill_reference(q, k_cache, v_cache, slot: int, offset: int,
@@ -296,22 +341,24 @@ def gather_layer(k_pool, v_pool, page_table, k_scale, v_scale, layer,
 def paged_cache_attention(q: torch.Tensor, k_pool: torch.Tensor,
                           v_pool: torch.Tensor, page_table: torch.Tensor,
                           positions: torch.Tensor, k_scale=None, v_scale=None,
-                          *, layer: int, fresh_k: torch.Tensor,
-                          fresh_v: torch.Tensor,
+                          *, layer: int,
+                          fresh_k: Optional[torch.Tensor] = None,
+                          fresh_v: Optional[torch.Tensor] = None,
                           scale: Optional[float] = None) -> torch.Tensor:
     """Decode contract against a paged pool: q [B, 1, Nq, H]; k/v_pool
     [P, L, Nk, page, H] or paired [P, L, Nk/2, page, 2H] (+ scale pools
     [P, L, Nk, page] when int8); page_table [B, max_pages] int32. The
-    layer's pages are gathered through the table, then the dense fresh-row
-    contract applies: rows j < positions[b] plus the current token's
-    unquantized fresh_k/v [B, Nk, H]."""
+    layer's pages are gathered through the table, then the dense contract
+    applies (`cache_attention_reference`): rows j < positions[b] plus the
+    current token's unquantized fresh_k/v [B, Nk, H], or without them rows
+    j <= positions[b]."""
     kk, vv, ks, vs = gather_layer(k_pool, v_pool, page_table, k_scale,
                                   v_scale, layer, q.shape[-1])
     if ks is not None:
         kk = dequantize_kv(kk, ks, q.dtype)
         vv = dequantize_kv(vv, vs, q.dtype)
-    return cache_attention(q, kk, vv, positions, scale=scale,
-                           fresh_k=fresh_k, fresh_v=fresh_v)
+    return cache_attention_reference(q, kk, vv, positions, scale=scale,
+                                     fresh_k=fresh_k, fresh_v=fresh_v)
 
 
 def paged_verify_reference(q: torch.Tensor, k_pool: torch.Tensor,

@@ -49,6 +49,15 @@ launch_counts: dict[str, int] = {
     "paged_verify_attention_bf16": 0,
     "paged_verify_attention_bf16_paired": 0,
     "decode_attention_multi_bf16": 0,
+    # the no-fresh-row forms (K34-K41)
+    "decode_attention_nofresh": 0,
+    "decode_attention_nofresh_paired": 0,
+    "decode_attention_nofresh_bf16": 0,
+    "decode_attention_nofresh_bf16_paired": 0,
+    "paged_decode_attention_nofresh": 0,
+    "paged_decode_attention_nofresh_paired": 0,
+    "paged_decode_attention_nofresh_bf16": 0,
+    "paged_decode_attention_nofresh_bf16_paired": 0,
 }
 
 

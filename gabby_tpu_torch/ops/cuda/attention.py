@@ -16,26 +16,33 @@ side on the last axis, scales per head; detected by the lane width):
   K12  decode, bf16/f32 form (csrc/decode_attention.cu); K13 verify
        (csrc/verify_attention.cu, _decode_call pair=True);
   K15  decode, s8 form (csrc/attention_s8.cu, pair=True and use_s8=True).
+Without fresh rows (the reference's fresh_k=None form, which its public
+cache_attention and cache_attention_quantized reach; the cache holds the
+current token, rows j <= positions[b] are read):
+  K34  decode, int8, unpaired, K35 paired; K36 bf16, unpaired, K37 paired
+       (csrc/decode_attention.cu, _decode_call tq = 1 with fresh_k=None).
 Over a bf16 cache (no scales: the reference's k_scale=None form):
   K24  decode, unpaired, K25 decode, paired (csrc/decode_attention.cu);
   K26  verify, unpaired, K27 verify, paired (csrc/verify_attention.cu),
        all _decode_call with k_scale=None;
   K32  decode, the slot-batched launch, unpaired
        (csrc/decode_attention.cu, _decode_call_multi with k_scale=None).
-Every single-position form (K3, K12, K14, K15, K16, K24, K25, K32, and the
-paged K10, K17, K19, K20, K28, K29 of paged_attention.py) is one kernel
-(csrc/decode_attention.cuh) whose launch (slots a block, the cluster that
-splits a slot's rows, rows a warp's tile) comes from `decode_plan`, and
-for the s8 form from `s8_plan`; it takes group sizes 1, 2, 3, 4 and 8.
-The verify forms (K9, K13, K26, K27 here, K11, K18, K30, K31 in
-paged_attention.py) are the same kernel with the T x G query columns of a
-kv head as the products' N, at `verify_plan`'s launch; they take any
-group. Every kernel takes head_dim 64 or
-128, reads rows j < min(positions[b], window) of one layer of the stacked
-cache (a pointer offset, no copy) and folds the block's own unquantized k/v
-in last. A paired kernel's block owns one kv head and reads its half of
-each row, so the paired results equal the unpaired ones on the same rows
-re-laid. The cache form is chosen by the scales: given, the cache must be
+Every single-position form (K3, K12, K14, K15, K16, K24, K25, K32,
+K34-K37, and the paged K10, K17, K19, K20, K28, K29, K38-K41 of
+paged_attention.py) is one kernel (csrc/decode_attention.cuh) whose
+launch (slots a block, the cluster that splits a slot's rows, rows a
+warp's tile) comes from `decode_plan`, and for the s8 form from
+`s8_plan`; it takes group sizes 1, 2, 3, 4 and 8. The verify forms (K9,
+K13, K26, K27 here, K11, K18, K30, K31 in paged_attention.py) are the
+same kernel with the T x G query columns of a kv head as the products'
+N, at `verify_plan`'s launch; they take any group. Every kernel takes
+head_dim 64 or 128, reads rows j < min(positions[b], window) of one layer
+of the stacked cache (a pointer offset, no copy) and folds the block's
+own unquantized k/v in last (the no-fresh-row forms: rows
+j < min(positions[b] + 1, window), and nothing after them). A paired
+kernel's block owns one kv head and reads its half of each row, so the
+paired results equal the unpaired ones on the same rows re-laid. The
+cache form is chosen by the scales: given, the cache must be
 int8; None, it must be bf16. CPU tensors take the plain versions; CUDA
 tensors launch or raise.
 """
@@ -73,8 +80,9 @@ VERIFY_BLOCKS_PER_SM = 4   # verify blocks the plan counts a multiprocessor
 def decode_plan(b: int, nk: int, h: int, g: int, limit: int, sms: int, *,
                 quant: bool = True,
                 page: Optional[int] = None) -> tuple[int, int, int]:
-    """The launch of csrc/decode_attention.cu (K3, K12, K16, K24, K25, K32
-    dense; K10, K17, K28, K29 paged) for B slots of Nk kv heads of
+    """The launch of csrc/decode_attention.cu (K3, K12, K16, K24, K25, K32,
+    K34-K37 dense; K10, K17, K28, K29 paged, and K38-K41 of
+    csrc/paged_attention.cu) for B slots of Nk kv heads of
     head_dim h and group g, read bound `limit` (dense: min(window, S);
     paged: page x max_pages), over an int8 (`quant`) or bf16 cache, on a
     card of `sms` multiprocessors: (sb, split, tile). The grid is (split,
@@ -361,21 +369,37 @@ def decode_pages(n: int, split: int, tile: int, page: int) -> list[list[int]]:
     return walks
 
 
+def stacked(k_cache, v_cache, k_scale, v_scale, layer: Optional[int]):
+    """The cache as the kernels take it: a stack [L, B, ...] and a layer.
+    layer=None views one layer's [B, Nk, S, H] (and [B, Nk, S] scales) as a
+    one-layer stack, as the reference's decode_attention does (no copy)."""
+    if layer is not None:
+        return k_cache, v_cache, k_scale, v_scale, layer
+    return (k_cache[None], v_cache[None],
+            None if k_scale is None else k_scale[None],
+            None if v_scale is None else v_scale[None], 0)
+
+
 def decode_attention_plain(q, k_cache, v_cache, k_scale, v_scale, positions,
-                           *, layer: int, fresh_k, fresh_v,
+                           *, layer: Optional[int] = None, fresh_k=None,
+                           fresh_v=None,
                            scale: Optional[float] = None) -> torch.Tensor:
-    """The reference's contract: the layer's cache (dequantized when scales
-    are given, un-paired when it is paired) in q's dtype, rows
-    j < positions[b] plus the fresh row, in f32."""
-    from gabby_tpu_torch.ops.attention import cache_attention
+    """The reference's contract: the layer's cache (the cache itself when
+    layer is None; dequantized when scales are given, un-paired when it is
+    paired) in q's dtype, rows j < positions[b] plus the fresh row, or
+    without fresh rows rows j <= positions[b], in f32."""
+    from gabby_tpu_torch.ops.attention import cache_attention_reference
+    k_cache, v_cache, k_scale, v_scale, layer = stacked(
+        k_cache, v_cache, k_scale, v_scale, layer)
     if k_scale is None:
-        return cache_attention(q, k_cache[layer], v_cache[layer], positions,
-                               scale=scale, fresh_k=fresh_k, fresh_v=fresh_v)
+        return cache_attention_reference(q, k_cache[layer], v_cache[layer],
+                                         positions, scale=scale,
+                                         fresh_k=fresh_k, fresh_v=fresh_v)
     h = q.shape[-1]
     kk = dequantize_kv(unpaired(k_cache[layer], h), k_scale[layer], q.dtype)
     vv = dequantize_kv(unpaired(v_cache[layer], h), v_scale[layer], q.dtype)
-    return cache_attention(q, kk, vv, positions, scale=scale,
-                           fresh_k=fresh_k, fresh_v=fresh_v)
+    return cache_attention_reference(q, kk, vv, positions, scale=scale,
+                                     fresh_k=fresh_k, fresh_v=fresh_v)
 
 
 def s8_attention_core(q, k_codes, v_codes, k_scale, v_scale, positions,
@@ -496,14 +520,19 @@ def scale_planes(k_scale, v_scale) -> tuple:
 def check_decode_inputs(what: str, q, fresh_k, fresh_v, positions, tensors,
                         nk: int) -> None:
     """`check_block_inputs` for single-position decode: q [B, 1, Nq, H],
-    fresh_k/v [B, Nk, H], and a group size the kernels are built for."""
-    if (q.shape[1] != 1 or fresh_k.dim() != 3 or fresh_v.dim() != 3
-            or q.shape[2] // nk not in GROUPS):
+    fresh_k/v [B, Nk, H] (or both None: the no-fresh-row form), and a group
+    size the kernels are built for."""
+    fresh = fresh_k is not None or fresh_v is not None
+    if (q.shape[1] != 1 or q.shape[2] // nk not in GROUPS
+            or (fresh and (fresh_k is None or fresh_v is None
+                           or fresh_k.dim() != 3 or fresh_v.dim() != 3))):
         raise ValueError(f"{what}: unsupported shapes q {tuple(q.shape)}, "
-                         f"fresh {tuple(fresh_k.shape)}, {nk} kv heads "
-                         f"(groups {GROUPS})")
-    check_block_inputs(what, q, fresh_k[:, :, None], fresh_v[:, :, None],
-                       positions, tensors, nk)
+                         f"fresh "
+                         f"{None if fresh_k is None else tuple(fresh_k.shape)}"
+                         f", {nk} kv heads (groups {GROUPS})")
+    check_block_inputs(what, q, fresh_k[:, :, None] if fresh else None,
+                       fresh_v[:, :, None] if fresh else None, positions,
+                       tensors, nk)
 
 
 def _limit(s: int, window: Optional[int]) -> int:
@@ -531,58 +560,78 @@ def _dense_decode(what: str, q, k_cache, v_cache, k_scale, v_scale,
                   scale: Optional[float], window: Optional[int], *,
                   multi: bool = False):
     """The dense forms' launch (checks, output, one call of the entry for
-    the cache form). `multi`: the slot-batched entry point's conditions,
-    the unpaired cache and a slot block that divides B. Returns (out,
-    pair)."""
+    the cache form; without fresh rows the no-fresh-row entry). `multi`:
+    the slot-batched entry point's conditions, the unpaired cache and a
+    slot block that divides B. Returns (out, pair)."""
     b, _, nq, h = q.shape
     nk, s, pair, kv_off, sc_off = _dense_cache(what, q, k_cache, v_cache,
                                                k_scale, v_scale, layer)
-    if multi and (pair or pick_slot_block(b) < 2):
-        raise ValueError(f"{what} takes the unpaired cache and a slot count "
-                         f"that 2 divides, got cache {tuple(k_cache.shape)}")
+    if multi and (pair or pick_slot_block(b) < 2 or fresh_k is None):
+        raise ValueError(f"{what} takes the unpaired cache, fresh rows and "
+                         f"a slot count that 2 divides, got cache "
+                         f"{tuple(k_cache.shape)}")
     quant = k_scale is not None
     check_decode_inputs(what, q, fresh_k, fresh_v, positions,
                         (k_cache, v_cache, *scale_planes(k_scale, v_scale)),
                         nk)
+    limit = _limit(s, window)
+    if fresh_k is None and limit < 1:
+        raise ValueError(f"{what}: without fresh rows a slot reads at least "
+                         f"its own row, got a read bound of {limit}")
     from gabby_tpu_torch.ops.cuda import build
     lib = build.library()
     out = torch.empty_like(q)
     rows = (k_cache.data_ptr() + kv_off, v_cache.data_ptr() + kv_off)
     if quant:
         rows += (k_scale.data_ptr() + sc_off, v_scale.data_ptr() + sc_off)
-    limit = _limit(s, window)
-    decode_launch(lib.gabby_decode_attention if quant
-                  else lib.gabby_decode_attention_bf16, q,
-                  (q.data_ptr(), *rows, fresh_k.data_ptr(),
-                   fresh_v.data_ptr(), positions.data_ptr(), out.data_ptr(),
-                   b, nq, nk, s, h, limit, pair), quant, nk, limit, scale,
-                  what)
+    if fresh_k is None:
+        fn = (lib.gabby_decode_attention_nofresh if quant
+              else lib.gabby_decode_attention_nofresh_bf16)
+    else:
+        fn = (lib.gabby_decode_attention if quant
+              else lib.gabby_decode_attention_bf16)
+        rows += (fresh_k.data_ptr(), fresh_v.data_ptr())
+    decode_launch(fn, q, (q.data_ptr(), *rows, positions.data_ptr(),
+                          out.data_ptr(), b, nq, nk, s, h, limit, pair),
+                  quant, nk, limit, scale, what)
     return out, pair
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, k_scale: torch.Tensor,
-                     v_scale: torch.Tensor, positions: torch.Tensor, *,
-                     layer: int, fresh_k: torch.Tensor,
-                     fresh_v: torch.Tensor, scale: Optional[float] = None,
+                     v_cache: torch.Tensor, k_scale: Optional[torch.Tensor],
+                     v_scale: Optional[torch.Tensor],
+                     positions: torch.Tensor, *,
+                     layer: Optional[int] = None,
+                     fresh_k: Optional[torch.Tensor] = None,
+                     fresh_v: Optional[torch.Tensor] = None,
+                     scale: Optional[float] = None,
                      window: Optional[int] = None) -> torch.Tensor:
     """The bf16/f32 form. q [B, 1, Nq, H] bf16, H 64 or 128, Nq / Nk in
     GROUPS; k/v_cache [L, B, Nk, S, H] int8 (K3) or paired
     [L, B, Nk/2, S, 2H] (K12) with k/v_scale [L, B, Nk, S] f32, or a bf16
-    cache of either layout with k/v_scale None (K24, K25); positions [B]
-    int32; fresh_k/v [B, Nk, H] bf16. Returns [B, 1, Nq, H]. `window` (when
-    given) bounds every slot's read, which the caller guarantees covers
-    positions[b]. One kernel (csrc/decode_attention.cu) for every form: on
-    the same rows the paired result equals the unpaired one bit for bit."""
+    cache of either layout with k/v_scale None (K24, K25); layer=None takes
+    one layer's [B, Nk, S, H] (scales [B, Nk, S]) as a one-layer stack;
+    positions [B] int32; fresh_k/v [B, Nk, H] bf16: rows j < positions[b]
+    plus the fresh row. Without fresh rows (both None: the no-fresh-row
+    form, K34 and K35 over int8, K36 and K37 over bf16) the cache holds the
+    current token and rows j <= positions[b] are read. Returns
+    [B, 1, Nq, H]. `window` (when given) bounds every slot's read, which
+    the caller guarantees covers positions[b] (and, without fresh rows,
+    positions[b] + 1 rows). One kernel (csrc/decode_attention.cu) for
+    every form: on the same rows the paired result equals the unpaired one
+    bit for bit."""
     if not q.is_cuda:
         return decode_attention_plain(q, k_cache, v_cache, k_scale, v_scale,
                                       positions, layer=layer,
                                       fresh_k=fresh_k, fresh_v=fresh_v,
                                       scale=scale)
+    k_cache, v_cache, k_scale, v_scale, layer = stacked(
+        k_cache, v_cache, k_scale, v_scale, layer)
     out, pair = _dense_decode("decode attention", q, k_cache, v_cache,
                               k_scale, v_scale, positions, layer, fresh_k,
                               fresh_v, scale, window)
     ck.launch_counts["decode_attention"
+                     + ("" if fresh_k is not None else "_nofresh")
                      + ("" if k_scale is not None else "_bf16")
                      + ("_paired" if pair else "")] += 1
     return out
@@ -688,23 +737,26 @@ def check_block_inputs(what: str, q, fresh_k, fresh_v, positions, tensors,
                        nk: int) -> None:
     """Checks shared by the forms of csrc/decode_attention.cuh (decode, T =
     1; verify, T > 1): q [B, T, Nq, H] (H 64 or 128) and
-    fresh_k/v [B, Nk, T, H] bf16, positions [B] int32, everything
-    contiguous on the GPU and 16-byte aligned."""
+    fresh_k/v [B, Nk, T, H] bf16 (None in the no-fresh-row decode form),
+    positions [B] int32, everything contiguous on the GPU and 16-byte
+    aligned."""
     b, t, nq, h = q.shape
-    tensors = (q, fresh_k, fresh_v, positions, *tensors)
+    fresh = () if fresh_k is None else (fresh_k, fresh_v)
+    tensors = (q, *fresh, positions, *tensors)
     if not all(x.is_cuda and x.is_contiguous() and x.data_ptr() % 16 == 0
                for x in tensors):
         raise ValueError(f"{what}: tensors must be contiguous and 16-byte "
                          f"aligned on the GPU")
-    if (q.dtype != torch.bfloat16 or fresh_k.dtype != torch.bfloat16
-            or fresh_v.dtype != torch.bfloat16
+    if (q.dtype != torch.bfloat16
+            or any(x.dtype != torch.bfloat16 for x in fresh)
             or positions.dtype != torch.int32):
         raise ValueError(f"{what} takes bf16 q/fresh and int32 positions")
     if (h not in HEAD_DIMS or nq % nk or not 1 <= t <= 32
-            or fresh_k.shape != (b, nk, t, h) or fresh_v.shape != (b, nk, t, h)
+            or any(x.shape != (b, nk, t, h) for x in fresh)
             or positions.shape != (b,)):
         raise ValueError(f"{what}: unsupported shapes q {tuple(q.shape)}, "
-                         f"fresh {tuple(fresh_k.shape)}, {nk} kv heads")
+                         f"fresh {[tuple(x.shape) for x in fresh]}, {nk} kv "
+                         f"heads")
 
 
 def check_verify_block(what: str, q) -> None:

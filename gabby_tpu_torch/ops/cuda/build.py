@@ -139,12 +139,21 @@ _SIGNATURES = {
     "gabby_decode_attention": [_P] * 9 + [_I] * 10 + [_F, _P],
     # K24, K25, K32: the same without the scales
     "gabby_decode_attention_bf16": [_P] * 7 + [_I] * 10 + [_F, _P],
+    # K34, K35: the no-fresh-row form of K3 and K12, their arguments
+    # without fresh_k and fresh_v; K36, K37: the same over a bf16 cache
+    "gabby_decode_attention_nofresh": [_P] * 7 + [_I] * 10 + [_F, _P],
+    "gabby_decode_attention_nofresh_bf16": [_P] * 5 + [_I] * 10 + [_F, _P],
     # K10, K17: q, k, v, k_scale, v_scale (whole pools), page table,
     # fresh_k, fresh_v, positions, out; B, Nq, Nk, L, layer, page,
     # max_pages, H, pair, sb, split, tile (decode_plan); sm_scale; stream
     "gabby_paged_decode_attention": [_P] * 10 + [_I] * 12 + [_F, _P],
     # K28, K29: the same without the scales
     "gabby_paged_decode_attention_bf16": [_P] * 8 + [_I] * 12 + [_F, _P],
+    # K38, K39: the no-fresh-row form of K10 and K17, their arguments
+    # without fresh_k and fresh_v; K40, K41: the same over bf16 pools
+    "gabby_paged_decode_attention_nofresh": [_P] * 8 + [_I] * 12 + [_F, _P],
+    "gabby_paged_decode_attention_nofresh_bf16": [_P] * 6 + [_I] * 12
+    + [_F, _P],
     # q, k, v, k_scale, v_scale (layer + slot offset), fresh_k, fresh_v,
     # out, part (the split's workspace or NULL); T, Nq, Nk, S, H, offset,
     # pair, n_split; sm_scale; stream

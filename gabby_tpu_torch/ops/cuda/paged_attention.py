@@ -11,7 +11,9 @@ kernel in its s8 form at `s8_plan`'s launch). Over the
 paired int8 pool [P, L, Nk/2, page, 2H] (detected by the lane width; scale
 pools per head either way): K17, K18 and K20. Over a bf16 pool (no scale
 pools, the reference's k_scale=None form): K28 decode and K30 verify,
-paired K29 and K31. They replace _paged_decode_call: the dense decode and
+paired K29 and K31. Without fresh rows (the reference's fresh_k=None
+form; csrc/paged_attention.cu): K38 (int8), K39 (int8 paired), K40 (bf16)
+and K41 (bf16 paired). They replace _paged_decode_call: the dense decode and
 verify contracts, with row j of slot b read from
 pool[page_table[b, j // page], layer, kv head, j % page]. The kernels read
 the page table themselves and stop at each slot's own position, so nothing
@@ -45,11 +47,13 @@ from gabby_tpu_torch.ops.cuda.attention import (HEAD_DIMS,
 
 
 def paged_decode_attention_plain(q, k_pool, v_pool, page_table, positions,
-                                 k_scale, v_scale, *, layer: int, fresh_k,
-                                 fresh_v, scale: Optional[float] = None
+                                 k_scale, v_scale, *, layer: int,
+                                 fresh_k=None, fresh_v=None,
+                                 scale: Optional[float] = None
                                  ) -> torch.Tensor:
     """The reference's contract: gather the layer's pages through the
-    table, dequantize, attend rows j < positions[b] plus the fresh row."""
+    table, dequantize, attend rows j < positions[b] plus the fresh row, or
+    without fresh rows rows j <= positions[b]."""
     from gabby_tpu_torch.ops.attention import paged_cache_attention
     return paged_cache_attention(q, k_pool, v_pool, page_table, positions,
                                  k_scale, v_scale, layer=layer,
@@ -119,22 +123,28 @@ def _check_pool(what: str, q, k_pool, v_pool, page_table, k_scale, v_scale,
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, page_table: torch.Tensor,
-                           positions: torch.Tensor, k_scale: torch.Tensor,
-                           v_scale: torch.Tensor, *, layer: int,
-                           fresh_k: torch.Tensor, fresh_v: torch.Tensor,
+                           positions: torch.Tensor,
+                           k_scale: Optional[torch.Tensor],
+                           v_scale: Optional[torch.Tensor], *, layer: int,
+                           fresh_k: Optional[torch.Tensor] = None,
+                           fresh_v: Optional[torch.Tensor] = None,
                            scale: Optional[float] = None) -> torch.Tensor:
     """The bf16/f32 form. q [B, 1, Nq, H] bf16, H 64 or 128, Nq / Nk in
     1, 2, 3, 4, 8; k/v_pool [P, L, Nk, page, H] int8 (K10) or paired
     [P, L, Nk/2, page, 2H] (K17) with k/v_scale [P, L, Nk, page] f32, or
     bf16 pools of either layout with k/v_scale None (K28, K29); page_table
     [B, max_pages] int32; positions [B] int32 (the read bound; parked lanes
-    are given 1); fresh_k/v [B, Nk, H] bf16. Returns [B, 1, Nq, H]."""
+    are given 1); fresh_k/v [B, Nk, H] bf16. Without fresh rows (both None:
+    the no-fresh-row form, K38 and K39 over int8 pools, K40 and K41 over
+    bf16 ones; csrc/paged_attention.cu) the pool holds the current token
+    and rows j <= positions[b] < page x max_pages are read. Returns
+    [B, 1, Nq, H]."""
     if not q.is_cuda:
         return paged_decode_attention_plain(
             q, k_pool, v_pool, page_table, positions, k_scale, v_scale,
             layer=layer, fresh_k=fresh_k, fresh_v=fresh_v, scale=scale)
     what = "paged decode attention"
-    if q.shape[1] != 1 or fresh_k.dim() != 3:
+    if q.shape[1] != 1:
         raise ValueError(f"{what} is single-position, got q "
                          f"{tuple(q.shape)}")
     b, _, nq, h = q.shape
@@ -151,14 +161,20 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     pools = (k_pool.data_ptr(), v_pool.data_ptr())
     if quant:
         pools += (k_scale.data_ptr(), v_scale.data_ptr())
-    decode_launch(lib.gabby_paged_decode_attention if quant
-                  else lib.gabby_paged_decode_attention_bf16, q,
-                  (q.data_ptr(), *pools, page_table.data_ptr(),
-                   fresh_k.data_ptr(), fresh_v.data_ptr(),
-                   positions.data_ptr(), out.data_ptr(), b, nq, nk, nl,
-                   layer, page, max_pages, h, pair), quant, nk,
-                  page * max_pages, scale, what, page=page)
+    pools += (page_table.data_ptr(),)
+    if fresh_k is None:
+        fn = (lib.gabby_paged_decode_attention_nofresh if quant
+              else lib.gabby_paged_decode_attention_nofresh_bf16)
+    else:
+        fn = (lib.gabby_paged_decode_attention if quant
+              else lib.gabby_paged_decode_attention_bf16)
+        pools += (fresh_k.data_ptr(), fresh_v.data_ptr())
+    decode_launch(fn, q, (q.data_ptr(), *pools, positions.data_ptr(),
+                          out.data_ptr(), b, nq, nk, nl, layer, page,
+                          max_pages, h, pair), quant, nk, page * max_pages,
+                  scale, what, page=page)
     ck.launch_counts["paged_decode_attention"
+                     + ("" if fresh_k is not None else "_nofresh")
                      + ("" if quant else "_bf16")
                      + ("_paired" if pair else "")] += 1
     return out

@@ -470,6 +470,9 @@ class Engine:
                       "spec_disables": 0}
         self._ttfts: list[float] = []
         self._spans: "collections.deque[dict]" = collections.deque(maxlen=32)
+        # the profiler's engine-thread side (runtime/profiler.py), set by
+        # the server's --profiler-port: ticked at every plan boundary
+        self.capturer = None
         self._thread = threading.Thread(target=self._loop_guarded,
                                         daemon=True, name="gabby-engine")
         self._thread.start()
@@ -1335,6 +1338,9 @@ class Engine:
         except Exception as e:  # noqa: BLE001 — the thread's boundary
             traceback.print_exc()
             self._fail_all_requests(f"error: engine died: {e}")
+        finally:
+            if self.capturer is not None:
+                self.capturer.close()
 
     def _fail_all_requests(self, msg: str) -> None:
         with self._lock:
@@ -1801,6 +1807,8 @@ class Engine:
         admitting: Optional[_Admission] = None
         leader = not self._multi or self._sync.is_leader
         while True:
+            if self.capturer is not None:
+                self.capturer.tick()  # a plan boundary: open or close a trace
             if leader:
                 plan = ({"op": "shutdown"} if self._shutdown
                         else self._compose_plan(admitting))

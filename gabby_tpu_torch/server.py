@@ -16,9 +16,10 @@ starts one rank of a run over P = D x T processes, as the reference's
 multi-host flags do. Rank 0 serves HTTP and broadcasts the engine's plans;
 a follower opens no port. Under `--dp` the decode slots shard over the
 replicas, and admission chunks of at least `--sp-prefill-tokens` run as
-sequence-parallel prefill (`--sp-ring`: ring attention). The profiler
-port is not yet ported: its flag is accepted by the parser and refused
-with "not yet ported" when set.
+sequence-parallel prefill (`--sp-ring`: ring attention).
+`--profiler-port P` serves torch.profiler captures of the engine thread
+(runtime/profiler.py: GET /capture?duration_ms=N on port P, the gzipped
+Chrome trace back); rank i of a multi-process run serves port P + i.
 
 Examples:
   python -m gabby_tpu_torch.tools.quantize --model-dir ~/hf/Llama-3.2-1B \\
@@ -54,17 +55,6 @@ import torch
 
 from gabby_tpu_torch.runtime.engine import RequestError
 
-# flag dest -> the value that means "feature off"
-_NOT_PORTED = {"profiler_port": 0}
-
-
-def _refuse_unported(args) -> None:
-    for name, off in _NOT_PORTED.items():
-        if getattr(args, name) != off:
-            sys.exit(f"--{name.replace('_', '-')}: not yet ported to "
-                     f"gabby_tpu_torch")
-
-
 def _build_engine(args, group=None, sync=None):
     """The engine of one rank: `group` (a parallel.TPGroup, None for a
     single process) picks the rank's device and weight shard; `sync` (its
@@ -78,7 +68,6 @@ def _build_engine(args, group=None, sync=None):
     from gabby_tpu_torch.runtime.engine import Engine, EngineConfig
     from gabby_tpu_torch.tokenizer import Tokenizer
 
-    _refuse_unported(args)
     if args.act_fp8:
         # read wherever a projection runs: set before any weights are built
         quant.set_act_fp8(True)
@@ -444,9 +433,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "instead of the K/V all-gather: per-replica chunk "
                         "K/V memory drops to O(T/dp) for prompts whose "
                         "gathered K/V would not fit")
-    # the reference server's profiler flag, not yet ported: accepted so
-    # scripts written for it parse, refused when set
-    p.add_argument("--profiler-port", type=int, default=0)
+    p.add_argument("--profiler-port", type=int, default=0,
+                   help="serve torch.profiler captures of the engine thread "
+                        "on this port (GET /capture?duration_ms=N answers "
+                        "the gzipped Chrome trace; 0 = off); rank i of a "
+                        "multi-process run serves this port + i")
     p.add_argument("--compile-cache", default="")
     return p
 
@@ -460,27 +451,46 @@ def main(argv: Optional[list[str]] = None,
     args = build_parser().parse_args(argv)
     from gabby_tpu_torch.parallel.multihost import HostSync
 
-    _refuse_unported(args)
     if args.dp < 1:
         sys.exit(f"--dp {args.dp} must be >= 1")
     if args.slots % args.dp != 0:
         sys.exit(f"--slots {args.slots} must be divisible by --dp "
                  f"{args.dp} (slots shard over the data axis)")
+    profiler = _start_profiler(args)
     group = sync = None
     followers: list = []
-    if args.coordinator or args.tp > 1 or args.dp > 1:
-        group, followers = _start_ranks(args, argv)
-        sync = HostSync(group, timeout=args.sync_timeout or None)
     try:
-        return _serve(args, group, sync, on_ready, stop)
+        if args.coordinator or args.tp > 1 or args.dp > 1:
+            group, followers = _start_ranks(args, argv)
+            sync = HostSync(group, timeout=args.sync_timeout or None)
+        return _serve(args, group, sync, on_ready, stop, profiler)
     finally:
         _stop_followers(followers, 60)
+        if profiler is not None:
+            profiler.close()
 
 
-def _serve(args, group, sync, on_ready, stop) -> int:
+def _start_profiler(args):
+    """The capture endpoint of --profiler-port (None when 0), bound before
+    anything else starts: rank i of a multi-process run binds the port plus
+    i, since its ranks may share a host. A port that is taken exits."""
+    if not args.profiler_port:
+        return None
+    from gabby_tpu_torch.runtime.profiler import ProfilerServer
+    port = args.profiler_port + max(args.process_id, 0)
+    try:
+        return ProfilerServer(port)
+    except OSError as e:
+        sys.exit(f"--profiler-port: cannot serve captures on port {port}: "
+                 f"{e.strerror or e}")
+
+
+def _serve(args, group, sync, on_ready, stop, profiler=None) -> int:
     from gabby_tpu_torch.bridge import NativeServer
 
     engine, _ = _build_engine(args, group, sync)
+    if profiler is not None:
+        profiler.attach(engine)
     if sync is not None and not sync.is_leader:
         # no HTTP front door: the engine thread replays the leader's plans
         # until its shutdown plan arrives

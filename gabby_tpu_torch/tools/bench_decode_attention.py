@@ -31,7 +31,9 @@ those of K24, K17 those of K10, K29 those of K28, K15 those of K14, K20
 those of K19; the verify forms at equal positions, the dense ones over
 the whole cache so that they take the paged forms' plan: K13 and K11
 those of K9, K18 those of K11, K27 and K30 those of K26, K31 those of K30;
-beside SDPA with the causal fresh block). `--roots` times the
+beside SDPA with the causal fresh block), and a digest of each
+single-position form's output bits, which two checkouts give alike where
+their kernels give the same bits. `--roots` times the
 kernels of each checkout given, in that order, each in a process of its
 own, through the same public wrappers (an older commit unpacked with `git
 archive` beside this one, so that two versions are compared in one run on
@@ -60,6 +62,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
 import os
 import subprocess
@@ -322,6 +325,15 @@ def _time_verify(x: dict, model: str, dev) -> dict:
     return row
 
 
+def _digest(outs) -> str:
+    """A hash of a call set's output bits: the inputs come from a seed, so
+    two checkouts whose kernels give the same bits print the same one."""
+    h = hashlib.sha256()
+    for o in outs:
+        h.update(o.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def _time_this_tree(rows: int = ROWS) -> dict:
     """Every form of the gabby_tpu_torch on sys.path, and the library call,
     at every model and position set; at another cache length than ROWS,
@@ -346,6 +358,7 @@ def _time_this_tree(rows: int = ROWS) -> dict:
                     max_abs_err=err,
                     repeat_equal=all(torch.equal(o, call(i))
                                      for i, o in enumerate(outs[form])),
+                    digest=_digest(outs[form]),
                     graph_ms=_graph_ms(lambda: [call(i) for i in range(nl)]),
                     eager_ms=_time(lambda: [call(i) for i in range(nl)], 10),
                     bound_ms=_bound_ms(x, pos, quant, paged))

@@ -111,8 +111,8 @@ def test_bf16_decode_attention(h, g, paired):
                                  **kw)
     _close(out, ref)
     # the serving dispatch takes the same function
-    assert torch.equal(tattn.cache_attention_bf16(_t(q, TBF), kk, vv,
-                                                  _t(pos), **kw), out)
+    assert torch.equal(tattn.cache_attention(_t(q, TBF), kk, vv, _t(pos),
+                                             **kw), out)
     if paired:
         ku, vu = _pairs(kc, vc, False)
         assert torch.equal(out, cattn.decode_attention(
@@ -229,7 +229,7 @@ def test_bf16_slot_batched_decode_attention(monkeypatch, h, g):
     kw = dict(layer=1, fresh_k=_t(fk, TBF), fresh_v=_t(fv, TBF))
     kk, vv = _t(kc, TBF), _t(vc, TBF)
     assert ck.attn_multi() and cattn.pick_slot_block(4) > 1
-    out = tattn.cache_attention_bf16(_t(q, TBF), kk, vv, _t(pos), **kw)
+    out = tattn.cache_attention(_t(q, TBF), kk, vv, _t(pos), **kw)
     _close(out, ref)
     assert torch.equal(out, cattn.decode_attention_multi(
         _t(q, TBF), kk, vv, None, None, _t(pos), **kw))

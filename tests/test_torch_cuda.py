@@ -1714,3 +1714,57 @@ def test_prefill_batch_chunk_on_the_card(dev, model, paged):
     for key, c in caches.items():
         for x, old in zip(untouched(c), kept[key]):
             assert torch.equal(x, old)
+
+
+@pytest.mark.parametrize("h,nq", [(64, 32), (128, 24), (64, 8)])
+@pytest.mark.parametrize("quant", [True, False], ids=["int8", "bf16"])
+def test_nofresh_decode_attention(dev, quant, h, nq):
+    """K34-K41, the no-fresh-row forms (rows j <= positions[b]), against
+    their plain versions at position 0, chunk edges and the last row, and
+    within a window; one layer's cache alone, the paired cache and the
+    paged pool (the same read bound, so the same plan) give the stacked
+    unpaired dense form's bits on the same rows, and a repeat its own."""
+    from gabby_tpu_torch.ops.attention import gather_pages
+    g = _gen(dev, 40 + h + nq)
+    nl, b, nk, page, mp = 2, 8, 8, 256, 4
+    npages = b * mp + 1
+
+    def rows():
+        x = torch.randn((npages, nl, nk, page, h), generator=g, device=dev)
+        return quantize_kv(x) if quant else (x.bfloat16(), None)
+
+    (kp, ks), (vp, vs) = rows(), rows()
+    perm = torch.randperm(npages - 1, generator=g, device=dev) + 1
+    table = perm.reshape(b, mp).to(torch.int32).contiguous()
+    dense = [None if x is None else torch.stack(
+        [gather_pages(x, table, i) for i in range(nl)]).contiguous()
+        for x in (kp, vp, ks, vs)]
+    q = torch.randn((b, 1, nq, h), generator=g, device=dev).bfloat16()
+    pos = torch.tensor([0, 1, 31, 32, 33, 500, 1022, 1023], device=dev,
+                       dtype=torch.int32)
+    form = "_nofresh" + ("" if quant else "_bf16")
+    before = dict(ck.launch_counts)
+    out = cattn.decode_attention(q, *dense, pos, layer=1)
+    _close(out, cattn.decode_attention_plain(q, *dense, pos, layer=1),
+           ATTN_TOL)
+    assert torch.equal(out, cattn.decode_attention(q, *dense, pos, layer=1))
+    one = [None if x is None else x[1] for x in dense]
+    assert torch.equal(out, cattn.decode_attention(q, *one, pos))
+    paired = [pair_heads(dense[0]), pair_heads(dense[1]), *dense[2:]]
+    assert torch.equal(out, cattn.decode_attention(q, *paired, pos, layer=1))
+    paged = cpaged.paged_decode_attention(q, kp, vp, table, pos, ks, vs,
+                                          layer=1)
+    _close(paged, cpaged.paged_decode_attention_plain(
+        q, kp, vp, table, pos, ks, vs, layer=1), ATTN_TOL)
+    assert torch.equal(paged, out)
+    assert torch.equal(paged, cpaged.paged_decode_attention(
+        q, pair_heads(kp), pair_heads(vp), table, pos, ks, vs, layer=1))
+    wpos = pos.clamp(max=511)
+    _close(cattn.decode_attention(q, *dense, wpos, layer=1, window=512),
+           cattn.decode_attention_plain(q, *dense, wpos, layer=1), ATTN_TOL)
+    torch.cuda.synchronize()
+    grew = {k: ck.launch_counts[k] - before[k] for k in before}
+    assert grew["decode_attention" + form] == 4
+    assert grew["decode_attention" + form + "_paired"] == 1
+    assert grew["paged_decode_attention" + form] == 1
+    assert grew["paged_decode_attention" + form + "_paired"] == 1

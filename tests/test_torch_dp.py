@@ -363,12 +363,12 @@ def test_server_takes_the_data_axis_flags():
     args = tserver.build_parser().parse_args(
         ["--dp", "2", "--sp-ring", "--sp-prefill-tokens", "512"])
     assert (args.dp, args.sp_ring, args.sp_prefill_tokens) == (2, True, 512)
-    assert tserver._NOT_PORTED == {"profiler_port": 0}
+    assert not hasattr(tserver, "_NOT_PORTED")  # nothing is refused
     defaults = tserver.build_parser().parse_args([])
     assert (defaults.dp, defaults.sp_ring,
             defaults.sp_prefill_tokens) == (1, False, 1024)
-    with pytest.raises(SystemExit, match="not yet ported"):
-        tserver.main(["--profiler-port", "9000"])
+    assert tserver.build_parser().parse_args(
+        ["--dp", "2", "--profiler-port", "9000"]).profiler_port == 9000
 
 
 def test_server_refuses_slots_dp_does_not_divide():

@@ -314,20 +314,28 @@ def test_default_server_decodes_with_the_s8_form(monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [["--profiler-port", "9999"]])
-def test_unported_flags_are_still_refused(flag):
-    """The profiler port is the one flag left unported (--dp and --sp-ring
-    are served since the data axis was ported: tests/test_torch_dp.py)."""
+def test_profiler_port_flag_builds_its_engine(flag):
+    """--profiler-port, the last of the reference's flags to be ported, is
+    accepted: the tiny CPU engine builds with it set (the capture endpoint
+    itself: tests/test_torch_profiler.py)."""
     from gabby_tpu_torch import server
     args = server.build_parser().parse_args(
         ["--preset", "tiny", "--random-weights", "--device", "cpu"] + flag)
-    with pytest.raises(SystemExit, match="not yet ported"):
-        server._build_engine(args)
+    assert args.profiler_port == 9999
+    engine, _ = server._build_engine(args)
+    try:
+        assert engine.capturer is None  # attached by the serving loop
+    finally:
+        engine.shutdown()
 
 
-def test_not_ported_holds_the_parallel_flags_and_the_profiler():
-    """Of the parallel flags and the profiler, only the profiler is left."""
+def test_every_flag_of_the_reference_is_ported():
+    """No flag is refused any more: the refusal mechanism is gone, and
+    --profiler-port 0 (the default) starts no capture endpoint."""
     from gabby_tpu_torch import server
-    assert set(server._NOT_PORTED) == {"profiler_port"}
+    assert not hasattr(server, "_NOT_PORTED")
+    assert server._start_profiler(server.build_parser().parse_args([])) \
+        is None
 
 
 @pytest.mark.parametrize("flag", ["--act-fp8", "--prefill-int8-shadow",
