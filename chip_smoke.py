@@ -14,8 +14,9 @@ a non-zero exit:
                  K36, K37, K40, K41; the no-fresh-row forms K34-K41 read
                  rows j <= 1024, K34 also at positions 0 to 2047 and
                  within a window of 512; prefill at T=512,
-                 offset 512; K7 at one 512-token chunk; the verify kernels
-                 at a block of 8; the paged ones through a shuffled table
+                 offset 512, K22 and K23 also at T=64 over 1024 rows (the
+                 split key range); K7 at one 512-token chunk; the verify
+                 kernels at a block of 8; the paged ones through a shuffled table
                  of 512-row pages; K1, K33, K5, K8, K2 and K6 also at M
                  = 64, the verify-sized products, and twice on the same
                  inputs, bit for bit; K1, K33, K5 and K8 also by
@@ -58,10 +59,10 @@ a non-zero exit:
                  graph); then one case per attention source
                  at Llama-3.2-3B's heads (24 q heads over 8 kv heads of
                  128 dims, 28 layers: K3, K16, K34, K32, K36, K13, K17,
-                 K15, K20, K21, and K27 over a bf16 cache; K17 by equality
-                 against
+                 K15, K20, K21, and K27, K22 and K23 over a bf16 cache;
+                 K17 by equality against
                  K12 on the same rows, K20 against K15 at a chunk a page,
-                 K27 against K26)
+                 K27 against K26, K23 against K22)
                  and K1 at
                  its four projections x 28 layers, the same way, on lines
                  of their own;
@@ -167,6 +168,13 @@ a non-zero exit:
                  over 33 pages of 512, synchronous, pipelined, pipelined,
                  synchronous, on a stopped engine driven an iteration at
                  a time: every stream equal; ms a decode step, TTFT p50);
+     switches    the reference's kernel switches on the same weights and
+                 the default cache (`switches_phase`): with the kernels
+                 off (GABBY_KERNELS=0) a prefill + 4 decode steps and
+                 three requests launch no kernel, within 0.05 of the
+                 kernels-on steps, their greedy tokens printed beside the
+                 kernels-on run's; with GABBY_PREFILL_PAIR=0 a paired
+                 prefill leaves K21 at 0 while K1, K2 and K15 count;
   6. checkpoint  the same seed-0 weights written as an HF-layout directory
                  (bf16 safetensors, config.json, generation_config.json,
                  the BPE tokenizer of tests/fixtures) into a temporary
@@ -1286,40 +1294,52 @@ def kernel_phase(cfg, dev):
                      equal=lambda i: cattn.verify_attention(
                          qv, kb, vb, None, None, pos, layer=i, window=2048,
                          **kwv), repeat=True)
-    # K22, K23: one 512-token prefill chunk at offset 512 of slot 3
-    t4, off4 = 512, 512
-    q4 = torch.randn((1, t4, nq, h), generator=g, device=dev).bfloat16()
-    fk4 = torch.randn((nk, t4, h), generator=g, device=dev).bfloat16()
-    fv4 = torch.randn((nk, t4, h), generator=g, device=dev).bfloat16()
-    kw4 = dict(fresh_k=fk4, fresh_v=fv4)
-    mask4 = torch.cat([torch.ones((t4, off4), dtype=torch.bool, device=dev),
-                       torch.ones((t4, t4), dtype=torch.bool,
-                                  device=dev).tril()], dim=1)
-    kd = [torch.cat([kb[i, 3, :, :off4], fk4], dim=1)[None]
-          for i in range(nl)]
-    vd = [torch.cat([vb[i, 3, :, :off4], fv4], dim=1)[None]
-          for i in range(nl)]
-    keys4 = t4 * off4 + t4 * (t4 + 1) // 2
+    # K22, K23 (TMA + wgmma, prefill_attention_bf16.cu): one 512-token
+    # prefill chunk at offset 512 of slot 3, then a 64-token chunk over
+    # 1024 rows (the key range split across blocks); K23 gives K22's bits
+    def bf16_prefill_inputs(t, off):
+        q4 = torch.randn((1, t, nq, h), generator=g, device=dev).bfloat16()
+        fk4 = torch.randn((nk, t, h), generator=g, device=dev).bfloat16()
+        fv4 = torch.randn((nk, t, h), generator=g, device=dev).bfloat16()
+        mask = torch.cat([torch.ones((t, off), dtype=torch.bool, device=dev),
+                          torch.ones((t, t), dtype=torch.bool,
+                                     device=dev).tril()], dim=1)
+        keys = t * off + t * (t + 1) // 2
+        return dict(t=t, off=off, q=q4, kw=dict(fresh_k=fk4, fresh_v=fv4),
+                    mask=mask, qt=q4.transpose(1, 2),
+                    kd=[torch.cat([kb[i, 3, :, :off], fk4], dim=1)[None]
+                        for i in range(nl)],
+                    vd=[torch.cat([vb[i, 3, :, :off], fv4], dim=1)[None]
+                        for i in range(nl)],
+                    nbytes=nl * (2 * nk * off * h * 2 + 2 * t * nq * h * 2
+                                 + 2 * nk * t * h * 2),
+                    ops=nl * 4 * nq * h * keys)
 
-    def bf16_prefill_case(name, k_, v_, what, **extra):
+    def bf16_prefill_case(name, k_, v_, what, pi, **extra):
+        t, off, q4, kw4 = pi["t"], pi["off"], pi["q"], pi["kw"]
         attn_case(
-            name, f"16 layers x [T={t4} at offset {off4}, 32 q heads, 8 kv "
+            name, f"16 layers x [T={t} at offset {off}, 32 q heads, 8 kv "
             "heads, head 64], one slot, bf16 cache" + what,
-            csrc + "prefill_attention.cu", pf,
-            lambda i: cpfa.prefill_attention(q4, k_, v_, None, None, 3, off4,
+            csrc + "prefill_attention_bf16.cu", pf,
+            lambda i: cpfa.prefill_attention(q4, k_, v_, None, None, 3, off,
                                              layer=i, **kw4),
             lambda i: cpfa.prefill_attention_plain(q4, k_, v_, None, None, 3,
-                                                   off4, layer=i, **kw4),
-            lambda i: sdpa(q4.transpose(1, 2), kd[i], vd[i],
-                           attn_mask=mask4, enable_gqa=True),
-            nl * (2 * nk * off4 * h * 2 + 2 * t4 * nq * h * 2
-                  + 2 * nk * t4 * h * 2), nl * 4 * nq * h * keys4, iters=3,
-            **extra)
+                                                   off, layer=i, **kw4),
+            lambda i: sdpa(pi["qt"], pi["kd"][i], pi["vd"][i],
+                           attn_mask=pi["mask"], enable_gqa=True),
+            pi["nbytes"], pi["ops"], iters=3, repeat=True, **extra)
 
-    bf16_prefill_case("prefill_attention_bf16", kb, vb, "")
-    bf16_prefill_case("prefill_attention_bf16_paired", kbp, vbp, ", paired",
-                      equal=lambda i: cpfa.prefill_attention(
-                          q4, kb, vb, None, None, 3, off4, layer=i, **kw4))
+    for t4, off4, label in ((512, 512, None),
+                            (64, 1024, "T=64, offset 1024")):
+        pi = bf16_prefill_inputs(t4, off4)
+        bf16_prefill_case("prefill_attention_bf16", kb, vb, "", pi,
+                          case=label)
+        bf16_prefill_case(
+            "prefill_attention_bf16_paired", kbp, vbp, ", paired", pi,
+            case=label, equal=lambda i, pi=pi: cpfa.prefill_attention(
+                pi["q"], kb, vb, None, None, 3, pi["off"], layer=i,
+                **pi["kw"]))
+    del pi
     del kd, vd, kbp, vbp
     # K28-K31: the same rows through a shuffled table of 512-row pages
     kpb = torch.randn((npages, nl, nk, page, h), generator=g,
@@ -1412,7 +1432,8 @@ def head128_phase(cfg3, dev) -> list:
     the same shape) and K17 paired paged decode (decode_attention.cu),
     K27 paired verify over the bf16 cache and K13 over the int8 one
     (verify_attention.cu), K15 paired s8 decode
-    (attention_s8.cu, the 3B default) and K20 its paged form, and K21
+    (attention_s8.cu, the 3B default) and K20 its paged form, K22 and
+    K23 prefill over the bf16 cache (prefill_attention_bf16.cu) and K21
     paired prefill
     (prefill_attention.cu), each against its plain version, timed as the
     1B cases are; then K1 at the 3B's four projections x 28 layers, M = 8.
@@ -1547,6 +1568,38 @@ def head128_phase(cfg3, dev) -> list:
          equal=lambda i: cattn.verify_attention(qv, kb, vb, None, None, pos,
                                                 layer=i, window=2048, **kwv),
          repeat=True)
+    # K22, K23 (prefill_attention_bf16.cu): one 512-token chunk at offset
+    # 512 of slot 3 over the same bf16 rows; K23 (paired) gives K22's bits
+    tb, offb = 512, 512
+    qb = rand(1, tb, nq, h).bfloat16()
+    kwb = dict(fresh_k=rand(nk, tb, h).bfloat16(),
+               fresh_v=rand(nk, tb, h).bfloat16())
+    maskb = torch.cat([torch.ones((tb, offb), dtype=torch.bool, device=dev),
+                       torch.ones((tb, tb), dtype=torch.bool,
+                                  device=dev).tril()], dim=1)
+    kdb = [torch.cat([kb[i, 3, :, :offb], kwb["fresh_k"]], dim=1)[None]
+           for i in range(nl)]
+    vdb = [torch.cat([vb[i, 3, :, :offb], kwb["fresh_v"]], dim=1)[None]
+           for i in range(nl)]
+    for name, k_, v_, what, same in (
+            ("prefill_attention_bf16", kb, vb, "", None),
+            ("prefill_attention_bf16_paired", kbp, vbp, " paired",
+             lambda i: cpfa.prefill_attention(qb, kb, vb, None, None, 3,
+                                              offb, layer=i, **kwb))):
+        case(name, f"{nl} layers x [T={tb} at offset {offb}, 24 q heads, 8 "
+             f"kv heads, head 128], one slot,{what} bf16 cache",
+             csrc + "prefill_attention_bf16.cu",
+             "gabby_tpu/ops/pallas/prefill_attention.py:142",
+             lambda i, k_=k_, v_=v_: cpfa.prefill_attention(
+                 qb, k_, v_, None, None, 3, offb, layer=i, **kwb),
+             lambda i, k_=k_, v_=v_: cpfa.prefill_attention_plain(
+                 qb, k_, v_, None, None, 3, offb, layer=i, **kwb),
+             lambda i: sdpa(qb.transpose(1, 2), kdb[i], vdb[i],
+                            attn_mask=maskb, enable_gqa=True),
+             nl * (2 * nk * offb * h * 2 + 2 * tb * nq * h * 2
+                   + 2 * nk * tb * h * 2),
+             nl * 4 * nq * h * (tb * offb + tb * (tb + 1) // 2), iters=3,
+             equal=same, repeat=True)
     del kb, vb, kbp, vbp, kdb, vdb
     case("decode_attention_s8_paired", heads + ", context 1024, paired int8 "
          "cache, s8 dots", csrc + "attention_s8.cu", pa + ":256",
@@ -1796,12 +1849,12 @@ def card_steps(cfg, params, dev, *, paired: bool, s8: bool, fed=None):
     return out, fed[:steps]
 
 
-def compare_steps(cfg, what: str, got, want, tol: float):
+def compare_steps(cfg, what: str, got, want, tol: float) -> dict:
     """`got` [8, V] against `want`: `tol` bounds the largest logit
     difference relative to the largest logit; a step passes when the argmax
     agrees or the token chosen is within 2 * tol of the best in `want`
     (each side may be off by tol: with random weights the two best logits
-    are sometimes a near-tie)."""
+    are sometimes a near-tie). Returns the line it printed."""
     steps = want.shape[0]
     if got.shape != (steps, cfg.vocab_size) or not torch.isfinite(got).all():
         raise AssertionError(f"model ({what}): bad logits")
@@ -1811,12 +1864,14 @@ def compare_steps(cfg, what: str, got, want, tol: float):
     gap = (want.max(-1).values - want.gather(1, chosen)[:, 0]) / top
     agree = int((gap == 0).sum())
     ties = int(((gap > 0) & (gap <= 2 * tol)).sum())
-    emit({"phase": "model", "check": what, "steps": steps,
-          "argmax_agree": agree, "near_ties": ties,
-          "max_rel_logit_err": worst, "bound": tol})
+    line = {"phase": "model", "check": what, "steps": steps,
+            "argmax_agree": agree, "near_ties": ties,
+            "max_rel_logit_err": worst, "bound": tol}
+    emit(line)
     if worst > tol or agree + ties < steps:
         raise AssertionError(f"model ({what}): disagrees ({worst}, "
                              f"{agree}/{steps} argmax, {ties} near-ties)")
+    return line
 
 
 def steps_model_phase(cfg, params, dev, tol: float = 0.05):
@@ -4658,6 +4713,147 @@ def profile_decode_phase(gpu_line: str) -> None:
           "card": gpu_line})
 
 
+SWITCH_PROMPTS = [43, 173, 623]  # the engine's 64, 256 and 512 buckets
+SWITCH_TOKENS = 16
+
+
+def switches_phase(cfg, params, dev, gpu_line: str) -> None:
+    """The reference's kernel switches on the card, on int4_1b (weights in
+    memory) over the server's default cache (paired int8).
+    Kernels off (`set_kernels(False)`, as GABBY_KERNELS=0): a 64-token
+    prefill and 4 decode steps fed the kernels-on run's greedy tokens (s8
+    off on both sides: the plain bodies have no s8 form), then three
+    requests through the engine (greedy, 16 tokens each, s8 on): every
+    launch counter stays 0; the prefill's logits (the first step) and each
+    decode step's within ADMIT_TOL of the kernels-on steps', each step's
+    greedy token equal or within 2 * ADMIT_TOL of the best
+    (`compare_steps`); the requests' tokens printed beside the kernels-on
+    run's, with
+    how many agree. Then `set_prefill_pair(False)` (GABBY_PREFILL_PAIR=0)
+    with s8 on: the same prefill and steps leave K21 at 0 (the plain body)
+    while K1, K2 and K15 count; the prefill's logits within ADMIT_TOL of
+    the kernels', the s8 steps within 2 * ADMIT_TOL (as
+    `steps_model_phase` holds s8 against the bf16/f32 form).
+    `"phase": "switches"` lines."""
+    from gabby_tpu_torch.models import llama
+    from gabby_tpu_torch.ops import cuda as ck
+    from gabby_tpu_torch.runtime.engine import Engine, EngineConfig
+    from gabby_tpu_torch.runtime.kv_cache import create_cache
+    from gabby_tpu_torch.tokenizer import Tokenizer
+
+    n, steps = 64, 4
+    ids = (torch.arange(n) * 7919 % 128000 + 100).to(dev)
+
+    def model_steps(s8: bool, fed=None):
+        cache = create_cache(cfg, 1, 2048, quantized=True, paired=True,
+                             device=dev)
+        ck.set_attn_s8(s8)
+        try:
+            ck.reset_launch_counts()
+            logits, _ = llama.prefill_slot(params, cfg, ids, n, 0, 0, cache)
+            rows = [logits.float()]
+            greedy = fed is None
+            fed = [int(rows[0].argmax())] if greedy else list(fed)
+            for step in range(steps):
+                lg, _ = llama.decode_step(
+                    params, cfg,
+                    torch.tensor([fed[step]], dtype=torch.int32, device=dev),
+                    torch.tensor([n + step], dtype=torch.int32, device=dev),
+                    cache)
+                rows.append(lg[0].float())
+                if greedy:
+                    fed.append(int(rows[-1].argmax()))
+            torch.cuda.synchronize()
+        finally:
+            ck.set_attn_s8(None)
+        return torch.stack(rows), fed[:steps], dict(ck.launch_counts)
+
+    def engine_tokens():
+        eng = Engine(cfg, params, Tokenizer.byte_fallback(cfg.vocab_size),
+                     EngineConfig(batch_slots=8, max_seq=2048,
+                                  kv_quantized=True, pair_kv_heads=True),
+                     device=dev)
+        try:
+            warm = eng.submit_ids(stream(9, 20, cfg.vocab_size),
+                                  max_tokens=4)
+            while warm.out.get(timeout=600)[1] is None:
+                pass
+            ck.reset_launch_counts()
+            t0 = time.perf_counter()
+            reqs = [eng.submit_ids(stream(i, m, cfg.vocab_size),
+                                   max_tokens=SWITCH_TOKENS)
+                    for i, m in enumerate(SWITCH_PROMPTS)]
+            for req in reqs:
+                while req.out.get(timeout=600)[1] is None:
+                    pass
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(ck.launch_counts)
+        finally:
+            eng.shutdown()
+        return [list(r.token_ids) for r in reqs], counts, wall
+
+    on_rows, fed, on_counts = model_steps(False)
+    on_tokens, on_engine, on_wall = engine_tokens()
+    for name, counts in (("decode_attention_paired", on_counts),
+                         ("decode_attention_s8_paired", on_engine)):
+        for k in ("int4_matmul_stacked", "int4_matmul_grouped", name,
+                  "prefill_attention_paired"):
+            if not counts[k]:
+                raise AssertionError(f"switches: {k} never launched with "
+                                     "the kernels on")
+    ck.set_kernels(False)
+    try:
+        off_rows, _, off_counts = model_steps(False, fed)
+        off_tokens, off_engine, off_wall = engine_tokens()
+    finally:
+        ck.set_kernels(None)
+    launched = {k: v for k, v in {**off_counts, **off_engine}.items() if v}
+    if launched:
+        raise AssertionError(f"switches: kernels launched with the kernels "
+                             f"off: {launched}")
+    emit({"phase": "switches", "check": "kernels off (set_kernels(False))",
+          "model_launches": sum(off_counts.values()),
+          "engine_launches": sum(off_engine.values()),
+          "first_step_rel_logit_err": compare_steps(
+              cfg, "kernels off: the prefill's logits", off_rows[:1],
+              on_rows[:1], ADMIT_TOL)["max_rel_logit_err"],
+          "steps_rel_logit_err": compare_steps(
+              cfg, "kernels off: prefill and 4 decode steps", off_rows,
+              on_rows, ADMIT_TOL)["max_rel_logit_err"],
+          "greedy_tokens_on": on_tokens, "greedy_tokens_off": off_tokens,
+          "leading_tokens_agree": [
+              next((j for j, (a, b) in enumerate(zip(x, y)) if a != b),
+                   min(len(x), len(y)))
+              for x, y in zip(off_tokens, on_tokens)],
+          "tokens_agree": sum(a == b for x, y in zip(off_tokens, on_tokens)
+                              for a, b in zip(x, y)),
+          "tokens": sum(map(len, on_tokens)),
+          "engine_wall_s_on": on_wall, "engine_wall_s_off": off_wall,
+          "card": gpu_line})
+    ck.set_prefill_pair(False)
+    try:
+        pair_rows, _, pair_counts = model_steps(True, fed)
+    finally:
+        ck.set_prefill_pair(None)
+    emit({"phase": "switches", "check": "prefill pair off "
+          "(set_prefill_pair(False))",
+          "launches": {k: v for k, v in pair_counts.items() if v},
+          "first_step_rel_logit_err": compare_steps(
+              cfg, "prefill pair off: the prefill's logits", pair_rows[:1],
+              on_rows[:1], ADMIT_TOL)["max_rel_logit_err"],
+          "s8_steps_rel_logit_err": compare_steps(
+              cfg, "prefill pair off: 4 s8 decode steps", pair_rows[1:],
+              on_rows[1:], 2 * ADMIT_TOL)["max_rel_logit_err"],
+          "card": gpu_line})
+    if (pair_counts["prefill_attention_paired"]
+            or not pair_counts["decode_attention_s8_paired"]
+            or not pair_counts["int4_matmul_stacked"]
+            or not pair_counts["int4_matmul_grouped"]):
+        raise AssertionError(f"switches: GABBY_PREFILL_PAIR=0 took "
+                             f"{pair_counts}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4690,6 +4886,7 @@ def main() -> int:
     build.library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0})
     for src in ("quant_matmul_prefill.cu", "prefill_attention.cu",
+                "prefill_attention_bf16.cu",
                 "quant_matmul_stacked.cu", "quant_matmul_int8_stacked.cu",
                 "quant_matmul_w4a8.cu", "quant_matmul_unembed.cu",
                 "quant_matmul_int8_unembed.cu", "decode_attention.cu",
@@ -4773,6 +4970,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     # fp8 activations, the int8 prefill shadow, dispatch-ahead fetches
     options_phase(cfg, params, dev, gpu_line)
+    torch.cuda.empty_cache()
+    # the reference's kernel switches: the kernels off, paired prefill off
+    switches_phase(cfg, params, dev, gpu_line)
     torch.cuda.empty_cache()
     # the same configuration with the raw-byte-dot form of the stacked
     # int4 products (GABBY_INT4_RAWDOT=1): K33 in place of K1, card against

@@ -1,35 +1,34 @@
-// Single-slot flash prefill attention over the KV cache, Hopper (sm_90a):
-// over an int8 cache K4, and over the paired one K21; over a bf16 cache K22,
-// and over the paired one K23. head_dim 64 or 128, any group size.
+// Single-slot flash prefill attention over an int8 KV cache, Hopper
+// (sm_90a): K4, and over the paired cache K21. head_dim 64 or 128, any
+// group size. (Over a bf16 cache, K22 and K23, the tiles need no
+// conversion and go by TMA straight to wgmma: prefill_attention_bf16.cu.)
 //
 // Replaces gabby_tpu/ops/pallas/prefill_attention.py:_prefill_call (its
 // _kernel body, reached from prefill_attention), unpaired and pair=True,
-// with scales and in its k_scale=None form: the T queries of one slot's
-// prompt chunk (global positions offset..offset+T-1) attend that slot's
-// cache rows j < offset of one layer, and then the chunk's own unquantized
-// k/v causally (query t sees chunk keys t' <= t). The cache holds only
-// earlier chunks while this runs; the caller writes the chunk's rows after
-// the layer's attention. In the paired cache a row is one line of 2H
-// elements holding kv heads 2p and 2p + 1 side by side (scales still per
-// head); the block of head 2p + h stages its half of each line, and
-// everything after the staging copy is the unpaired kernel's, so the
-// outputs are equal bit for bit on the same rows re-laid. (The reference
-// adds a query-group grid axis to fit the paired form into the TPU
-// compiler's memory limit; a block here owns one kv head either way and
-// needs no such axis.) The fresh block arrives head-major in both layouts.
+// with scales: the T queries of one slot's prompt chunk (global positions
+// offset..offset+T-1) attend that slot's cache rows j < offset of one
+// layer, and then the chunk's own unquantized k/v causally (query t sees
+// chunk keys t' <= t). The cache holds only earlier chunks while this runs;
+// the caller writes the chunk's rows after the layer's attention. In the
+// paired cache a row is one line of 2H elements holding kv heads 2p and
+// 2p + 1 side by side (scales still per head); the block of head 2p + h
+// stages its half of each line, and everything after the staging copy is
+// the unpaired kernel's, so the outputs are equal bit for bit on the same
+// rows re-laid. (The reference adds a query-group grid axis to fit the
+// paired form into the TPU compiler's memory limit; a block here owns one
+// kv head either way and needs no such axis.) The fresh block arrives
+// head-major in both layouts.
 //
 // The arithmetic is the reference's: both products in bf16 on the tensor
-// cores with f32 sums; bf16 queries unscaled. Over an int8 cache the key
-// codes are bf16 (exact) with ks[j] * sm_scale on the f32 scores and
-// p * vs[j] rounded to bf16 against the value codes; over a bf16 cache the
-// rows are read as they are, the scores take sm_scale alone and p is
-// rounded to bf16. The fresh block's k/v and p are bf16 in both.
+// cores with f32 sums; bf16 queries unscaled. The key codes are bf16
+// (exact) with ks[j] * sm_scale on the f32 scores and p * vs[j] rounded to
+// bf16 against the value codes. The fresh block's k/v and p are bf16.
 //
 // What bounds it on the H100: operations. At T = 512, offset = 512, 32
 // query heads and head_dim 64 a layer does 2 * 2 * 32 * 512 * 64 *
 // (512 + 256.5) ~ 3.2 GFLOP of score and value products for ~1.1 MB of
-// cache (int8; ~2.1 MB bf16), queries and output; against 989 TFLOP/s of
-// bf16 tensor-core rate that is ~3.3 us.
+// cache, queries and output; against 989 TFLOP/s of bf16 tensor-core rate
+// that is ~3.3 us.
 //
 // Design, FlashAttention-2 on mma.sync m16n8k16 (bf16 in, f32 sums):
 //   * The T * G query rows of one kv head (row = t * G + g) are cut into
@@ -51,23 +50,22 @@
 //     fresh chunk keys up to the tile's last query position (the causal
 //     skip). A ring of shared-memory stages (three at H = 64, two at
 //     H = 128) is filled by cp.async (zero-filled past offset or T) ahead
-//     of the tile computed: int8 codes and their scales for a past tile of
-//     an int8 cache, bf16 rows straight into the swizzled layout for a
-//     fresh tile and for a past tile of a bf16 cache. A past tile's codes
-//     become bf16 once per block (exact) in a swizzled tile, one extra
-//     barrier; every bf16 tile is read in place. The queries' staging tile
+//     of the tile computed: int8 codes and their scales for a past tile,
+//     bf16 rows straight into the swizzled layout for a fresh tile. A past
+//     tile's codes become bf16 once per block (exact) in a swizzled tile,
+//     one extra barrier; every bf16 tile is read in place. The queries' staging tile
 //     is the codes' conversion tile: the queries are in registers by then.
 //   * Scores: per warp 16 x 64, 2H / 4 mma; B fragments by ldmatrix from
 //     the swizzled [key][dim] tile (16-byte chunk c of row r at
 //     r * 2H + ((c ^ (r & 7)) << 4): conflict-free). Each column takes
-//     ks[j] * sm_scale (past, int8) or sm_scale, then the mask.
+//     ks[j] * sm_scale (past) or sm_scale, then the mask.
 //   * Online softmax in registers: a row lives in the four lanes of a quad,
 //     its max by two shuffles; the running sum stays per lane until the end.
-//   * Values: p * vs[j] (past, int8) or p rounded to bf16 in registers is
+//   * Values: p * vs[j] (past) or p rounded to bf16 in registers is
 //     the A fragment of the value product as it stands (the accumulator
 //     layout of m16n8k16 is its A layout); the value tile's B fragments come
 //     by ldmatrix.trans. H / 2 mma per warp per tile.
-//   * One block barrier per bf16 tile, two per int8 past tile; the next
+//   * One block barrier per fresh tile, two per past tile; the next
 //     tiles' copies are in flight meanwhile.
 // Times (python3 chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W; int8,
 // H = 64): 16 launches at T = 512, offset 512 take 0.567 ms replayed from a
@@ -214,7 +212,7 @@ __device__ __forceinline__ void codes_to_bf16(uint4 w, uint4& lo, uint4& hi) {
   hi = make_uint4(o[4], o[5], o[6], o[7]);
 }
 
-template <int H, bool kQuant>
+template <int H>
 __global__ void __launch_bounds__(kThreads, Dims<H>::kMinBlocks)
 prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
                          const void* __restrict__ kc,
@@ -237,15 +235,13 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const int total_rows = T * G;
 
   // cache row j of this head: base + j * stride bytes
-  constexpr int kElem = kQuant ? 1 : 2;
-  const int stride = (H << pair) * kElem;
+  const int stride = H << pair;
   const size_t code0 =
-      ((size_t)(kh >> pair) * S * (H << pair) + (pair ? (kh & 1) * H : 0)) *
-      kElem;
+      (size_t)(kh >> pair) * S * (H << pair) + (pair ? (kh & 1) * H : 0);
   const uint8_t* kbase = static_cast<const uint8_t*>(kc) + code0;
   const uint8_t* vbase = static_cast<const uint8_t*>(vc) + code0;
-  const float* ksb = kQuant ? ks + (size_t)kh * S : nullptr;
-  const float* vsb = kQuant ? vs + (size_t)kh * S : nullptr;
+  const float* ksb = ks + (size_t)kh * S;
+  const float* vsb = vs + (size_t)kh * S;
   const __nv_bfloat16* fkb = fk + (size_t)kh * T * H;
   const __nv_bfloat16* fvb = fv + (size_t)kh * T * H;
 
@@ -260,7 +256,7 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
     Stage<H>& st = sm.st[tile % D::kStages];
     const bool past = tile < n_past;
     const int j0 = (past ? tile : tile - n_past) * kKeys;
-    if (kQuant && past) {
+    if (past) {
       // 64 rows x H / 16 chunks of codes, K and V
 #pragma unroll
       for (int i = 0; i < 2 * kKeys * D::kCodeChunks / kThreads; ++i) {
@@ -283,11 +279,11 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
       return;
     }
     // bf16 rows, K and V, 2H / 16 chunks each, swizzled: the chunk's own
-    // (fresh) rows, or a past tile of a bf16 cache
-    const uint8_t* kb = past ? kbase : reinterpret_cast<const uint8_t*>(fkb);
-    const uint8_t* vb = past ? vbase : reinterpret_cast<const uint8_t*>(fvb);
-    const size_t rstride = past ? stride : D::kRowB;
-    const int n = past ? offset : T;
+    // (fresh) rows
+    const uint8_t* kb = reinterpret_cast<const uint8_t*>(fkb);
+    const uint8_t* vb = reinterpret_cast<const uint8_t*>(fvb);
+    const size_t rstride = D::kRowB;
+    const int n = T;
 #pragma unroll
     for (int i = 0; i < 2 * kKeys * D::kChunks / kThreads; ++i) {
       const int idx = tid + i * kThreads;
@@ -343,12 +339,12 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
         ldsm_x4(qa[kk], smem_addr(sm.u.q + swz<H>(warp * 16 + lane % 16,
                                                   2 * kk + lane / 16)));
       // the codes' conversion below writes over the queries' tile
-      if (kQuant && past) __syncthreads();
+      if (past) __syncthreads();
     }
     const int j0 = (past ? tile : tile - n_past) * kKeys;
     const uint8_t* kt = st.k;
     const uint8_t* vt = st.v;
-    if (kQuant && past) {
+    if (past) {
       // codes -> bf16 once per block: K and V, 64 rows x H / 16 chunks each
 #pragma unroll
       for (int i = 0; i < 2 * kKeys * D::kCodeChunks / kThreads; ++i) {
@@ -398,9 +394,7 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
         const int j = j0 + col;
         float v;
         if (past)
-          v = j < offset ? s[nt][e] * (kQuant ? st.ks[col] * sm_scale
-                                              : sm_scale)
-                         : kNegInf;
+          v = j < offset ? s[nt][e] * (st.ks[col] * sm_scale) : kNegInf;
         else
           v = j <= t_row[e >> 1] ? s[nt][e] * sm_scale : kNegInf;
         s[nt][e] = v;
@@ -421,7 +415,7 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[dt][e] *= alpha[e >> 1];
 
-    // p (summed unrounded), then p * vs (past, int8) in bf16 as A
+    // p (summed unrounded), then p * vs (past) in bf16 as A
     // fragments: keys 16 kk .. 16 kk + 15 are score tiles 2 kk and 2 kk + 1
     uint32_t pa[4][4];
 #pragma unroll
@@ -433,7 +427,7 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
                                          : 0.f;
         l[e >> 1] += p[e];
       }
-      if (kQuant && past) {
+      if (past) {
         const float v0 = st.vs[8 * nt + 2 * t], v1 = st.vs[8 * nt + 2 * t + 1];
         p[0] *= v0;
         p[1] *= v1;
@@ -518,18 +512,18 @@ prefill_combine_kernel(const float* __restrict__ part,
     dst[d / 2] = __floats2bfloat162_rn(o[d] * inv, o[d + 1] * inv);
 }
 
-template <int H, bool kQuant>
+template <int H>
 int run(const void* q, const void* k, const void* v, const void* k_scale,
         const void* v_scale, const void* fresh_k, const void* fresh_v,
         void* out, void* part, int T, int Nq, int Nk, int S, int offset,
         int pair, int n_split, float sm_scale, cudaStream_t st) {
   static gabby_smem::SmemLeave leave;
   constexpr int bytes = (int)sizeof(Smem<H>);
-  cudaError_t err = leave.raise(prefill_attention_kernel<H, kQuant>, bytes);
+  cudaError_t err = leave.raise(prefill_attention_kernel<H>, bytes);
   if (err != cudaSuccess) return (int)err;
   const int rows = T * (Nq / Nk);
   dim3 grid((rows + kRows - 1) / kRows, Nk, n_split);
-  prefill_attention_kernel<H, kQuant><<<grid, kThreads, bytes, st>>>(
+  prefill_attention_kernel<H><<<grid, kThreads, bytes, st>>>(
       static_cast<const __nv_bfloat16*>(q), k, v,
       static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
       static_cast<const __nv_bfloat16*>(fresh_k),
@@ -546,7 +540,6 @@ int run(const void* q, const void* k, const void* v, const void* k_scale,
   return (int)cudaGetLastError();
 }
 
-template <bool kQuant>
 int by_head(const void* q, const void* k, const void* v, const void* k_scale,
             const void* v_scale, const void* fresh_k, const void* fresh_v,
             void* out, void* part, int T, int Nq, int Nk, int S, int H,
@@ -557,13 +550,11 @@ int by_head(const void* q, const void* k, const void* v, const void* k_scale,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (H == 64)
-    return run<64, kQuant>(q, k, v, k_scale, v_scale, fresh_k, fresh_v, out,
-                           part, T, Nq, Nk, S, offset, pair, n_split,
-                           sm_scale, st);
+    return run<64>(q, k, v, k_scale, v_scale, fresh_k, fresh_v, out, part,
+                   T, Nq, Nk, S, offset, pair, n_split, sm_scale, st);
   if (H == 128)
-    return run<128, kQuant>(q, k, v, k_scale, v_scale, fresh_k, fresh_v, out,
-                            part, T, Nq, Nk, S, offset, pair, n_split,
-                            sm_scale, st);
+    return run<128>(q, k, v, k_scale, v_scale, fresh_k, fresh_v, out, part,
+                    T, Nq, Nk, S, offset, pair, n_split, sm_scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -599,21 +590,8 @@ int gabby_prefill_attention(const void* q, const void* k, const void* v,
                             float sm_scale, void* stream) {
   if (S % 4 || k_scale == nullptr || v_scale == nullptr)
     return (int)cudaErrorInvalidValue;
-  return by_head<true>(q, k, v, k_scale, v_scale, fresh_k, fresh_v, out,
-                       part, T, Nq, Nk, S, H, offset, pair, n_split, sm_scale,
-                       stream);
-}
-
-// The same over a bf16 cache: k/v [Nk, S, H] bf16 (pair = 1:
-// [Nk/2, S, 2H]) of one (layer, slot) cache row, no scales.
-int gabby_prefill_attention_bf16(const void* q, const void* k, const void* v,
-                                 const void* fresh_k, const void* fresh_v,
-                                 void* out, void* part, int T, int Nq, int Nk,
-                                 int S, int H, int offset, int pair,
-                                 int n_split, float sm_scale, void* stream) {
-  return by_head<false>(q, k, v, nullptr, nullptr, fresh_k, fresh_v, out,
-                        part, T, Nq, Nk, S, H, offset, pair, n_split,
-                        sm_scale, stream);
+  return by_head(q, k, v, k_scale, v_scale, fresh_k, fresh_v, out, part, T,
+                 Nq, Nk, S, H, offset, pair, n_split, sm_scale, stream);
 }
 
 }  // extern "C"

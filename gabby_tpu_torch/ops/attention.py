@@ -18,11 +18,17 @@ form when `ops.cuda.attn_s8()` is on (the default), else the bf16/f32
 form; verify, prefill, every bf16-cache form and the no-fresh-row forms
 have no s8 form. Math runs in f32; outputs return in q's dtype.
 
+The reference's kernel switches (ops/cuda/__init__.py) hold here too:
+with `kernels_enabled()` off every contract takes its plain body, card
+tensors included; `prefill_pair()` off sends paired prefill to it;
+`attn_kernel()` forces the single-position decode route either way.
+
 One designed divergence: at max_seq < 4096 the reference leaves dense
 decode over a bf16 cache to XLA (KERNEL_ATTN_MIN_SEQ,
 gabby_tpu/ops/attention.py:33, a TPU measurement). On the GPU the port
-takes its kernel at every max_seq: the plain body copies the layer's whole
-cache to f32 in every call, the kernel reads only the live rows.
+takes its kernel at every max_seq while GABBY_ATTN_KERNEL is unset: the
+plain body copies the layer's whole cache to f32 in every call, the
+kernel reads only the live rows.
 """
 
 from __future__ import annotations
@@ -112,11 +118,14 @@ def cache_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
 
 def _takes_kernel(q: torch.Tensor, k_cache: torch.Tensor,
                   layer: Optional[int]) -> bool:
-    """The reference's condition for its decode kernel: one position, and
-    query heads that the kv heads divide (paired lanes count two heads)."""
+    """The reference's condition for its decode kernel: one position,
+    query heads that the kv heads divide (paired lanes count two heads),
+    the kernels on and GABBY_ATTN_KERNEL not forcing the plain body
+    (unset: the kernel at every max_seq, the designed divergence)."""
     paired = k_cache.shape[-1] == 2 * q.shape[-1]
     nk = k_cache.shape[2 if layer is not None else 1] * (2 if paired else 1)
-    return q.shape[1] == 1 and q.shape[2] % nk == 0
+    return (q.shape[1] == 1 and q.shape[2] % nk == 0
+            and ck.kernels_enabled() and ck.attn_kernel() is not False)
 
 
 def _decode_kernel(q, k_cache, v_cache, k_scale, v_scale, positions, *,
@@ -216,7 +225,9 @@ def slot_prefill_reference(q, k_cache, v_cache, slot: int, offset: int,
                            scale: Optional[float] = None) -> torch.Tensor:
     """Fresh-block chunked-prefill contract for one slot: q [1, T, Nq, H]
     at positions offset..offset+T-1 attends cache row `slot` at j < offset
-    (dequantized when int8) plus the chunk's own k/v ([Nk, T, H]) causally."""
+    (dequantized when int8) plus the chunk's own k/v ([Nk, T, H]) causally.
+    Rows at and past offset are zeroed before the products, so stale or
+    NaN values there never reach the output (p = 0 times NaN is NaN)."""
     if layer is not None:
         k_cache, v_cache = k_cache[layer], v_cache[layer]
         if k_scale is not None:
@@ -233,10 +244,14 @@ def slot_prefill_reference(q, k_cache, v_cache, slot: int, offset: int,
     _, t, _, h = q.shape
     sc = h ** -0.5 if scale is None else scale
     s_max = kk.shape[1]
+    dev = q.device
+    live = torch.arange(s_max, device=dev) < offset
+    zero = torch.zeros((), dtype=kk.dtype, device=dev)
+    kk = torch.where(live[None, :, None, None], kk, zero)
+    vv = torch.where(live[None, :, None, None], vv, zero)
     kk = torch.cat([kk, fresh_k.transpose(0, 1)[None].to(q.dtype)], dim=1)
     vv = torch.cat([vv, fresh_v.transpose(0, 1)[None].to(q.dtype)], dim=1)
-    dev = q.device
-    past = (torch.arange(s_max, device=dev)[None, :] < offset).expand(t, s_max)
+    past = live[None, :].expand(t, s_max)
     causal = (torch.arange(t, device=dev)[None, :]
               <= torch.arange(t, device=dev)[:, None])
     mask = torch.cat([past, causal], dim=1)[None]  # [1, T, S+T]
@@ -254,8 +269,13 @@ def slot_prefill_attention(q: torch.Tensor, k_cache: torch.Tensor,
     k/v ([Nk, T, H]) causally at full precision. Over a stacked cache that
     is the serving path, which goes to the flash-prefill kernel: K4 over
     an int8 cache (K21 when paired), K22 over a bf16 one (K23 when
-    paired)."""
-    if layer is not None:
+    paired); as in the reference, not with the kernels off, not over a
+    paired cache with `prefill_pair()` off, and not where the kv heads do
+    not divide the query heads."""
+    paired = k_cache.shape[-1] == 2 * q.shape[-1]
+    if (layer is not None and ck.kernels_enabled()
+            and (ck.prefill_pair() or not paired)
+            and q.shape[2] % fresh_k.shape[0] == 0):
         return cpfa.prefill_attention(q, k_cache, v_cache, k_scale, v_scale,
                                       slot, offset, layer=layer,
                                       fresh_k=fresh_k, fresh_v=fresh_v,
@@ -310,7 +330,13 @@ def verify_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """Verify attention against the stacked dense cache [L, B, Nk, S, H].
     That is the serving path, which goes to the flash-verify kernel: K9
     over an int8 cache (K13 when paired), K26 over a bf16 one (K27 when
-    paired); it reads rows j < min(positions[b], window)."""
+    paired); it reads rows j < min(positions[b], window). With the kernels
+    off, the plain contract (the window covers the slot's rows)."""
+    if not ck.kernels_enabled():
+        return verify_attention_reference(q, k_cache, v_cache, positions,
+                                          k_scale, v_scale, layer=layer,
+                                          fresh_k=fresh_k, fresh_v=fresh_v,
+                                          scale=scale)
     return cattn.verify_attention(q, k_cache, v_cache, k_scale, v_scale,
                                   positions, layer=layer, fresh_k=fresh_k,
                                   fresh_v=fresh_v, scale=scale, window=window)
@@ -386,10 +412,13 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     is the serving path, which goes to the paged kernels: they read the
     page table themselves. Over int8 pools decode takes the s8 form when
     `attn_s8()` is on, else the bf16/f32 form; verify and bf16 pools have
-    only the latter."""
+    only the latter. With the kernels off, the plain contracts."""
     t = q.shape[1]
     args = (q, k_pool, v_pool, page_table, positions, k_scale, v_scale)
     kw = dict(layer=layer, fresh_k=fresh_k, fresh_v=fresh_v, scale=scale)
+    if not ck.kernels_enabled():
+        return (paged_cache_attention if t == 1
+                else paged_verify_reference)(*args, **kw)
     if t == 1 and k_scale is not None and ck.attn_s8():
         return cpaged.paged_decode_attention_s8(*args, **kw)
     if t == 1:

@@ -6,7 +6,10 @@ kernel's plain PyTorch version beside it. A wrapper takes the plain version
 ONLY for CPU tensors; for CUDA tensors it launches its kernel (built from
 gabby_tpu_torch/csrc by `build.py` at first use) or raises. Each launch adds
 one to its entry in `launch_counts`, so a run can show that its main path
-went through the kernels.
+went through the kernels. The dispatch points (ops/attention.py,
+ops/quant.py) send card tensors to the plain bodies only where a kernel
+switch below asks for it: `kernels_enabled()` off, `prefill_pair()` off
+for paired prefill, `attn_kernel()` False for single-position decode.
 """
 
 from __future__ import annotations
@@ -64,6 +67,68 @@ launch_counts: dict[str, int] = {
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+# The kernel switches, with the reference's names, values and defaults
+# (gabby_tpu/ops/pallas/__init__.py:25-41, gabby_tpu/ops/attention.py:35-40
+# and :177-181). A switch that is off is an explicit request for the plain
+# bodies, not a fallback: no wrapper catches a kernel's failure.
+_KERNELS: Optional[bool] = None
+_PREFILL_PAIR: Optional[bool] = None
+_ATTN_KERNEL: Optional[bool] = None
+
+
+def kernels_enabled() -> bool:
+    """Whether card tensors take the kernels at all (GABBY_KERNELS; the
+    values 0, false and off turn them off, as
+    gabby_tpu/ops/pallas/__init__.py:25-29 reads them). Unset: on. Off,
+    every dispatch point sends card tensors to the plain bodies (the
+    reference's jnp path, its A/B yardstick) and no launch counter
+    moves."""
+    if _KERNELS is not None:
+        return _KERNELS
+    return os.environ.get("GABBY_KERNELS") not in ("0", "false", "off")
+
+
+def set_kernels(enabled: Optional[bool]) -> None:
+    """True/False force; None restores the environment's setting."""
+    global _KERNELS
+    _KERNELS = enabled
+
+
+def prefill_pair() -> bool:
+    """Whether prefill over a PAIRED cache takes its kernel (K21, K23):
+    GABBY_PREFILL_PAIR=0 sends it to the plain body and changes nothing
+    else, as gabby_tpu/ops/attention.py:177-181. Default on."""
+    if _PREFILL_PAIR is not None:
+        return _PREFILL_PAIR
+    return os.environ.get("GABBY_PREFILL_PAIR", "1") != "0"
+
+
+def set_prefill_pair(enabled: Optional[bool]) -> None:
+    """True/False force; None restores the environment's setting."""
+    global _PREFILL_PAIR
+    _PREFILL_PAIR = enabled
+
+
+def attn_kernel() -> Optional[bool]:
+    """The single-position calls of `cache_attention` and
+    `cache_attention_quantized` (GABBY_ATTN_KERNEL,
+    gabby_tpu/ops/attention.py:35-40): "1" forces the kernel (while
+    `kernels_enabled()`), any other set value the plain body. Unset: None,
+    the port's designed divergence, the kernel at every max_seq (the
+    reference leaves a bf16 cache below 4096 rows to XLA; see
+    ops/attention.py)."""
+    if _ATTN_KERNEL is not None:
+        return _ATTN_KERNEL
+    forced = os.environ.get("GABBY_ATTN_KERNEL")
+    return None if forced is None else forced == "1"
+
+
+def set_attn_kernel(enabled: Optional[bool]) -> None:
+    """True/False force; None restores the environment's setting."""
+    global _ATTN_KERNEL
+    _ATTN_KERNEL = enabled
 
 
 # The route switches, with the reference's names and defaults

@@ -174,7 +174,10 @@ _SIGNATURES = {
     # sb, split, tile (s8_plan); sm_scale; stream
     "gabby_attention_s8": [_P] * 10 + [_I] * 14 + [_F, _P],
     # the bf16-cache forms: the int8 forms' arguments without the scales
+    # (K22, K23: prefill_attention_bf16.cu, whose splits follow its own
+    # blocks)
     "gabby_prefill_attention_bf16": [_P] * 7 + [_I] * 8 + [_F, _P],
+    "gabby_prefill_attention_bf16_splits": [_I] * 4,
     "gabby_verify_attention_bf16": [_P] * 7 + [_I] * 11 + [_F, _P],
     "gabby_paged_attention_bf16": [_P] * 8 + [_I] * 13 + [_F, _P],
 }

@@ -4,7 +4,8 @@ gabby_tpu/ops/pallas/prefill_attention.py:prefill_attention, unpaired and
 pair=True, with scales and without): K4 over an int8 cache and K21 over
 the paired one; K22 over a bf16 cache and K23 over the paired one.
 
-csrc/prefill_attention.cu replaces _prefill_call/_kernel: the chunk's T
+csrc/prefill_attention.cu (K4, K21) and csrc/prefill_attention_bf16.cu
+(K22, K23: TMA and wgmma) replace _prefill_call/_kernel: the chunk's T
 queries attend the slot's cache rows j < offset of one layer (pointer
 offsets into the stacked cache, no copy), with the int8 scales folded in
 when the cache has them, then the chunk's own unquantized k/v causally.
@@ -63,6 +64,7 @@ def prefill_attention(q: torch.Tensor, k_cache: torch.Tensor,
             or fresh_v.dtype != torch.bfloat16):
         raise ValueError(f"{what} takes bf16 q/fresh")
     if (one != 1 or h not in HEAD_DIMS or lanes not in (h, 2 * h) or nq % nk
+            or (not quant and nq // nk > 128)
             or fresh_k.shape != (nk, t, h) or fresh_v.shape != (nk, t, h)
             or v_cache.shape != k_cache.shape
             or (quant and (k_scale.shape != (nl, nb, nk, s)
@@ -82,7 +84,8 @@ def prefill_attention(q: torch.Tensor, k_cache: torch.Tensor,
     # a short chunk over a long past splits its key range across blocks;
     # the partial results (H + 4 floats a row: H outputs, the max, the sum,
     # padding; kPart in the source) are merged in a fixed order
-    n_split = lib.gabby_prefill_attention_splits(t, nq, nk, offset)
+    n_split = (lib.gabby_prefill_attention_splits if quant else
+               lib.gabby_prefill_attention_bf16_splits)(t, nq, nk, offset)
     part = (torch.empty((n_split, t * nq, h + 4), dtype=torch.float32,
                         device=q.device) if n_split > 1 else None)
     rows = (q.data_ptr(), k_cache.data_ptr() + kv_off,

@@ -167,15 +167,20 @@ def _codes_matmul(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 def qlinear(x: torch.Tensor, qt: QTensor,
             layer: Optional[int] = None) -> torch.Tensor:
     """x: [..., in] @ QTensor -> [..., out] in x.dtype. `layer` selects one
-    layer of a stacked [L, ...] QTensor."""
+    layer of a stacked [L, ...] QTensor. With the kernels off
+    (`ops.cuda.kernels_enabled()`) no product reaches a wrapper: the
+    reference's jnp path (per-group partials for the unembed at decode M,
+    else the layer's codes unpacked into one product)."""
     *lead, k_in = x.shape
     x2 = x.reshape(-1, k_in)
     m = x2.shape[0]
+    kernels = ck.kernels_enabled()
     if qt.group:
         if qt.q.dim() != 2:
             raise ValueError("group-scaled QTensors are 2-D (the unembed)")
         if qt.bits == 4 and m <= 64:
-            out = cqm.qmatmul_int4_grouped(x2, qt.q, qt.scale, qt.group)
+            out = (cqm.qmatmul_int4_grouped if kernels else
+                   cqm.int4_grouped_plain)(x2, qt.q, qt.scale, qt.group)
         else:
             # prefill-sized M: dequantize-then-multiply (the per-group
             # partials would be [G, M, N] f32)
@@ -189,7 +194,7 @@ def qlinear(x: torch.Tensor, qt: QTensor,
     if q.dim() == 3 and layer is None:
         raise ValueError("a stacked QTensor needs a layer")
     out = None
-    if m <= 64:
+    if m <= 64 and kernels:
         if qt.bits == 4 and stacked:
             # the reference's precedence: W4A8, then the raw-byte-dot
             # form, then K1
@@ -202,7 +207,7 @@ def qlinear(x: torch.Tensor, qt: QTensor,
         elif qt.bits == 8:
             out = (cqm.qmatmul_int8_stacked(x2, q, scale, layer) if stacked
                    else cqm.qmatmul_int8(x2, q, scale))
-    elif qt.bits == 4 and ck.int4_prefill_kernel():
+    elif qt.bits == 4 and kernels and ck.int4_prefill_kernel():
         out = cqm.qmatmul_int4(x2, q, scale, layer if stacked else None)
     if out is None:
         # prefill-sized M (or a 2-D int4 weight at decode M): slice this

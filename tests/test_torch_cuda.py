@@ -1042,11 +1042,22 @@ def test_bf16_verify_attention(dev, t, h, group):
     _close(out[:, :1], dec, ATTN_TOL)
 
 
-@pytest.mark.parametrize("t,offset", PREFILL_CASES)
-@pytest.mark.parametrize("h,group", HEAD_GROUPS[:3])
+# every bucket, a T that is no multiple of 64, offset 0, offsets that
+# straddle a 64-row tile, long pasts (the key range split across blocks)
+BF16_PREFILL_CASES = [(16, 0), (64, 100), (256, 100), (512, 0), (512, 512),
+                      (100, 37), (16, 1792), (64, 1024), (256, 1792)]
+
+
+@pytest.mark.parametrize("t,offset", BF16_PREFILL_CASES)
+@pytest.mark.parametrize("h", [64, 128])
+@pytest.mark.parametrize("group", [1, 2, 3, 4, 8])
 def test_bf16_prefill_attention(dev, t, offset, h, group):
-    """K22 and K23 at every bucket, over a long past (a split key range)
-    and at offset 0; the paired kernel equal to the unpaired one."""
+    """K22 and K23 (TMA + wgmma) at every bucket and at a T that is no
+    multiple of 64, at offset 0, at offsets that straddle a 64-row tile
+    and over long pasts, every group size 1-8 at head_dim 64 and 128: the
+    paired kernel equal to the unpaired one, a repeat bit for bit, and
+    cache rows at and past offset filled with NaN give the bits that zeros
+    there give, finite (the tensor map ends at offset)."""
     g = _gen(dev, 42)
     nl, b, nk, s, slot = 2, 4, 8, 2048, 3
     kc, vc = _bf16(dev, g, nl, b, nk, s, h), _bf16(dev, g, nl, b, nk, s, h)
@@ -1064,6 +1075,15 @@ def test_bf16_prefill_attention(dev, t, offset, h, group):
     assert torch.equal(paired, out)
     assert torch.equal(out, cpfa.prefill_attention(q, kc, vc, None, None, slot,
                                                    offset, **kw))
+    for fill in (0.0, float("nan")):
+        kf, vf = kc.clone(), vc.clone()
+        kf[1, slot, :, offset:] = fill
+        vf[1, slot, :, offset:] = fill
+        for k_, v_ in ((kf, vf), (pair_heads(kf), pair_heads(vf))):
+            got = cpfa.prefill_attention(q, k_, v_, None, None, slot, offset,
+                                         **kw)
+            assert torch.isfinite(got.float()).all()
+            assert torch.equal(got, out)
 
 
 @pytest.mark.parametrize("page", [128, 512])
