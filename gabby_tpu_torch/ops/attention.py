@@ -16,7 +16,9 @@ width; scales per head) and un-pairs it for the plain bodies.
 Single-position decode with fresh rows over an int8 cache takes the s8
 form when `ops.cuda.attn_s8()` is on (the default), else the bf16/f32
 form; verify, prefill, every bf16-cache form and the no-fresh-row forms
-have no s8 form. Math runs in f32; outputs return in q's dtype.
+have no s8 form. Math runs in f32; outputs return in q's dtype. While
+torch.profiler records, each of these entries and `causal_attention` is a
+`gabby.attn` span (runtime/tracing.py).
 
 The reference's kernel switches (ops/cuda/__init__.py) hold here too:
 with `kernels_enabled()` off every contract takes its plain body, card
@@ -41,6 +43,7 @@ from gabby_tpu_torch.ops import cuda as ck
 from gabby_tpu_torch.ops.cuda import attention as cattn
 from gabby_tpu_torch.ops.cuda import paged_attention as cpaged
 from gabby_tpu_torch.ops.cuda import prefill_attention as cpfa
+from gabby_tpu_torch.runtime import tracing
 from gabby_tpu_torch.runtime.kv_cache import dequantize_kv, unpaired
 
 NEG_INF = -1e30  # large-but-finite: keeps fully-masked rows NaN-free
@@ -70,14 +73,15 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      scale: Optional[float] = None) -> torch.Tensor:
     """Prefill attention. q: [B, T, Nq, H] at positions q_offset..; k, v:
     [B, S, Nk, H] at positions 0..S-1. Query i attends keys j <= q_offset+i."""
-    b, t, nq, h = q.shape
-    s = k.shape[1]
-    scale = h ** -0.5 if scale is None else scale
-    qpos = q_offset + torch.arange(t, device=q.device)[:, None]
-    kpos = torch.arange(s, device=q.device)[None, :]
-    mask = (kpos <= qpos).expand(b, t, s)
-    return _gqa_core(_split_groups(q, k.shape[2]), k, v, mask,
-                     scale).to(q.dtype)
+    with tracing.span("attn"):
+        b, t, nq, h = q.shape
+        s = k.shape[1]
+        scale = h ** -0.5 if scale is None else scale
+        qpos = q_offset + torch.arange(t, device=q.device)[:, None]
+        kpos = torch.arange(s, device=q.device)[None, :]
+        mask = (kpos <= qpos).expand(b, t, s)
+        return _gqa_core(_split_groups(q, k.shape[2]), k, v, mask,
+                         scale).to(q.dtype)
 
 
 def cache_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
@@ -174,15 +178,16 @@ def cache_attention(q: torch.Tensor, k_cache: torch.Tensor,
     reference leaves a bf16 cache below KERNEL_ATTN_MIN_SEQ rows to XLA
     (see the module's docstring); the port takes the kernel at every
     max_seq."""
-    if _takes_kernel(q, k_cache, layer):
-        return _decode_kernel(q, k_cache, v_cache, None, None, positions,
-                              layer=layer, fresh_k=fresh_k, fresh_v=fresh_v,
-                              scale=scale, window=window)
-    if layer is not None:
-        k_cache, v_cache = k_cache[layer], v_cache[layer]
-    return cache_attention_reference(q, k_cache, v_cache, positions,
-                                     scale=scale, fresh_k=fresh_k,
-                                     fresh_v=fresh_v)
+    with tracing.span("attn"):
+        if _takes_kernel(q, k_cache, layer):
+            return _decode_kernel(q, k_cache, v_cache, None, None,
+                                  positions, layer=layer, fresh_k=fresh_k,
+                                  fresh_v=fresh_v, scale=scale, window=window)
+        if layer is not None:
+            k_cache, v_cache = k_cache[layer], v_cache[layer]
+        return cache_attention_reference(q, k_cache, v_cache, positions,
+                                         scale=scale, fresh_k=fresh_k,
+                                         fresh_v=fresh_v)
 
 
 def cache_attention_quantized(q: torch.Tensor, k_codes: torch.Tensor,
@@ -205,18 +210,19 @@ def cache_attention_quantized(q: torch.Tensor, k_codes: torch.Tensor,
     reference), else the s8 form when `attn_s8()` is on, else the bf16/f32
     form; without fresh rows the no-fresh-row kernel (K34, K35). Otherwise
     the codes are dequantized for the plain contract."""
-    if _takes_kernel(q, k_codes, layer):
-        return _decode_kernel(q, k_codes, v_codes, k_scale, v_scale,
-                              positions, layer=layer, fresh_k=fresh_k,
-                              fresh_v=fresh_v, scale=scale, window=window)
-    if layer is not None:
-        k_codes, v_codes = k_codes[layer], v_codes[layer]
-        k_scale, v_scale = k_scale[layer], v_scale[layer]
-    h = q.shape[-1]
-    kk = dequantize_kv(unpaired(k_codes, h), k_scale, q.dtype)
-    vv = dequantize_kv(unpaired(v_codes, h), v_scale, q.dtype)
-    return cache_attention_reference(q, kk, vv, positions, scale=scale,
-                                     fresh_k=fresh_k, fresh_v=fresh_v)
+    with tracing.span("attn"):
+        if _takes_kernel(q, k_codes, layer):
+            return _decode_kernel(q, k_codes, v_codes, k_scale, v_scale,
+                                  positions, layer=layer, fresh_k=fresh_k,
+                                  fresh_v=fresh_v, scale=scale, window=window)
+        if layer is not None:
+            k_codes, v_codes = k_codes[layer], v_codes[layer]
+            k_scale, v_scale = k_scale[layer], v_scale[layer]
+        h = q.shape[-1]
+        kk = dequantize_kv(unpaired(k_codes, h), k_scale, q.dtype)
+        vv = dequantize_kv(unpaired(v_codes, h), v_scale, q.dtype)
+        return cache_attention_reference(q, kk, vv, positions, scale=scale,
+                                         fresh_k=fresh_k, fresh_v=fresh_v)
 
 
 def slot_prefill_reference(q, k_cache, v_cache, slot: int, offset: int,
@@ -272,17 +278,19 @@ def slot_prefill_attention(q: torch.Tensor, k_cache: torch.Tensor,
     paired); as in the reference, not with the kernels off, not over a
     paired cache with `prefill_pair()` off, and not where the kv heads do
     not divide the query heads."""
-    paired = k_cache.shape[-1] == 2 * q.shape[-1]
-    if (layer is not None and ck.kernels_enabled()
-            and (ck.prefill_pair() or not paired)
-            and q.shape[2] % fresh_k.shape[0] == 0):
-        return cpfa.prefill_attention(q, k_cache, v_cache, k_scale, v_scale,
-                                      slot, offset, layer=layer,
-                                      fresh_k=fresh_k, fresh_v=fresh_v,
+    with tracing.span("attn"):
+        paired = k_cache.shape[-1] == 2 * q.shape[-1]
+        if (layer is not None and ck.kernels_enabled()
+                and (ck.prefill_pair() or not paired)
+                and q.shape[2] % fresh_k.shape[0] == 0):
+            return cpfa.prefill_attention(q, k_cache, v_cache, k_scale,
+                                          v_scale, slot, offset, layer=layer,
+                                          fresh_k=fresh_k, fresh_v=fresh_v,
+                                          scale=scale)
+        return slot_prefill_reference(q, k_cache, v_cache, slot, offset,
+                                      k_scale, v_scale, fresh_k=fresh_k,
+                                      fresh_v=fresh_v, layer=layer,
                                       scale=scale)
-    return slot_prefill_reference(q, k_cache, v_cache, slot, offset,
-                                  k_scale, v_scale, fresh_k=fresh_k,
-                                  fresh_v=fresh_v, layer=layer, scale=scale)
 
 
 def verify_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
@@ -332,14 +340,15 @@ def verify_attention(q: torch.Tensor, k_cache: torch.Tensor,
     over an int8 cache (K13 when paired), K26 over a bf16 one (K27 when
     paired); it reads rows j < min(positions[b], window). With the kernels
     off, the plain contract (the window covers the slot's rows)."""
-    if not ck.kernels_enabled():
-        return verify_attention_reference(q, k_cache, v_cache, positions,
-                                          k_scale, v_scale, layer=layer,
-                                          fresh_k=fresh_k, fresh_v=fresh_v,
-                                          scale=scale)
-    return cattn.verify_attention(q, k_cache, v_cache, k_scale, v_scale,
-                                  positions, layer=layer, fresh_k=fresh_k,
-                                  fresh_v=fresh_v, scale=scale, window=window)
+    with tracing.span("attn"):
+        if not ck.kernels_enabled():
+            return verify_attention_reference(
+                q, k_cache, v_cache, positions, k_scale, v_scale,
+                layer=layer, fresh_k=fresh_k, fresh_v=fresh_v, scale=scale)
+        return cattn.verify_attention(q, k_cache, v_cache, k_scale, v_scale,
+                                      positions, layer=layer, fresh_k=fresh_k,
+                                      fresh_v=fresh_v, scale=scale,
+                                      window=window)
 
 
 def gather_pages(pool: torch.Tensor, page_table: torch.Tensor,
@@ -413,14 +422,15 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     page table themselves. Over int8 pools decode takes the s8 form when
     `attn_s8()` is on, else the bf16/f32 form; verify and bf16 pools have
     only the latter. With the kernels off, the plain contracts."""
-    t = q.shape[1]
-    args = (q, k_pool, v_pool, page_table, positions, k_scale, v_scale)
-    kw = dict(layer=layer, fresh_k=fresh_k, fresh_v=fresh_v, scale=scale)
-    if not ck.kernels_enabled():
-        return (paged_cache_attention if t == 1
-                else paged_verify_reference)(*args, **kw)
-    if t == 1 and k_scale is not None and ck.attn_s8():
-        return cpaged.paged_decode_attention_s8(*args, **kw)
-    if t == 1:
-        return cpaged.paged_decode_attention(*args, **kw)
-    return cpaged.paged_verify_attention(*args, **kw)
+    with tracing.span("attn"):
+        t = q.shape[1]
+        args = (q, k_pool, v_pool, page_table, positions, k_scale, v_scale)
+        kw = dict(layer=layer, fresh_k=fresh_k, fresh_v=fresh_v, scale=scale)
+        if not ck.kernels_enabled():
+            return (paged_cache_attention if t == 1
+                    else paged_verify_reference)(*args, **kw)
+        if t == 1 and k_scale is not None and ck.attn_s8():
+            return cpaged.paged_decode_attention_s8(*args, **kw)
+        if t == 1:
+            return cpaged.paged_decode_attention(*args, **kw)
+        return cpaged.paged_verify_attention(*args, **kw)

@@ -71,6 +71,12 @@ gabby_tpu/runtime/engine.py).
   `sp_prefill_tokens` whose bucket dp divides runs on every replica as
   sequence-parallel prefill (parallel/sp.py): the chunk's tokens shard
   over the replicas and the owner writes the rows.
+* Every iteration that runs a plan logs one record (runtime/tracing.py):
+  the seconds of its phases (compose, admit, decode, fetch, emit), its
+  decode steps and the prompt tokens it prefilled; `stats` keeps their
+  running sums and `Request.admit_ts` stamps when a request left the
+  backlog. While torch.profiler records, each phase is a `gabby.engine.*`
+  span.
 """
 
 from __future__ import annotations
@@ -94,7 +100,7 @@ from gabby_tpu_torch.config import ModelConfig
 from gabby_tpu_torch.ops import sampling
 from gabby_tpu_torch.parallel import collectives, sp
 from gabby_tpu_torch.parallel.sharding import local_config, slot_block
-from gabby_tpu_torch.runtime import generate
+from gabby_tpu_torch.runtime import generate, tracing
 from gabby_tpu_torch.runtime.kv_cache import create_cache
 from gabby_tpu_torch.runtime.paged import PageAllocator, create_paged_cache
 from gabby_tpu_torch.tokenizer import ChatFormat, Tokenizer
@@ -207,6 +213,8 @@ class Request:
     completion_tokens: int = 0
     submit_ts: float = dataclasses.field(default_factory=time.monotonic)
     first_token_ts: Optional[float] = None
+    # when the leader took it off the backlog for an admission (monotonic)
+    admit_ts: Optional[float] = None
     cancelled: bool = False  # set by Engine.cancel
     # every generated token id, appended before each out-queue push
     token_ids: list[int] = dataclasses.field(default_factory=list)
@@ -467,7 +475,12 @@ class Engine:
                       # gauge: is speculation on now (1/0), and how often
                       # the acceptance probe switched it off
                       "spec_on": int(self._spec_enabled),
-                      "spec_disables": 0}
+                      "spec_disables": 0,
+                      # iterations that ran a plan (warm-up included) and
+                      # the seconds of each of their phases
+                      "iterations": 0}
+        self.stats.update((p + "_s", 0.0) for p in tracing.PHASES)
+        self._clock = tracing.Clock()
         self._ttfts: list[float] = []
         self._spans: "collections.deque[dict]" = collections.deque(maxlen=32)
         # the profiler's engine-thread side (runtime/profiler.py), set by
@@ -1058,6 +1071,7 @@ class Engine:
             return
         finally:
             self._filling = set()
+        self._clock.prompt_tokens += sum(len(r.prompt_ids) for r in group)
         ec = self.ec
         temp = np.full((bl,), ec.default_temperature, np.float32)
         topk = np.full((bl,), ec.default_top_k, np.int32)
@@ -1143,6 +1157,7 @@ class Engine:
                 self._prefill_params, self.cfg, tokens, take, j, adm.offset,
                 self._cache)
         adm.offset += take
+        self._clock.prompt_tokens += take
         return adm.offset >= len(adm.ids)
 
     def _drop_admission(self, adm: _Admission, msg: str) -> None:
@@ -1298,6 +1313,8 @@ class Engine:
             "finish": reason,
             "ttft_ms": (round((req.first_token_ts - req.submit_ts) * 1e3, 1)
                         if req.first_token_ts else None),
+            "queue_ms": (round((req.admit_ts - req.submit_ts) * 1e3, 1)
+                         if req.admit_ts else None),
             "total_ms": round((time.monotonic() - req.submit_ts) * 1e3, 1),
         }
         with self._lock:
@@ -1428,6 +1445,9 @@ class Engine:
             if burst is not None:
                 sched, slots, group = burst
                 self._burst_reqs = group
+                now = time.monotonic()
+                for r in group:
+                    r.admit_ts = now
                 plan["burst"] = {
                     "sched": sched, "slots": slots,
                     "prompts": [list(r.prompt_ids) for r in group],
@@ -1435,6 +1455,7 @@ class Engine:
             else:
                 req = self._pop_next_admission() if free else None
                 if req is not None:
+                    req.admit_ts = time.monotonic()
                     self._pending_admit = req
                     donor, common = self._find_donor(req.prompt_ids, free[0])
                     plan["admit"] = {"slot": free[0],
@@ -1472,137 +1493,196 @@ class Engine:
         """One iteration's device calls and host bookkeeping, the same on
         every rank (followers rebuild the plan's requests as stubs): the
         plan's finishes, its burst or single admission, at most one
-        prefill chunk, then one decode burst. Returns the admission still
+        prefill chunk, then one decode burst, its fetch and its emission,
+        each a phase of the iteration's clock. Returns the admission still
         in flight."""
-        for i in plan.get("cancel", ()):
-            self._finish(i, "cancelled")
-        for i in plan.get("deadline", ()):
-            self._finish(i, "deadline")
-        if plan.get("cancel_admission") and admitting is not None:
-            self._drop_admission(admitting, "cancelled")
-            admitting = None
-        follower = self._multi and not self._sync.is_leader
-        if "burst" in plan:
-            spec = plan["burst"]
-            if follower:
-                group = [self._stub_request(p, m)
-                         for p, m in zip(spec["prompts"], spec["metas"])]
-            else:
-                group, self._burst_reqs = self._burst_reqs, None
-            self._execute_burst(spec["sched"], spec["slots"], group)
-        if "admit" in plan:
-            spec = plan["admit"]
-            if follower:
-                req = self._stub_request(spec["ids"], spec["meta"])
-            else:
-                req, self._pending_admit = self._pending_admit, None
-            admitting = self._start_admission(spec["slot"], req,
-                                              spec["donor"], spec["common"])
-        if admitting is not None:
-            try:
-                if self._prefill_one_chunk(admitting):
-                    self._finish_admission(admitting)
-                    admitting = None
-            except (ValueError, IndexError, KeyError, PoolExhausted) as e:
-                # a request the model cannot take (e.g. a token id outside
-                # the vocab) or the pool cannot back: fail it alone, keep
-                # serving the rest
-                self._drop_admission(admitting, f"error: {e}")
+        clock = self._clock
+        with tracing.span("engine.admit"):
+            for i in plan.get("cancel", ()):
+                self._finish(i, "cancelled")
+            for i in plan.get("deadline", ()):
+                self._finish(i, "deadline")
+            if plan.get("cancel_admission") and admitting is not None:
+                self._drop_admission(admitting, "cancelled")
                 admitting = None
-        self._filling = ({admitting.slot_ix} if admitting is not None
-                         else set())
+            follower = self._multi and not self._sync.is_leader
+            if "burst" in plan:
+                spec = plan["burst"]
+                if follower:
+                    group = [self._stub_request(p, m)
+                             for p, m in zip(spec["prompts"], spec["metas"])]
+                else:
+                    group, self._burst_reqs = self._burst_reqs, None
+                self._execute_burst(spec["sched"], spec["slots"], group)
+            if "admit" in plan:
+                spec = plan["admit"]
+                if follower:
+                    req = self._stub_request(spec["ids"], spec["meta"])
+                else:
+                    req, self._pending_admit = self._pending_admit, None
+                admitting = self._start_admission(
+                    spec["slot"], req, spec["donor"], spec["common"])
+            if admitting is not None:
+                try:
+                    if self._prefill_one_chunk(admitting):
+                        self._finish_admission(admitting)
+                        admitting = None
+                except (ValueError, IndexError, KeyError, PoolExhausted) as e:
+                    # a request the model cannot take (e.g. a token id
+                    # outside the vocab) or the pool cannot back: fail it
+                    # alone, keep serving the rest
+                    self._drop_admission(admitting, f"error: {e}")
+                    admitting = None
+            self._filling = ({admitting.slot_ix} if admitting is not None
+                             else set())
+        # the burst's wall, dispatch to fetch, starts here
+        t_call = clock.lap(tracing.ADMIT)
         if not any(s is not None for s in self._slots):
             self._drain_pending_burst()  # no follow-up burst is coming
             return admitting
 
         steps = plan["steps"]
-        if self._paged:
-            # back every live slot's rows past this burst's furthest
-            # possible write (a verify macro-step writes its whole block,
-            # which extends past the last accepted position); a slot the
-            # pool cannot back finishes now, its text so far delivered
-            span = ((self.ec.speculate_tokens + 1) if self._spec_enabled
-                    else 1)
-            for i, s in enumerate(self._slots):
-                if s is None:
-                    continue
-                horizon = (s.prompt_len + len(s.request.token_ids)
-                           + self._lag() + steps * span + span + 1)
-                if not self._ensure_pages(i, horizon):
-                    self._finish(i, "length")
-            if not any(s is not None for s in self._slots):
-                self._drain_pending_burst()
-                return admitting
-        pre_tokens = self._tokens
-        window = self._attn_window(steps)
-        first_slots = tuple(i for i, s in enumerate(self._slots)
-                            if s is not None and s.first_pending)
-        # top_logprobs: when a live request asked for alternatives, the
-        # loops also return exact top-k rows, at a width bucketed to
-        # {5, 10, 20}; each request takes its own k from them
-        n_top = _n_top_bucket(max(s.request.top_logprobs
-                                  for s in self._slots if s is not None))
-        t_call = time.perf_counter()
-        # penalized batches take the plain loop: a draft's argmax would need
-        # counts that evolve inside the verify block
-        if (self._spec_enabled and self._pstate is None
-                and not self._probe_plain_now()):
-            dl = self.ec.speculate_tokens
-            (out_em, out_n, out_lp, self._tokens, self._positions,
-             self._active, out_top_lp, out_top_ids) = \
-                generate.spec_decode_loop(
+        with tracing.span("engine.decode"):
+            if self._paged:
+                # back every live slot's rows past this burst's furthest
+                # possible write (a verify macro-step writes its whole
+                # block, which extends past the last accepted position); a
+                # slot the pool cannot back finishes now, its text so far
+                # delivered
+                span = ((self.ec.speculate_tokens + 1) if self._spec_enabled
+                        else 1)
+                for i, s in enumerate(self._slots):
+                    if s is None:
+                        continue
+                    horizon = (s.prompt_len + len(s.request.token_ids)
+                               + self._lag() + steps * span + span + 1)
+                    if not self._ensure_pages(i, horizon):
+                        self._finish(i, "length")
+                if not any(s is not None for s in self._slots):
+                    self._drain_pending_burst()
+                    return admitting
+            pre_tokens = self._tokens
+            window = self._attn_window(steps)
+            first_slots = tuple(i for i, s in enumerate(self._slots)
+                                if s is not None and s.first_pending)
+            # top_logprobs: when a live request asked for alternatives, the
+            # loops also return exact top-k rows, at a width bucketed to
+            # {5, 10, 20}; each request takes its own k from them
+            n_top = _n_top_bucket(max(s.request.top_logprobs
+                                      for s in self._slots if s is not None))
+            # penalized batches take the plain loop: a draft's argmax would
+            # need counts that evolve inside the verify block
+            speculate = (self._spec_enabled and self._pstate is None
+                         and not self._probe_plain_now())
+            if speculate:
+                dl = self.ec.speculate_tokens
+                (out_em, out_n, out_lp, self._tokens, self._positions,
+                 self._active, out_top_lp, out_top_ids) = \
+                    generate.spec_decode_loop(
+                        self.params, self.cfg, self._tokens,
+                        self._positions, self._active, self._cache,
+                        self._sstate, self._history, steps, dl,
+                        self._eos_ids, window=window, n_top=n_top)
+            else:
+                (out_tokens, out_active, out_lp, self._tokens,
+                 self._positions, self._active, out_top_lp,
+                 out_top_ids) = generate.decode_loop(
                     self.params, self.cfg, self._tokens, self._positions,
-                    self._active, self._cache, self._sstate, self._history,
-                    steps, dl, self._eos_ids, window=window, n_top=n_top)
+                    self._active, self._cache, self._sstate, steps,
+                    eos_ids=self._eos_ids, window=window, n_top=n_top,
+                    pstate=self._pstate)
+                with self._lock:
+                    self.stats["decode_steps"] += steps
+        clock.lap(tracing.DECODE)
+        clock.steps = steps
+        if speculate:
             # ONE host transfer per burst; it also ends the timed window
-            packed = self._host_view(generate.pack_spec_host_view(
-                out_em, out_n, self._active, pre_tokens, out_lp,
-                self._first_lp, out_top_lp, out_top_ids),
-                generate.spec_view_segments(steps, dl + 1, n_top)).numpy()
-            self._spec_step_s.append((time.perf_counter() - t_call) / steps)
-            self._process_spec_burst(packed, steps, dl + 1, n_top,
-                                     first_slots)
-            self._maybe_disable_spec()
-        else:
-            (out_tokens, out_active, out_lp, self._tokens, self._positions,
-             self._active, out_top_lp, out_top_ids) = generate.decode_loop(
-                self.params, self.cfg, self._tokens, self._positions,
-                self._active, self._cache, self._sstate, steps,
-                eos_ids=self._eos_ids, window=window, n_top=n_top,
-                pstate=self._pstate)
-            with self._lock:
-                self.stats["decode_steps"] += steps
+            with tracing.span("engine.fetch"):
+                packed = self._host_view(generate.pack_spec_host_view(
+                    out_em, out_n, self._active, pre_tokens, out_lp,
+                    self._first_lp, out_top_lp, out_top_ids),
+                    generate.spec_view_segments(steps, dl + 1, n_top)
+                ).numpy()
+            self._spec_step_s.append((clock.lap(tracing.FETCH) - t_call)
+                                     / steps)
+            with tracing.span("engine.emit"):
+                self._process_spec_burst(packed, steps, dl + 1, n_top,
+                                         first_slots)
+                self._maybe_disable_spec()
+            return admitting
+        with tracing.span("engine.fetch"):
             rec = self._record(generate.pack_host_view(
                 out_tokens, out_active, self._active, pre_tokens, out_lp,
                 self._first_lp, out_top_lp, out_top_ids), steps, n_top,
                 first_slots)
-            if self._pipeline:
-                # the previous record's copy finished under this burst's
-                # dispatch: read it now, this one next iteration
-                pending, self._pending_burst = self._pending_burst, rec
-                if pending is not None:
-                    self._process_burst(pending)
-            else:
-                if self._pstate is None:
-                    # penalty-free plain bursts only: the penalized loop
-                    # costs more and would skew the auto break-even's
-                    # denominator (a pipelined burst is never timed: its
-                    # dispatch-to-fetch does not bound one burst)
-                    self._plain_step_s.append(
-                        (time.perf_counter() - t_call) / steps)
-                self._process_burst(rec)
-            self._maybe_reprobe_spec()
+        t_fetched = clock.lap(tracing.FETCH)
+        if self._pipeline:
+            # the previous record's copy finished under this burst's
+            # dispatch: read it now, this one next iteration
+            pending, self._pending_burst = self._pending_burst, rec
+            if pending is not None:
+                self._process_burst(pending)
+        else:
+            if self._pstate is None:
+                # penalty-free plain bursts only: the penalized loop costs
+                # more and would skew the auto break-even's denominator (a
+                # pipelined burst is never timed: its dispatch-to-fetch
+                # does not bound one burst)
+                self._plain_step_s.append((t_fetched - t_call) / steps)
+            self._process_burst(rec)
+        self._maybe_reprobe_spec()
         return admitting
+
+    def _turn(self, admitting: Optional[_Admission], leader: bool = True,
+              waited: bool = False, stopping: bool = False
+              ) -> tuple[Optional[dict], Optional[_Admission]]:
+        """One iteration of the loop, a `gabby.engine.iteration` span: the
+        plan, composed by the leader (the shutdown plan when `stopping`;
+        with more than one process, a no-op once an idle leader has
+        `waited`) or received by a follower, then its execution, which
+        logs one iteration record. Returns (the plan, None when the leader
+        has nothing to do; the admission still in flight)."""
+        clock = self._clock
+        with tracing.span("engine.iteration"):
+            clock.start()
+            plan = None
+            if leader:
+                with tracing.span("engine.compose"):
+                    plan = ({"op": "shutdown"} if stopping
+                            else self._compose_plan(admitting))
+                if plan is None:
+                    if not (self._multi and waited):
+                        return None, admitting
+                    # an idle leader sends a no-op plan every <= 2 s, so
+                    # that no follower waits in a broadcast near its
+                    # timeout
+                    plan = {"op": "noop"}
+            if self._multi:
+                plan = self._sync.broadcast(plan)
+            if leader:
+                clock.lap(tracing.COMPOSE)
+            else:
+                clock.start()  # a follower's iteration starts at its plan
+            if "op" in plan:
+                return plan, admitting
+            admitting = self._execute_plan(plan, admitting)
+            clock.lap(tracing.EMIT)
+            rec = clock.close()
+            with self._lock:
+                self.stats["iterations"] += 1
+                for name in tracing.PHASES:
+                    self.stats[name + "_s"] += getattr(rec, name)
+        return plan, admitting
 
     def _iteration(self, admitting: Optional[_Admission]
                    ) -> tuple[bool, Optional[_Admission]]:
         """One single-process loop iteration, for driving a stopped engine
         step by step: (did work, the admission still in flight)."""
-        plan = self._compose_plan(admitting)
+        plan, admitting = self._turn(admitting)
         if plan is None:
             self._drain_pending_burst()  # idle: settle it now
             return False, admitting
-        return True, self._execute_plan(plan, admitting)
+        return True, admitting
 
     def _record(self, packed: torch.Tensor, steps: int, n_top: int,
                 first_slots: tuple) -> _BurstRecord:
@@ -1678,29 +1758,35 @@ class Engine:
     def _process_burst(self, rec: _BurstRecord) -> None:
         """Host bookkeeping of one plain burst: first tokens, then the
         burst's tokens, then capacity finishes, each only into the slots
-        the record was dispatched for."""
+        the record was dispatched for. A pipelined record's copy is waited
+        for first (the fetch phase)."""
         if rec.ready is not None:
-            rec.ready.synchronize()  # this record's copy, nothing later
-        packed = rec.packed.numpy()
-        steps, n_top, epochs = rec.steps, rec.n_top, rec.epochs
-        b = len(self._slots)
-        kb = steps * b
-        toks = packed[:kb].reshape(steps, b)
-        emitted = packed[kb:2 * kb].reshape(steps, b) != 0
-        active_host = packed[2 * kb:2 * kb + b] != 0
-        lps, first_lps, top_lp, top_ids = self._unpack_floats(
-            packed, 2 * kb + 2 * b, kb, b, n_top)
-        self._emit_first_tokens(rec.first_slots,
-                                packed[2 * kb + b:2 * kb + 2 * b], first_lps,
-                                epochs)
-        for step in range(steps):
-            for slot_ix in range(b):
-                if emitted[step, slot_ix] and self._claimed(slot_ix, epochs):
-                    i = step * b + slot_ix
-                    self._emit_token(
-                        slot_ix, int(toks[step, slot_ix]), float(lps[i]),
-                        (top_ids[i], top_lp[i]) if n_top else None)
-        self._finish_stopped_lanes(active_host, epochs)
+            with tracing.span("engine.fetch"):
+                rec.ready.synchronize()  # this record's copy, nothing later
+            self._clock.lap(tracing.FETCH)
+        with tracing.span("engine.emit"):
+            packed = rec.packed.numpy()
+            steps, n_top, epochs = rec.steps, rec.n_top, rec.epochs
+            b = len(self._slots)
+            kb = steps * b
+            toks = packed[:kb].reshape(steps, b)
+            emitted = packed[kb:2 * kb].reshape(steps, b) != 0
+            active_host = packed[2 * kb:2 * kb + b] != 0
+            lps, first_lps, top_lp, top_ids = self._unpack_floats(
+                packed, 2 * kb + 2 * b, kb, b, n_top)
+            self._emit_first_tokens(rec.first_slots,
+                                    packed[2 * kb + b:2 * kb + 2 * b],
+                                    first_lps, epochs)
+            for step in range(steps):
+                for slot_ix in range(b):
+                    if (emitted[step, slot_ix]
+                            and self._claimed(slot_ix, epochs)):
+                        i = step * b + slot_ix
+                        self._emit_token(
+                            slot_ix, int(toks[step, slot_ix]),
+                            float(lps[i]),
+                            (top_ids[i], top_lp[i]) if n_top else None)
+            self._finish_stopped_lanes(active_host, epochs)
 
     def _process_spec_burst(self, packed: np.ndarray, steps: int, t_blk: int,
                             n_top: int, first_slots: tuple) -> None:
@@ -1806,34 +1892,20 @@ class Engine:
     def _loop(self) -> None:
         admitting: Optional[_Admission] = None
         leader = not self._multi or self._sync.is_leader
+        waited = False
         while True:
             if self.capturer is not None:
                 self.capturer.tick()  # a plan boundary: open or close a trace
-            if leader:
-                plan = ({"op": "shutdown"} if self._shutdown
-                        else self._compose_plan(admitting))
-                if plan is None:
-                    self._drain_pending_burst()  # idle: settle it now
-                    if not self._multi:
-                        self._wake.wait(timeout=0.05)
-                        self._wake.clear()
-                        continue
-                    # an idle leader sends a no-op plan every <= 2 s, so
-                    # that no follower waits in a broadcast near its timeout
-                    self._wake.wait(timeout=2.0)
-                    self._wake.clear()
-                    plan = ({"op": "shutdown"} if self._shutdown
-                            else self._compose_plan(admitting)
-                            or {"op": "noop"})
-            else:
-                plan = None
-            if self._multi:
-                plan = self._sync.broadcast(plan)
-            if plan.get("op") == "noop":
+            plan, admitting = self._turn(admitting, leader, waited,
+                                         stopping=self._shutdown)
+            waited = plan is None
+            if plan is None:
+                self._drain_pending_burst()  # idle: settle it now
+                self._wake.wait(timeout=2.0 if self._multi else 0.05)
+                self._wake.clear()
                 continue
             if plan.get("op") == "shutdown":
                 break
-            admitting = self._execute_plan(plan, admitting)
         self._shutdown = True  # followers: the leader's shutdown plan
         # the tokens the device already made come before the aborts
         self._drain_pending_burst()

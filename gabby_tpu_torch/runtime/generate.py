@@ -14,6 +14,10 @@ Every emitted token carries its log-probability under the full softmax
 (`top_candidates`, OpenAI `top_logprobs`). OpenAI penalties and
 logit_bias (`PenaltyState`) adjust the distribution that sampling and the
 reported logprobs both see; the state is updated in place.
+
+While torch.profiler records, each prefill entry is a `gabby.model.prefill`
+span, each step's forward a `gabby.model.decode_step` and its sampling a
+`gabby.model.sample` (runtime/tracing.py).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch
 from gabby_tpu_torch.config import ModelConfig
 from gabby_tpu_torch.models import llama
 from gabby_tpu_torch.ops import sampling
+from gabby_tpu_torch.runtime import tracing
 from gabby_tpu_torch.runtime.kv_cache import KVCache
 
 
@@ -197,20 +202,22 @@ def decode_loop(params, cfg: ModelConfig, tokens: torch.Tensor,
         [], [], [], [], []
     for _ in range(num_steps):
         read_pos = torch.where(active, positions, one)
-        logits, cache = llama.decode_step(params, cfg, tokens, positions,
-                                          cache, window=window,
-                                          attn_positions=read_pos)
-        logits = apply_penalties(logits, pstate)
-        nxt = sampling.sample(logits, sstate.generator,
-                              temperature=sstate.temperature,
-                              top_k=sstate.top_k, top_p=sstate.top_p,
-                              lane_seeds=sstate.seed,
-                              lane_positions=positions, **sstate.draws())
-        out_lp.append(token_logprob(logits, nxt))
-        top_lp, top_ids = top_candidates(logits, n_top)
-        out_top_lp.append(top_lp)
-        out_top_ids.append(top_ids)
-        count_token(pstate, nxt, active)
+        with tracing.span("model.decode_step"):
+            logits, cache = llama.decode_step(params, cfg, tokens, positions,
+                                              cache, window=window,
+                                              attn_positions=read_pos)
+        with tracing.span("model.sample"):
+            logits = apply_penalties(logits, pstate)
+            nxt = sampling.sample(logits, sstate.generator,
+                                  temperature=sstate.temperature,
+                                  top_k=sstate.top_k, top_p=sstate.top_p,
+                                  lane_seeds=sstate.seed,
+                                  lane_positions=positions, **sstate.draws())
+            out_lp.append(token_logprob(logits, nxt))
+            top_lp, top_ids = top_candidates(logits, n_top)
+            out_top_lp.append(top_lp)
+            out_top_ids.append(top_ids)
+            count_token(pstate, nxt, active)
         nxt = torch.where(active, nxt, tokens)
         out_tokens.append(nxt)
         out_active.append(active)
@@ -283,21 +290,23 @@ def spec_decode_loop(params, cfg: ModelConfig, tokens: torch.Tensor,
         # ---- verify all candidates in one forward
         tokens_bt = torch.cat([tokens[:, None], draft], dim=1)
         read_pos = torch.where(active, positions, one)
-        logits_bt, cache = llama.verify_step(params, cfg, tokens_bt,
-                                             positions, cache, window=window,
-                                             attn_positions=read_pos)
-        pred = torch.argmax(logits_bt, dim=-1).to(torch.int32)  # [B, T]
-        # sampled lanes: token 0 via the full sampler (their count is 0)
-        em0 = sampling.sample(logits_bt[:, 0], sstate.generator,
-                              temperature=sstate.temperature,
-                              top_k=sstate.top_k, top_p=sstate.top_p,
-                              lane_seeds=sstate.seed,
-                              lane_positions=positions, **sstate.draws())
-        em = torch.cat([em0[:, None].to(torch.int32), pred[:, 1:]], dim=1)
-        out_lp.append(token_logprob(logits_bt, em))  # [B, T]
-        top_lp, top_ids = top_candidates(logits_bt, n_top)  # [B, T, n]
-        out_top_lp.append(top_lp)
-        out_top_ids.append(top_ids)
+        with tracing.span("model.decode_step"):
+            logits_bt, cache = llama.verify_step(
+                params, cfg, tokens_bt, positions, cache, window=window,
+                attn_positions=read_pos)
+        with tracing.span("model.sample"):
+            pred = torch.argmax(logits_bt, dim=-1).to(torch.int32)  # [B, T]
+            # sampled lanes: token 0 via the full sampler (their count is 0)
+            em0 = sampling.sample(logits_bt[:, 0], sstate.generator,
+                                  temperature=sstate.temperature,
+                                  top_k=sstate.top_k, top_p=sstate.top_p,
+                                  lane_seeds=sstate.seed,
+                                  lane_positions=positions, **sstate.draws())
+            em = torch.cat([em0[:, None].to(torch.int32), pred[:, 1:]], dim=1)
+            out_lp.append(token_logprob(logits_bt, em))  # [B, T]
+            top_lp, top_ids = top_candidates(logits_bt, n_top)  # [B, T, n]
+            out_top_lp.append(top_lp)
+            out_top_ids.append(top_ids)
 
         # accepted drafts: the longest prefix where each draft equals the
         # argmax the verify computed for the PRECEDING position
@@ -425,8 +434,9 @@ def prefill_slot(params, cfg: ModelConfig, tokens: torch.Tensor, length: int,
                  slot: int, offset: int, cache):
     """Single-slot chunked prefill: a [T]-bucket chunk into cache row `slot`
     at `offset`. Returns (last-valid logits [V], cache)."""
-    return llama.prefill_slot(params, cfg, tokens, length, slot, offset,
-                              cache)
+    with tracing.span("model.prefill"):
+        return llama.prefill_slot(params, cfg, tokens, length, slot, offset,
+                                  cache)
 
 
 def admit_slot(logits: torch.Tensor, slot: int, prompt_len: int,
@@ -473,9 +483,10 @@ def prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor, cache,
     """Prefill of one [B, T] chunk at `offset` for every slot; returns the
     LAST position's logits [B, V] only (the unembed runs on the [B, 1, D]
     slice, the decode-sized form) and the cache."""
-    h, cache = llama.prefill_hidden(params, cfg, tokens, cache,
-                                    offset=offset)
-    return llama._unembed(params, cfg, h[:, -1:])[:, 0], cache
+    with tracing.span("model.prefill"):
+        h, cache = llama.prefill_hidden(params, cfg, tokens, cache,
+                                        offset=offset)
+        return llama._unembed(params, cfg, h[:, -1:])[:, 0], cache
 
 
 def prefill_batch_chunk(params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -487,12 +498,13 @@ def prefill_batch_chunk(params, cfg: ModelConfig, tokens: torch.Tensor,
     each row's LAST VALID position, lengths [B] being the prompts' lengths
     (a row whose prompt ended in an earlier chunk gets garbage: a burst
     groups prompts of one chunk schedule)."""
-    h, cache = llama.prefill_hidden(params, cfg, tokens, cache,
-                                    offset=offset, lane_mask=lane_mask)
-    b, t = tokens.shape
-    ix = torch.clamp(lengths.long() - 1 - offset, 0, t - 1)
-    h_last = h[torch.arange(b, device=h.device), ix]  # [B, D]
-    return llama._unembed(params, cfg, h_last[:, None])[:, 0], cache
+    with tracing.span("model.prefill"):
+        h, cache = llama.prefill_hidden(params, cfg, tokens, cache,
+                                        offset=offset, lane_mask=lane_mask)
+        b, t = tokens.shape
+        ix = torch.clamp(lengths.long() - 1 - offset, 0, t - 1)
+        h_last = h[torch.arange(b, device=h.device), ix]  # [B, D]
+        return llama._unembed(params, cfg, h_last[:, None])[:, 0], cache
 
 
 def admit_slots(logits: torch.Tensor, lengths: torch.Tensor,

@@ -9,7 +9,13 @@ and answers, on a daemon thread, from the standard library's HTTP server:
     GET /capture?duration_ms=N    (default 1000, at most 60000)
 
 with the gzipped Chrome trace (JSON) of that window: the engine thread's
-`aten::` ops and, when the engine runs on the card, the card's kernels.
+`aten::` ops and, when the engine runs on the card, the card's kernels,
+under the port's own spans (runtime/tracing.py): the engine's
+`gabby.engine.iteration` holding `.compose`, `.admit`, `.decode`, `.fetch`
+and `.emit`, the model step's `gabby.model.prefill`, `.decode_step` and
+`.sample`, and the ops' `gabby.matmul` and `gabby.attn`. The seconds of
+each engine phase are counted whether or not a capture runs, and reach
+`/statusz` and `/metricsz` through `Engine.stats`.
 A copy is written under a `tempfile.mkdtemp(prefix="gabby-prof-")`
 directory, whose path goes to the log. On the card a trace that holds no
 CUDA kernel event is an error answer (500, with the reason): the card was
