@@ -65,7 +65,14 @@ a non-zero exit:
                  K27 against K26, K23 against K22)
                  and K1 at
                  its four projections x 28 layers, the same way, on lines
-                 of their own;
+                 of their own; then K42, the decode layer's attention
+                 prologue, at SmolLM2-1.7B's and Mistral-7B's heads (64
+                 slots, one layer of a 4096-row paired int8 cache)
+                 against the eager chain it replaces by equality, timed
+                 the same way, and one decode step at those widths (2
+                 layers) through K42 and through the eager chain: equal
+                 logits, its top-level aten ops and host ms (`"phase":
+                 "prologue"` lines);
   4. model       the 1B model's prefill + decode on the card (kernels)
                  against the same functions on the CPU (plain versions),
                  same weights (unpaired cache, bf16/f32 decode attention):
@@ -1716,6 +1723,176 @@ def head128_phase(cfg3, dev) -> list:
     return results
 
 
+# (configuration, head_dim, q heads, kv heads, layers, hidden, intermediate,
+# vocab, rope_theta) of the benchmark's two configurations
+PROLOGUE_MODELS = (
+    ("smollm2-1.7b", 64, 32, 32, 24, 2048, 8192, 49152, 130000.0),
+    ("mistral7b-v0.3", 128, 32, 8, 32, 4096, 14336, 32768, 1e6))
+
+
+def step_ops(fn) -> dict:
+    """The top-level aten ops that one call of fn issues (an op inside
+    another op is not counted), split into those inside the products' and
+    the attention's entries (`gabby.matmul`, `gabby.attn`: on the card a
+    launch each, with the wrapper's allocations) and the rest: the glue
+    the host issues between the kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    glue = inside = 0
+    for e in prof.events():
+        if not e.name.startswith("aten::"):
+            continue
+        up, wrapped = e.cpu_parent, False
+        while up is not None:
+            if up.name.startswith("aten::"):
+                break
+            wrapped = wrapped or up.name in ("gabby.matmul", "gabby.attn")
+            up = up.cpu_parent
+        if up is None:
+            inside += wrapped
+            glue += not wrapped
+    return {"glue": glue, "in_matmul_and_attn": inside}
+
+
+def prologue_phase(dev, gpu_line: str) -> None:
+    """K42, the decode layer's attention prologue, at the heads of the
+    benchmark's two configurations: 64 slots, one layer of a 4096-row
+    paired int8 cache of random rows, positions 0-4095 (the last row among
+    them). The kernel against the eager chain it replaces
+    (`decode_prologue_plain` on the card) by equality (q, fresh rows,
+    codes, scales), timed eagerly and from a graph beside the eager chain,
+    with its least time (bytes at 3.35 TB/s). Then one decode step of 64
+    slots at the configuration's widths, 2 layers (int4 fused weights, the
+    paired int8 cache, s8), through K42 and through the eager chain (the
+    route turned off): equal logits, the top-level aten ops it issues
+    (`step_ops`) and its host ms (10 steps issued, then one synchronize),
+    each route in turn, twice."""
+    from gabby_tpu_torch import config as cfglib
+    from gabby_tpu_torch.models import llama
+    from gabby_tpu_torch.ops import cuda as ck
+    from gabby_tpu_torch.ops import quant
+    from gabby_tpu_torch.ops.cuda import decode_prologue as cprologue
+    from gabby_tpu_torch.runtime.kv_cache import create_cache
+
+    b, s, layer = 64, 4096, 0
+    for name, h, nq, nk, layers, hidden, inter, vocab, theta in \
+            PROLOGUE_MODELS:
+        cfg = cfglib.tiny(num_heads=nq, num_kv_heads=nk, head_dim=h,
+                          hidden_size=hidden, intermediate_size=inter,
+                          vocab_size=vocab, num_layers=2, rope_theta=theta,
+                          max_seq_len=s)
+        g = torch.Generator(device=dev).manual_seed(42)
+        cache = create_cache(dataclasses.replace(cfg, num_layers=1), b, s,
+                             quantized=True, paired=True, device=dev)
+        for codes in (cache.k, cache.v):
+            codes.copy_(torch.randint(-127, 128, codes.shape, generator=g,
+                                      device=dev))
+        for scales in (cache.k_scale, cache.v_scale):
+            scales.copy_(torch.rand(scales.shape, generator=g, device=dev)
+                         * 0.02 + 0.005)
+        qkv = torch.randn((b, 1, (nq + 2 * nk) * h), generator=g,
+                          device=dev).to(torch.bfloat16)
+        positions = torch.randint(0, s, (b,), generator=g, device=dev,
+                                  dtype=torch.int32)
+        positions[0] = s - 1
+        inv_freq = llama._inv_freq(cfg, dev)
+        args = (qkv, positions, inv_freq, cache.k, cache.v, cache.k_scale,
+                cache.v_scale)
+        kw = dict(layer=layer, num_heads=nq, num_kv_heads=nk)
+        tensors = [cache.k, cache.v, cache.k_scale, cache.v_scale]
+        start = [x.clone() for x in tensors]
+        got = cprologue.decode_prologue(*args, **kw)
+        got_rows = [x.clone() for x in tensors]
+        for x, x0 in zip(tensors, start):
+            x.copy_(x0)
+        want = cprologue.decode_prologue_plain(*args, **kw)
+        torch.cuda.synchronize()
+        for x, y in zip(list(got) + got_rows, list(want) + tensors):
+            if not torch.equal(x, y):
+                raise AssertionError(f"prologue ({name}): K42 differs from "
+                                     f"the eager chain")
+        nbytes = (2 * 2 * b * (nq + 2 * nk) * h + 4 * b + 2 * h
+                  + 2 * b * nk * h + 2 * 4 * b * nk)
+        emit({"phase": "prologue", "model": name, "kernel": "K42",
+              "source": "csrc/decode_prologue.cu",
+              "work": f"[{b}, 1, {(nq + 2 * nk) * h}] bf16 product, "
+                      f"{nq}/{nk} heads of {h}, one layer of a {s}-row "
+                      f"paired int8 cache",
+              "equal_to_eager_chain": True,
+              "ms": time_ms(lambda: cprologue.decode_prologue(*args, **kw),
+                            200),
+              "graph_ms": graph_ms(
+                  lambda: cprologue.decode_prologue(*args, **kw), 200),
+              "plain_ms": time_ms(
+                  lambda: cprologue.decode_prologue_plain(*args, **kw), 50),
+              "plain_graph_ms": graph_ms(
+                  lambda: cprologue.decode_prologue_plain(*args, **kw), 50),
+              **bound(nbytes, 0.0), "bytes": nbytes,
+              "launches_a_step": layers, "card": gpu_line})
+        del cache, start, got_rows, tensors, args
+        torch.cuda.empty_cache()
+
+        params = llama.fuse_projections(quant.quantize_tree(
+            llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                              dtype=torch.bfloat16, device=dev),
+            4, unembed_bits=4, unembed_group=256))
+        step_cache = create_cache(cfg, b, s, quantized=True, paired=True,
+                                  device=dev)
+        tokens = torch.randint(2, vocab, (b,), generator=g, device=dev,
+                               dtype=torch.int32)
+        positions = torch.randint(512, 1536, (b,), generator=g, device=dev,
+                                  dtype=torch.int32)
+        real = llama._prologue_kernel
+
+        def route(fused):
+            llama._prologue_kernel = real if fused else (lambda *a: False)
+
+        def step():
+            return llama.decode_step(params, cfg, tokens, positions,
+                                     step_cache, window=2048)[0]
+
+        def host_ms():
+            step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                step()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 100.0
+
+        line = {"phase": "prologue", "model": name, "check": "one decode "
+                "step, 64 slots, 2 layers, int4, paired int8 cache, s8"}
+        try:
+            logits = {}
+            for fused in (True, False):
+                route(fused)
+                ck.reset_launch_counts()
+                logits[fused] = step()
+                torch.cuda.synchronize()
+                line[f"launches_{'fused' if fused else 'eager'}"] = \
+                    ck.launch_counts["decode_prologue"]
+            line["logits_equal"] = torch.equal(logits[True], logits[False])
+            for fused in (True, False, False, True):
+                route(fused)
+                key = "fused" if fused else "eager"
+                line.setdefault(f"ops_{key}", step_ops(step))
+                line.setdefault(f"host_ms_{key}", []).append(host_ms())
+        finally:
+            llama._prologue_kernel = real
+        line["card"] = gpu_line
+        emit(line)
+        if not (line["logits_equal"] and line["launches_fused"] == 2
+                and line["launches_eager"] == 0):
+            raise AssertionError(f"prologue ({name}): {line}")
+        del params, step_cache
+        torch.cuda.empty_cache()
+
+
 def to_cpu(tree):
     """A params tree copied to the CPU."""
     from gabby_tpu_torch.ops.quant import QTensor
@@ -2228,7 +2405,7 @@ FEATURE_TOL = 1e-5  # relative: the card's f32 elementwise work vs the CPU's
 # per decode step of the 1B model: four stacked projections a layer (K1),
 # one unembed (K2), one s8 paired decode attention a layer (K15)
 STEP_LAUNCHES = {"int4_matmul_stacked": 64, "int4_matmul_grouped": 1,
-                 "decode_attention_s8_paired": 16}
+                 "decode_attention_s8_paired": 16, "decode_prologue": 16}
 FEATURE_WINDOW = 1024  # the engine's attention window below 990 live rows
 
 
@@ -4891,7 +5068,7 @@ def main() -> int:
                 "quant_matmul_w4a8.cu", "quant_matmul_unembed.cu",
                 "quant_matmul_int8_unembed.cu", "decode_attention.cu",
                 "attention_s8.cu", "verify_attention.cu",
-                "paged_attention.cu"):
+                "paged_attention.cu", "decode_prologue.cu"):
         emit({"phase": "build", "ptxas": src,
               "lines": ptxas_lines(log.getvalue(), src)})
 
@@ -4900,6 +5077,8 @@ def main() -> int:
     kernels = kernel_phase(cfg, dev)
     torch.cuda.empty_cache()
     head128_phase(cfg3, dev)
+    torch.cuda.empty_cache()
+    prologue_phase(dev, gpu_line)
     torch.cuda.empty_cache()
     clock("build, kernels")
 

@@ -10,7 +10,9 @@
   `prefill_slot`, `prefill_hidden` and `verify_step` dispatch on its type)
   is updated IN PLACE, layer by layer, around that layer's attention
   (after it, or before it where the attention reads the chunk's rows back
-  from the cache, as the dense batched prefill does). The reference instead collects every
+  from the cache, as the dense batched prefill does, or where one kernel
+  writes the decode step's rows with its q, as the decode_prologue kernel
+  does on the card). The reference instead collects every
   layer's new rows and writes them once after the scan (in-place writes
   inside the scan made XLA copy the cache); the read contract is the same
   either way — attention sees cache rows j < position plus the current
@@ -42,12 +44,14 @@ import torch.nn.functional as F
 
 from gabby_tpu_torch import resolve_device
 from gabby_tpu_torch.config import ModelConfig
+from gabby_tpu_torch.ops import cuda as ck
 from gabby_tpu_torch.ops.attention import (cache_attention,
                                            cache_attention_quantized,
                                            causal_attention,
                                            paged_attention,
                                            slot_prefill_attention,
                                            verify_attention)
+from gabby_tpu_torch.ops.cuda import decode_prologue as cprologue
 from gabby_tpu_torch.ops.linear import linear
 from gabby_tpu_torch.ops.norms import rms_norm
 from gabby_tpu_torch.ops.quant import QTensor
@@ -413,17 +417,30 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     b = tokens.shape[0]
     read_pos = (positions if attn_positions is None
                 else attn_positions).to(torch.int32)
-    # a lane the loop deactivated at the cache cap still writes (no active
-    # gating): clamp its row like the reference's dynamic_update_slice
-    write_pos = torch.clamp(positions.long(), max=cache.max_seq - 1)
-    lanes = torch.arange(b, device=tokens.device)
     h = _embed(params, tokens[:, None])  # [B, 1, D]
     cfg, group = _tp_view(params, cfg)
     blocks = params["blocks"]
+    fused = _prologue_kernel(cfg, blocks, cache)
+    if fused:
+        inv_freq = _inv_freq(cfg, tokens.device)
+    else:
+        # a lane the loop deactivated at the cache cap still writes (no
+        # active gating): clamp its row like the reference's
+        # dynamic_update_slice
+        write_pos = torch.clamp(positions.long(), max=cache.max_seq - 1)
+        lanes = torch.arange(b, device=tokens.device)
     for layer in range(cfg.num_layers):
         xn = rms_norm(h, blocks["attn_norm"][layer], cfg.rms_norm_eps)
-        q, k, v = _qkv(cfg, blocks, xn, positions[:, None], layer)
-        fresh_k, fresh_v = k[:, 0], v[:, 0]  # [B, Nk, H]
+        if fused:
+            # one launch from the product to the attention's inputs; the
+            # layer's rows land here, in no row the attention reads
+            q, fresh_k, fresh_v = cprologue.decode_prologue(
+                linear(xn, blocks["wqkv"], layer), positions, inv_freq,
+                cache.k, cache.v, cache.k_scale, cache.v_scale, layer=layer,
+                num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads)
+        else:
+            q, k, v = _qkv(cfg, blocks, xn, positions[:, None], layer)
+            fresh_k, fresh_v = k[:, 0], v[:, 0]  # [B, Nk, H]
         if cache.quantized:
             attn = cache_attention_quantized(
                 q, cache.k, cache.v, cache.k_scale, cache.v_scale, read_pos,
@@ -434,14 +451,29 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 q, cache.k, cache.v, read_pos, layer=layer,
                 fresh_k=fresh_k.contiguous(), fresh_v=fresh_v.contiguous(),
                 window=window)
-        kr, vr, k_s, v_s = _quantized_rows(cache, fresh_k, fresh_v)
-        cache.k[layer][lanes, :, write_pos] = kr
-        cache.v[layer][lanes, :, write_pos] = vr
-        if cache.quantized:
-            cache.k_scale[layer][lanes, :, write_pos] = k_s
-            cache.v_scale[layer][lanes, :, write_pos] = v_s
+        if not fused:
+            kr, vr, k_s, v_s = _quantized_rows(cache, fresh_k, fresh_v)
+            cache.k[layer][lanes, :, write_pos] = kr
+            cache.v[layer][lanes, :, write_pos] = vr
+            if cache.quantized:
+                cache.k_scale[layer][lanes, :, write_pos] = k_s
+                cache.v_scale[layer][lanes, :, write_pos] = v_s
         h = _block_tail(cfg, blocks, h, attn, layer, group)
     return _unembed(params, cfg, h)[:, 0], cache
+
+
+def _prologue_kernel(cfg: ModelConfig, blocks: Params,
+                     cache: KVCache) -> bool:
+    """Whether `decode_step`'s layers take the decode_prologue kernel (K42)
+    from the fused q|k|v product to the attention's inputs: on the card,
+    with the kernels on, over the dense int8 cache, for a tree fused at tp
+    = 1 (a tp > 1 fusion interleaves the shards' columns) and a head_dim
+    the kernel is built for. Every other decode step takes the eager chain,
+    as do the steps that never come here: the multi-position ones
+    (prefill, the burst chunk, verify) and the paged pool's."""
+    return (cache.k.is_cuda and cache.quantized and "wqkv" in blocks
+            and cfg.fused_tp == 1 and cfg.head_dim in cprologue.HEAD_DIMS
+            and ck.kernels_enabled())
 
 
 def _quantized_rows(cache, k: torch.Tensor, v: torch.Tensor, *,

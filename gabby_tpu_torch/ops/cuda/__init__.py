@@ -1,15 +1,16 @@
 """Hand-written Hopper kernels of the serving path and their wrappers.
 
 Each wrapper module (quant_matmul, attention, prefill_attention,
-paged_attention) holds the
+paged_attention, decode_prologue) holds the
 kernel's plain PyTorch version beside it. A wrapper takes the plain version
 ONLY for CPU tensors; for CUDA tensors it launches its kernel (built from
 gabby_tpu_torch/csrc by `build.py` at first use) or raises. Each launch adds
 one to its entry in `launch_counts`, so a run can show that its main path
 went through the kernels. The dispatch points (ops/attention.py,
-ops/quant.py) send card tensors to the plain bodies only where a kernel
-switch below asks for it: `kernels_enabled()` off, `prefill_pair()` off
-for paired prefill, `attn_kernel()` False for single-position decode.
+ops/quant.py; models/llama.py for K42, the decode prologue) send card
+tensors to the plain bodies only where a kernel switch below asks for it:
+`kernels_enabled()` off, `prefill_pair()` off for paired prefill,
+`attn_kernel()` False for single-position decode.
 """
 
 from __future__ import annotations
@@ -61,6 +62,9 @@ launch_counts: dict[str, int] = {
     "paged_decode_attention_nofresh_paired": 0,
     "paged_decode_attention_nofresh_bf16": 0,
     "paged_decode_attention_nofresh_bf16_paired": 0,
+    # the decode layer's attention prologue (K42): one a layer of a
+    # decode step over the dense int8 cache
+    "decode_prologue": 0,
 }
 
 

@@ -180,6 +180,10 @@ _SIGNATURES = {
     "gabby_prefill_attention_bf16_splits": [_I] * 4,
     "gabby_verify_attention_bf16": [_P] * 7 + [_I] * 11 + [_F, _P],
     "gabby_paged_attention_bf16": [_P] * 8 + [_I] * 13 + [_F, _P],
+    # K42, the decode layer's attention prologue: qkv, positions, inv_freq,
+    # q, fresh_k, fresh_v (written), k, v, k_scale, v_scale (layer offset);
+    # B, Nq, Nk, S, H, pair; stream
+    "gabby_decode_prologue": [_P] * 10 + [_I] * 6 + [_P],
 }
 
 
